@@ -1,0 +1,133 @@
+"""Serving engine for the integer ViT (counterpart of the serving half of
+``diffvit_tpu/engine.py``): ``IntModel``, ``load_int_model`` and
+``validate`` with the reference's Prec@1/Prec@5 report."""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from diffvit_tpu.config import QuantConfig
+from diffvit_tpu.data.imagenet import (IMAGENET_MEAN, IMAGENET_STD,
+                                       input_code_lut)
+from diffvit_tpu.utils.metrics import AverageMeter, accuracy, cross_entropy
+from diffvit_tpu.utils.serialize import ArtifactError, load_pytree, \
+    save_pytree
+
+from .models import vit_int
+from .models.convert import int_model_from_numpy
+from .models.vit import ViTSpec
+
+
+class IntModel:
+    """A deployed integer ViT: the baked int-model on one device plus its
+    spec and QuantConfig.
+
+    ``__call__`` takes a (B, 3, H, W) batch as numpy or torch: int8 input
+    codes, uint8 pixels (encoded host-side with ``input_lut`` into codes —
+    the same codes the reference derives on its device), or float32
+    normalized pixels.  It returns float32 logits on the model's device."""
+
+    def __init__(self, ip, spec: ViTSpec, cfg: QuantConfig, device):
+        self.spec, self.cfg = spec, cfg
+        self.device = torch.device(device)
+        self.ip = int_model_from_numpy(ip, spec, self.device)
+        # (3, 256) int8 table: uint8 pixel -> qact_input code per channel
+        self.input_lut = None
+        if spec.input_quant:
+            site, bt = ip["qact_input"], cfg.bit_a
+            self.input_lut = input_code_lut(
+                np.asarray(site["scale"]), np.asarray(site["zp"]),
+                mean=IMAGENET_MEAN, std=IMAGENET_STD, qmin=bt.lower_bound,
+                qmax=bt.upper_bound)
+
+    def encode(self, x) -> np.ndarray:
+        """uint8 NCHW batch -> int8 input codes (host-side numpy)."""
+        x = np.asarray(x)
+        if x.dtype != np.uint8:
+            raise TypeError(f"encode expects uint8 pixels, got {x.dtype}")
+        if self.input_lut is None:
+            raise ValueError("the codes wire requires input_quant=True")
+        return np.stack([self.input_lut[c][x[:, c]] for c in range(3)], 1)
+
+    def __call__(self, x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.uint8:
+            x = x.cpu().numpy()
+        if isinstance(x, np.ndarray) and x.dtype == np.uint8:
+            x = self.encode(x)
+        x = torch.as_tensor(x, device=self.device)
+        if x.dtype not in (torch.int8, torch.float32):
+            raise TypeError(f"IntModel takes int8 codes, uint8 or float32 "
+                            f"pixels, got {x.dtype}")
+        with torch.inference_mode():
+            return vit_int.forward_q_int(self.ip, self.spec, self.cfg, x)
+
+
+def save_int_model(path, ip, spec: ViTSpec, cfg: QuantConfig) -> None:
+    """Write a numpy int-model pytree as the deployment artifact that
+    ``diffvit_tpu``'s ``QuantizedViT.save_int_model`` writes (same .npz
+    schema and metadata), so either engine can load it."""
+    save_pytree(path, ip, meta={"model": spec.name,
+                                "spec": dataclasses.asdict(spec),
+                                "cfg": cfg.to_dict(), "is_swin": False})
+
+
+def load_int_model(path, device) -> IntModel:
+    """Load a ``save_int_model`` artifact (a ``save_pytree`` .npz) onto
+    ``device``.  The spec is rebuilt from the embedded dataclass fields."""
+    ip, meta = load_pytree(path)
+    if not all(k in meta for k in ("model", "spec", "cfg", "is_swin")):
+        raise ArtifactError(
+            f"{path}: a save_pytree artifact, but not an int-model export "
+            f"(meta keys {sorted(meta)}; expected model/spec/cfg/is_swin)")
+    if meta["is_swin"]:
+        raise NotImplementedError("load_int_model: Swin artifacts are not "
+                                  "ported yet")
+    return IntModel(ip, ViTSpec(**meta["spec"]),
+                    QuantConfig.from_dict(meta["cfg"]), device)
+
+
+def validate(model, loader, print_freq=100, log=print):
+    """Full validation epoch with the reference's progress/report format
+    (``diffvit_tpu/engine.py:751-798``).  Returns (loss_avg, prec1_avg,
+    prec5_avg).  Batch i+1 is issued before batch i's logits are read, so
+    the host work overlaps the device's."""
+    batch_time, losses = AverageMeter(), AverageMeter()
+    top1, top5 = AverageMeter(), AverageMeter()
+    val_start = end = time.time()
+    n_batches = len(loader) if hasattr(loader, "__len__") else None
+
+    def score(i, output_dev, target):
+        nonlocal end
+        output = output_dev.float().cpu().numpy()  # waits for the device
+        target = np.asarray(target)
+        loss = cross_entropy(output, target)
+        prec1, prec5 = accuracy(output, target, topk=(1, 5))
+        n = len(target)
+        losses.update(loss, n)
+        top1.update(prec1, n)
+        top5.update(prec5, n)
+        batch_time.update(time.time() - end)
+        end = time.time()
+        if print_freq and i % print_freq == 0:
+            log("Test: [{0}/{1}]\t"
+                "Time {bt.val:.3f} ({bt.avg:.3f})\t"
+                "Loss {loss.val:.4f} ({loss.avg:.4f})\t"
+                "Prec@1 {top1.val:.3f} ({top1.avg:.3f})\t"
+                "Prec@5 {top5.val:.3f} ({top5.avg:.3f})".format(
+                    i, n_batches if n_batches is not None else "?",
+                    bt=batch_time, loss=losses, top1=top1, top5=top5))
+
+    pending = None  # (index, device output, target)
+    for i, (data, target) in enumerate(loader):
+        output_dev = model(data)
+        if pending is not None:
+            score(*pending)
+        pending = (i, output_dev, target)
+    if pending is not None:
+        score(*pending)
+    log(" * Prec@1 {top1.avg:.3f} Prec@5 {top5.avg:.3f} Time {t:.3f}".format(
+        top1=top1, top5=top5, t=time.time() - val_start))
+    return losses.avg, top1.avg, top5.avg

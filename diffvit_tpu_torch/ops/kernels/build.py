@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels of ``diffvit_tpu_torch/csrc``.
+
+At first use ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface, for ``sm_90a`` (Hopper), into ``csrc/build/``
+under a name keyed by a hash of the sources and flags; later calls and
+later processes reuse it.  The library is loaded with ``ctypes``: each C
+entry takes device pointers, ints and the CUDA stream, launches on that
+stream, and returns ``cudaGetLastError()``, which :func:`check` turns into
+an exception.
+
+``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into one fused
+multiply-add: the plain PyTorch versions round the product and the sum
+separately, and the kernels' int8 codes must match theirs.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
+ENTRIES = {
+    "dvt_qkv_attention": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "dvt_int_mlp": (_P,) * 12 + (_I,) * 5 + (_P,),
+}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    home_nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) \
+        / "bin" / "nvcc"
+    if nvcc is None and home_nvcc.exists():
+        nvcc = str(home_nvcc)
+    if nvcc is None:
+        raise RuntimeError(
+            "building the diffvit_tpu_torch CUDA kernels needs nvcc (the CUDA "
+            f"toolkit), and no nvcc is on PATH or at {home_nvcc}")
+    return nvcc
+
+
+def library_path() -> Path:
+    """Where the build for the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libdvt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless the build for these sources exists.
+    Returns the library path and the seconds spent compiling (0.0 when the
+    build was already there)."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare every entry."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.dvt_error_string.argtypes = [ctypes.c_int]
+    lib.dvt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry."""
+    if err != 0:
+        msg = load_library().dvt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")

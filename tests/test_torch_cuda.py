@@ -1,0 +1,102 @@
+"""The CUDA kernels vs their plain PyTorch versions, on a CUDA card.
+
+This file imports neither JAX nor the JAX package, so it runs where the
+card is: ``python -m pytest --noconftest tests/test_torch_cuda.py``
+(tests/conftest.py imports JAX).  Without a card every test skips."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from diffvit_tpu_torch import QuantConfig
+from diffvit_tpu_torch.models import vit_int
+from diffvit_tpu_torch.models.convert import attn_constants, \
+    int_model_from_numpy
+from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
+from diffvit_tpu_torch.ops.kernels.attention import (
+    fused_qkv_attention_v2, fused_qkv_attention_v2_plain)
+from diffvit_tpu_torch.ops.kernels.mlp import (fused_int_mlp,
+                                               fused_int_mlp_plain)
+from diffvit_tpu_torch.testing import random_int_model
+
+TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
+               num_classes=10)
+SMALL = dataclasses.replace(VIT_SPECS["deit_small"], depth=1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _block(spec, seed=0):
+    ib = random_int_model(spec, seed=seed)["blocks"][0]
+    return ib, attn_constants(ib, spec, 0)[0]
+
+
+def _codes(shape, seed):
+    rng = np.random.default_rng(seed)
+    return np.clip(np.round(rng.standard_normal(shape) * 30), -128,
+                   127).astype(np.int8)
+
+
+@pytest.mark.parametrize("spec,batch,npad,n_real,lis_fast", [
+    (TINY, 2, 200, 197, False), (TINY, 2, 200, 197, True),
+    (TINY, 3, 45, 33, True), (SMALL, 2, 197, 197, True),
+    (SMALL, 1, 256, 256, False)])
+def test_qkv_attention_kernel_matches_plain(cuda, spec, batch, npad, n_real,
+                                            lis_fast):
+    ib, scalars = _block(spec)
+    dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    q = ib["qkv"]
+    args = (dev(_codes((batch, npad, spec.embed_dim), 1)), dev(q["w_int"]),
+            dev(q["mult"]), dev(q["b"]), dev(scalars))
+    kw = dict(num_heads=spec.num_heads, head_dim=spec.head_dim,
+              n_real=n_real, lis_fast=lis_fast)
+    before = fused_qkv_attention_v2.launches
+    got = fused_qkv_attention_v2(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention_v2.launches == before + 1
+    want = fused_qkv_attention_v2_plain(*args, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("spec,rows", [(TINY, 391), (SMALL, 197 * 2)])
+@pytest.mark.parametrize("emit_codes", [True, False])
+def test_int_mlp_kernel_matches_plain(cuda, spec, rows, emit_codes):
+    ib, _ = _block(spec)
+    dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    f1, f2 = ib["fc1"], ib["fc2"]
+    args = (dev(_codes((rows, spec.embed_dim), 2)), dev(f1["w_int"]),
+            dev(f2["w_int"]), dev(f1["mult"]), dev(f1["b"]),
+            dev(f2["mult"]), dev(f2["b"]), dev(ib["mlp.qact2"]["scale"]),
+            dev(ib["mlp.qact1"]["scale"]))
+    before = fused_int_mlp.launches
+    got = fused_int_mlp(*args, emit_codes=emit_codes)
+    torch.cuda.synchronize()
+    assert fused_int_mlp.launches == before + 1
+    want = fused_int_mlp_plain(*args, emit_codes=emit_codes)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_forward_on_card_matches_cpu(cuda):
+    """A width whose reciprocal is inexact (1/96): CUDA torch divides by a
+    Python number through its reciprocal, which the port must avoid."""
+    cfg = QuantConfig()
+    spec = ViTSpec("w96", embed_dim=96, depth=2, num_heads=2, num_classes=10)
+    ip_np = random_int_model(spec, cfg, seed=1)
+    x = np.random.default_rng(3).integers(-60, 60, (2, 3, 224, 224)) \
+        .astype(np.int8)
+    out = {}
+    for d in ("cpu", cuda):
+        ip = int_model_from_numpy(ip_np, spec, d)
+        out[str(d)] = vit_int.forward_q_int(ip, spec, cfg,
+                                            torch.tensor(x, device=d)).cpu()
+    got, ref = out["cuda"].numpy(), out["cpu"].numpy()
+    # rule of tests/test_pallas_attention.py::_assert_paths_agree
+    assert np.mean(got == ref) > 0.995, np.mean(got == ref)
+    np.testing.assert_allclose(got, ref, atol=0.05)
+    np.testing.assert_array_equal(got.argmax(1), ref.argmax(1))

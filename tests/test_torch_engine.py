@@ -1,0 +1,111 @@
+"""The port's serving engine: a JAX ``save_int_model`` artifact served by
+the port's ``load_int_model``/``IntModel`` against the JAX engine, the
+reference's validate report, and the port running without JAX."""
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+from diffvit_tpu.config import QuantConfig
+from diffvit_tpu.engine import QuantizedViT
+from diffvit_tpu.engine import load_int_model as jax_load_int_model
+from diffvit_tpu.models import vit
+
+from diffvit_tpu_torch import engine
+from diffvit_tpu_torch.models.vit import ViTSpec
+from diffvit_tpu_torch.testing import random_int_model
+
+TINY = vit.ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
+                   num_classes=10)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _assert_paths_agree(got, ref):
+    """tests/test_pallas_attention.py::_assert_paths_agree."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert np.mean(got == ref) > 0.995, np.mean(got == ref)
+    np.testing.assert_allclose(got, ref, atol=0.05)
+    np.testing.assert_array_equal(got.argmax(1), ref.argmax(1))
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    params = vit.init_params(TINY, jax.random.PRNGKey(0))
+    m = QuantizedViT(TINY, QuantConfig(), params=params)
+    m.calibrate(np.asarray(jax.random.normal(jax.random.PRNGKey(1),
+                                             (2, 3, 224, 224))))
+    path = str(tmp_path_factory.mktemp("art") / "deit.npz")
+    m.save_int_model(path)
+    pixels = np.random.default_rng(0).integers(0, 256, (3, 3, 224, 224),
+                                               dtype=np.uint8)
+    return path, pixels
+
+
+def test_served_artifact_matches_jax_engine(artifact):
+    path, pixels = artifact
+    served = engine.load_int_model(path, "cpu")
+    assert served.spec.embed_dim == 64 and served.cfg == QuantConfig()
+    codes = served.encode(pixels)
+    assert codes.dtype == np.int8 and codes.shape == pixels.shape
+    got = served(pixels).numpy()
+    np.testing.assert_array_equal(served(codes).numpy(), got)
+    want = np.asarray(jax_load_int_model(path)(pixels))
+    _assert_paths_agree(got, want)
+    np.testing.assert_array_equal(served.input_lut,
+                                  jax_load_int_model(path).input_lut)
+
+
+def test_port_artifact_loads_in_jax_engine(artifact, tmp_path):
+    """engine.save_int_model writes the JAX package's artifact format."""
+    _, pixels = artifact
+    spec = ViTSpec("t", embed_dim=64, depth=2, num_heads=2, num_classes=10)
+    path = str(tmp_path / "random.npz")
+    engine.save_int_model(path, random_int_model(spec, seed=2), spec,
+                          QuantConfig())
+    got = engine.load_int_model(path, "cpu")(pixels).numpy()
+    served = jax_load_int_model(path)
+    assert served.spec.embed_dim == 64
+    _assert_paths_agree(got, np.asarray(served(pixels)))
+
+
+def test_validate_prints_reference_format(artifact):
+    path, pixels = artifact
+    served = engine.load_int_model(path, "cpu")
+    loader = [(pixels, np.array([1, 2, 3])), (pixels[:2], np.array([4, 5]))]
+    lines = []
+    loss, top1, top5 = engine.validate(served, loader, print_freq=1,
+                                       log=lines.append)
+    assert len(lines) == 3
+    assert re.fullmatch(
+        r"Test: \[0/2\]\tTime \d+\.\d{3} \(\d+\.\d{3}\)\t"
+        r"Loss \d+\.\d{4} \(\d+\.\d{4}\)\tPrec@1 \d+\.\d{3} \(\d+\.\d{3}\)\t"
+        r"Prec@5 \d+\.\d{3} \(\d+\.\d{3}\)", lines[0]), lines[0]
+    assert re.fullmatch(r" \* Prec@1 \d+\.\d{3} Prec@5 \d+\.\d{3} "
+                        r"Time \d+\.\d{3}", lines[-1]), lines[-1]
+    assert 0.0 <= top1 <= top5 <= 100.0 and np.isfinite(loss)
+
+
+def test_port_runs_without_jax():
+    code = (
+        "import sys, numpy as np\n"
+        "import diffvit_tpu_torch, diffvit_tpu_torch.engine as e\n"
+        "import diffvit_tpu_torch.models.vit_int\n"
+        "from diffvit_tpu_torch.models.vit import ViTSpec\n"
+        "from diffvit_tpu_torch.testing import random_int_model\n"
+        "spec = ViTSpec('t', embed_dim=64, depth=1, num_heads=2, "
+        "num_classes=10)\n"
+        "m = e.IntModel(random_int_model(spec), spec, "
+        "diffvit_tpu_torch.QuantConfig(), 'cpu')\n"
+        "out = m(np.zeros((1, 3, 224, 224), np.uint8))\n"
+        "assert out.shape == (1, 10)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
