@@ -3,18 +3,24 @@
     python3 chip_smoke.py
 
 1. device:  fails unless a CUDA card is present;
-2. build:   compiles the port's kernels from diffvit_tpu_torch/csrc with nvcc;
+2. build:   compiles the port's kernels from diffvit_tpu_torch/csrc with nvcc
+            (one nvcc per source, all started together);
 3. kernels: holds each kernel against its plain PyTorch version on the card
-            at DeiT-S shapes (B = 1, 8, 64) and a tiny shape, and times both;
-4. serving: saves a seeded DeiT-S int4 model as an int-model artifact, loads
-            it with the port's load_int_model, answers uint8 requests at
-            b = 1 (4 times), 8 and 64 through IntModel, checks that every
-            forward went through both kernels, compares the card's logits
-            with the plain path on the CPU, prints how far the model's codes
-            use the int8 range, and runs validate().
+            and times both: K1 and K2 at DeiT-S shapes (B = 1, 8, 64) and a
+            tiny shape; K4 and K4b at Swin-T's four stage geometries and K2
+            at its four widths (B = 1, 8, 64);
+4. serving: for DeiT-S int4, then Swin-T int4: saves a seeded model as an
+            int-model artifact, loads it with the port's load_int_model,
+            answers uint8 requests at b = 1 (4 times), 8 and 64 through
+            IntModel, checks that every forward went through the path's
+            kernels and no other, compares the card's logits with the plain
+            path on the CPU and runs validate().  DeiT-S also prints how far
+            its codes use the int8 range; Swin-T also runs one forward
+            through the natural-layout attention contract (K4b) and checks
+            that its logits equal K4's.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
-of the main path, the card's name and power limit as nvidia-smi reports
+of the main paths, the card's name and power limit as nvidia-smi reports
 them, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises: the exit code is then non-zero and no result line is printed.
 The weights are random (seeded): the repository has no pretrained ones.
@@ -33,18 +39,40 @@ import numpy as np
 import torch
 
 from diffvit_tpu_torch import QuantConfig, engine
-from diffvit_tpu_torch.models import vit_int
-from diffvit_tpu_torch.models.convert import attn_constants
+from diffvit_tpu_torch.models import swin_int, vit_int
+from diffvit_tpu_torch.models.convert import (attn_constants,
+                                              swin_block_constants)
+from diffvit_tpu_torch.models.swin import SWIN_SPECS
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
-from diffvit_tpu_torch.ops.kernels import attention, build, mlp
-from diffvit_tpu_torch.testing import random_int_model
+from diffvit_tpu_torch.ops.kernels import (attention, build, mlp,
+                                           swin_attention)
+from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
 
 SPEC = VIT_SPECS["deit_small"]  # full width and depth: 384 wide, 12 blocks
+SWIN = SWIN_SPECS["swin_tiny"]  # full width and depth: 96..768, 2/2/6/2
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 CFG = QuantConfig()  # PTF, LIS, SmoothQuant on; int4 weights
 REQUESTS = (1, 1, 1, 1, 8, 64)  # images per request, served in this order
 MIN_EQUAL, MAX_DIFF = 0.999, 1  # kernel vs plain: equal int8 codes, |diff|
+
+
+def _swin_plain(qkv5, bias_q, mask_div, scalars, *, num_heads, n_real,
+                n_windows):
+    return swin_attention.swin_attention_plain(
+        qkv5[:, 0], qkv5[:, 1], qkv5[:, 2], bias_q, mask_div, scalars,
+        n_real=n_real, n_windows=n_windows)
+
+
+def _swin_plain_v2(qkv, bias_q, mask_div, scalars, *, num_heads, head_dim,
+                   n_real, n_windows):
+    bw, npad, c3 = qkv.shape
+    view = qkv.view(bw, npad, 3, num_heads, head_dim).permute(0, 2, 3, 1, 4)
+    o = _swin_plain(view, bias_q, mask_div, scalars, num_heads=num_heads,
+                    n_real=n_real, n_windows=n_windows)
+    return o.permute(0, 2, 1, 3).reshape(bw, npad, c3 // 3)
+
+
 KERNELS = {
     "fused_qkv_attention_v2": dict(
         fn=attention.fused_qkv_attention_v2,
@@ -55,6 +83,14 @@ KERNELS = {
         fn=mlp.fused_int_mlp, plain=mlp.fused_int_mlp_plain,
         source="diffvit_tpu_torch/csrc/int_mlp.cu",
         replaces="diffvit_tpu/ops/pallas/mlp.py:290"),
+    "fused_swin_attention": dict(
+        fn=swin_attention.fused_swin_attention, plain=_swin_plain,
+        source="diffvit_tpu_torch/csrc/swin_attention.cu",
+        replaces="diffvit_tpu/ops/pallas/attention.py:820"),
+    "fused_swin_attention_v2": dict(
+        fn=swin_attention.fused_swin_attention_v2, plain=_swin_plain_v2,
+        source="diffvit_tpu_torch/csrc/swin_attention.cu",
+        replaces="diffvit_tpu/ops/pallas/attention.py:928"),
 }
 
 
@@ -76,58 +112,111 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def codes(shape, seed, dev):
+    """LN-like int8 codes (std 30) on the card."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(np.clip(np.round(rng.standard_normal(shape) * 30),
+                                -128, 127).astype(np.int8), device=dev)
+
+
 def kernel_case(name, ib, spec, batch, dev):
     """The kernel's arguments at the main path's shapes: LN-like int8 codes
     for ``batch`` images and the weights of one block."""
-    rng = np.random.default_rng(batch)
-    x = np.clip(np.round(rng.standard_normal(
-        (batch, spec.seq_len, spec.embed_dim)) * 30), -128, 127) \
-        .astype(np.int8)
+    x = codes((batch, spec.seq_len, spec.embed_dim), batch, dev)
     t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
     if name == "fused_qkv_attention_v2":
         scalars, fast = attn_constants(ib, spec, 0)
         q = ib["qkv"]
-        return ((t(x), t(q["w_int"]), t(q["mult"]), t(q["b"]), t(scalars)),
+        return ((x, t(q["w_int"]), t(q["mult"]), t(q["b"]), t(scalars)),
                 dict(num_heads=spec.num_heads, head_dim=spec.head_dim,
                      n_real=spec.seq_len, lis_fast=fast))
     f1, f2 = ib["fc1"], ib["fc2"]
-    return ((t(x.reshape(-1, spec.embed_dim)), t(f1["w_int"]),
+    return ((x.reshape(-1, spec.embed_dim), t(f1["w_int"]),
              t(f2["w_int"]), t(f1["mult"]), t(f1["b"]), t(f2["mult"]),
              t(f2["b"]), t(ib["mlp.qact2"]["scale"]),
              t(ib["mlp.qact1"]["scale"])), dict(emit_codes=True))
 
 
+def swin_cases(ip, stage, batch, dev):
+    """K4, K4b and K2 arguments at Swin-T stage ``stage`` for ``batch``
+    images: the stage's shifted block (block 1; a mask in stages 0-2),
+    qkv as the qkv GEMM emits it, K4 on its strided (Bw, 3, H, n, D)
+    view."""
+    p = f"layers.{stage}.blocks.1"
+    ib, qp = ip["layers"][stage]["blocks"][1], ip["qp"]
+    k = swin_block_constants(ib, qp, p, SWIN, stage, 1, CFG)
+    t = lambda a: None if a is None else torch.tensor(  # noqa: E731
+        np.asarray(a), device=dev)
+    res = SWIN.stage_resolution(stage)[0]
+    nw, heads, c = (res // 7) ** 2, SWIN.num_heads[stage], \
+        SWIN.stage_dim(stage)
+    qkv = codes((batch * nw, 49, 3 * c), 100 * stage + batch, dev)
+    consts = (t(k["bias_q"]), t(k["mask_div"]), t(k["attn_scalars"]))
+    kw = dict(num_heads=heads, n_real=49, n_windows=nw)
+    view = qkv.view(batch * nw, 49, 3, heads, c // heads) \
+        .permute(0, 2, 3, 1, 4)
+    f1, f2 = ib["fc1"], ib["fc2"]
+    mlp_args = (codes((batch * res * res, c), stage + batch, dev),
+                t(f1["w_int"]), t(f2["w_int"]),
+                t(qp[f"{p}.qact3.scale"] * f1["sw"]), t(f1["b"]),
+                t(qp[f"{p}.mlp.qact1.scale"] * f2["sw"]), t(f2["b"]),
+                t(qp[f"{p}.mlp.qact2.scale"]), t(qp[f"{p}.mlp.qact1.scale"]))
+    return {"fused_swin_attention": ((view, *consts), kw),
+            "fused_swin_attention_v2": ((qkv, *consts),
+                                        dict(kw, head_dim=c // heads)),
+            "fused_int_mlp": (mlp_args, dict(emit_codes=True))}
+
+
+def hold(name, args, kw, **where):
+    """The kernel vs its plain version on the same inputs on the card, both
+    timed in turns (plain, kernel, kernel, plain); one JSON line.  Fails
+    beyond the tolerance.  Returns (max |diff|, ms, plain ms)."""
+    k = KERNELS[name]
+    got = k["fn"](*args, **kw)
+    want = k["plain"](*args, **kw)
+    torch.cuda.synchronize()
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    equal = float((got == want).float().mean())
+    max_diff = int(diff.max())
+    t = [cuda_ms(lambda: f(*args, **kw))
+         for f in (k["plain"], k["fn"], k["fn"], k["plain"])]
+    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    emit(phase="kernel", kernel=name, **where, shape=list(args[0].shape),
+         equal=equal, max_abs_diff=max_diff, ms=ms, plain_ms=plain_ms)
+    if equal < MIN_EQUAL or max_diff > MAX_DIFF:
+        raise RuntimeError(
+            f"{name} {where}: {equal:.6f} of codes equal, max |diff| "
+            f"{max_diff} (tolerance >= {MIN_EQUAL}, <= {MAX_DIFF})")
+    return max_diff, ms, plain_ms
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version on the card; returns per kernel the
-    largest |diff| and the DeiT-S b=64 times."""
+    largest |diff| and its times at the heaviest shape of the main paths
+    (DeiT-S b=64 for K1 and K2, Swin-T stage 0 b=64 for K4 and K4b)."""
     summary = {name: {"max_abs_err": 0} for name in KERNELS}
+
+    def note(name, result, at=None):
+        s = summary[name]
+        s["max_abs_err"] = max(s["max_abs_err"], result[0])
+        if at:
+            s["ms"], s["plain_ms"], s["at"] = result[1], result[2], at
+
     for spec, batches in ((SPEC, (1, 8, 64)), (TINY, (2,))):
         ib = random_int_model(spec, CFG, seed=0)["blocks"][0]
-        for name, k in KERNELS.items():
+        for name in ("fused_qkv_attention_v2", "fused_int_mlp"):
             for b in batches:
                 args, kw = kernel_case(name, ib, spec, b, dev)
-                got = k["fn"](*args, **kw)
-                want = k["plain"](*args, **kw)
-                torch.cuda.synchronize()
-                diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
-                equal = float((got == want).float().mean())
-                max_diff = int(diff.max())
-                # turns: plain, kernel, kernel, plain
-                t = [cuda_ms(lambda: f(*args, **kw))
-                     for f in (k["plain"], k["fn"], k["fn"], k["plain"])]
-                ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-                emit(phase="kernel", kernel=name, spec=spec.name, batch=b,
-                     shape=list(args[0].shape), equal=equal,
-                     max_abs_diff=max_diff, ms=ms, plain_ms=plain_ms)
-                if equal < MIN_EQUAL or max_diff > MAX_DIFF:
-                    raise RuntimeError(
-                        f"{name} {spec.name} b={b}: {equal:.6f} of codes "
-                        f"equal, max |diff| {max_diff} (tolerance "
-                        f">= {MIN_EQUAL}, <= {MAX_DIFF})")
-                s = summary[name]
-                s["max_abs_err"] = max(s["max_abs_err"], max_diff)
-                if spec is SPEC and b == 64:
-                    s["ms"], s["plain_ms"] = ms, plain_ms
+                note(name, hold(name, args, kw, spec=spec.name, batch=b),
+                     spec is SPEC and b == 64 and f"{spec.name} b=64")
+    ip = random_swin_int_model(SWIN, CFG, seed=0)
+    for stage in range(SWIN.num_layers):
+        for b in (1, 8, 64):
+            for name, (args, kw) in swin_cases(ip, stage, b, dev).items():
+                note(name, hold(name, args, kw, spec=SWIN.name, stage=stage,
+                                batch=b),
+                     name != "fused_int_mlp" and stage == 0 and b == 64
+                     and f"{SWIN.name} stage 0 b=64")
     return summary
 
 
@@ -183,71 +272,133 @@ def code_stats(model, x):
         {k: float(np.max(v)) for k, v in rec.items()}
 
 
-def phase_serving(dev):
-    ip_np = random_int_model(SPEC, CFG, seed=0)
+def drive(expected, run):
+    """Set every kernel's count to 0, call ``run``, read the counts: fails
+    unless each kernel launched exactly ``expected[name]`` times (0 for
+    the kernels not named).  Returns run's result and the counts."""
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            raise RuntimeError(f"{name}: {n} launches, expected "
+                               f"{expected.get(name, 0)}")
+    return out, launches
+
+
+def agree(got, ref, shape, **where):
+    """The _assert_paths_agree rule between two integer paths (the JAX
+    suite's): > 99.5% of logits equal, |diff| <= 0.05, equal argmax."""
+    equal = float(np.mean(got == ref))
+    max_diff = float(np.abs(got - ref).max())
+    argmax_equal = bool((got.argmax(1) == ref.argmax(1)).all())
+    emit(**where, logits_equal=equal, max_abs_diff=max_diff,
+         argmax_equal=argmax_equal)
+    if not (equal > 0.995 and max_diff <= 0.05 and argmax_equal):
+        raise RuntimeError(f"{where}: logits disagree beyond the "
+                           "_assert_paths_agree rule")
+    if not np.isfinite(got).all() or got.shape != shape:
+        raise RuntimeError(f"{where}: bad logits, shape {got.shape}")
+
+
+def serve(spec, ip_np, path_kernels, dev):
+    """Save ``ip_np`` as an artifact, load it on the card and on the CPU,
+    answer the uint8 requests through IntModel with a launch check (each
+    kernel of ``path_kernels`` once per block of every forward), time
+    requests and forwards, hold the b=8 logits against the CPU plain path
+    and run validate()."""
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "deit_small_int4.npz")
-        engine.save_int_model(path, ip_np, SPEC, CFG)
+        path = os.path.join(d, f"{spec.name}_int4.npz")
+        engine.save_int_model(path, ip_np, spec, CFG)
         model = engine.load_int_model(path, dev)
         model_cpu = engine.load_int_model(path, "cpu")
+    size = spec.img_size
     rng = np.random.default_rng(1)
-    requests = [rng.integers(0, 256, (b, 3, 224, 224), dtype=np.uint8)
+    requests = [rng.integers(0, 256, (b, 3, size, size), dtype=np.uint8)
                 for b in REQUESTS]
     model(requests[0])  # warm-up: library load, cuBLAS handles
     torch.cuda.synchronize()
 
-    for k in KERNELS.values():
-        k["fn"].launches = 0
-    seconds, outputs = [], []
-    for x in requests:
-        t0 = time.perf_counter()
-        outputs.append(model(x))
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
-    for name, n in launches.items():
-        if n != SPEC.depth * len(requests):
-            raise RuntimeError(f"{name}: {n} launches for {len(requests)} "
-                               f"forwards of {SPEC.depth} blocks")
+    depth = sum(spec.depths) if model.is_swin else spec.depth
+    seconds = []
+
+    def run():
+        outputs = []
+        for x in requests:
+            t0 = time.perf_counter()
+            outputs.append(model(x))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return outputs
+
+    outputs, launches = drive(
+        {name: depth * len(requests) for name in path_kernels}, run)
     for b in sorted(set(REQUESTS)):
         s = [t for t, rb in zip(seconds, REQUESTS) if rb == b]
-        codes = torch.tensor(model.encode(requests[REQUESTS.index(b)]),
-                             device=dev)
-        fwd_ms = cuda_ms(lambda: model(codes), iters=10)
-        emit(phase="serve", batch=b, requests=len(s),
+        x = torch.tensor(model.encode(requests[REQUESTS.index(b)]),
+                         device=dev)
+        fwd_ms = cuda_ms(lambda: model(x), iters=10)
+        emit(phase="serve", model=spec.name, batch=b, requests=len(s),
              request_ms=1e3 * float(np.mean(s)),
              request_img_per_s=b / float(np.mean(s)),
              forward_ms=fwd_ms, forward_img_per_s=1e3 * b / fwd_ms)
 
     # the card's logits vs the plain path on the CPU (b=8 request)
     i8 = REQUESTS.index(8)
-    got = outputs[i8].cpu().numpy()
-    ref = model_cpu(requests[i8]).numpy()
-    equal = float(np.mean(got == ref))
-    max_diff = float(np.abs(got - ref).max())
-    argmax_equal = bool((got.argmax(1) == ref.argmax(1)).all())
-    emit(phase="card_vs_cpu", batch=8, logits_equal=equal,
-         max_abs_diff=max_diff, argmax_equal=argmax_equal)
-    if not (equal > 0.995 and max_diff <= 0.05 and argmax_equal):
-        raise RuntimeError("card and CPU logits disagree beyond the "
-                           "_assert_paths_agree rule")
-    if not np.isfinite(got).all() or got.shape != (8, SPEC.num_classes):
-        raise RuntimeError(f"bad logits: shape {got.shape}")
+    agree(outputs[i8].cpu().numpy(), model_cpu(requests[i8]).numpy(),
+          (8, spec.num_classes), phase="card_vs_cpu", model=spec.name,
+          batch=8)
 
-    logits, mean_stats, max_stats = code_stats(model, requests[i8])
+    labels = np.random.default_rng(2).integers(0, spec.num_classes, 24)
+    big = requests[REQUESTS.index(64)]
+    loader = [(big[8 * i:8 * i + 8], labels[8 * i:8 * i + 8])
+              for i in range(3)]
+    loss, top1, top5 = engine.validate(model, loader, print_freq=1)
+    emit(phase="validate", model=spec.name, images=24, loss=loss,
+         prec1=top1, prec5=top5)
+    return model, requests[i8], launches
+
+
+def phase_serving(dev):
+    """DeiT-S int4 through K1 and K2, with the code statistics."""
+    model, x8, launches = serve(
+        SPEC, random_int_model(SPEC, CFG, seed=0),
+        ("fused_qkv_attention_v2", "fused_int_mlp"), dev)
+    logits, mean_stats, max_stats = code_stats(model, x8)
     distinct = bool((logits != logits[0]).any())
     emit(phase="codes", batch=8, at_bounds_mean=mean_stats,
          at_bounds_max=max_stats, logits_distinct_across_images=distinct)
     if not distinct:
         raise RuntimeError("logits are identical across images")
-
-    labels = np.random.default_rng(2).integers(0, SPEC.num_classes, 24)
-    big = requests[REQUESTS.index(64)]
-    loader = [(big[8 * i:8 * i + 8], labels[8 * i:8 * i + 8])
-              for i in range(3)]
-    loss, top1, top5 = engine.validate(model, loader, print_freq=1)
-    emit(phase="validate", images=24, loss=loss, prec1=top1, prec5=top5)
     return launches
+
+
+def phase_serving_swin(dev):
+    """Swin-T int4 through K4 and K2; then one forward through K4b (the
+    natural-layout contract), whose logits must equal K4's."""
+    model, x8, launches = serve(
+        SWIN, random_swin_int_model(SWIN, CFG, seed=0),
+        ("fused_swin_attention", "fused_int_mlp"), dev)
+    x = torch.tensor(model.encode(x8), device=dev)
+    with torch.inference_mode():
+        want = model(x).cpu().numpy()
+        got, launches_v2 = drive(
+            {name: sum(SWIN.depths) for name in
+             ("fused_swin_attention_v2", "fused_int_mlp")},
+            lambda: swin_int.forward_q_int(model.ip, SWIN, CFG, x,
+                                           attn_v2=True))
+    got = got.cpu().numpy()
+    equal = bool(np.array_equal(got, want))
+    distinct = bool((got != got[0]).any())
+    emit(phase="attn_v2", model=SWIN.name, batch=8, logits_equal_k4=equal,
+         launches=launches_v2["fused_swin_attention_v2"],
+         logits_distinct_across_images=distinct)
+    if not (equal and distinct):
+        raise RuntimeError("the K4b forward's logits differ from K4's, or "
+                           "are identical across images")
+    return launches, launches_v2
 
 
 def main():
@@ -269,13 +420,23 @@ def main():
     emit(phase="build", seconds=seconds, cached=seconds == 0.0,
          library=os.path.relpath(path))
 
+    t0 = time.perf_counter()
     summary = phase_kernels(dev)
-    launches = phase_serving(dev)
+    t1 = time.perf_counter()
+    paths = {SPEC.name: phase_serving(dev)}
+    t2 = time.perf_counter()
+    paths[SWIN.name], paths[f"{SWIN.name} attn_v2"] = phase_serving_swin(dev)
+    emit(phase="seconds", kernels=t1 - t0, deit_small=t2 - t1,
+         swin_tiny=time.perf_counter() - t2)
 
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=k["source"],
-             replaces=k["replaces"], launches=launches[name],
-             **summary[name]) for name, k in KERNELS.items()]}))
+    kernels = []
+    for name, k in KERNELS.items():
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        kernels.append(dict(
+            name=name, route="cuda", source=k["source"],
+            replaces=k["replaces"], launches=sum(by_path.values()),
+            launches_by_path=by_path, **summary[name]))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

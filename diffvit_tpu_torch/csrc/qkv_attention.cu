@@ -24,18 +24,15 @@
 // Exactness against the plain PyTorch version (ops/kernels/attention.py):
 //  * built with -fmad=false: every a*b+c rounds twice, as torch does;
 //  * rintf rounds half to even, like torch.round;
-//  * 2^(32-q) is ldexpf (exact), floor(log2 y) is ilogbf (exact);
-//  * the row sum of the integer exponentials is an exact int64 sum
-//    (every term is an integer < 2^55 when s_a >= 2^-10), rounded once to
-//    float — so it does not depend on the summation order;
+//  * the LIS row (lis.cuh, shared with swin_attention.cu) is exact: ldexpf
+//    and ilogbf for the powers and logs, an int64 row sum;
 //  * attn@v accumulates v * 2^(15-code) in int32 (|sum| <= 2^30), exact;
 //    the result times 2^-15 is the float attn@v of the reference.
-// Float constants are written as (float)(double expression), the rounding
-// the JAX reference applies to its weakly typed Python constants.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "int8_gemm.cuh"
+#include "lis.cuh"
 
 namespace {
 
@@ -54,18 +51,6 @@ struct QkvEpilogue {
     out[(size_t)r * n + c] = dvt::clip_i8(rintf(y));
   }
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ long long warp_sum(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // qkv: (B, Npad, 3C) int8 with columns [slot, head, d]; out: (B, H, Npad, D)
 __global__ void __launch_bounds__(kAttnWarps * 32)
@@ -93,13 +78,9 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   }
   __syncthreads();
 
-  // scalars = [s_a, c1, 1/s1, s1/s2]; the int-exp constants of _lis_body
-  const float s_a = scalars[0], c1 = scalars[1], s1_over_s2 = scalars[3];
-  const float x0_int = floorf((float)(-0.6931) / s_a);
-  const float b_int = floorf((float)(0.96963238 / 0.35815147) / s_a);
-  const float c_int = floorf((float)(1.0 / 0.35815147) / (s_a * s_a));
-  const float x_lo = 32.f * x0_int;
-  const float nudge = (float)(4.0 / 3.0 * (1.0 + 0x1p-17));
+  // scalars = [s_a, c1, 1/s1, s1/s2]
+  const float c1 = scalars[1], s1_over_s2 = scalars[3];
+  const dvt::LisConsts lis = dvt::lis_consts(scalars[0]);
 
   const int q_end = min(q0 + kQueryTile, npad);
   for (int i = q0 + warp; i < q_end; i += kAttnWarps) {
@@ -108,9 +89,8 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
           *reinterpret_cast<const int*>(base + i * row_stride + h * d + 4 * lane);
     __syncwarp();
 
-    // scores -> qact_attn1 codes, the row max over the real keys
+    // scores -> qact_attn1 codes, then the LIS weights of the row
     float a[kKeysPerLane];
-    float row_max = -INFINITY;
 #pragma unroll
     for (int u = 0; u < kKeysPerLane; ++u) {
       const int j = lane + 32 * u;
@@ -119,40 +99,9 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
         int s = 0;
         for (int w = 0; w < words; ++w) s = __dp4a(q_words[warp][w], k_words[j][w], s);
         a[u] = fminf(fmaxf(rintf(static_cast<float>(s) * c1), -128.f), 127.f);
-        row_max = fmaxf(row_max, a[u]);
       }
     }
-    row_max = warp_max(row_max);
-
-    // integer exponential (n = 32) and its exact row sum
-    float e[kKeysPerLane];
-    long long part = 0;
-#pragma unroll
-    for (int u = 0; u < kKeysPerLane; ++u) {
-      const int j = lane + 32 * u;
-      e[u] = 0.f;
-      if (j < n_real) {
-        const float x = fmaxf(a[u] - row_max, x_lo);
-        const float q = floorf(x / x0_int);
-        const float r = x - x0_int * q;
-        const float poly = r * (r + b_int) + c_int;
-        float ev = poly * ldexpf(1.f, 32 - static_cast<int>(q));
-        if (!lis_fast) ev = fmaxf(floorf(ev), 0.f);
-        e[u] = ev;
-        part += static_cast<long long>(ev);
-      }
-    }
-    const float exp_sum = static_cast<float>(warp_sum(part));
-
-    // log2 quantization: weight 2^-code, kept as the integer 2^(15-code)
-#pragma unroll
-    for (int u = 0; u < kKeysPerLane; ++u) {
-      const int j = lane + 32 * u;
-      if (j < n_real) {
-        const float y = rintf(exp_sum / e[u]) * nudge;
-        weights[warp][j] = (y < 65536.f) ? (1 << (15 - ilogbf(y))) : 0;
-      }
-    }
+    dvt::lis_row(a, n_real, lis, lis_fast != 0, weights[warp], lane);
     __syncwarp();
 
     // attn @ v, requantized onto the qact2 grid

@@ -1,5 +1,5 @@
-"""Serving engine for the integer ViT (counterpart of the serving half of
-``diffvit_tpu/engine.py``): ``IntModel``, ``load_int_model`` and
+"""Serving engine for the integer ViT and Swin (counterpart of the serving
+half of ``diffvit_tpu/engine.py``): ``IntModel``, ``load_int_model`` and
 ``validate`` with the reference's Prec@1/Prec@5 report."""
 from __future__ import annotations
 
@@ -16,32 +16,42 @@ from diffvit_tpu.utils.metrics import AverageMeter, accuracy, cross_entropy
 from diffvit_tpu.utils.serialize import ArtifactError, load_pytree, \
     save_pytree
 
-from .models import vit_int
-from .models.convert import int_model_from_numpy
+from .models import swin_int, vit_int
+from .models.convert import int_model_from_numpy, swin_int_model_from_numpy
+from .models.swin import SwinSpec
 from .models.vit import ViTSpec
 
 
 class IntModel:
-    """A deployed integer ViT: the baked int-model on one device plus its
-    spec and QuantConfig.
+    """A deployed integer ViT or Swin (by the spec's type): the baked
+    int-model on one device plus its spec and QuantConfig.
 
     ``__call__`` takes a (B, 3, H, W) batch as numpy or torch: int8 input
     codes, uint8 pixels (encoded host-side with ``input_lut`` into codes —
     the same codes the reference derives on its device), or float32
     normalized pixels.  It returns float32 logits on the model's device."""
 
-    def __init__(self, ip, spec: ViTSpec, cfg: QuantConfig, device):
+    def __init__(self, ip, spec: ViTSpec | SwinSpec, cfg: QuantConfig,
+                 device):
         self.spec, self.cfg = spec, cfg
         self.device = torch.device(device)
-        self.ip = int_model_from_numpy(ip, spec, self.device)
+        self.is_swin = isinstance(spec, SwinSpec)
+        if self.is_swin:
+            self.ip = swin_int_model_from_numpy(ip, spec, self.device, cfg)
+            self._forward = swin_int.forward_q_int
+            qp = ip["qp"]
+            scale, zp = qp["qact_input.scale"], qp["qact_input.zp"]
+        else:
+            self.ip = int_model_from_numpy(ip, spec, self.device)
+            self._forward = vit_int.forward_q_int
+            scale, zp = ip["qact_input"]["scale"], ip["qact_input"]["zp"]
         # (3, 256) int8 table: uint8 pixel -> qact_input code per channel
         self.input_lut = None
         if spec.input_quant:
-            site, bt = ip["qact_input"], cfg.bit_a
+            bt = cfg.bit_a
             self.input_lut = input_code_lut(
-                np.asarray(site["scale"]), np.asarray(site["zp"]),
-                mean=IMAGENET_MEAN, std=IMAGENET_STD, qmin=bt.lower_bound,
-                qmax=bt.upper_bound)
+                np.asarray(scale), np.asarray(zp), mean=IMAGENET_MEAN,
+                std=IMAGENET_STD, qmin=bt.lower_bound, qmax=bt.upper_bound)
 
     def encode(self, x) -> np.ndarray:
         """uint8 NCHW batch -> int8 input codes (host-side numpy)."""
@@ -62,16 +72,18 @@ class IntModel:
             raise TypeError(f"IntModel takes int8 codes, uint8 or float32 "
                             f"pixels, got {x.dtype}")
         with torch.inference_mode():
-            return vit_int.forward_q_int(self.ip, self.spec, self.cfg, x)
+            return self._forward(self.ip, self.spec, self.cfg, x)
 
 
-def save_int_model(path, ip, spec: ViTSpec, cfg: QuantConfig) -> None:
+def save_int_model(path, ip, spec: ViTSpec | SwinSpec,
+                   cfg: QuantConfig) -> None:
     """Write a numpy int-model pytree as the deployment artifact that
     ``diffvit_tpu``'s ``QuantizedViT.save_int_model`` writes (same .npz
     schema and metadata), so either engine can load it."""
     save_pytree(path, ip, meta={"model": spec.name,
                                 "spec": dataclasses.asdict(spec),
-                                "cfg": cfg.to_dict(), "is_swin": False})
+                                "cfg": cfg.to_dict(),
+                                "is_swin": isinstance(spec, SwinSpec)})
 
 
 def load_int_model(path, device) -> IntModel:
@@ -82,11 +94,14 @@ def load_int_model(path, device) -> IntModel:
         raise ArtifactError(
             f"{path}: a save_pytree artifact, but not an int-model export "
             f"(meta keys {sorted(meta)}; expected model/spec/cfg/is_swin)")
+    sd = dict(meta["spec"])
     if meta["is_swin"]:
-        raise NotImplementedError("load_int_model: Swin artifacts are not "
-                                  "ported yet")
-    return IntModel(ip, ViTSpec(**meta["spec"]),
-                    QuantConfig.from_dict(meta["cfg"]), device)
+        for k in ("depths", "num_heads"):  # JSON turns tuples into lists
+            sd[k] = tuple(sd[k])
+        spec = SwinSpec(**sd)
+    else:
+        spec = ViTSpec(**sd)
+    return IntModel(ip, spec, QuantConfig.from_dict(meta["cfg"]), device)
 
 
 def validate(model, loader, print_freq=100, log=print):

@@ -1,16 +1,25 @@
 """The JAX int-model pytree -> the port's form, on one device.
 
-The pytree is ``diffvit_tpu.models.vit_int.prepare_int``'s: loaded from a
-``save_int_model`` artifact with ``utils.serialize.load_pytree``, or taken
-from JAX directly with ``jax.device_get``.  This is where weights and state
-cross from JAX to the port."""
+The pytree is ``prepare_int``'s (``diffvit_tpu.models.vit_int`` or
+``.swin_int``): loaded from a ``save_int_model`` artifact with
+``utils.serialize.load_pytree``, or taken from JAX directly with
+``jax.device_get``.  This is where weights and state cross from JAX to the
+port.  Values the reference recomputes on every forward from the model
+alone are computed here once, with the same float32 operations in the
+same order."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.kernels.attention import LIS_MIN_SCALE, lis_fast_ok
+from diffvit_tpu.config import QuantConfig
+
+from ..ops.kernels.attention import lis_fast_ok, lis_sum_fits
+from ..ops.quant import fake_quant
+from .swin import SwinSpec, block_geometry, relative_position_index
 from .vit import ViTSpec
+
+f32 = np.float32
 
 
 def _to_torch(node, device):
@@ -18,26 +27,33 @@ def _to_torch(node, device):
         return {k: _to_torch(v, device) for k, v in node.items()}
     if isinstance(node, list):
         return [_to_torch(v, device) for v in node]
-    if isinstance(node, (bool, tuple)):
-        return node  # fp / sym_acts flags, bit_config
+    if node is None or isinstance(node, (bool, int, tuple)):
+        return node  # absent bias, fp / sym_acts flags, bits, bit_config
     a = np.asarray(node)
     if a.dtype.kind == "f":
         a = a.astype(np.float32)
     return torch.tensor(a, device=device)
 
 
+def _scalar(a):
+    return f32(np.asarray(a).reshape(()))
+
+
+def _check_lis_sum(s_a, n_keys, where):
+    if not lis_sum_fits(float(s_a), n_keys):
+        raise ValueError(
+            f"{where}: softmax scale {float(s_a)} over {n_keys} keys; the "
+            "exact int64 row sum of the LIS exponentials would overflow")
+
+
 def attn_constants(ib, spec: ViTSpec, block: int):
     """The per-block host-side constants of the reference forward
     (``vit_int.py:407-419``): the kernel scalars [s_a, c1, 1/s1, s1/s2] in
     float32, and the fast-LIS gate."""
-    f32 = np.float32
-    s1 = f32(np.asarray(ib["attn.qact1"]["scale"]).reshape(()))
-    s_a = f32(np.asarray(ib["attn.qact_attn1"]["scale"]).reshape(()))
-    s2 = f32(np.asarray(ib["attn.qact2"]["scale"]).reshape(()))
-    if s_a < LIS_MIN_SCALE:
-        raise ValueError(
-            f"block {block}: softmax scale s_a={float(s_a)} < 2^-10; the "
-            "exact int64 row sum of the LIS exponentials would overflow")
+    s1 = _scalar(ib["attn.qact1"]["scale"])
+    s_a = _scalar(ib["attn.qact_attn1"]["scale"])
+    s2 = _scalar(ib["attn.qact2"]["scale"])
+    _check_lis_sum(s_a, spec.seq_len, f"block {block}")
     c1 = s1 * s1 * f32(spec.attn_scale) / s_a
     scalars = np.asarray([s_a, c1, f32(1.0) / s1, s1 / s2], np.float32)
     return scalars, lis_fast_ok(float(s_a))
@@ -53,3 +69,83 @@ def int_model_from_numpy(ip, spec: ViTSpec, device) -> dict:
         ib["attn_scalars"] = torch.tensor(scalars, device=device)
         ib["lis_fast"] = fast
     return out
+
+
+def _fq_np(x, qp, path, bit_type):
+    """The reference's ``fq(path, x)`` on numpy float32, through the
+    port's fake_quant (the same float32 operations as the JAX one)."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    return fake_quant(t(x), t(qp[f"{path}.scale"]), t(qp[f"{path}.zp"]),
+                      bit_type).numpy()
+
+
+def swin_block_constants(ib, qp, p, spec: SwinSpec, stage: int, blk: int,
+                         cfg) -> dict:
+    """A Swin block's window-attention constants, as
+    ``swin_int.forward_q_int`` computes them on every forward
+    (``swin_int.py:234-255``), in numpy: ``bias_q``, the fake-quantized
+    relative-position table gathered to (H, n, n); ``mask_div``, the shift
+    mask over s_a2 (or None); ``attn_scalars``, the kernel's
+    [c1, s_a1, 1/s_a2, s_a2, c2] in float32."""
+    _, ws, _, mask = block_geometry(spec, stage, blk)
+    n, nh = ws * ws, spec.num_heads[stage]
+    hd = spec.stage_dim(stage) // nh
+    s1 = _scalar(qp[f"{p}.attn.qact1.scale"])
+    s_a1 = _scalar(qp[f"{p}.attn.qact_attn1.scale"])
+    s_a2 = _scalar(qp[f"{p}.attn.qact2.scale"])
+    s_a3 = _scalar(qp[f"{p}.attn.qact3.scale"])
+    _check_lis_sum(s_a2, n, p)
+    table_q = _fq_np(ib["rel_bias_table"], qp, f"{p}.attn.qact_table",
+                     cfg.bit_a)
+    idx = relative_position_index(ws).reshape(-1)
+    bias_q = table_q[idx].reshape(n, n, nh).transpose(2, 0, 1)
+    return {
+        "bias_q": np.ascontiguousarray(bias_q),
+        "mask_div": None if mask is None else mask / s_a2,
+        "attn_scalars": np.asarray(
+            [s1 * s1 * f32(hd**-0.5) / s_a1, s_a1, f32(1.0) / s_a2, s_a2,
+             s1 / s_a3], np.float32),
+    }
+
+
+def _with_mult(site, in_scale):
+    """An ``int_linear`` site with ``mult = in_scale * sw``, the factor the
+    reference multiplies its int32 accumulator by (``swin_int.py:145``)."""
+    mult = np.asarray(in_scale, np.float32) * np.asarray(site["sw"],
+                                                         np.float32)
+    return dict(site, mult=mult)
+
+
+def swin_int_model_from_numpy(ip, spec: SwinSpec, device,
+                              cfg: QuantConfig | None = None) -> dict:
+    """The Swin int-model of ``diffvit_tpu.models.swin_int.prepare_int`` on
+    ``device``: every array as a torch tensor (as ``int_model_from_numpy``
+    does), every ``int_linear`` site with its ``mult``, and per block the
+    window-attention constants of :func:`swin_block_constants`
+    (``cfg.bit_a`` fake-quantizes the bias table)."""
+    cfg = cfg or QuantConfig()
+    qp = {k: np.asarray(v) for k, v in ip["qp"].items()}
+
+    def s(path):
+        return qp[f"{path}.scale"]
+
+    layers = []
+    for si, st in enumerate(ip["layers"]):
+        blocks = []
+        for bi, ib in enumerate(st["blocks"]):
+            p = f"layers.{si}.blocks.{bi}"
+            blocks.append(dict(
+                ib, **swin_block_constants(ib, qp, p, spec, si, bi, cfg),
+                qkv=_with_mult(ib["qkv"], s(f"{p}.qact1")),
+                proj=_with_mult(ib["proj"], s(f"{p}.attn.qact3")),
+                fc1=_with_mult(ib["fc1"], s(f"{p}.qact3")),
+                fc2=_with_mult(ib["fc2"], s(f"{p}.mlp.qact1"))))
+        ds = st["downsample"]
+        if ds is not None:
+            ds = dict(ds, reduction=_with_mult(
+                ds["reduction"], s(f"layers.{si}.downsample.qact1")))
+        layers.append({"blocks": blocks, "downsample": ds})
+    ip = dict(ip, layers=layers, qp=qp,
+              patch=_with_mult(ip["patch"], s("qact_input")),
+              head=_with_mult(ip["head"], s("qact3")))
+    return _to_torch(ip, device)

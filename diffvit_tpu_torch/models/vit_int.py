@@ -24,10 +24,10 @@ import torch
 
 from diffvit_tpu.config import QuantConfig
 
-from ..ops.int_layernorm import get_mn
+from ..ops.int_layernorm import int_ln_codes
 from ..ops.kernels.attention import fused_qkv_attention_v2
 from ..ops.kernels.mlp import fused_int_mlp
-from ..ops.quant import fake_quant, int_matmul, pow2
+from ..ops.quant import fake_quant, int_matmul
 from .vit import ViTSpec, patchify
 
 I8 = torch.int8
@@ -54,30 +54,10 @@ def _ln_int8(x, ln, in_scale, out_scale_vec, eps, a_bits=8, rescale=None,
     of the raw LN codes (the norm2 channel-scale quirk); ``x_codes``:
     the input's int8 codes on the ``in_scale`` grid, used instead of
     rounding ``x``.  ``eps`` is unused, as in the reference."""
-    c = ln["w"].shape[-1]
-    in_scale = in_scale.expand(c)
-    out_scale = out_scale_vec.expand(c)
+    in_scale = in_scale.expand(ln["w"].shape[-1])
     x_q = x_codes.to(torch.float32) if x_codes is not None \
         else torch.round(x / in_scale)
-    in_scale1 = in_scale.min()
-    x_q = x_q * torch.round(in_scale / in_scale1)
-    xi = x_q.to(torch.int64)
-    sum_x = xi.sum(-1).to(torch.float32)
-    sum_x2 = (xi * xi).sum(-1).to(torch.float32)
-    # divide by a tensor: CUDA torch turns division by a Python number into
-    # a multiply by its reciprocal, which is not the IEEE quotient
-    c_t = sum_x.new_full((), float(c))
-    mean = (sum_x / c_t) * in_scale1
-    # sqrt in float64 rounds to the correctly rounded float32 root; CUDA
-    # torch's float32 sqrt is not correctly rounded
-    var = (c * sum_x2 - sum_x * sum_x).to(torch.float64)
-    std = (in_scale1 / c_t) * torch.sqrt(var).to(torch.float32)
-    a = (in_scale1 / std)[..., None] * ln["w"] / out_scale
-    m, n = get_mn(torch.abs(a))
-    p2n = pow2(n)
-    b = torch.round((ln["b"] - (mean / std)[..., None] * ln["w"])
-                    / out_scale * p2n)
-    y = torch.round((torch.sign(a) * m * x_q + b) / p2n)
+    y = int_ln_codes(x_q, ln["w"], ln["b"], in_scale, out_scale_vec)
     if rescale is not None:
         y = torch.round(y * rescale)
     lb, ub = -(2 ** (a_bits - 1)), 2 ** (a_bits - 1) - 1

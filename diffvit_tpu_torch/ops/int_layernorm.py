@@ -1,5 +1,17 @@
-"""Integer LayerNorm helpers (counterpart of
-``diffvit_tpu/ops/int_layernorm.py``)."""
+"""Integer LayerNorm (counterpart of ``diffvit_tpu/ops/int_layernorm.py``).
+
+``int_ln_codes`` is the M·2^-N arithmetic that both ``int_layernorm``
+(float32 out, Swin's patch norm) and ``models/vit_int._ln_int8`` (int8
+codes out) run, so the exactness fixes below hold for both:
+
+* the row sums are exact int64 sums (the reference sums float32 values,
+  whose total depends on the summation order once it passes 2^24);
+* the mean and std divide by a device tensor: CUDA torch turns division by
+  a Python number into a multiply by its reciprocal, which is not the IEEE
+  quotient;
+* the root is taken in float64 and rounded to float32 (the correctly
+  rounded root); CUDA torch's float32 ``sqrt`` is not correctly rounded.
+"""
 from __future__ import annotations
 
 import torch
@@ -23,3 +35,39 @@ def get_mn(x: torch.Tensor):
     n = torch.clamp(bit - log2x, 0, 31)
     m = torch.clamp(torch.floor(x * pow2(n)), 0, 2 ** (bit + 1) - 1)
     return m, n
+
+
+def int_ln_codes(x_q, weight, bias, in_scale, out_scale):
+    """Integer LN over the last axis of the float32 input codes ``x_q`` on
+    the per-channel ``in_scale`` grid.  Returns the float32 output codes on
+    the ``out_scale`` grid, rounded and not clipped."""
+    c = weight.shape[-1]
+    in_scale = in_scale.expand(c)
+    out_scale = out_scale.expand(c)
+    in_scale1 = in_scale.min()
+    x_q = x_q * torch.round(in_scale / in_scale1)
+    xi = x_q.to(torch.int64)
+    sum_x = xi.sum(-1).to(torch.float32)
+    sum_x2 = (xi * xi).sum(-1).to(torch.float32)
+    c_t = sum_x.new_full((), float(c))
+    mean = (sum_x / c_t) * in_scale1
+    var = (c * sum_x2 - sum_x * sum_x).to(torch.float64)
+    std = (in_scale1 / c_t) * torch.sqrt(var).to(torch.float32)
+    a = (in_scale1 / std)[..., None] * weight / out_scale
+    m, n = get_mn(torch.abs(a))
+    p2n = pow2(n)
+    b = torch.round((bias - (mean / std)[..., None] * weight)
+                    / out_scale * p2n)
+    return torch.round((torch.sign(a) * m * x_q + b) / p2n)
+
+
+def int_layernorm(x, weight, bias, in_scale, out_scale):
+    """Integer LayerNorm of the fake-quantized float32 ``x`` (values on the
+    ``in_scale`` grid), returned as float32 values on the ``out_scale``
+    grid.  The reference's ``out_scale_channel`` and ``in_scale_expand``
+    are folded into ``out_scale`` and ``in_scale`` by the caller."""
+    c = x.shape[-1]
+    in_scale = in_scale.expand(c)
+    out_scale = out_scale.expand(c)
+    x_q = torch.round(x / in_scale)
+    return int_ln_codes(x_q, weight, bias, in_scale, out_scale) * out_scale

@@ -17,10 +17,13 @@ the reference's own arithmetic is order- or approximation-dependent:
 * the LIS weights are carried as the integers ``2^(15-code)`` and attn@v is
   an exact integer sum, equal to the reference's float attn@v times 2^15.
 
-The int64 sum holds every term (< 2^55) for a softmax scale
-``s_a >= 2^-10`` (``LIS_MIN_SCALE``); ``models/convert.py`` checks it.
+The int64 sum holds the row's terms only while they cannot overflow it:
+``lis_sum_fits(s_a, n_keys)``, which ``models/convert.py`` checks for
+every block (for ViT's 197 keys it admits ``s_a >= 2^-10``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -34,8 +37,19 @@ _X0 = float(np.float32(-0.6931))
 _B = float(np.float32(0.96963238 / 0.35815147))
 _C = float(np.float32(1.0 / 0.35815147))
 _NUDGE = float(np.float32(4.0 / 3.0 * (1.0 + 2.0**-17)))
-LIS_MIN_SCALE = 2.0**-10
 MAX_KEYS = 256  # keys per head the kernel keeps in shared memory
+
+
+def lis_sum_fits(scale_value: float, n_keys: int) -> bool:
+    """Whether the exact int64 row sum of ``n_keys`` integer exponentials
+    cannot overflow at the softmax scale ``scale_value``.  The largest term
+    is ``floor(C / s^2) * 2^32`` (the polynomial at r = 0, q = 0; it falls
+    for every other r of the clamped range), so the sum fits while
+    ``n_keys * floor(C / s^2) * 2^32 < 2^63``.  49 keys (a 7x7 Swin
+    window) admit s = 2^-11; 197 keys (ViT) need s >= 2^-10."""
+    s = np.float32(scale_value)
+    c_int = math.floor(np.float32(_C) / (s * s))
+    return n_keys * c_int < 2**31
 
 
 def lis_fast_ok(scale_value: float) -> bool:
@@ -67,12 +81,16 @@ def lis_body_plain(a_int: torch.Tensor, scale: torch.Tensor, bits: int,
             "LIS tail supports bits <= 4 only (the reference's uint4)")
     row_max = torch.where(col_ok, a_int, -torch.inf).amax(-1, keepdim=True)
     x_int = a_int - row_max
-    x0_int = torch.floor(_X0 / scale)
+    # a constant over a tensor: torch computes ``number / t`` as
+    # ``t.reciprocal() * number``, two roundings where the kernels and the
+    # reference take one IEEE quotient
+    const = lambda v: torch.full_like(scale, v)  # noqa: E731
+    x0_int = torch.floor(const(_X0) / scale)
     x_int = torch.maximum(x_int, 32.0 * x0_int)
     q = torch.floor(x_int / x0_int)
     r = x_int - x0_int * q
-    b_int = torch.floor(_B / scale)
-    c_int = torch.floor(_C / (scale * scale))
+    b_int = torch.floor(const(_B) / scale)
+    c_int = torch.floor(const(_C) / (scale * scale))
     poly = r * (r + b_int) + c_int
     exp_int = poly * pow2(32.0 - q)
     if not fast:

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``diffvit_tpu_torch/csrc``.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, for ``sm_90a`` (Hopper), into ``csrc/build/``
-under a name keyed by a hash of the sources and flags; later calls and
-later processes reuse it.  The library is loaded with ``ctypes``: each C
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
+(Hopper), one process per source, all started together, and links the
+objects into one shared library with a plain C interface in
+``csrc/build/``, under a name keyed by a hash of the sources and flags;
+later calls and later processes reuse it.  The library is loaded with ``ctypes``: each C
 entry takes device pointers, ints and the CUDA stream, launches on that
 stream, and returns ``cudaGetLastError()``, which :func:`check` turns into
 an exception.
@@ -26,13 +27,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int,
+# element strides as c_longlong)
 ENTRIES = {
     "dvt_qkv_attention": (_P,) * 6 + (_I,) * 7 + (_P,),
     "dvt_int_mlp": (_P,) * 12 + (_I,) * 5 + (_P,),
+    "dvt_swin_attention": (_P,) * 5 + (_I,) * 6 + (_L,) * 7 + (_P,),
 }
 
 
@@ -67,16 +70,35 @@ def build() -> tuple[Path, float]:
         return out, 0.0
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
     t0 = time.perf_counter()
+    objs, jobs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        objs.append(obj)
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    # wait for every compile before raising, so that none is left running
+    done = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in jobs]
+    for cmd, output, returncode in done:
+        _check_run(cmd, returncode, output)
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    _check_run(cmd, proc.returncode, proc.stdout + proc.stderr)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
+
+
+def _check_run(cmd, returncode, output):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n"
+                           f"{' '.join(cmd)}\n{output}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,13 +1,15 @@
-"""A seeded synthetic int-model in ``prepare_int``'s exact schema.
+"""Seeded synthetic int-models in ``prepare_int``'s exact schemas.
 
 There are no pretrained weights in the repository, so the port is driven
-at full width on a random model.  ``random_int_model`` builds, with numpy
+at full width on random models.  ``random_int_model`` builds, with numpy
 only, the int-model pytree that ``diffvit_tpu.models.vit_int.prepare_int``
 would bake for a DeiT/ViT spec at a uniform bit width: exactly the keys
 that ``_embed_front``, ``_block_int`` (codes path) and ``_head_tail`` read,
-plus ``bit_config`` and ``sym_acts=True``.  The JAX forward accepts it
-unchanged (``tests/test_torch_vit_int.py`` holds the two against each
-other), so it is a valid int-model, not a private format.
+plus ``bit_config`` and ``sym_acts=True``.  ``random_swin_int_model`` does
+the same for ``diffvit_tpu.models.swin_int.prepare_int`` and a Swin spec.
+The JAX forwards accept both unchanged (``tests/test_torch_vit_int.py``
+and ``tests/test_torch_swin.py`` hold each against the port), so they are
+valid int-models, not private formats.
 
 * weights are int codes of ``cfg.bit_w``'s width;
 * every zero-point is 0 (symmetric activations);
@@ -22,7 +24,32 @@ import numpy as np
 
 from diffvit_tpu.config import QuantConfig
 
+from .models import swin
 from .models.vit import ViTSpec, num_bit_slots
+
+
+f32 = np.float32
+
+
+def _pot(x):
+    return f32(2.0 ** np.round(np.log2(x)))
+
+
+def _weight(rng, bits, fan_in, fan_out, gain):
+    """int weight codes (fan_in, fan_out) of ``bits`` and a per-channel
+    weight scale s_w picked so that the output std is ~gain times the
+    input std (in value space)."""
+    w_hi = 2 ** (bits - 1) - 1
+    w_std = (2 ** bits) / np.sqrt(12.0)  # std of uniform codes
+    w = rng.integers(-w_hi - 1, w_hi + 1, (fan_in, fan_out)).astype(np.int8)
+    s_w = _pot(gain / (np.sqrt(fan_in) * w_std)) \
+        * 2.0 ** rng.integers(-1, 1, fan_out)
+    return w, s_w.astype(f32)
+
+
+def _norm(rng, c):
+    return {"w": (1.0 + 0.1 * rng.standard_normal(c)).astype(f32),
+            "b": (0.1 * rng.standard_normal(c)).astype(f32)}
 
 
 def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
@@ -32,12 +59,6 @@ def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
     bits = cfg.bit_w.bits
     rng = np.random.default_rng(seed)
     c, hid, n = spec.embed_dim, spec.hidden_dim, spec.seq_len
-    f32 = np.float32
-    w_hi = 2 ** (bits - 1) - 1
-    w_std = (2 ** bits) / np.sqrt(12.0)  # std of uniform codes
-
-    def pot(x):
-        return f32(2.0 ** np.round(np.log2(x)))
 
     def site(scale):
         return {"scale": np.asarray(scale, f32), "zp": np.asarray(0.0, f32)}
@@ -47,17 +68,13 @@ def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
         return (base * 2.0 ** rng.integers(0, 2, size)).astype(f32)
 
     def linear(fan_in, fan_out, in_step, gain=1.0):
-        """int weight codes + per-channel multiplier (in_step * s_w) with
-        s_w picked so that the output std is ~gain times the input std."""
-        w = rng.integers(-w_hi - 1, w_hi + 1, (fan_in, fan_out)).astype(np.int8)
-        s_w = pot(gain / (np.sqrt(fan_in) * w_std)) \
-            * 2.0 ** rng.integers(-1, 1, fan_out)
+        """int weight codes + per-channel multiplier (in_step * s_w)."""
+        w, s_w = _weight(rng, bits, fan_in, fan_out, gain)
         return {"w_int": w, "b": (0.02 * rng.standard_normal(fan_out)).astype(f32),
                 "fp": False, "mult": (in_step * s_w).astype(f32)}
 
     def norm():
-        return {"w": (1.0 + 0.1 * rng.standard_normal(c)).astype(f32),
-                "b": (0.1 * rng.standard_normal(c)).astype(f32)}
+        return _norm(rng, c)
 
     s_in = f32(2.0**-5)   # ImageNet-normalized pixels span about +-2.6
     act = f32(2.0**-5)    # activations of std ~1 span +-4
@@ -98,5 +115,90 @@ def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
             "mlp.qact2": site(ptf(act / 2, c)), "qact4": site(ptf(act, c)),
         })
     ip["head"] = linear(c, spec.num_classes, act)
+    ip["sym_acts"] = True
+    return ip
+
+
+def random_swin_int_model(spec: swin.SwinSpec,
+                          cfg: QuantConfig | None = None,
+                          seed: int = 0) -> dict:
+    """Swin ``prepare_int``'s schema (``diffvit_tpu/models/swin_int.py:
+    25-82``): ``qp``, the flat ``{site}.scale`` / ``{site}.zp`` dict of the
+    activation sites (and ``{weight}.int{bits}.scale``), ``layers`` of
+    blocks and downsamples, ``patch``, ``patch_norm``, ``norm``, ``head``,
+    ``bit_config`` and ``sym_acts=True``.  Weights take ``cfg.bit_w``.
+    Every scale is a power of two; the LN inputs (qact2, qact4, mlp.qact2,
+    the downsample's qact2) take per-channel PTF grids; the softmax scale
+    attn.qact2 is 2^-4, well inside ``lis_sum_fits`` for a window."""
+    cfg = cfg or QuantConfig()
+    bits = cfg.bit_w.bits
+    rng = np.random.default_rng(seed)
+    qp = {}
+    act = f32(2.0**-5)  # activations of std ~1 span +-4
+
+    def site(path, scale):
+        qp[f"{path}.scale"] = np.asarray(scale, f32)
+        qp[f"{path}.zp"] = np.asarray(0.0, f32)
+
+    def ptf(path, base, c):
+        site(path, base * 2.0 ** rng.integers(0, 2, c))
+
+    def w_site(path, fan_in, fan_out, gain, bias=True):
+        w, s_w = _weight(rng, bits, fan_in, fan_out, gain)
+        qp[f"{path}.int{bits}.scale"] = s_w
+        b = (0.02 * rng.standard_normal(fan_out)).astype(f32) if bias \
+            else None
+        return {"w_int": w, "sw": s_w, "bit": bits, "b": b}
+
+    c0 = spec.embed_dim
+    site("qact_input", act)  # ImageNet-normalized pixels span about +-2.6
+    ip = {"bit_config": (bits,) * swin.num_bit_slots(spec), "layers": [],
+          "qp": qp,
+          "patch": w_site("patch.w", 3 * spec.patch_size**2, c0, 1.0)}
+    ip["patch_norm"] = _norm(rng, c0) if spec.patch_norm else None
+    site("patch.qact_bn", act)
+    site("patch.qact", act)
+    for s in range(spec.num_layers):
+        c, nh = spec.stage_dim(s), spec.num_heads[s]
+        hid = spec.mlp_ratio * c
+        _, ws, _, _ = swin.block_geometry(spec, s, 0)
+        st = {"blocks": [], "downsample": None}
+        for bi in range(spec.depths[s]):
+            p = f"layers.{s}.blocks.{bi}"
+            st["blocks"].append({
+                "norm1": _norm(rng, c), "norm2": _norm(rng, c),
+                "qkv": w_site(f"{p}.attn.qkv.w", c, 3 * c, 1.5),
+                "proj": w_site(f"{p}.attn.proj.w", c, c, 0.25),
+                "fc1": w_site(f"{p}.mlp.fc1.w", c, hid, 1.5),
+                "fc2": w_site(f"{p}.mlp.fc2.w", hid, c, 0.25),
+                "rel_bias_table": (0.5 * rng.standard_normal(
+                    ((2 * ws - 1) ** 2, nh))).astype(f32),
+            })
+            site(f"{p}.qact1", act)
+            site(f"{p}.attn.qact1", act)
+            site(f"{p}.attn.qact_attn1", 2 * act)
+            site(f"{p}.attn.qact_table", act)
+            site(f"{p}.attn.qact2", 2 * act)
+            site(f"{p}.attn.qact3", act)
+            site(f"{p}.attn.qact4", act / 2)
+            ptf(f"{p}.qact2", act, c)
+            site(f"{p}.qact3", act)
+            site(f"{p}.mlp.qact1", act / 2)
+            ptf(f"{p}.mlp.qact2", act / 2, c)
+            ptf(f"{p}.qact4", act, c)
+        if s < spec.num_layers - 1:
+            p = f"layers.{s}.downsample"
+            st["downsample"] = {
+                "norm": _norm(rng, 4 * c),
+                "reduction": w_site(f"{p}.reduction.w", 4 * c, 2 * c, 1.0,
+                                    bias=False)}
+            site(f"{p}.qact1", act)
+            ptf(f"{p}.qact2", act, 2 * c)
+        ip["layers"].append(st)
+    ip["norm"] = _norm(rng, spec.num_features)
+    ip["head"] = w_site("head.w", spec.num_features, spec.num_classes, 1.0)
+    site("qact2", act)
+    site("qact3", act / 4)
+    site("act_out", 2 * act)
     ip["sym_acts"] = True
     return ip

@@ -10,15 +10,20 @@ import pytest
 import torch
 
 from diffvit_tpu_torch import QuantConfig
-from diffvit_tpu_torch.models import vit_int
-from diffvit_tpu_torch.models.convert import attn_constants, \
-    int_model_from_numpy
+from diffvit_tpu_torch.models import swin_int, vit_int
+from diffvit_tpu_torch.models.convert import (attn_constants,
+                                              int_model_from_numpy,
+                                              swin_block_constants,
+                                              swin_int_model_from_numpy)
+from diffvit_tpu_torch.models.swin import SWIN_SPECS, SwinSpec
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
 from diffvit_tpu_torch.ops.kernels.attention import (
     fused_qkv_attention_v2, fused_qkv_attention_v2_plain)
 from diffvit_tpu_torch.ops.kernels.mlp import (fused_int_mlp,
                                                fused_int_mlp_plain)
-from diffvit_tpu_torch.testing import random_int_model
+from diffvit_tpu_torch.ops.kernels.swin_attention import (
+    fused_swin_attention, fused_swin_attention_v2, swin_attention_plain)
+from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
 
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
@@ -95,8 +100,68 @@ def test_forward_on_card_matches_cpu(cuda):
         ip = int_model_from_numpy(ip_np, spec, d)
         out[str(d)] = vit_int.forward_q_int(ip, spec, cfg,
                                             torch.tensor(x, device=d)).cpu()
-    got, ref = out["cuda"].numpy(), out["cpu"].numpy()
-    # rule of tests/test_pallas_attention.py::_assert_paths_agree
+    _assert_paths_agree(out["cuda"].numpy(), out["cpu"].numpy())
+
+
+def _assert_paths_agree(got, ref):
+    """tests/test_pallas_attention.py::_assert_paths_agree."""
     assert np.mean(got == ref) > 0.995, np.mean(got == ref)
     np.testing.assert_allclose(got, ref, atol=0.05)
     np.testing.assert_array_equal(got.argmax(1), ref.argmax(1))
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_swin_attention_kernel_matches_plain(cuda, stage):
+    """K4 (on a strided view of the natural qkv) and K4b vs the plain
+    version at each Swin-T stage: 64/16/4/1 windows per image, 3/6/12/24
+    heads, the shifted block (a mask in stages 0-2)."""
+    spec = SWIN_SPECS["swin_tiny"]
+    ip = random_swin_int_model(spec, seed=0)
+    k = swin_block_constants(ip["layers"][stage]["blocks"][1], ip["qp"],
+                             f"layers.{stage}.blocks.1", spec, stage, 1,
+                             QuantConfig())
+    assert (k["mask_div"] is not None) == (stage < 3)
+    res = spec.stage_resolution(stage)[0]
+    nw, heads = (res // 7) ** 2, spec.num_heads[stage]
+    c = spec.stage_dim(stage)
+    dev = lambda a: None if a is None else torch.tensor(  # noqa: E731
+        np.asarray(a), device=cuda)
+    qkv = dev(_codes((2 * nw, 49, 3 * c), stage))
+    bias, mask, scal = dev(k["bias_q"]), dev(k["mask_div"]), \
+        dev(k["attn_scalars"])
+    kw = dict(num_heads=heads, n_real=49, n_windows=nw)
+    view = qkv.view(2 * nw, 49, 3, heads, 32).permute(0, 2, 3, 1, 4)
+    want = swin_attention_plain(view[:, 0], view[:, 1], view[:, 2], bias,
+                                mask, scal, n_real=49, n_windows=nw)
+    before = (fused_swin_attention.launches,
+              fused_swin_attention_v2.launches)
+    got = fused_swin_attention(view, bias, mask, scal, **kw)
+    got_c = fused_swin_attention(view.contiguous(), bias, mask, scal, **kw)
+    got2 = fused_swin_attention_v2(qkv, bias, mask, scal, head_dim=32, **kw)
+    torch.cuda.synchronize()
+    assert (fused_swin_attention.launches,
+            fused_swin_attention_v2.launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(got_c.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(
+        got2.cpu().numpy(),
+        want.permute(0, 2, 1, 3).reshape(2 * nw, 49, c).cpu().numpy())
+
+
+def test_swin_forward_on_card_matches_cpu(cuda):
+    """Two stages of Swin-T's widths at a 112 input, both attention
+    contracts: the card's logits vs the plain path on the CPU."""
+    cfg = QuantConfig()
+    spec = SwinSpec("swin_t2", embed_dim=96, depths=(2, 2), num_heads=(3, 6),
+                    img_size=112, num_classes=10)
+    ip_np = random_swin_int_model(spec, cfg, seed=1)
+    x = np.random.default_rng(3).integers(-60, 60, (2, 3, 112, 112)) \
+        .astype(np.int8)
+    ref = swin_int.forward_q_int(swin_int_model_from_numpy(ip_np, spec, "cpu"),
+                                 spec, cfg, torch.tensor(x)).numpy()
+    ip = swin_int_model_from_numpy(ip_np, spec, cuda)
+    for attn_v2 in (False, True):
+        got = swin_int.forward_q_int(ip, spec, cfg, torch.tensor(x, device=cuda),
+                                     attn_v2=attn_v2).cpu().numpy()
+        _assert_paths_agree(got, ref)

@@ -94,13 +94,22 @@ def test_port_runs_without_jax():
         "import sys, numpy as np\n"
         "import diffvit_tpu_torch, diffvit_tpu_torch.engine as e\n"
         "import diffvit_tpu_torch.models.vit_int\n"
+        "import diffvit_tpu_torch.models.swin_int\n"
+        "import diffvit_tpu_torch.ops.kernels.swin_attention\n"
+        "from diffvit_tpu_torch.models.swin import SwinSpec\n"
         "from diffvit_tpu_torch.models.vit import ViTSpec\n"
-        "from diffvit_tpu_torch.testing import random_int_model\n"
+        "from diffvit_tpu_torch.testing import random_int_model, "
+        "random_swin_int_model\n"
+        "cfg = diffvit_tpu_torch.QuantConfig()\n"
         "spec = ViTSpec('t', embed_dim=64, depth=1, num_heads=2, "
         "num_classes=10)\n"
-        "m = e.IntModel(random_int_model(spec), spec, "
-        "diffvit_tpu_torch.QuantConfig(), 'cpu')\n"
+        "m = e.IntModel(random_int_model(spec), spec, cfg, 'cpu')\n"
         "out = m(np.zeros((1, 3, 224, 224), np.uint8))\n"
+        "assert out.shape == (1, 10)\n"
+        "spec = SwinSpec('s', embed_dim=32, depths=(2, 1), "
+        "num_heads=(2, 4), img_size=56, num_classes=10)\n"
+        "m = e.IntModel(random_swin_int_model(spec), spec, cfg, 'cpu')\n"
+        "out = m(np.zeros((1, 3, 56, 56), np.uint8))\n"
         "assert out.shape == (1, 10)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
