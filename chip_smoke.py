@@ -6,24 +6,31 @@
 2. build:   compiles the port's kernels from diffvit_tpu_torch/csrc with nvcc
             (one nvcc per source, all started together);
 3. kernels: holds each kernel against its plain PyTorch version on the card
-            and times both: K1 and K2 at DeiT-S shapes (B = 1, 8, 64) and a
+            and times both: K1, K2 (int8 codes out and float32 out) and K5
+            (LIS and float softmax) at DeiT-S shapes (B = 1, 8, 64) and a
             tiny shape; K4 and K4b at Swin-T's four stage geometries and K2
             at its four widths (B = 1, 8, 64);
-4. serving: for DeiT-S int4, then Swin-T int4: saves a seeded model as an
-            int-model artifact, loads it with the port's load_int_model,
-            answers uint8 requests at b = 1 (4 times), 8 and 64 through
-            IntModel, checks that every forward went through the path's
-            kernels and no other, compares the card's logits with the plain
-            path on the CPU and runs validate().  DeiT-S also prints how far
-            its codes use the int8 range; Swin-T also runs one forward
-            through the natural-layout attention contract (K4b) and checks
-            that its logits equal K4's.
+4. serving: for DeiT-S int4, the FQ-ViT DeiT-S int8 (SmoothQuant off: K5
+            and K2 emitting float32) and Swin-T int4: saves a seeded model
+            as an int-model artifact, loads it with the port's
+            load_int_model, answers uint8 requests at b = 1 (4 times), 8
+            and 64 through IntModel, checks that every forward went through
+            the path's kernels and no other, compares the card's logits
+            with the plain path on the CPU and runs validate().  DeiT-S
+            int4 also prints how far its codes use the int8 range; Swin-T
+            also runs one forward through the natural-layout attention
+            contract (K4b) and checks that its logits equal K4's;
+5. branches: the other branches of the ViT forward at DeiT-S width, b = 8:
+            float (-1) sites, float LayerNorm (PTF off), asymmetric
+            activations; launches per forward and card vs CPU.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
-of the main paths, the card's name and power limit as nvidia-smi reports
-them, and as the last line {"ok": true, "device": {...}}.  Any failure
-raises: the exit code is then non-zero and no result line is printed.
-The weights are random (seeded): the repository has no pretrained ones.
+of the main paths (launches, error, times, and the bound: the least time
+the card could take for the same work), the card's name and power limit as
+nvidia-smi reports them, and as the last line {"ok": true, "device":
+{...}}.  Any failure raises: the exit code is then non-zero and no result
+line is printed.  The weights are random (seeded): the repository has no
+pretrained ones.
 """
 from __future__ import annotations
 
@@ -41,9 +48,11 @@ import torch
 from diffvit_tpu_torch import QuantConfig, engine
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_constants,
+                                              int_attn_scalars,
                                               swin_block_constants)
 from diffvit_tpu_torch.models.swin import SWIN_SPECS
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
+from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 from diffvit_tpu_torch.ops.kernels import (attention, build, mlp,
                                            swin_attention)
 from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
@@ -53,8 +62,14 @@ SWIN = SWIN_SPECS["swin_tiny"]  # full width and depth: 96..768, 2/2/6/2
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 CFG = QuantConfig()  # PTF, LIS, SmoothQuant on; int4 weights
+# FQ-ViT (--ptf --lis, W8A8, 4-bit LIS): SmoothQuant off, int8 weights
+FQVIT = QuantConfig(smoothquant=False, bit_w=BIT_TYPE_DICT["int8"])
 REQUESTS = (1, 1, 1, 1, 8, 64)  # images per request, served in this order
-MIN_EQUAL, MAX_DIFF = 0.999, 1  # kernel vs plain: equal int8 codes, |diff|
+# kernel vs plain: share of equal int8 codes, max |diff|; the float softmax
+# (K5 lis=False) is held to the JAX suite's rule for it: |diff| <= 1 on
+# fewer than 2% of codes
+TOL = {"exact": (0.999, 1), "softmax": (0.98, 1)}
+PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM: int8 op/s, HBM B/s
 
 
 def _swin_plain(qkv5, bias_q, mask_div, scalars, *, num_heads, n_real,
@@ -91,6 +106,11 @@ KERNELS = {
         fn=swin_attention.fused_swin_attention_v2, plain=_swin_plain_v2,
         source="diffvit_tpu_torch/csrc/swin_attention.cu",
         replaces="diffvit_tpu/ops/pallas/attention.py:928"),
+    "fused_int_attention": dict(
+        fn=attention.fused_int_attention,
+        plain=attention.fused_int_attention_plain,
+        source="diffvit_tpu_torch/csrc/qkv_attention.cu",
+        replaces="diffvit_tpu/ops/pallas/attention.py:993"),
 }
 
 
@@ -112,16 +132,18 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def codes(shape, seed, dev):
-    """LN-like int8 codes (std 30) on the card."""
+def codes(shape, seed, dev, std=30):
+    """LN-like int8 codes (std 30 by default) on the card."""
     rng = np.random.default_rng(seed)
-    return torch.tensor(np.clip(np.round(rng.standard_normal(shape) * 30),
+    return torch.tensor(np.clip(np.round(rng.standard_normal(shape) * std),
                                 -128, 127).astype(np.int8), device=dev)
 
 
-def kernel_case(name, ib, spec, batch, dev):
+def kernel_case(name, ib, spec, batch, dev, **kw):
     """The kernel's arguments at the main path's shapes: LN-like int8 codes
-    for ``batch`` images and the weights of one block."""
+    for ``batch`` images and the weights of one block.  K5 takes the qkv
+    codes as the qkv requant emits them, on its strided (B, 3, H, N, D)
+    view; ``kw`` goes to the kernel (``lis``, ``emit_codes``)."""
     x = codes((batch, spec.seq_len, spec.embed_dim), batch, dev)
     t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
     if name == "fused_qkv_attention_v2":
@@ -129,12 +151,60 @@ def kernel_case(name, ib, spec, batch, dev):
         q = ib["qkv"]
         return ((x, t(q["w_int"]), t(q["mult"]), t(q["b"]), t(scalars)),
                 dict(num_heads=spec.num_heads, head_dim=spec.head_dim,
-                     n_real=spec.seq_len, lis_fast=fast))
+                     n_real=spec.seq_len, lis_fast=fast, **kw))
+    if name == "fused_int_attention":
+        qkv = codes((batch, spec.seq_len, 3 * spec.embed_dim), batch + 7,
+                    dev, std=10)
+        view = qkv.view(batch, spec.seq_len, 3, spec.num_heads,
+                        spec.head_dim).permute(0, 2, 3, 1, 4)
+        return ((view, t(int_attn_scalars(ib, spec))),
+                dict(num_heads=spec.num_heads, n_real=spec.seq_len, **kw))
     f1, f2 = ib["fc1"], ib["fc2"]
     return ((x.reshape(-1, spec.embed_dim), t(f1["w_int"]),
              t(f2["w_int"]), t(f1["mult"]), t(f1["b"]), t(f2["mult"]),
              t(f2["b"]), t(ib["mlp.qact2"]["scale"]),
-             t(ib["mlp.qact1"]["scale"])), dict(emit_codes=True))
+             t(ib["mlp.qact1"]["scale"])), kw)
+
+
+def work(name, args, kw):
+    """(operations, bytes) one call needs: every input byte read once and
+    every output byte written once; the integer products, and for the
+    attention cores the scores and attn@v over the real keys."""
+    inputs = sum(a.numel() * a.element_size() for a in args
+                 if a is not None)
+    if name == "fused_qkv_attention_v2":
+        x, w = args[0], args[1]
+        b, n, cin = x.shape
+        c = w.shape[1] // 3
+        ops = 2 * b * n * cin * 3 * c + 4 * b * n * kw["n_real"] * c
+        return ops, inputs + b * n * c
+    if name == "fused_int_mlp":
+        x, w1, w2 = args[:3]
+        rows, cin = x.shape
+        hid, cout = w2.shape
+        out = rows * cout * (1 if kw.get("emit_codes") else 4)
+        return 2 * rows * (cin * hid + hid * cout), inputs + out
+    # the attention cores: K5 (B, 3, H, N, D), K4 the same on windows, K4b
+    # the natural (Bw, N, 3C)
+    qkv = args[0]
+    if qkv.dim() == 5:
+        b, _, h, n, d = qkv.shape
+        c = h * d
+    else:
+        b, n, c3 = qkv.shape
+        c = c3 // 3
+    n_real = kw["n_real"]
+    return 4 * b * n * n_real * c, inputs + b * n * c
+
+
+def bound(name, args, kw):
+    """The least time the card could take for the call: the larger of the
+    operations over the int8 tensor-core peak and the bytes over the HBM
+    rate.  Returns (ms, "operations" or "bytes")."""
+    ops, nbytes = work(name, args, kw)
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
 
 
 def swin_cases(ip, stage, batch, dev):
@@ -167,56 +237,82 @@ def swin_cases(ip, stage, batch, dev):
             "fused_int_mlp": (mlp_args, dict(emit_codes=True))}
 
 
-def hold(name, args, kw, **where):
+def hold(name, args, kw, tol="exact", decode=None, **where):
     """The kernel vs its plain version on the same inputs on the card, both
     timed in turns (plain, kernel, kernel, plain); one JSON line.  Fails
-    beyond the tolerance.  Returns (max |diff|, ms, plain ms)."""
+    beyond the tolerance ``TOL[tol]``.  ``decode`` turns a float32 output
+    into its int8-grid codes.  Returns (max |diff|, ms, plain ms)."""
     k = KERNELS[name]
     got = k["fn"](*args, **kw)
     want = k["plain"](*args, **kw)
     torch.cuda.synchronize()
+    if decode is not None:
+        got, want = decode(got), decode(want)
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     equal = float((got == want).float().mean())
     max_diff = int(diff.max())
     t = [cuda_ms(lambda: f(*args, **kw))
          for f in (k["plain"], k["fn"], k["fn"], k["plain"])]
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    emit(phase="kernel", kernel=name, **where, shape=list(args[0].shape),
-         equal=equal, max_abs_diff=max_diff, ms=ms, plain_ms=plain_ms)
-    if equal < MIN_EQUAL or max_diff > MAX_DIFF:
+    opts = {key: v for key, v in kw.items() if key in ("lis", "emit_codes")}
+    emit(phase="kernel", kernel=name, **where, **opts,
+         shape=list(args[0].shape), equal=equal, max_abs_diff=max_diff,
+         ms=ms, plain_ms=plain_ms)
+    min_equal, max_allowed = TOL[tol]
+    if equal < min_equal or max_diff > max_allowed:
         raise RuntimeError(
-            f"{name} {where}: {equal:.6f} of codes equal, max |diff| "
-            f"{max_diff} (tolerance >= {MIN_EQUAL}, <= {MAX_DIFF})")
+            f"{name} {where} {opts}: {equal:.6f} of codes equal, max |diff| "
+            f"{max_diff} (tolerance >= {min_equal}, <= {max_allowed})")
     return max_diff, ms, plain_ms
 
 
 def phase_kernels(dev):
     """Each kernel vs its plain version on the card; returns per kernel the
-    largest |diff| and its times at the heaviest shape of the main paths
-    (DeiT-S b=64 for K1 and K2, Swin-T stage 0 b=64 for K4 and K4b)."""
+    largest |diff| and, at the heaviest shape of the main paths (DeiT-S
+    b=64 for K1, K2 and K5; Swin-T stage 0 b=64 for K4 and K4b), its
+    times and its bound."""
     summary = {name: {"max_abs_err": 0} for name in KERNELS}
 
-    def note(name, result, at=None):
+    def note(name, result, heaviest=None):
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], result[0])
-        if at:
-            s["ms"], s["plain_ms"], s["at"] = result[1], result[2], at
+        if heaviest:
+            at, args, kw = heaviest
+            s["ms"], s["plain_ms"] = result[1], result[2]
+            s["bound_ms"], s["bound_by"] = bound(name, args, kw)
+            s["library_ms"], s["at"] = None, at
 
     for spec, batches in ((SPEC, (1, 8, 64)), (TINY, (2,))):
         ib = random_int_model(spec, CFG, seed=0)["blocks"][0]
-        for name in ("fused_qkv_attention_v2", "fused_int_mlp"):
+        ib_fq = random_int_model(spec, FQVIT, seed=0)["blocks"][0]
+        # (kernel, block, options, tolerance); the first row of each kernel
+        # is the one its main path runs
+        cases = (("fused_qkv_attention_v2", ib, {}, "exact"),
+                 ("fused_int_mlp", ib, dict(emit_codes=True), "exact"),
+                 ("fused_int_mlp", ib_fq, dict(emit_codes=False), "exact"),
+                 ("fused_int_attention", ib_fq, dict(lis=True), "exact"),
+                 ("fused_int_attention", ib_fq, dict(lis=False), "softmax"))
+        for name, blk, opts, tol in cases:
+            main_row = opts.get("emit_codes", True) and opts.get("lis", True)
             for b in batches:
-                args, kw = kernel_case(name, ib, spec, b, dev)
-                note(name, hold(name, args, kw, spec=spec.name, batch=b),
-                     spec is SPEC and b == 64 and f"{spec.name} b=64")
+                args, kw = kernel_case(name, blk, spec, b, dev, **opts)
+                decode = None
+                if name == "fused_int_mlp" and not kw["emit_codes"]:
+                    # float32 out: compare its codes on the mlp.qact2 grid
+                    def decode(y, s=args[7]):
+                        return torch.round(y / s)
+                heaviest = spec is SPEC and b == 64 and main_row \
+                    and (f"{spec.name} b=64", args, kw)
+                note(name, hold(name, args, kw, tol, decode, spec=spec.name,
+                                batch=b), heaviest)
     ip = random_swin_int_model(SWIN, CFG, seed=0)
     for stage in range(SWIN.num_layers):
         for b in (1, 8, 64):
             for name, (args, kw) in swin_cases(ip, stage, b, dev).items():
+                heaviest = name != "fused_int_mlp" and stage == 0 \
+                    and b == 64 and (f"{SWIN.name} stage 0 b=64", args, kw)
                 note(name, hold(name, args, kw, spec=SWIN.name, stage=stage,
-                                batch=b),
-                     name != "fused_int_mlp" and stage == 0 and b == 64
-                     and f"{SWIN.name} stage 0 b=64")
+                                batch=b), heaviest)
     return summary
 
 
@@ -303,15 +399,17 @@ def agree(got, ref, shape, **where):
         raise RuntimeError(f"{where}: bad logits, shape {got.shape}")
 
 
-def serve(spec, ip_np, path_kernels, dev):
-    """Save ``ip_np`` as an artifact, load it on the card and on the CPU,
-    answer the uint8 requests through IntModel with a launch check (each
-    kernel of ``path_kernels`` once per block of every forward), time
-    requests and forwards, hold the b=8 logits against the CPU plain path
-    and run validate()."""
+def serve(spec, ip_np, path_kernels, dev, cfg=CFG, label=None):
+    """Save ``ip_np`` (under ``cfg``) as an artifact, load it on the card
+    and on the CPU, answer the uint8 requests through IntModel with a
+    launch check (each kernel of ``path_kernels`` once per block of every
+    forward), time requests and forwards, hold the b=8 logits against the
+    CPU plain path and run validate().  ``label`` names the model in the
+    JSON lines (default: the spec's name)."""
+    label = label or spec.name
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, f"{spec.name}_int4.npz")
-        engine.save_int_model(path, ip_np, spec, CFG)
+        path = os.path.join(d, f"{spec.name}.npz")
+        engine.save_int_model(path, ip_np, spec, cfg)
         model = engine.load_int_model(path, dev)
         model_cpu = engine.load_int_model(path, "cpu")
     size = spec.img_size
@@ -340,7 +438,7 @@ def serve(spec, ip_np, path_kernels, dev):
         x = torch.tensor(model.encode(requests[REQUESTS.index(b)]),
                          device=dev)
         fwd_ms = cuda_ms(lambda: model(x), iters=10)
-        emit(phase="serve", model=spec.name, batch=b, requests=len(s),
+        emit(phase="serve", model=label, batch=b, requests=len(s),
              request_ms=1e3 * float(np.mean(s)),
              request_img_per_s=b / float(np.mean(s)),
              forward_ms=fwd_ms, forward_img_per_s=1e3 * b / fwd_ms)
@@ -348,7 +446,7 @@ def serve(spec, ip_np, path_kernels, dev):
     # the card's logits vs the plain path on the CPU (b=8 request)
     i8 = REQUESTS.index(8)
     agree(outputs[i8].cpu().numpy(), model_cpu(requests[i8]).numpy(),
-          (8, spec.num_classes), phase="card_vs_cpu", model=spec.name,
+          (8, spec.num_classes), phase="card_vs_cpu", model=label,
           batch=8)
 
     labels = np.random.default_rng(2).integers(0, spec.num_classes, 24)
@@ -356,7 +454,7 @@ def serve(spec, ip_np, path_kernels, dev):
     loader = [(big[8 * i:8 * i + 8], labels[8 * i:8 * i + 8])
               for i in range(3)]
     loss, top1, top5 = engine.validate(model, loader, print_freq=1)
-    emit(phase="validate", model=spec.name, images=24, loss=loss,
+    emit(phase="validate", model=label, images=24, loss=loss,
          prec1=top1, prec5=top5)
     return model, requests[i8], launches
 
@@ -372,6 +470,53 @@ def phase_serving(dev):
          at_bounds_max=max_stats, logits_distinct_across_images=distinct)
     if not distinct:
         raise RuntimeError("logits are identical across images")
+    return launches
+
+
+def phase_serving_fqvit(dev):
+    """The FQ-ViT DeiT-S int8 (SmoothQuant off) through K5 and K2 emitting
+    float32: 12 launches of each per forward, none of K1."""
+    _, _, launches = serve(
+        SPEC, random_int_model(SPEC, FQVIT, seed=0),
+        ("fused_int_attention", "fused_int_mlp"), dev, FQVIT,
+        f"{SPEC.name} fqvit_int8")
+    return launches
+
+
+def phase_branches(dev):
+    """The other branches of the ViT forward at DeiT-S width and depth, one
+    b=8 request each through IntModel: launches per forward as the
+    reference's branch rules give them, the card's logits against the CPU
+    plain path, and the forward's time."""
+    k1, k2, k5 = "fused_qkv_attention_v2", "fused_int_mlp", \
+        "fused_int_attention"
+    bc = [4] * (4 * SPEC.depth + 2)
+    for slot in (1, 4 * 5 + 2, 4 * 11 + 4):  # qkv 0, proj 5, fc2 11
+        bc[slot] = -1
+    ptf_off = QuantConfig(ptf=False)
+    cases = {
+        # block 0: K5 (float qkv) and K2; block 5: the unfused attention
+        # (float proj) and K2; block 11: K1 and the unfused MLP
+        "float_sites": (CFG, random_int_model(SPEC, CFG, 3, bc),
+                        {k1: 10, k5: 1, k2: 11}),
+        # float LayerNorm: K5, the unfused MLP, the float-LN head
+        "ptf_off": (ptf_off, random_int_model(SPEC, ptf_off, 3), {k5: 12}),
+        # the float32 stream: K1, the fake-quant fences, K2 emitting float32
+        "asymmetric": (CFG, dict(random_int_model(SPEC, CFG, 3),
+                                 sym_acts=False), {k1: 12, k2: 12}),
+    }
+    x = np.random.default_rng(4).integers(0, 256, (8, 3, 224, 224),
+                                          dtype=np.uint8)
+    launches = {}
+    for name, (cfg, ip_np, per_forward) in cases.items():
+        model = engine.IntModel(ip_np, SPEC, cfg, dev)
+        got, launches[f"{SPEC.name} {name}"] = drive(per_forward,
+                                                     lambda: model(x))
+        xc = torch.tensor(model.encode(x), device=dev)
+        fwd_ms = cuda_ms(lambda: model(xc), iters=5)
+        want = engine.IntModel(ip_np, SPEC, cfg, "cpu")(x).numpy()
+        agree(got.cpu().numpy(), want, (8, SPEC.num_classes),
+              phase="branches", branch=name, batch=8, forward_ms=fwd_ms)
     return launches
 
 
@@ -420,14 +565,20 @@ def main():
     emit(phase="build", seconds=seconds, cached=seconds == 0.0,
          library=os.path.relpath(path))
 
-    t0 = time.perf_counter()
+    t = [time.perf_counter()]
     summary = phase_kernels(dev)
-    t1 = time.perf_counter()
+    t.append(time.perf_counter())
     paths = {SPEC.name: phase_serving(dev)}
-    t2 = time.perf_counter()
+    t.append(time.perf_counter())
+    paths[f"{SPEC.name} fqvit_int8"] = phase_serving_fqvit(dev)
+    t.append(time.perf_counter())
+    paths.update(phase_branches(dev))
+    t.append(time.perf_counter())
     paths[SWIN.name], paths[f"{SWIN.name} attn_v2"] = phase_serving_swin(dev)
-    emit(phase="seconds", kernels=t1 - t0, deit_small=t2 - t1,
-         swin_tiny=time.perf_counter() - t2)
+    t.append(time.perf_counter())
+    emit(phase="seconds", **{k: b - a for k, a, b in zip(
+        ("kernels", "deit_small", "deit_small_fqvit", "branches",
+         "swin_tiny"), t, t[1:])})
 
     kernels = []
     for name, k in KERNELS.items():

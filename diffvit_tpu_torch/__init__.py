@@ -3,15 +3,17 @@
 The JAX package ``diffvit_tpu`` stays the reference.  This package mirrors
 its module names (``models/vit_int.py`` ↔ ``diffvit_tpu/models/vit_int.py``,
 ``ops/kernels/attention.py`` ↔ ``diffvit_tpu/ops/pallas/attention.py``, ...)
-and never imports ``jax``: the framework-neutral modules of ``diffvit_tpu``
-(``config``, ``ops.bit_types``, ``utils.serialize``, ``utils.metrics``,
-``data.imagenet``) are imported, not copied.
+and imports neither ``jax`` nor ``diffvit_tpu``: it keeps its own copies of
+the framework-neutral modules it needs (``config``, ``ops.bit_types``,
+``utils.serialize``, ``utils.metrics``, and the input-code table of
+``data.imagenet``), so an artifact written by either package loads in both.
 
-Ported so far: the served integer ViT forward on the int8-codes residual
-path (``models.vit_int.forward_q_int``), its two hand-written CUDA kernels
-(``ops.kernels``, sources in ``csrc/``) and the serving engine
+Ported so far: the served integer ViT forward, every branch of the
+reference's ``forward_q_int`` (``models.vit_int``), the served integer Swin
+forward on the int8-codes path (``models.swin_int``), their hand-written
+CUDA kernels (``ops.kernels``, sources in ``csrc/``) and the serving engine
 (``engine.IntModel`` / ``load_int_model`` / ``validate``).
 """
-from diffvit_tpu.config import QuantConfig
+from .config import QuantConfig
 
 __all__ = ["QuantConfig"]

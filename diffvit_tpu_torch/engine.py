@@ -9,17 +9,14 @@ import time
 import numpy as np
 import torch
 
-from diffvit_tpu.config import QuantConfig
-from diffvit_tpu.data.imagenet import (IMAGENET_MEAN, IMAGENET_STD,
-                                       input_code_lut)
-from diffvit_tpu.utils.metrics import AverageMeter, accuracy, cross_entropy
-from diffvit_tpu.utils.serialize import ArtifactError, load_pytree, \
-    save_pytree
-
+from .config import QuantConfig
+from .data.imagenet import IMAGENET_MEAN, IMAGENET_STD, input_code_lut
 from .models import swin_int, vit_int
 from .models.convert import int_model_from_numpy, swin_int_model_from_numpy
 from .models.swin import SwinSpec
 from .models.vit import ViTSpec
+from .utils.metrics import AverageMeter, accuracy, cross_entropy
+from .utils.serialize import ArtifactError, load_pytree, save_pytree
 
 
 class IntModel:
@@ -42,7 +39,7 @@ class IntModel:
             qp = ip["qp"]
             scale, zp = qp["qact_input.scale"], qp["qact_input.zp"]
         else:
-            self.ip = int_model_from_numpy(ip, spec, self.device)
+            self.ip = int_model_from_numpy(ip, spec, self.device, cfg)
             self._forward = vit_int.forward_q_int
             scale, zp = ip["qact_input"]["scale"], ip["qact_input"]["zp"]
         # (3, 256) int8 table: uint8 pixel -> qact_input code per channel

@@ -12,8 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from diffvit_tpu.config import QuantConfig
-
+from ..config import QuantConfig
 from ..ops.kernels.attention import lis_fast_ok, lis_sum_fits
 from ..ops.quant import fake_quant
 from .swin import SwinSpec, block_geometry, relative_position_index
@@ -46,27 +45,48 @@ def _check_lis_sum(s_a, n_keys, where):
             "exact int64 row sum of the LIS exponentials would overflow")
 
 
-def attn_constants(ib, spec: ViTSpec, block: int):
-    """The per-block host-side constants of the reference forward
-    (``vit_int.py:407-419``): the kernel scalars [s_a, c1, 1/s1, s1/s2] in
-    float32, and the fast-LIS gate."""
+def _attn_scales(ib, spec: ViTSpec):
+    """s1, s_a, s2 and c1 = s1^2 * attn_scale / s_a in float32, the
+    reference's order of operations (``vit_int.py:408, 439``)."""
     s1 = _scalar(ib["attn.qact1"]["scale"])
     s_a = _scalar(ib["attn.qact_attn1"]["scale"])
     s2 = _scalar(ib["attn.qact2"]["scale"])
-    _check_lis_sum(s_a, spec.seq_len, f"block {block}")
-    c1 = s1 * s1 * f32(spec.attn_scale) / s_a
+    return s1, s_a, s2, s1 * s1 * f32(spec.attn_scale) / s_a
+
+
+def attn_constants(ib, spec: ViTSpec, block: int, lis: bool = True):
+    """The per-block host-side constants of the reference forward
+    (``vit_int.py:407-419``): K1's scalars [s_a, c1, 1/s1, s1/s2] in
+    float32, and the fast-LIS gate.  With ``lis`` the softmax scale must
+    keep the exact LIS row sum in int64 (:func:`lis_sum_fits`)."""
+    s1, s_a, s2, c1 = _attn_scales(ib, spec)
+    if lis:
+        _check_lis_sum(s_a, spec.seq_len, f"block {block}")
     scalars = np.asarray([s_a, c1, f32(1.0) / s1, s1 / s2], np.float32)
     return scalars, lis_fast_ok(float(s_a))
 
 
-def int_model_from_numpy(ip, spec: ViTSpec, device) -> dict:
+def int_attn_scalars(ib, spec: ViTSpec) -> np.ndarray:
+    """K5's scalars [c1, s1/s2, s_a] in float32 (``vit_int.py:439-440``);
+    the unfused attention reads c1 and s_a from them too."""
+    s1, s_a, s2, c1 = _attn_scales(ib, spec)
+    return np.asarray([c1, s1 / s2, s_a], np.float32)
+
+
+def int_model_from_numpy(ip, spec: ViTSpec, device,
+                         cfg: QuantConfig | None = None) -> dict:
     """Copy every array of ``ip`` to ``device`` as a torch tensor (floats as
-    float32, int8 codes as int8) and add, per block, ``attn_scalars`` (the
-    attention kernel's (4,) float32 scalars) and ``lis_fast``."""
+    float32, int8 codes as int8; a float site keeps its float32 ``w`` and
+    ``b``) and add, per block, ``attn_scalars`` (K1's (4,) float32
+    scalars), ``int_attn_scalars`` (K5's (3,)) and ``lis_fast``.  The LIS
+    bound is checked where ``cfg.lis`` holds (default QuantConfig)."""
+    lis = (cfg or QuantConfig()).lis
     out = _to_torch(ip, device)
     for i, (ib_np, ib) in enumerate(zip(ip["blocks"], out["blocks"])):
-        scalars, fast = attn_constants(ib_np, spec, i)
+        scalars, fast = attn_constants(ib_np, spec, i, lis=lis)
         ib["attn_scalars"] = torch.tensor(scalars, device=device)
+        ib["int_attn_scalars"] = torch.tensor(int_attn_scalars(ib_np, spec),
+                                              device=device)
         ib["lis_fast"] = fast
     return out
 

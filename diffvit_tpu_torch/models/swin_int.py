@@ -21,8 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from diffvit_tpu.config import QuantConfig
-
+from ..config import QuantConfig
 from ..ops.int_layernorm import int_layernorm
 from ..ops.kernels.mlp import fused_int_mlp
 from ..ops.kernels.swin_attention import (fused_swin_attention,

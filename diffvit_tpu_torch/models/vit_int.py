@@ -1,36 +1,54 @@
-"""Integer ViT forward on the int8-codes residual path (counterpart of
-``diffvit_tpu/models/vit_int.py``).
+"""Integer ViT forward (counterpart of ``diffvit_tpu/models/vit_int.py``,
+``forward_q_int`` with ``use_pallas`` on).
 
-The model is the int-model pytree of ``diffvit_tpu.models.vit_int.
-prepare_int``, turned into torch tensors on one device by
-``models/convert.int_model_from_numpy``.  Each block runs the reference's
-codes path (``_block_int``, ``vit_int.py:365-513``): integer LayerNorm on
-the residual codes, the fused qkv + Log-Int-Softmax attention kernel, the
-proj GEMM, the qact3/residual/qact2 fences, integer LayerNorm with the
-norm2 rescale, the integer MLP kernel emitting codes, and the
-residual/qact4 fence.  The other branches of the reference's
-``_block_int`` (float sites, SmoothQuant or the integer LayerNorm off,
-asymmetric activations) are not ported yet and raise.
+The model is the int-model pytree of the JAX package's ``prepare_int``,
+turned into torch tensors on one device by
+``models/convert.int_model_from_numpy``.  Every branch of the reference's
+``_embed_front``, ``_block_int`` and ``_head_tail`` is here, chosen by the
+same rules (``vit_int.py:360-374``):
+
+* the codes path (PTF, LIS and SmoothQuant on, no float site, symmetric
+  activations): integer LN on the int8 residual codes, the fused qkv + LIS
+  kernel (K1), the proj GEMM, the code fences, integer LN with the norm2
+  rescale, the integer MLP kernel (K2) emitting codes;
+* the float32 stream with the same kernels (``sym_acts`` False): K1, the
+  fake-quant fences, K2 emitting float32;
+* SmoothQuant off (FQ-ViT) or float LayerNorm: the qkv GEMM and its
+  requant in torch, then the attention core kernel (K5,
+  ``fused_int_attention``), LIS or float softmax;
+* a float (-1) proj site: the unfused attention in torch;
+* float LayerNorm or a float fc1/fc2 site: the unfused MLP with the
+  exact-erf GELU;
+* float (-1) patch and head sites, ``input_quant=False`` (an f32 wire
+  through a float patch), and the float-LN head.
 
 Exactness: integer products are exact (``ops.quant.int_matmul``); the
 integer LayerNorm's row sums are exact int64 sums, where the reference sums
 float32 values (``sum_x2`` passes 2^24 at C=384, so the reference's value
-depends on its summation order); everything else rounds as the reference's
-op sequence does.
+depends on its summation order); the float LayerNorm, the float sites'
+matmuls, the exact GELU and the float softmax, whose float32 values depend
+on the order of their sums or on the transcendental's implementation, are
+computed in float64 and rounded once to float32, so the card agrees with
+the CPU, and both with the reference within an ulp; everything else rounds
+as the reference's op sequence does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from diffvit_tpu.config import QuantConfig
-
-from ..ops.int_layernorm import int_ln_codes
-from ..ops.kernels.attention import fused_qkv_attention_v2
+from ..config import QuantConfig
+from ..ops.int_layernorm import float_layernorm, int_ln_codes
+from ..ops.kernels.attention import (fused_int_attention,
+                                     fused_qkv_attention_v2)
 from ..ops.kernels.mlp import fused_int_mlp
+from ..ops.lis import log_int_softmax_from_int
 from ..ops.quant import fake_quant, int_matmul
 from .vit import ViTSpec, patchify
 
 I8 = torch.int8
+F32, F64 = torch.float32, torch.float64
+_SQRT_HALF = float(np.float32(np.sqrt(0.5)))  # the reference's constant
 
 
 def _requant_i8(y, scale, lb=-128, ub=127):
@@ -43,8 +61,27 @@ def _int_dot(x_i8, w_i8_t):
     return int_matmul(x_i8, w_i8_t)
 
 
+def _int_linear(x_i8, site):
+    """An integer site: int32 product -> float32 ``acc * mult + b``."""
+    return _int_dot(x_i8, site["w_int"]).to(F32) * site["mult"] + site["b"]
+
+
+def _fp_linear(x, site):
+    """A float (-1) site: ``x @ w.T + b`` of float32 ``x``, summed in
+    float64 and rounded once to float32 (the reference's float32 sum
+    depends on its order)."""
+    y = torch.matmul(x.to(F64), site["w"].to(F64).T) + site["b"].to(F64)
+    return y.to(F32)
+
+
 def _fq_site(site, x, bt):
     return fake_quant(x, site["scale"], site["zp"], bt)
+
+
+def _codes(h, scale, bt):
+    """The codes of ``h``, a fake-quant output on the ``scale`` grid."""
+    return torch.clamp(torch.round(h / scale), bt.lower_bound,
+                       bt.upper_bound).to(I8)
 
 
 def _ln_int8(x, ln, in_scale, out_scale_vec, eps, a_bits=8, rescale=None,
@@ -55,7 +92,7 @@ def _ln_int8(x, ln, in_scale, out_scale_vec, eps, a_bits=8, rescale=None,
     the input's int8 codes on the ``in_scale`` grid, used instead of
     rounding ``x``.  ``eps`` is unused, as in the reference."""
     in_scale = in_scale.expand(ln["w"].shape[-1])
-    x_q = x_codes.to(torch.float32) if x_codes is not None \
+    x_q = x_codes.to(F32) if x_codes is not None \
         else torch.round(x / in_scale)
     y = int_ln_codes(x_q, ln["w"], ln["b"], in_scale, out_scale_vec)
     if rescale is not None:
@@ -64,23 +101,40 @@ def _ln_int8(x, ln, in_scale, out_scale_vec, eps, a_bits=8, rescale=None,
     return torch.clamp(y, lb, ub).to(I8)
 
 
+def _gelu_exact(y):
+    """The exact-erf GELU in the reference's form, ``0.5 * y * erfc(-y *
+    sqrt(1/2))`` (``jax.nn.gelu(approximate=False)``), in float64 and
+    rounded once to float32: ``erfc`` differs by an ulp between XLA, CPU
+    torch and CUDA in float32."""
+    yd = y.to(F64)
+    return (0.5 * yd * torch.special.erfc(-yd * _SQRT_HALF)).to(F32)
+
+
+def _float_ln(h, ln, spec: ViTSpec):
+    return float_layernorm(h, ln["w"], ln["b"], spec.ln_eps)
+
+
 def _embed_front(ip, spec: ViTSpec, cfg: QuantConfig, x):
     """Input quant -> patch embed -> cls/pos fences -> qact1 fake-quant.
     int8 ``x`` holds pre-encoded qact_input codes (``input_code_lut``);
-    float32 ``x`` is fake-quantized here."""
+    float32 ``x`` is fake-quantized here (``input_quant=False``: taken as
+    it is, through the float patch)."""
     bt_a = cfg.bit_a
     pt = ip["patch"]
-    if pt["fp"]:
-        raise NotImplementedError("_embed_front: float (-1) patch site")
-    if not spec.input_quant:
-        raise NotImplementedError(
-            "_embed_front: input_quant=False (unquantized input)")
     if x.dtype == I8:
+        if not spec.input_quant:
+            raise ValueError(
+                "int8 input codes require input_quant=True (vit_large-"
+                "style models take unquantized input; ship f32 instead)")
         p_int = patchify(x, spec)
+        h = _fp_linear(p_int.to(F32) * ip["qact_input"]["scale"], pt) \
+            if pt["fp"] else _int_linear(p_int, pt)
     else:
-        x = _fq_site(ip["qact_input"], x, bt_a)
-        p_int = _requant_i8(patchify(x, spec), ip["qact_input"]["scale"])
-    h = _int_dot(p_int, pt["w_int"]).to(torch.float32) * pt["mult"] + pt["b"]
+        if spec.input_quant:
+            x = _fq_site(ip["qact_input"], x, bt_a)
+        patches = patchify(x, spec)
+        h = _fp_linear(patches, pt) if pt["fp"] else _int_linear(
+            _requant_i8(patches, ip["qact_input"]["scale"]), pt)
     h = _fq_site(ip["patch.qact"], h, bt_a)
     cls = ip["cls_token"].expand(x.shape[0], 1, spec.embed_dim)
     h = torch.cat([cls, h], dim=1)
@@ -89,91 +143,162 @@ def _embed_front(ip, spec: ViTSpec, cfg: QuantConfig, x):
     return _fq_site(ip["qact1"], h, bt_a)
 
 
-def _head_tail(ip, spec: ViTSpec, cfg: QuantConfig, hc):
-    """Final integer LN of the cls token -> head GEMM -> act_out, from the
-    residual codes ``hc`` (the reference's ``int_norm`` branch with codes)."""
-    if not cfg.int_norm:
-        raise NotImplementedError("_head_tail: float LayerNorm (int_norm off)")
+def _head_tail(ip, spec: ViTSpec, cfg: QuantConfig, h, hc):
+    """Final norm of the cls token -> head -> act_out.  ``h`` is the f32
+    residual stream, ``hc`` its int8 codes or None (codes win when given).
+    The LN is per token, so only the cls row is normalized."""
     head = ip["head"]
-    if head["fp"]:
-        raise NotImplementedError("_head_tail: float (-1) head site")
-    s_out = ip["qact2"]["scale"]
-    # the LN is per token, so only the cls row is normalized
-    h_i8 = _ln_int8(None, ip["norm"], ip["blocks"][-1]["qact4"]["scale"],
-                    s_out, spec.ln_eps, x_codes=hc[:, 0])
-    logits = _int_dot(h_i8, head["w_int"]).to(torch.float32) * head["mult"] \
-        + head["b"]
+    if cfg.int_norm:
+        s_out = ip["qact2"]["scale"]
+        h_i8 = _ln_int8(h[:, 0] if hc is None else None, ip["norm"],
+                        ip["blocks"][-1]["qact4"]["scale"], s_out,
+                        spec.ln_eps,
+                        x_codes=None if hc is None else hc[:, 0])
+        logits = _fp_linear(h_i8.to(F32) * s_out, head) if head["fp"] \
+            else _int_linear(h_i8, head)
+    else:
+        hf = _fq_site(ip["qact2"], _float_ln(h[:, 0], ip["norm"], spec),
+                      cfg.bit_a)
+        logits = _fp_linear(hf, head) if head["fp"] else _int_linear(
+            _requant_i8(hf, ip["qact2"]["scale"]), head)
     return _fq_site(ip["act_out"], logits, cfg.bit_a)
 
 
-def _check_codes_path(ib, bits4, cfg: QuantConfig, sym_acts: bool):
-    """Raise for every branch of the reference's _block_int but the codes
-    path, naming it."""
-    if any(ib[s]["fp"] for s in ("qkv", "proj", "fc1", "fc2")) \
-            or -1 in bits4:
-        raise NotImplementedError("_block_int: float (-1) site in a block")
-    if not cfg.smoothquant:
-        raise NotImplementedError(
-            "_block_int: SmoothQuant off (the fused_int_attention branch)")
-    if not cfg.int_norm:
-        raise NotImplementedError(
-            "_block_int: float LayerNorm (int_norm off)")
-    if not sym_acts:
-        raise NotImplementedError(
-            "_block_int: asymmetric activations (sym_acts False, the f32 "
-            "fence path)")
+def _attention_unfused(ib, qkv_i8, spec: ViTSpec, cfg: QuantConfig):
+    """The attention of a block whose proj site is float (``vit_int.py:
+    448-476``): scores, LIS (or float softmax) and attn@v in torch, then
+    the qact2 fence and the float proj.  The LIS weights are powers of two
+    and attn@v is exact, as in the reference; the float softmax and its
+    attn@v are taken in float64 and rounded once to float32."""
+    B, N = qkv_i8.shape[:2]
+    t = qkv_i8.view(B, N, 3, spec.num_heads, spec.head_dim) \
+        .permute(2, 0, 3, 1, 4)
+    scalars = ib["int_attn_scalars"]  # [c1, s1/s2, s_a]
+    s_a = scalars[2]
+    a32 = int_matmul(t[0], t[1].transpose(-1, -2))
+    a_int = torch.clamp(torch.round(a32.to(F32) * scalars[0]),
+                        cfg.bit_a.lower_bound, cfg.bit_a.upper_bound)
+    if cfg.lis:
+        attn = log_int_softmax_from_int(a_int, s_a, cfg.bit_s).to(F64)
+    else:
+        attn = torch.softmax((a_int * s_a).to(F64), dim=-1) \
+            .to(F32).to(F64)
+    o = torch.matmul(attn, t[2].to(F64)).to(F32)
+    o = o.permute(0, 2, 1, 3).reshape(B, N, spec.embed_dim) \
+        * ib["attn.qact1"]["scale"]
+    return _fp_linear(_fq_site(ib["attn.qact2"], o, cfg.bit_a), ib["proj"])
+
+
+def _mlp_kernel(ib, x_i8, *, emit_codes):
+    """K2 over the block's (B, N, C) int8 LN2 codes: int8 mlp.qact2 codes
+    or their float32 values, (B, N, C)."""
+    B, N, _ = x_i8.shape
+    fc1, fc2 = ib["fc1"], ib["fc2"]
+    return fused_int_mlp(
+        x_i8.reshape(B * N, -1), fc1["w_int"], fc2["w_int"], fc1["mult"],
+        fc1["b"], fc2["mult"], fc2["b"], ib["mlp.qact2"]["scale"],
+        ib["mlp.qact1"]["scale"], emit_codes=emit_codes).reshape(B, N, -1)
 
 
 def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
                *, sym_acts=False):
-    """One encoder block on the int8-codes residual stream: (h, hc) ->
-    (h, hc).  ``hc`` holds the residual's codes on the ``in_scale`` grid;
-    when it is None, ``h`` (a fake-quant output on that grid) is turned
-    into codes first."""
-    _check_codes_path(ib, bits4, cfg, sym_acts)
+    """One encoder block: (h, hc) -> (h, hc).  ``h`` is the f32 residual
+    stream (meaningless while ``hc`` is set); ``hc`` its int8 codes on the
+    ``in_scale`` grid, carried between blocks that take the codes path."""
+    b_qkv, b_proj, b_fc1, b_fc2 = bits4
     bt_a = cfg.bit_a
     eps = spec.ln_eps
     n_heads, h_dim = spec.num_heads, spec.head_dim
-    if hc is None:
-        hc = torch.clamp(torch.round(h / in_scale), bt_a.lower_bound,
-                         bt_a.upper_bound).to(I8)
-    B, N = hc.shape[0], hc.shape[1]
     qkv_site, proj_site = ib["qkv"], ib["proj"]
     fc1_site, fc2_site = ib["fc1"], ib["fc2"]
+    fused2_path = (not qkv_site["fp"] and not proj_site["fp"]
+                   and cfg.int_norm and cfg.smoothquant)
+    mlp_fused = (cfg.int_norm and not fc1_site["fp"] and not fc2_site["fp"]
+                 and b_fc2 != -1)
+    codes_path = fused2_path and mlp_fused and sym_acts
+    if codes_path and hc is None:
+        hc = _codes(h, in_scale, bt_a)  # enter codes mode
+    elif not codes_path and hc is not None:
+        h, hc = hc.to(F32) * in_scale, None  # leave codes mode
+    B, N = (hc if codes_path else h).shape[:2]
 
     # ---- attention ----
-    x_i8 = _ln_int8(None, ib["norm1"], in_scale, qkv_site["in_scale"], eps,
-                    x_codes=hc)
-    o_i8 = fused_qkv_attention_v2(
-        x_i8, qkv_site["w_int"], qkv_site["mult"], qkv_site["b"],
-        ib["attn_scalars"], num_heads=n_heads, head_dim=h_dim, n_real=N,
-        bits=cfg.bit_s.bits, lis=cfg.lis, lis_fast=ib["lis_fast"])
-    # proj contracts the (H, D) head layout jointly
-    o_flat = o_i8.permute(0, 2, 1, 3).reshape(B, N, n_heads * h_dim)
-    y = _int_dot(o_flat, proj_site["w_int"]).to(torch.float32) \
-        * proj_site["mult"] + proj_site["b"]
+    x_i8 = y = None
+    if qkv_site["fp"]:
+        y = _fp_linear(_float_ln(h, ib["norm1"], spec), qkv_site)
+    elif codes_path:
+        x_i8 = _ln_int8(None, ib["norm1"], in_scale, qkv_site["in_scale"],
+                        eps, x_codes=hc)
+    elif cfg.int_norm and b_proj != -1:
+        x_i8 = _ln_int8(h, ib["norm1"], in_scale, qkv_site["in_scale"], eps)
+    else:
+        x_i8 = _requant_i8(_float_ln(h, ib["norm1"], spec),
+                           qkv_site["in_scale"])
+    if fused2_path:
+        o_i8 = fused_qkv_attention_v2(
+            x_i8, qkv_site["w_int"], qkv_site["mult"], qkv_site["b"],
+            ib["attn_scalars"], num_heads=n_heads, head_dim=h_dim, n_real=N,
+            bits=cfg.bit_s.bits, lis=cfg.lis, lis_fast=ib["lis_fast"])
+        # proj contracts the (H, D) head layout jointly
+        y = _int_linear(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
+                        proj_site)
+    else:
+        if y is None:
+            y = _int_linear(x_i8, qkv_site)
+        # the qkv requant divides by s1 (a tensor: CUDA torch would take
+        # the reciprocal of a Python number)
+        qkv_i8 = _requant_i8(y, ib["attn.qact1"]["scale"])
+        if proj_site["fp"]:
+            y = _attention_unfused(ib, qkv_i8, spec, cfg)
+        else:
+            qkv5 = qkv_i8.view(B, N, 3, n_heads, h_dim).permute(0, 2, 3, 1, 4)
+            o_i8 = fused_int_attention(
+                qkv5, ib["int_attn_scalars"], num_heads=n_heads, n_real=N,
+                bits=cfg.bit_s.bits, lis=cfg.lis)
+            y = _int_linear(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
+                            proj_site)
 
     # ---- fences + mlp ----
-    s3 = ib["attn.qact3"]["scale"]
     s_blk2 = ib["qact2"]["scale"]
-    yq3 = torch.clamp(torch.round(y / s3), bt_a.lower_bound,
-                      bt_a.upper_bound)                    # attn.qact3
-    hs = hc.to(torch.float32) * in_scale + yq3 * s3          # residual
-    hc = torch.clamp(torch.round(hs / s_blk2), bt_a.lower_bound,
-                     bt_a.upper_bound).to(I8)              # qact2
-    x_i8 = _ln_int8(None, ib["norm2"], s_blk2,
-                    fc1_site.get("ln_out_scale", fc1_site["in_scale"]), eps,
-                    rescale=fc1_site.get("ln_rescale"), x_codes=hc)
-    y2c = fused_int_mlp(
-        x_i8.reshape(B * N, -1), fc1_site["w_int"], fc2_site["w_int"],
-        fc1_site["mult"], fc1_site["b"], fc2_site["mult"], fc2_site["b"],
-        ib["mlp.qact2"]["scale"], ib["mlp.qact1"]["scale"],
-        emit_codes=True).reshape(B, N, -1)
-    hs = hc.to(torch.float32) * s_blk2 \
-        + y2c.to(torch.float32) * ib["mlp.qact2"]["scale"]   # residual
-    hc = torch.clamp(torch.round(hs / ib["qact4"]["scale"]), bt_a.lower_bound,
-                     bt_a.upper_bound).to(I8)              # qact4
-    return h, hc
+    ln_out = fc1_site.get("ln_out_scale", fc1_site.get("in_scale"))
+    ln_rescale = fc1_site.get("ln_rescale")
+    if codes_path:
+        s3 = ib["attn.qact3"]["scale"]
+        yq3 = torch.clamp(torch.round(y / s3), bt_a.lower_bound,
+                          bt_a.upper_bound)                # attn.qact3
+        hs = hc.to(F32) * in_scale + yq3 * s3              # residual
+        hc = _codes(hs, s_blk2, bt_a)                      # qact2
+        x_i8 = _ln_int8(None, ib["norm2"], s_blk2, ln_out, eps,
+                        rescale=ln_rescale, x_codes=hc)
+        y2c = _mlp_kernel(ib, x_i8, emit_codes=True)
+        hs = hc.to(F32) * s_blk2 \
+            + y2c.to(F32) * ib["mlp.qact2"]["scale"]       # residual
+        return h, _codes(hs, ib["qact4"]["scale"], bt_a)   # qact4
+    y = _fq_site(ib["attn.qact3"], y, bt_a)
+    h = _fq_site(ib["qact2"], h + y, bt_a)
+    if mlp_fused:
+        x_i8 = _ln_int8(h, ib["norm2"], s_blk2, ln_out, eps,
+                        rescale=ln_rescale)
+        y = _mlp_kernel(ib, x_i8, emit_codes=False)
+    else:
+        if fc1_site["fp"]:
+            y = _fp_linear(_float_ln(h, ib["norm2"], spec), fc1_site)
+        else:
+            if cfg.int_norm and b_fc2 != -1:
+                x_i8 = _ln_int8(h, ib["norm2"], s_blk2, ln_out, eps,
+                                rescale=ln_rescale)
+            else:
+                x_i8 = _requant_i8(_float_ln(h, ib["norm2"], spec),
+                                   fc1_site["in_scale"])
+            y = _int_linear(x_i8, fc1_site)
+        y = _gelu_exact(y)
+        if fc2_site["fp"]:
+            y = _fp_linear(_fq_site(ib["mlp.qact1"], y, bt_a), fc2_site)
+        else:
+            y = _int_linear(_requant_i8(y, ib["mlp.qact1"]["scale"]),
+                            fc2_site)
+        y = _fq_site(ib["mlp.qact2"], y, bt_a)
+    return _fq_site(ib["qact4"], h + y, bt_a), hc
 
 
 def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x):
@@ -182,10 +307,11 @@ def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x):
     device.  Returns (B, num_classes) float32 logits on the act_out grid."""
     h = _embed_front(ip, spec, cfg, x)
     bc = ip["bit_config"]
+    sym_acts = bool(ip.get("sym_acts", False))
     hc = None
     for i, ib in enumerate(ip["blocks"]):
         in_scale = ip["qact1"]["scale"] if i == 0 \
             else ip["blocks"][i - 1]["qact4"]["scale"]
         h, hc = _block_int(ib, bc[4 * i + 1: 4 * i + 5], in_scale, h, hc,
-                           spec, cfg, sym_acts=ip.get("sym_acts", False))
-    return _head_tail(ip, spec, cfg, hc)
+                           spec, cfg, sym_acts=sym_acts)
+    return _head_tail(ip, spec, cfg, h, hc)

@@ -14,6 +14,7 @@ codes out) run, so the exactness fixes below hold for both:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .quant import pow2
@@ -71,3 +72,19 @@ def int_layernorm(x, weight, bias, in_scale, out_scale):
     out_scale = out_scale.expand(c)
     x_q = torch.round(x / in_scale)
     return int_ln_codes(x_q, weight, bias, in_scale, out_scale) * out_scale
+
+
+def float_layernorm(x, weight, bias, eps: float = 1e-6):
+    """Plain float LayerNorm over the last axis of float32 ``x`` (``int_norm``
+    off), as the reference writes it: the population variance, ``(x - mean)
+    / sqrt(var + eps) * w + b``.  The reference's float32 value depends on
+    the order of its sums, which XLA, CPU torch and CUDA each choose
+    differently; here it is computed in float64 and rounded once to
+    float32, so the card and the CPU agree, and the reference within an
+    ulp."""
+    xd = x.to(torch.float64)
+    mean = xd.mean(-1, keepdim=True)
+    var = ((xd - mean) ** 2).mean(-1, keepdim=True)
+    y = (xd - mean) / torch.sqrt(var + float(np.float32(eps))) \
+        * weight.to(torch.float64) + bias.to(torch.float64)
+    return y.to(torch.float32)

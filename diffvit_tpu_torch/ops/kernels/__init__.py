@@ -3,7 +3,7 @@
 Each wrapper takes its kernel for a CUDA tensor and its plain version for a
 CPU tensor, raises for any other device, and counts the kernel launches in
 an integer attribute (``fused_qkv_attention_v2.launches``,
-``fused_int_mlp.launches``)."""
+``fused_int_attention.launches``, ``fused_int_mlp.launches``, ...)."""
 from __future__ import annotations
 
 import torch

@@ -1,14 +1,19 @@
 """Fused int8 qkv projection + Log-Int-Softmax attention (counterpart of
-``diffvit_tpu/ops/pallas/attention.py::fused_qkv_attention_v2``).
+``diffvit_tpu/ops/pallas/attention.py::fused_qkv_attention_v2``, K1), and
+the attention core alone on projected qkv (``::fused_int_attention``, K5).
 
     qkv    = clip(rint(x_i8 @ w * mult/s1 + bias/s1))          (qact1 codes)
     a_int  = clip(rint(q_h @ k_h^T * c1))                      (qact_attn1)
     w      = LogIntSoftmax(a_int)                               (2^-code)
     out    = clip(rint((w @ v_h) * s1/s2))                      (qact2 codes)
 
-The CUDA kernel is ``csrc/qkv_attention.cu``; the plain version below is
-its exact specification, and both differ from the JAX reference only where
-the reference's own arithmetic is order- or approximation-dependent:
+K5 runs the last three lines (with the slow LIS, or for ``lis=False`` a
+float softmax rounded to bfloat16, taken in float64 with attn@v, each
+rounded once).  Both kernels are
+``csrc/qkv_attention.cu``; the plain versions below are their
+specification, exact for the LIS, and both differ from the JAX reference
+only where the reference's own arithmetic is order- or
+approximation-dependent:
 
 * the row sum of the integer exponentials is exact (an int64 sum, rounded
   once to float32), where the reference sums float32 terms of up to 2^55;
@@ -219,3 +224,87 @@ def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
 
 
 fused_qkv_attention_v2.launches = 0
+
+
+def _softmax_weights_plain(a_int, s_a, col_ok):
+    """The float-softmax branch (``lis=False``) of ``_attn_kernel``: softmax
+    of the float32 logits ``a_int * s_a`` over the columns ``col_ok``, taken
+    in float64, rounded to float32 and then to bfloat16; returned as
+    float64.  (The reference takes it in float32, where the exponential and
+    the order of the row sum differ by an ulp between devices; float64
+    rounded once does not.)"""
+    logits = torch.where(col_ok, a_int * s_a, -torch.inf)
+    p = torch.softmax(logits.to(torch.float64), dim=-1)
+    return p.to(torch.float32).to(torch.bfloat16).to(torch.float64)
+
+
+def fused_int_attention_plain(qkv_i8, scalars, *, num_heads, n_real, bits=4,
+                              lis=True):
+    """Plain PyTorch version of :func:`fused_int_attention`."""
+    q, k, v = qkv_i8[:, 0], qkv_i8[:, 1], qkv_i8[:, 2]
+    scores = int_matmul(q, k.transpose(-1, -2))
+    a_int = torch.clamp(torch.round(scores.to(torch.float32) * scalars[0]),
+                        -128, 127)
+    col_ok = torch.arange(q.shape[-2], device=q.device) < n_real
+    if lis:
+        weights = lis_body_plain(a_int, scalars[2], bits, col_ok)
+        acc = _weighted_values(weights, v).to(torch.float32) * 2.0**-15
+    else:
+        # products of bfloat16 weights and int8 values are exact, and their
+        # float64 sum is too at these exponent spreads: one rounding
+        weights = _softmax_weights_plain(a_int, scalars[2], col_ok)
+        acc = torch.matmul(weights, v.to(torch.float64)).to(torch.float32)
+    o = torch.round(acc * scalars[1])
+    return torch.clamp(o, -128, 127).to(torch.int8)
+
+
+def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
+                        lis=True):
+    """Attention core on projected qkv codes (SmoothQuant off).
+
+    qkv_i8: (B, 3, H, N, D) int8 on the qact1 grid — any strides whose
+    innermost is 1, e.g. the view ``qkv.view(B, N, 3, H, D).permute(0, 2,
+    3, 1, 4)`` of the qkv GEMM's (B, N, 3C) output, read without a copy.
+    Rows at or past ``n_real`` are never used as keys.  scalars: (3,)
+    float32 [c1, s1/s2, s_a] (c1 = s1^2 * attn_scale / s_a).  ``lis``: the
+    Log-Int-Softmax (slow form, as the Pallas kernel runs it), else the
+    float softmax rounded to bfloat16.
+    Returns (B, H, N, D) int8 on the qact2 grid.
+
+    A CUDA tensor runs ``csrc/qkv_attention.cu``'s attention core (the one
+    K1 runs after its qkv GEMM); a CPU tensor runs
+    :func:`fused_int_attention_plain`."""
+    if lis and bits > 4:
+        raise NotImplementedError(
+            "fused_int_attention: LIS supports bits <= 4 only")
+    if route(qkv_i8, scalars) == "cpu":
+        return fused_int_attention_plain(qkv_i8, scalars,
+                                         num_heads=num_heads, n_real=n_real,
+                                         bits=bits, lis=lis)
+    b, three, h, npad, d = qkv_i8.shape
+    require(qkv_i8.dtype == torch.int8 and three == 3 and h == num_heads,
+            f"qkv_i8 {tuple(qkv_i8.shape)} {qkv_i8.dtype}: expected int8 "
+            f"(B, 3, {num_heads}, N, D)")
+    check_for_kernel(scalars, "scalars", torch.float32, 1)
+    require(scalars.numel() == 3, "scalars must hold [c1, s1/s2, s_a]")
+    require(0 < n_real <= min(npad, MAX_KEYS),
+            f"n_real={n_real}: the kernel takes 1..min(N, {MAX_KEYS}) keys")
+    require(d <= 64 and d % 4 == 0,
+            f"head_dim={d}: the kernel takes multiples of 4 up to 64")
+    st = qkv_i8.stride()
+    require(st[4] == 1 and all(s % 4 == 0 for s in st[:4])
+            and qkv_i8.data_ptr() % 4 == 0,
+            f"qkv_i8 strides {st}: the innermost must be 1 and the others "
+            "multiples of 4 (4-byte loads)")
+    out = torch.empty((b, h, npad, d), dtype=torch.int8, device=qkv_i8.device)
+    so = out.stride()
+    err = load_library().dvt_int_attention(
+        qkv_i8.data_ptr(), scalars.data_ptr(), out.data_ptr(), b, h, npad, d,
+        n_real, int(lis), *st[:4], *so[:3],
+        torch.cuda.current_stream(qkv_i8.device).cuda_stream)
+    check(err, "fused_int_attention")
+    fused_int_attention.launches += 1
+    return out
+
+
+fused_int_attention.launches = 0

@@ -34,6 +34,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # element strides as c_longlong)
 ENTRIES = {
     "dvt_qkv_attention": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "dvt_int_attention": (_P,) * 3 + (_I,) * 6 + (_L,) * 7 + (_P,),
     "dvt_int_mlp": (_P,) * 12 + (_I,) * 5 + (_P,),
     "dvt_swin_attention": (_P,) * 5 + (_I,) * 6 + (_L,) * 7 + (_P,),
 }

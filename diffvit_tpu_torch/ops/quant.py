@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from diffvit_tpu.ops.bit_types import BitType
+from .bit_types import BitType
 
 
 def quantize(x, scale, zero_point, bit_type: BitType):

@@ -3,15 +3,17 @@
 There are no pretrained weights in the repository, so the port is driven
 at full width on random models.  ``random_int_model`` builds, with numpy
 only, the int-model pytree that ``diffvit_tpu.models.vit_int.prepare_int``
-would bake for a DeiT/ViT spec at a uniform bit width: exactly the keys
-that ``_embed_front``, ``_block_int`` (codes path) and ``_head_tail`` read,
+would bake for a DeiT/ViT spec, a QuantConfig and a bit config: exactly
+the keys that ``_embed_front``, ``_block_int`` and ``_head_tail`` read,
 plus ``bit_config`` and ``sym_acts=True``.  ``random_swin_int_model`` does
-the same for ``diffvit_tpu.models.swin_int.prepare_int`` and a Swin spec.
-The JAX forwards accept both unchanged (``tests/test_torch_vit_int.py``
-and ``tests/test_torch_swin.py`` hold each against the port), so they are
+the same for ``diffvit_tpu.models.swin_int.prepare_int`` and a Swin spec
+at a uniform bit width.  The JAX forwards accept them unchanged
+(``tests/test_torch_vit_int.py``, ``tests/test_torch_fqvit.py`` and
+``tests/test_torch_swin.py`` hold each against the port), so they are
 valid int-models, not private formats.
 
-* weights are int codes of ``cfg.bit_w``'s width;
+* weights are int codes of each slot's width (``cfg.bit_w``'s by
+  default), or float for a -1 slot;
 * every zero-point is 0 (symmetric activations);
 * every scale is a power of two chosen from the site's fan-in, so that
   activations keep a spread of about one in value space, use a good part
@@ -22,8 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from diffvit_tpu.config import QuantConfig
-
+from .config import QuantConfig
 from .models import swin
 from .models.vit import ViTSpec, num_bit_slots
 
@@ -53,10 +54,17 @@ def _norm(rng, c):
 
 
 def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
-                     seed: int = 0) -> dict:
-    """The weights take ``cfg.bit_w`` (int4 by default)."""
+                     seed: int = 0, bit_config=None) -> dict:
+    """The schema ``prepare_int`` bakes for ``cfg`` and ``bit_config``
+    (default: every slot ``cfg.bit_w``, int4 by default).  A -1 slot is a
+    float site ``{"w": (out, in) float32, "b", "fp": True}``; with
+    SmoothQuant off the sites carry no channel factors (scalar
+    ``in_scale``, no ``ln_out_scale``/``ln_rescale``); with PTF off the LN
+    inputs take scalar (layer-wise) scales; ``input_quant=False`` gives a
+    float patch and no ``qact_input``."""
     cfg = cfg or QuantConfig()
-    bits = cfg.bit_w.bits
+    bc = tuple(int(b) for b in bit_config) if bit_config is not None \
+        else (cfg.bit_w.bits,) * num_bit_slots(spec)
     rng = np.random.default_rng(seed)
     c, hid, n = spec.embed_dim, spec.hidden_dim, spec.seq_len
 
@@ -64,11 +72,20 @@ def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
         return {"scale": np.asarray(scale, f32), "zp": np.asarray(0.0, f32)}
 
     def ptf(base, size):
-        # per-channel PTF grid: base * 2^k, k in {0, 1}
-        return (base * 2.0 ** rng.integers(0, 2, size)).astype(f32)
+        # per-channel PTF grid: base * 2^k, k in {0, 1}; layer-wise without
+        # PTF
+        k = rng.integers(0, 2, size)
+        return (base * 2.0 ** k).astype(f32) if cfg.ptf else f32(base)
 
-    def linear(fan_in, fan_out, in_step, gain=1.0):
-        """int weight codes + per-channel multiplier (in_step * s_w)."""
+    def linear(bits, fan_in, fan_out, in_step, gain=1.0):
+        """int weight codes + per-channel multiplier (in_step * s_w), or a
+        float site of the same gain for bits -1."""
+        if bits == -1:
+            std = gain / np.sqrt(fan_in)
+            w = rng.standard_normal((fan_out, fan_in)) * std
+            return {"w": w.astype(f32),
+                    "b": (0.02 * rng.standard_normal(fan_out)).astype(f32),
+                    "fp": True}
         w, s_w = _weight(rng, bits, fan_in, fan_out, gain)
         return {"w_int": w, "b": (0.02 * rng.standard_normal(fan_out)).astype(f32),
                 "fp": False, "mult": (in_step * s_w).astype(f32)}
@@ -78,9 +95,10 @@ def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
 
     s_in = f32(2.0**-5)   # ImageNet-normalized pixels span about +-2.6
     act = f32(2.0**-5)    # activations of std ~1 span +-4
+    patch_bits = bc[0] if spec.input_quant else -1
     ip = {
-        "bit_config": (bits,) * num_bit_slots(spec),
-        "patch": linear(3 * spec.patch_size**2, c, s_in),
+        "bit_config": bc,
+        "patch": linear(patch_bits, 3 * spec.patch_size**2, c, s_in),
         "qact_input": site(s_in), "patch.qact": site(act),
         "qact_embed": site(act), "qact_pos": site(act / 2),
         "qact1": site(ptf(act, c)), "qact2": site(act),
@@ -90,31 +108,40 @@ def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
         "norm": norm(),
         "blocks": [],
     }
+    if not spec.input_quant:
+        del ip["qact_input"]
     s1, s2, s_a = 2 * act, 2 * act, f32(2.0**-4)
-    for _ in range(spec.depth):
+    for i in range(spec.depth):
+        b_qkv, b_proj, b_fc1, b_fc2 = bc[4 * i + 1: 4 * i + 5]
         ch_attn = (2.0 ** rng.integers(0, 2, c)).astype(f32)
         ch_mlp = (2.0 ** rng.integers(0, 2, c)).astype(f32)
-        # SmoothQuant sites: LN codes on the (channel scale x act) grid,
-        # output multiplier act * s_w
-        qkv = linear(c, 3 * c, act, gain=4.0)
-        qkv["in_scale"] = (ch_attn * act).astype(f32)
-        fc1 = linear(c, hid, act, gain=1.5)
-        fc1["in_scale"] = (ch_mlp * act).astype(f32)
-        # norm2 emits on the attention's channel grid (prepare_int's quirk)
-        fc1["ln_out_scale"] = (act * ch_attn).astype(f32)
-        fc1["ln_rescale"] = (ch_attn / ch_mlp).astype(f32)
+        if not cfg.smoothquant:
+            ch_attn = ch_mlp = f32(1.0)
+        # LN codes on the (channel scale x act) grid, output multiplier
+        # act * s_w
+        qkv = linear(b_qkv, c, 3 * c, act, gain=4.0)
+        fc1 = linear(b_fc1, c, hid, act, gain=1.5)
+        if not qkv["fp"]:
+            qkv["in_scale"] = (ch_attn * act).astype(f32)
+        if not fc1["fp"]:
+            fc1["in_scale"] = (ch_mlp * act).astype(f32)
+            if cfg.smoothquant:
+                # norm2 emits on the attention's channel grid (prepare_int's
+                # quirk)
+                fc1["ln_out_scale"] = (act * ch_attn).astype(f32)
+                fc1["ln_rescale"] = (ch_attn / ch_mlp).astype(f32)
         ip["blocks"].append({
             "norm1": norm(), "norm2": norm(),
             "qkv": qkv,
-            "proj": linear(c, c, s2, gain=0.25),
+            "proj": linear(b_proj, c, c, s2, gain=0.25),
             "fc1": fc1,
-            "fc2": linear(hid, c, act / 2, gain=0.25),
+            "fc2": linear(b_fc2, hid, c, act / 2, gain=0.25),
             "attn.qact1": site(s1), "attn.qact_attn1": site(s_a),
             "attn.qact2": site(s2), "attn.qact3": site(ptf(act / 2, c)),
             "qact2": site(ptf(act, c)), "mlp.qact1": site(act / 2),
             "mlp.qact2": site(ptf(act / 2, c)), "qact4": site(ptf(act, c)),
         })
-    ip["head"] = linear(c, spec.num_classes, act)
+    ip["head"] = linear(bc[-1], c, spec.num_classes, act)
     ip["sym_acts"] = True
     return ip
 

@@ -2,7 +2,8 @@
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is: ``python -m pytest --noconftest tests/test_torch_cuda.py``
-(tests/conftest.py imports JAX).  Without a card every test skips."""
+(tests/conftest.py imports JAX).  Every test carries the ``cuda`` marker;
+without a card each skips."""
 import dataclasses
 
 import numpy as np
@@ -12,13 +13,16 @@ import torch
 from diffvit_tpu_torch import QuantConfig
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_constants,
+                                              int_attn_scalars,
                                               int_model_from_numpy,
                                               swin_block_constants,
                                               swin_int_model_from_numpy)
 from diffvit_tpu_torch.models.swin import SWIN_SPECS, SwinSpec
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
+from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 from diffvit_tpu_torch.ops.kernels.attention import (
-    fused_qkv_attention_v2, fused_qkv_attention_v2_plain)
+    fused_int_attention, fused_int_attention_plain, fused_qkv_attention_v2,
+    fused_qkv_attention_v2_plain)
 from diffvit_tpu_torch.ops.kernels.mlp import (fused_int_mlp,
                                                fused_int_mlp_plain)
 from diffvit_tpu_torch.ops.kernels.swin_attention import (
@@ -28,6 +32,8 @@ from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 SMALL = dataclasses.replace(VIT_SPECS["deit_small"], depth=1)
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -87,17 +93,58 @@ def test_int_mlp_kernel_matches_plain(cuda, spec, rows, emit_codes):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
-def test_forward_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("spec,batch,n_real", [
+    (TINY, 2, 197), (TINY, 3, 33), (SMALL, 2, 197), (SMALL, 1, 256)])
+def test_int_attention_kernel_matches_plain(cuda, spec, batch, n_real, lis):
+    """K5 on the strided (B, 3, H, N, D) view of (B, N, 3C) qkv codes, as
+    the forward hands it over, and on a contiguous copy."""
+    h, d = spec.num_heads, spec.head_dim
+    qkv = torch.tensor(_codes((batch, n_real, 3 * h * d), 4) // 3,
+                       device=cuda)
+    view = qkv.view(batch, n_real, 3, h, d).permute(0, 2, 3, 1, 4)
+    scalars = torch.tensor(int_attn_scalars(_block(spec)[0], spec),
+                           device=cuda)
+    kw = dict(num_heads=h, n_real=n_real, lis=lis)
+    before = fused_int_attention.launches
+    got = fused_int_attention(view, scalars, **kw)
+    got_c = fused_int_attention(view.contiguous(), scalars, **kw)
+    torch.cuda.synchronize()
+    assert fused_int_attention.launches == before + 2
+    want = fused_int_attention_plain(view, scalars, **kw).cpu().numpy()
+    for g in (got, got_c):
+        diff = np.abs(g.cpu().numpy().astype(np.int32) - want)
+        if lis:
+            assert diff.max() == 0
+        assert diff.max() <= 1 and np.mean(diff > 0) < 0.02
+
+
+@pytest.mark.parametrize("cfg,bits", [
+    (QuantConfig(), None),
+    (QuantConfig(smoothquant=False, bit_w=BIT_TYPE_DICT["int8"]), None),
+    (QuantConfig(ptf=False), None),
+    (QuantConfig(ptf=False, lis=False, smoothquant=False,
+                 bit_w=BIT_TYPE_DICT["int8"]), None),
+    (QuantConfig(), (4, -1, 4, 4, 4, 4, -1, 4, -1, -1)),
+    (QuantConfig(), "sym_acts")],
+    ids=["default", "fqvit_int8", "ptf_off", "legacy", "float_sites",
+         "asymmetric"])
+def test_forward_on_card_matches_cpu(cuda, cfg, bits):
     """A width whose reciprocal is inexact (1/96): CUDA torch divides by a
-    Python number through its reciprocal, which the port must avoid."""
-    cfg = QuantConfig()
+    Python number through its reciprocal, which the port must avoid.  Every
+    branch of the forward: the codes path, K5 (SmoothQuant off, float LN,
+    the legacy float softmax), float sites, the float32 stream."""
     spec = ViTSpec("w96", embed_dim=96, depth=2, num_heads=2, num_classes=10)
-    ip_np = random_int_model(spec, cfg, seed=1)
+    ip_np = random_int_model(spec, cfg, seed=1,
+                             bit_config=None if isinstance(bits, str)
+                             else bits)
+    if bits == "sym_acts":
+        ip_np["sym_acts"] = False
     x = np.random.default_rng(3).integers(-60, 60, (2, 3, 224, 224)) \
         .astype(np.int8)
     out = {}
     for d in ("cpu", cuda):
-        ip = int_model_from_numpy(ip_np, spec, d)
+        ip = int_model_from_numpy(ip_np, spec, d, cfg)
         out[str(d)] = vit_int.forward_q_int(ip, spec, cfg,
                                             torch.tensor(x, device=d)).cpu()
     _assert_paths_agree(out["cuda"].numpy(), out["cpu"].numpy())

@@ -1,6 +1,10 @@
 """The port's serving engine: a JAX ``save_int_model`` artifact served by
 the port's ``load_int_model``/``IntModel`` against the JAX engine, the
-reference's validate report, and the port running without JAX."""
+reference's validate report, and the port running without JAX and without
+the JAX package (its own copies of the shared modules, held here against
+the originals)."""
+import ast
+import dataclasses
 import os
 import re
 import subprocess
@@ -11,11 +15,19 @@ import numpy as np
 import pytest
 
 from diffvit_tpu.config import QuantConfig
+from diffvit_tpu.data import imagenet as jax_imagenet
 from diffvit_tpu.engine import QuantizedViT
 from diffvit_tpu.engine import load_int_model as jax_load_int_model
 from diffvit_tpu.models import vit
+from diffvit_tpu.ops import bit_types as jax_bit_types
+from diffvit_tpu.utils import metrics as jax_metrics
+from diffvit_tpu.utils import serialize as jax_serialize
 
+import diffvit_tpu_torch
 from diffvit_tpu_torch import engine
+from diffvit_tpu_torch.data import imagenet
+from diffvit_tpu_torch.ops import bit_types
+from diffvit_tpu_torch.utils import metrics, serialize
 from diffvit_tpu_torch.models.vit import ViTSpec
 from diffvit_tpu_torch.testing import random_int_model
 
@@ -111,10 +123,96 @@ def test_port_runs_without_jax():
         "m = e.IntModel(random_swin_int_model(spec), spec, cfg, 'cpu')\n"
         "out = m(np.zeros((1, 3, 56, 56), np.uint8))\n"
         "assert out.shape == (1, 10)\n"
+        "from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT\n"
+        "fq = diffvit_tpu_torch.QuantConfig(smoothquant=False, "
+        "bit_w=BIT_TYPE_DICT['int8'])\n"
+        "spec = ViTSpec('t', embed_dim=64, depth=1, num_heads=2, "
+        "num_classes=10)\n"
+        "m = e.IntModel(random_int_model(spec, fq), spec, fq, 'cpu')\n"
+        "out = m(np.zeros((1, 3, 224, 224), np.uint8))\n"
+        "assert out.shape == (1, 10)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'diffvit_tpu' or m.startswith('diffvit_tpu.')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def _imported_modules(path):
+    """Every absolute module name that ``path`` imports."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    pkg = os.path.dirname(diffvit_tpu_torch.__file__)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "diffvit_tpu")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"smoothquant": False}, {"ptf": False, "lis": False,
+                                 "smoothquant": False},
+    {"bit_w": "int8"}], ids=["default", "sq_off", "legacy", "int8"])
+def test_quant_config_copy_matches_jax(kw):
+    def make(cls, bits):
+        return cls(**{k: bits[v] if k == "bit_w" else v
+                      for k, v in kw.items()})
+    jax_cfg = make(QuantConfig, jax_bit_types.BIT_TYPE_DICT)
+    port_cfg = make(diffvit_tpu_torch.QuantConfig, bit_types.BIT_TYPE_DICT)
+    assert port_cfg.to_dict() == jax_cfg.to_dict()
+    assert port_cfg == jax_cfg and jax_cfg == port_cfg
+    back = diffvit_tpu_torch.QuantConfig.from_dict(port_cfg.to_dict())
+    assert back == port_cfg and back.bit_w is port_cfg.bit_w
+    assert type(back.bit_w) is bit_types.BitType
+    assert (back.bit_s.name, back.int_norm) == (jax_cfg.bit_s.name,
+                                                 jax_cfg.int_norm)
+
+
+def test_shared_module_copies_match_jax(tmp_path):
+    assert [dataclasses.astuple(b) for b in bit_types.BIT_TYPE_LIST] == \
+        [dataclasses.astuple(b) for b in jax_bit_types.BIT_TYPE_LIST]
+    assert (imagenet.IMAGENET_MEAN, imagenet.IMAGENET_STD) == \
+        (jax_imagenet.IMAGENET_MEAN, jax_imagenet.IMAGENET_STD)
+    for scale, zp in ((2.0**-5, 0.0), (0.0173, 3.0)):
+        np.testing.assert_array_equal(
+            imagenet.input_code_lut(scale, zp),
+            jax_imagenet.input_code_lut(scale, zp))
+    rng = np.random.default_rng(0)
+    out, target = rng.standard_normal((16, 10)), rng.integers(0, 10, 16)
+    assert metrics.accuracy(out, target, (1, 5)) == \
+        jax_metrics.accuracy(out, target, (1, 5))
+    assert metrics.cross_entropy(out, target) == \
+        jax_metrics.cross_entropy(out, target)
+    # the artifact schema: each package reads the other's file, and the
+    # manifests are the same bytes
+    tree = {"a/b": [np.arange(3, dtype=np.int8), None, (1, 2.5, True)],
+            "c": {"d": np.ones((2, 2), np.float32), "s": "x"}}
+    for save, load in ((serialize.save_pytree, jax_serialize.load_pytree),
+                       (jax_serialize.save_pytree, serialize.load_pytree)):
+        path = str(tmp_path / f"{save.__module__}.npz")
+        save(path, tree, meta={"k": 1})
+        got, meta = load(path)
+        assert meta == {"k": 1} and got["c"]["s"] == "x"
+        assert got["a/b"][2] == (1, 2.5, True) and got["a/b"][1] is None
+        np.testing.assert_array_equal(got["c"]["d"], tree["c"]["d"])
+    manifests = [np.load(str(tmp_path / f"{m}.npz"))["__manifest__"]
+                 for m in (serialize.__name__, jax_serialize.__name__)]
+    np.testing.assert_array_equal(*manifests)
+    with pytest.raises(serialize.ArtifactError):
+        serialize.load_pytree(__file__)  # not an .npz artifact

@@ -18,7 +18,8 @@ from diffvit_tpu.ops.pallas.mlp import fused_int_mlp as jax_mlp
 from diffvit_tpu_torch.models.convert import attn_constants
 from diffvit_tpu_torch.models.vit import ViTSpec
 from diffvit_tpu_torch.ops.kernels import build
-from diffvit_tpu_torch.ops.kernels.attention import fused_qkv_attention_v2
+from diffvit_tpu_torch.ops.kernels.attention import (
+    fused_int_attention, fused_qkv_attention_v2)
 from diffvit_tpu_torch.ops.kernels.mlp import fused_int_mlp
 from diffvit_tpu_torch.testing import random_int_model
 
@@ -101,6 +102,9 @@ def test_wrappers_refuse_other_devices(block0):
                                head_dim=32, n_real=N)
     with pytest.raises(ValueError, match="meta"):
         fused_int_mlp(*_mlp_args(ib, x[0], meta), emit_codes=True)
+    qkv5 = meta(np.zeros((1, 3, 2, N, 32), np.int8))
+    with pytest.raises(ValueError, match="meta"):
+        fused_int_attention(qkv5, meta(scalars[:3]), num_heads=2, n_real=N)
 
 
 def test_wrapper_contract_raises(block0):

@@ -84,20 +84,3 @@ def test_random_model_forward_matches_jax(inputs, wire):
     _assert_paths_agree(got, want)
     assert not np.array_equal(got[0], got[1])
 
-
-def test_other_branches_raise(calibrated):
-    params, qp = calibrated
-    bc = [4] * vit.num_bit_slots(TINY)
-    bc[2] = -1  # block 0 proj in float
-    ip = int_model_from_numpy(jax.device_get(jax_vit_int.prepare_int(
-        params, qp, TINY, CFG, tuple(bc))), TINY_T, "cpu")
-    x = torch.zeros((1, 3, 224, 224))
-    with pytest.raises(NotImplementedError, match="float"):
-        vit_int.forward_q_int(ip, TINY_T, CFG, x)
-    ip = int_model_from_numpy(random_int_model(TINY_T, CFG), TINY_T, "cpu")
-    for cfg, what in ((QuantConfig(smoothquant=False), "SmoothQuant"),
-                      (QuantConfig(ptf=False), "int_norm")):
-        with pytest.raises(NotImplementedError, match=what):
-            vit_int.forward_q_int(ip, TINY_T, cfg, x)
-    with pytest.raises(NotImplementedError, match="sym_acts"):
-        vit_int.forward_q_int(dict(ip, sym_acts=False), TINY_T, CFG, x)
