@@ -6,12 +6,17 @@
 2. build:   compiles the port's kernels from diffvit_tpu_torch/csrc with nvcc
             (one nvcc per source, all started together);
 3. kernels: holds each kernel against its plain PyTorch version on the card
-            and times both: K1, K2 (int8 codes out and float32 out) and K5
-            (LIS and float softmax) at DeiT-S shapes (B = 1, 8, 64) and a
-            tiny shape; K4 and K4b at Swin-T's four stage geometries and K2
-            at its four widths (B = 1, 8, 64);
+            and times both: K1 (LIS and float softmax), K2 (int8 codes out
+            and float32 out), K5 (LIS and float softmax) and K6 (the whole
+            12-block encoder in one launch; LIS, and the float softmax at
+            b = 8) at DeiT-S shapes (B = 1, 8, 64) and a tiny shape; K4 and
+            K4b at Swin-T's four stage geometries and K2 at its four widths
+            (B = 1, 8, 64);
 4. serving: for DeiT-S int4, the FQ-ViT DeiT-S int8 (SmoothQuant off: K5
-            and K2 emitting float32) and Swin-T int4: saves a seeded model
+            and K2 emitting float32), DeiT-S int4 served resident (K6 once
+            per chunk of 8 images, no K1 or K2; its logits must equal the
+            per-kernel forward's, and with microbatch=None too) and Swin-T
+            int4: saves a seeded model
             as an int-model artifact, loads it with the port's
             load_int_model, answers uint8 requests at b = 1 (4 times), 8
             and 64 through IntModel, checks that every forward went through
@@ -22,7 +27,8 @@
             contract (K4b) and checks that its logits equal K4's;
 5. branches: the other branches of the ViT forward at DeiT-S width, b = 8:
             float (-1) sites, float LayerNorm (PTF off), asymmetric
-            activations; launches per forward and card vs CPU.
+            activations, the float softmax (K1 with lis=False); launches
+            per forward and card vs CPU.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -49,12 +55,16 @@ from diffvit_tpu_torch import QuantConfig, engine
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_constants,
                                               int_attn_scalars,
+                                              int_model_from_numpy,
                                               swin_block_constants)
 from diffvit_tpu_torch.models.swin import SWIN_SPECS
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 from diffvit_tpu_torch.ops.kernels import (attention, build, mlp,
                                            swin_attention)
+from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
+                                                 resident_codes,
+                                                 resident_codes_plain)
 from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
 
 SPEC = VIT_SPECS["deit_small"]  # full width and depth: 384 wide, 12 blocks
@@ -65,8 +75,9 @@ CFG = QuantConfig()  # PTF, LIS, SmoothQuant on; int4 weights
 # FQ-ViT (--ptf --lis, W8A8, 4-bit LIS): SmoothQuant off, int8 weights
 FQVIT = QuantConfig(smoothquant=False, bit_w=BIT_TYPE_DICT["int8"])
 REQUESTS = (1, 1, 1, 1, 8, 64)  # images per request, served in this order
+MICROBATCH = 8  # forward_q_int_serve's default chunk
 # kernel vs plain: share of equal int8 codes, max |diff|; the float softmax
-# (K5 lis=False) is held to the JAX suite's rule for it: |diff| <= 1 on
+# (lis=False) is held to the JAX suite's rule for it: |diff| <= 1 on
 # fewer than 2% of codes
 TOL = {"exact": (0.999, 1), "softmax": (0.98, 1)}
 PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM: int8 op/s, HBM B/s
@@ -111,6 +122,10 @@ KERNELS = {
         plain=attention.fused_int_attention_plain,
         source="diffvit_tpu_torch/csrc/qkv_attention.cu",
         replaces="diffvit_tpu/ops/pallas/attention.py:993"),
+    "resident_codes": dict(
+        fn=resident_codes, plain=resident_codes_plain,
+        source="diffvit_tpu_torch/csrc/resident.cu",
+        replaces="diffvit_tpu/ops/pallas/serve.py:316"),
 }
 
 
@@ -166,12 +181,26 @@ def kernel_case(name, ib, spec, batch, dev, **kw):
              t(ib["mlp.qact1"]["scale"])), kw)
 
 
+def nbytes(a):
+    """Bytes of a tensor, or of every tensor of a dict (K6's packed model)."""
+    if isinstance(a, dict):
+        return sum(nbytes(v) for v in a.values())
+    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else 0
+
+
 def work(name, args, kw):
     """(operations, bytes) one call needs: every input byte read once and
     every output byte written once; the integer products, and for the
     attention cores the scores and attn@v over the real keys."""
-    inputs = sum(a.numel() * a.element_size() for a in args
-                 if a is not None)
+    inputs = sum(nbytes(a) for a in args)
+    if name == "resident_codes":
+        packed, x = args
+        rows, c = x.shape
+        depth, _, c3 = packed["wqkv"].shape
+        hid = packed["w1"].shape[2]
+        ops = depth * (2 * rows * c * (c3 + c + 2 * hid)
+                       + 4 * rows * kw["n_real"] * c)
+        return ops, inputs + rows * c
     if name == "fused_qkv_attention_v2":
         x, w = args[0], args[1]
         b, n, cin = x.shape
@@ -255,8 +284,9 @@ def hold(name, args, kw, tol="exact", decode=None, **where):
          for f in (k["plain"], k["fn"], k["fn"], k["plain"])]
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     opts = {key: v for key, v in kw.items() if key in ("lis", "emit_codes")}
+    shape = next(a for a in args if isinstance(a, torch.Tensor)).shape
     emit(phase="kernel", kernel=name, **where, **opts,
-         shape=list(args[0].shape), equal=equal, max_abs_diff=max_diff,
+         shape=list(shape), equal=equal, max_abs_diff=max_diff,
          ms=ms, plain_ms=plain_ms)
     min_equal, max_allowed = TOL[tol]
     if equal < min_equal or max_diff > max_allowed:
@@ -269,7 +299,7 @@ def hold(name, args, kw, tol="exact", decode=None, **where):
 def phase_kernels(dev):
     """Each kernel vs its plain version on the card; returns per kernel the
     largest |diff| and, at the heaviest shape of the main paths (DeiT-S
-    b=64 for K1, K2 and K5; Swin-T stage 0 b=64 for K4 and K4b), its
+    b=64 for K1, K2, K5 and K6; Swin-T stage 0 b=64 for K4 and K4b), its
     times and its bound."""
     summary = {name: {"max_abs_err": 0} for name in KERNELS}
 
@@ -288,6 +318,8 @@ def phase_kernels(dev):
         # (kernel, block, options, tolerance); the first row of each kernel
         # is the one its main path runs
         cases = (("fused_qkv_attention_v2", ib, {}, "exact"),
+                 ("fused_qkv_attention_v2", ib, dict(lis=False, bits=8),
+                  "softmax"),
                  ("fused_int_mlp", ib, dict(emit_codes=True), "exact"),
                  ("fused_int_mlp", ib_fq, dict(emit_codes=False), "exact"),
                  ("fused_int_attention", ib_fq, dict(lis=True), "exact"),
@@ -305,6 +337,21 @@ def phase_kernels(dev):
                     and (f"{spec.name} b=64", args, kw)
                 note(name, hold(name, args, kw, tol, decode, spec=spec.name,
                                 batch=b), heaviest)
+        # K6: the whole encoder (12 blocks at DeiT-S) in one launch
+        ip = int_model_from_numpy(random_int_model(spec, CFG, seed=0), spec,
+                                  dev, CFG)
+        packed = prepare_resident(ip, spec, CFG)
+        for lis, tol, bs in ((True, "exact", batches),
+                             (False, "softmax", batches[1:2] or batches)):
+            for b in bs:
+                args = (packed, codes((b * spec.seq_len, spec.embed_dim),
+                                      b + 11, dev))
+                kw = dict(n_real=spec.seq_len, bits=4, lis=lis, nelems=b)
+                heaviest = spec is SPEC and b == 64 and lis \
+                    and (f"{spec.name} b=64", args, kw)
+                note("resident_codes",
+                     hold("resident_codes", args, kw, tol, spec=spec.name,
+                          batch=b), heaviest)
     ip = random_swin_int_model(SWIN, CFG, seed=0)
     for stage in range(SWIN.num_layers):
         for b in (1, 8, 64):
@@ -399,19 +446,22 @@ def agree(got, ref, shape, **where):
         raise RuntimeError(f"{where}: bad logits, shape {got.shape}")
 
 
-def serve(spec, ip_np, path_kernels, dev, cfg=CFG, label=None):
+def serve(spec, ip_np, path_kernels, dev, cfg=CFG, label=None,
+          resident=False):
     """Save ``ip_np`` (under ``cfg``) as an artifact, load it on the card
-    and on the CPU, answer the uint8 requests through IntModel with a
-    launch check (each kernel of ``path_kernels`` once per block of every
-    forward), time requests and forwards, hold the b=8 logits against the
-    CPU plain path and run validate().  ``label`` names the model in the
-    JSON lines (default: the spec's name)."""
+    and on the CPU (``resident``: served through K6), answer the uint8
+    requests through IntModel with a launch check (each kernel of
+    ``path_kernels`` once per block of every forward, or K6 once per chunk
+    of MICROBATCH images), time requests and forwards, hold the b=8 logits
+    against the CPU plain path and run validate().  ``label`` names the
+    model in the JSON lines (default: the spec's name).  Returns the model,
+    the requests, their logits and the launches."""
     label = label or spec.name
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, f"{spec.name}.npz")
         engine.save_int_model(path, ip_np, spec, cfg)
-        model = engine.load_int_model(path, dev)
-        model_cpu = engine.load_int_model(path, "cpu")
+        model = engine.load_int_model(path, dev, resident=resident)
+        model_cpu = engine.load_int_model(path, "cpu", resident=resident)
     size = spec.img_size
     rng = np.random.default_rng(1)
     requests = [rng.integers(0, 256, (b, 3, size, size), dtype=np.uint8)
@@ -431,8 +481,11 @@ def serve(spec, ip_np, path_kernels, dev, cfg=CFG, label=None):
             seconds.append(time.perf_counter() - t0)
         return outputs
 
-    outputs, launches = drive(
-        {name: depth * len(requests) for name in path_kernels}, run)
+    expected = {name: depth * len(requests) for name in path_kernels}
+    if resident:
+        expected = {"resident_codes": sum(-(-b // MICROBATCH)
+                                          for b in REQUESTS)}
+    outputs, launches = drive(expected, run)
     for b in sorted(set(REQUESTS)):
         s = [t for t, rb in zip(seconds, REQUESTS) if rb == b]
         x = torch.tensor(model.encode(requests[REQUESTS.index(b)]),
@@ -456,14 +509,15 @@ def serve(spec, ip_np, path_kernels, dev, cfg=CFG, label=None):
     loss, top1, top5 = engine.validate(model, loader, print_freq=1)
     emit(phase="validate", model=label, images=24, loss=loss,
          prec1=top1, prec5=top5)
-    return model, requests[i8], launches
+    return model, requests, outputs, launches
 
 
 def phase_serving(dev):
     """DeiT-S int4 through K1 and K2, with the code statistics."""
-    model, x8, launches = serve(
+    model, requests, _, launches = serve(
         SPEC, random_int_model(SPEC, CFG, seed=0),
         ("fused_qkv_attention_v2", "fused_int_mlp"), dev)
+    x8 = requests[REQUESTS.index(8)]
     logits, mean_stats, max_stats = code_stats(model, x8)
     distinct = bool((logits != logits[0]).any())
     emit(phase="codes", batch=8, at_bounds_mean=mean_stats,
@@ -476,10 +530,44 @@ def phase_serving(dev):
 def phase_serving_fqvit(dev):
     """The FQ-ViT DeiT-S int8 (SmoothQuant off) through K5 and K2 emitting
     float32: 12 launches of each per forward, none of K1."""
-    _, _, launches = serve(
+    _, _, _, launches = serve(
         SPEC, random_int_model(SPEC, FQVIT, seed=0),
         ("fused_int_attention", "fused_int_mlp"), dev, FQVIT,
         f"{SPEC.name} fqvit_int8")
+    return launches
+
+
+def phase_serving_resident(dev):
+    """DeiT-S int4 served resident: K6 once per chunk of MICROBATCH images
+    and no K1 or K2 (checked by serve); every request's logits equal the
+    per-kernel IntModel's on the card; b=64 in one launch
+    (``microbatch=None``) gives the same logits, and its forward is
+    timed."""
+    label = f"{SPEC.name} resident"
+    ip_np = random_int_model(SPEC, CFG, seed=0)
+    model, requests, outputs, launches = serve(SPEC, ip_np, (), dev,
+                                               label=label, resident=True)
+    per_kernel = engine.IntModel(ip_np, SPEC, CFG, dev)
+    equal = all(np.array_equal(o.cpu().numpy(), per_kernel(x).cpu().numpy())
+                for o, x in zip(outputs, requests))
+    x64 = torch.tensor(model.encode(requests[REQUESTS.index(64)]),
+                       device=dev)
+
+    def one_launch():
+        with torch.inference_mode():
+            return vit_int.forward_q_int_serve(model.ip, SPEC, CFG, x64,
+                                               packed=model.packed,
+                                               microbatch=None)
+
+    whole, _ = drive({"resident_codes": 1}, one_launch)
+    equal_whole = bool(np.array_equal(
+        whole.cpu().numpy(), outputs[REQUESTS.index(64)].cpu().numpy()))
+    emit(phase="resident", model=label, logits_equal_per_kernel=equal,
+         microbatch_none_equal=equal_whole, batch=64,
+         microbatch_none_forward_ms=cuda_ms(one_launch, iters=10))
+    if not (equal and equal_whole):
+        raise RuntimeError("the resident forward's logits differ from the "
+                           "per-kernel forward's, or microbatch=None differs")
     return launches
 
 
@@ -493,7 +581,7 @@ def phase_branches(dev):
     bc = [4] * (4 * SPEC.depth + 2)
     for slot in (1, 4 * 5 + 2, 4 * 11 + 4):  # qkv 0, proj 5, fc2 11
         bc[slot] = -1
-    ptf_off = QuantConfig(ptf=False)
+    ptf_off, lis_off = QuantConfig(ptf=False), QuantConfig(lis=False)
     cases = {
         # block 0: K5 (float qkv) and K2; block 5: the unfused attention
         # (float proj) and K2; block 11: K1 and the unfused MLP
@@ -504,6 +592,9 @@ def phase_branches(dev):
         # the float32 stream: K1, the fake-quant fences, K2 emitting float32
         "asymmetric": (CFG, dict(random_int_model(SPEC, CFG, 3),
                                  sym_acts=False), {k1: 12, k2: 12}),
+        # K1 with the float softmax (lis=False) and K2
+        "float_softmax": (lis_off, random_int_model(SPEC, lis_off, 3),
+                          {k1: 12, k2: 12}),
     }
     x = np.random.default_rng(4).integers(0, 256, (8, 3, 224, 224),
                                           dtype=np.uint8)
@@ -523,10 +614,10 @@ def phase_branches(dev):
 def phase_serving_swin(dev):
     """Swin-T int4 through K4 and K2; then one forward through K4b (the
     natural-layout contract), whose logits must equal K4's."""
-    model, x8, launches = serve(
+    model, requests, _, launches = serve(
         SWIN, random_swin_int_model(SWIN, CFG, seed=0),
         ("fused_swin_attention", "fused_int_mlp"), dev)
-    x = torch.tensor(model.encode(x8), device=dev)
+    x = torch.tensor(model.encode(requests[REQUESTS.index(8)]), device=dev)
     with torch.inference_mode():
         want = model(x).cpu().numpy()
         got, launches_v2 = drive(
@@ -572,13 +663,15 @@ def main():
     t.append(time.perf_counter())
     paths[f"{SPEC.name} fqvit_int8"] = phase_serving_fqvit(dev)
     t.append(time.perf_counter())
+    paths[f"{SPEC.name} resident"] = phase_serving_resident(dev)
+    t.append(time.perf_counter())
     paths.update(phase_branches(dev))
     t.append(time.perf_counter())
     paths[SWIN.name], paths[f"{SWIN.name} attn_v2"] = phase_serving_swin(dev)
     t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
-        ("kernels", "deit_small", "deit_small_fqvit", "branches",
-         "swin_tiny"), t, t[1:])})
+        ("kernels", "deit_small", "deit_small_fqvit", "deit_small_resident",
+         "branches", "swin_tiny"), t, t[1:])})
 
     kernels = []
     for name, k in KERNELS.items():

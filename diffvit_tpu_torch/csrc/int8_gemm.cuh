@@ -1,5 +1,6 @@
 // Shared int8 GEMM tile core with a fused epilogue, for the kernels in this
-// directory (qkv_attention.cu, int_mlp.cu).
+// directory (qkv_attention.cu, int_mlp.cu, and resident.cu, whose persistent
+// blocks call the tile function for one output tile after another).
 //
 // Computes C[M, N] = A[M, K] @ B[K, N] for row-major int8 A and B (B is a
 // weight in the JAX package's (Cin, Cout) layout), accumulating exactly in
@@ -39,18 +40,25 @@ __device__ __forceinline__ void mma_s8_m16n8k32(int (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <class Epi>
-__global__ void __launch_bounds__(kGemmThreads)
-    int8_gemm_kernel(const int8_t* __restrict__ A,
-                     const int8_t* __restrict__ B, int M, int N, int K,
-                     Epi epi) {
-  __shared__ __align__(16) int8_t As[kGemmBM][kGemmStride];
-  __shared__ __align__(16) int8_t Bs[kGemmBN][kGemmStride];  // Bs[n][k]
+struct GemmSmem {
+  __align__(16) int8_t As[kGemmBM][kGemmStride];
+  __align__(16) int8_t Bs[kGemmBN][kGemmStride];  // Bs[n][k]
+};
 
+// The output tile at (m0, n0), by the block's kGemmThreads threads.  A and
+// B are read with plain loads (no __restrict__): resident.cu passes
+// buffers that the same launch wrote before a grid barrier.  The last use
+// of `sm` is followed by a __syncthreads() (the epilogue runs on
+// registers), so the caller may reuse `sm` at once.
+template <class Epi>
+__device__ __forceinline__ void int8_gemm_tile(const int8_t* A, const int8_t* B,
+                                               int M, int N, int K, int m0, int n0,
+                                               const Epi& epi, GemmSmem& sm) {
+  auto& As = sm.As;
+  auto& Bs = sm.Bs;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int m0 = blockIdx.y * kGemmBM, n0 = blockIdx.x * kGemmBN;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
 
   int acc[2][4][4];
@@ -116,6 +124,15 @@ __global__ void __launch_bounds__(kGemmThreads)
           if (c + 1 < N) epi(r, c + 1, acc[mi][ni][half * 2 + 1]);
         }
       }
+}
+
+template <class Epi>
+__global__ void __launch_bounds__(kGemmThreads)
+    int8_gemm_kernel(const int8_t* __restrict__ A,
+                     const int8_t* __restrict__ B, int M, int N, int K,
+                     Epi epi) {
+  __shared__ GemmSmem sm;
+  int8_gemm_tile(A, B, M, N, K, blockIdx.y * kGemmBM, blockIdx.x * kGemmBN, epi, sm);
 }
 
 template <class Epi>

@@ -1,0 +1,48 @@
+// The polynomial GELU and the fc1 epilogue of the integer MLP, shared by K2
+// (int_mlp.cu) and the resident encoder (resident.cu).  The GELU constants
+// are the float32 roundings of mlp.py's GELU_P (the same double -> float
+// rounding as the Python side); with -fmad=false every multiply and add
+// rounds on its own, as torch's separate elementwise ops do.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "int8_gemm.cuh"
+
+namespace dvt {
+
+// GELU_P of diffvit_tpu/ops/pallas/mlp.py:40-46 (degree-12 Chebyshev fit)
+static __constant__ float kGeluP[13] = {
+    (float)1.472124915e-01,  (float)-7.297722655e-02, (float)5.292239887e-02,
+    (float)-4.063959391e-02, (float)3.055344378e-02,  (float)-2.162323356e-02,
+    (float)1.431964120e-02,  (float)-9.132027657e-03, (float)5.130726935e-03,
+    (float)-2.055695227e-03, (float)1.023744687e-03,  (float)-9.600747865e-04,
+    (float)3.919371191e-04,
+};
+
+__device__ __forceinline__ float gelu_poly(float x) {
+  const float b2 = (float)(4.8 * 4.8);
+  const float u = fminf(x * x, b2);
+  const float s = u * (float)(2.0 / (4.8 * 4.8)) - 1.f;
+  float p = kGeluP[12];
+#pragma unroll
+  for (int i = 11; i >= 0; --i) p = p * s + kGeluP[i];
+  const float phi = fminf(fmaxf(0.5f + x * p, 0.f), 1.f);
+  return x * phi;
+}
+
+// fc1: rint(gelu_poly(acc * mult1 + bias1) * (1/s_q1)) clipped to int8.
+struct Fc1Epilogue {
+  const float* mult1;
+  const float* bias1;
+  const float* s_q1_inv;  // (1,) on the device
+  int8_t* hidden;         // (R, Hid)
+  int n;
+  __device__ void operator()(int r, int c, int acc) const {
+    const float mid = static_cast<float>(acc) * mult1[c] + bias1[c];
+    hidden[(size_t)r * n + c] = clip_i8(rintf(gelu_poly(mid) * s_q1_inv[0]));
+  }
+};
+
+}  // namespace dvt

@@ -4,6 +4,7 @@ half of ``diffvit_tpu/engine.py``): ``IntModel``, ``load_int_model`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -26,13 +27,21 @@ class IntModel:
     ``__call__`` takes a (B, 3, H, W) batch as numpy or torch: int8 input
     codes, uint8 pixels (encoded host-side with ``input_lut`` into codes —
     the same codes the reference derives on its device), or float32
-    normalized pixels.  It returns float32 logits on the model's device."""
+    normalized pixels.  It returns float32 logits on the model's device.
+
+    ``resident=True`` (ViT family): the encoder runs as one launch of the
+    resident kernel K6 (``vit_int.forward_q_int_serve``), packed once here;
+    on a CUDA device it runs K6 or raises."""
 
     def __init__(self, ip, spec: ViTSpec | SwinSpec, cfg: QuantConfig,
-                 device):
+                 device="cuda", resident=False):
         self.spec, self.cfg = spec, cfg
         self.device = torch.device(device)
         self.is_swin = isinstance(spec, SwinSpec)
+        self.packed = None
+        if resident and self.is_swin:
+            raise ValueError("resident serving kernel supports the ViT "
+                             "family only")
         if self.is_swin:
             self.ip = swin_int_model_from_numpy(ip, spec, self.device, cfg)
             self._forward = swin_int.forward_q_int
@@ -41,6 +50,10 @@ class IntModel:
         else:
             self.ip = int_model_from_numpy(ip, spec, self.device, cfg)
             self._forward = vit_int.forward_q_int
+            if resident:
+                self.packed = vit_int.prepare_resident(self.ip, spec, cfg)
+                self._forward = functools.partial(
+                    vit_int.forward_q_int_serve, packed=self.packed)
             scale, zp = ip["qact_input"]["scale"], ip["qact_input"]["zp"]
         # (3, 256) int8 table: uint8 pixel -> qact_input code per channel
         self.input_lut = None
@@ -83,9 +96,10 @@ def save_int_model(path, ip, spec: ViTSpec | SwinSpec,
                                 "is_swin": isinstance(spec, SwinSpec)})
 
 
-def load_int_model(path, device) -> IntModel:
+def load_int_model(path, device="cuda", resident=False) -> IntModel:
     """Load a ``save_int_model`` artifact (a ``save_pytree`` .npz) onto
-    ``device``.  The spec is rebuilt from the embedded dataclass fields."""
+    ``device``, served per kernel or (``resident``) through K6.  The spec
+    is rebuilt from the embedded dataclass fields."""
     ip, meta = load_pytree(path)
     if not all(k in meta for k in ("model", "spec", "cfg", "is_swin")):
         raise ArtifactError(
@@ -98,7 +112,8 @@ def load_int_model(path, device) -> IntModel:
         spec = SwinSpec(**sd)
     else:
         spec = ViTSpec(**sd)
-    return IntModel(ip, spec, QuantConfig.from_dict(meta["cfg"]), device)
+    return IntModel(ip, spec, QuantConfig.from_dict(meta["cfg"]), device,
+                    resident=resident)
 
 
 def validate(model, loader, print_freq=100, log=print):

@@ -1,5 +1,6 @@
 """Integer ViT forward (counterpart of ``diffvit_tpu/models/vit_int.py``,
-``forward_q_int`` with ``use_pallas`` on).
+``forward_q_int`` with ``use_pallas`` on, and ``forward_q_int_serve``, the
+whole encoder in one launch of the resident kernel K6).
 
 The model is the int-model pytree of the JAX package's ``prepare_int``,
 turned into torch tensors on one device by
@@ -42,6 +43,7 @@ from ..ops.int_layernorm import float_layernorm, int_ln_codes
 from ..ops.kernels.attention import (fused_int_attention,
                                      fused_qkv_attention_v2)
 from ..ops.kernels.mlp import fused_int_mlp
+from ..ops.kernels.serve import prepare_resident, resident_codes
 from ..ops.lis import log_int_softmax_from_int
 from ..ops.quant import fake_quant, int_matmul
 from .vit import ViTSpec, patchify
@@ -315,3 +317,36 @@ def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x):
         h, hc = _block_int(ib, bc[4 * i + 1: 4 * i + 5], in_scale, h, hc,
                            spec, cfg, sym_acts=sym_acts)
     return _head_tail(ip, spec, cfg, h, hc)
+
+
+def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
+                        packed=None, microbatch=8):
+    """The serving forward whose encoder runs as ONE launch of the resident
+    kernel (``ops/kernels/serve.py``, K6) instead of two kernels and the
+    torch glue per block.  The same logits as :func:`forward_q_int`'s codes
+    path (which this needs: ``prepare_resident`` refuses every other
+    configuration).
+
+    ``packed``: ``prepare_resident(ip, spec, cfg)``, passed to pack once
+    across calls.  ``microbatch``: batches above it go through the kernel in
+    chunks of that many images (the last one zero-padded), one launch each,
+    with the same result as one launch; None runs any batch in one."""
+    if packed is None:
+        packed = prepare_resident(ip, spec, cfg)
+    h = _embed_front(ip, spec, cfg, x)
+    B, N, C = h.shape
+    hc = _codes(h, ip["qact1"]["scale"], cfg.bit_a)
+
+    def run(chunk):  # (b, N, C) int8 codes -> the last block's codes
+        b = chunk.shape[0]
+        return resident_codes(packed, chunk.reshape(b * N, C), n_real=N,
+                              bits=cfg.bit_s.bits, lis=cfg.lis,
+                              nelems=b).reshape(b, N, C)
+
+    if microbatch is None or B <= microbatch:
+        out = run(hc)
+    else:
+        pad = (-B) % microbatch
+        hcp = torch.cat([hc, hc.new_zeros((pad, N, C))]) if pad else hc
+        out = torch.cat([run(chunk) for chunk in hcp.split(microbatch)])[:B]
+    return _head_tail(ip, spec, cfg, None, out)

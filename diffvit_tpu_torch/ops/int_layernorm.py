@@ -44,9 +44,18 @@ def int_ln_codes(x_q, weight, bias, in_scale, out_scale):
     the ``out_scale`` grid, rounded and not clipped."""
     c = weight.shape[-1]
     in_scale = in_scale.expand(c)
-    out_scale = out_scale.expand(c)
     in_scale1 = in_scale.min()
-    x_q = x_q * torch.round(in_scale / in_scale1)
+    return ln_codes(x_q * torch.round(in_scale / in_scale1), in_scale1,
+                    weight, bias, out_scale)
+
+
+def ln_codes(x_q, in_scale1, weight, bias, out_scale, std_floor=None):
+    """:func:`int_ln_codes` after the channel fold: ``x_q`` are the input
+    codes times ``round(in_scale / in_scale1)``, on the grid of the scalar
+    ``in_scale1``.  ``std_floor``: a least std (the resident kernel's, so
+    that an all-equal row stays finite; ``torch.maximum`` keeps a NaN)."""
+    c = weight.shape[-1]
+    out_scale = out_scale.expand(c)
     xi = x_q.to(torch.int64)
     sum_x = xi.sum(-1).to(torch.float32)
     sum_x2 = (xi * xi).sum(-1).to(torch.float32)
@@ -54,6 +63,8 @@ def int_ln_codes(x_q, weight, bias, in_scale, out_scale):
     mean = (sum_x / c_t) * in_scale1
     var = (c * sum_x2 - sum_x * sum_x).to(torch.float64)
     std = (in_scale1 / c_t) * torch.sqrt(var).to(torch.float32)
+    if std_floor is not None:
+        std = torch.maximum(std, std.new_full((), std_floor))
     a = (in_scale1 / std)[..., None] * weight / out_scale
     m, n = get_mn(torch.abs(a))
     p2n = pow2(n)

@@ -7,9 +7,10 @@ the attention core alone on projected qkv (``::fused_int_attention``, K5).
     w      = LogIntSoftmax(a_int)                               (2^-code)
     out    = clip(rint((w @ v_h) * s1/s2))                      (qact2 codes)
 
-K5 runs the last three lines (with the slow LIS, or for ``lis=False`` a
-float softmax rounded to bfloat16, taken in float64 with attn@v, each
-rounded once).  Both kernels are
+K5 runs the last three lines, with the slow LIS.  For ``lis=False`` both
+run a float softmax rounded to bfloat16 instead of the LIS, taken in
+float64 with attn@v, each rounded once (:func:`attention_core_plain`, the
+core that the resident encoder K6 runs too).  Both kernels are
 ``csrc/qkv_attention.cu``; the plain versions below are their
 specification, exact for the LIS, and both differ from the JAX reference
 only where the reference's own arithmetic is order- or
@@ -139,26 +140,42 @@ def _weighted_values(weights, v):
                         v.to(torch.float64)).to(torch.int32)
 
 
-def lis_attention_plain(qkv, scalars, *, num_heads, head_dim, n_real,
-                        bits=4, lis_fast=False):
-    """Second stage: qkv codes -> (B, H, Npad, D) int8 on the qact2 grid."""
-    b, npad, _ = qkv.shape
-    weights = lis_weights_plain(qkv, scalars, num_heads=num_heads,
-                                head_dim=head_dim, n_real=n_real, bits=bits,
-                                lis_fast=lis_fast)
-    v = qkv.reshape(b, npad, 3, num_heads, head_dim)[:, :, 2] \
-        .permute(0, 2, 1, 3)
-    acc = _weighted_values(weights, v)
-    o = torch.round(acc.to(torch.float32) * 2.0**-15 * scalars[3])
+def _softmax_weights_plain(a_int, s_a, col_ok):
+    """The float-softmax branch (``lis=False``) of ``_attn_kernel`` and
+    ``_qkv_attn_kernel_v2``: softmax of the float32 logits ``a_int * s_a``
+    over the columns ``col_ok``, taken in float64, rounded to float32 and
+    then to bfloat16; returned as float64.  (The reference takes it in
+    float32, where the exponential and the order of the row sum differ by
+    an ulp between devices; float64 rounded once does not.)"""
+    logits = torch.where(col_ok, a_int * s_a, -torch.inf)
+    p = torch.softmax(logits.to(torch.float64), dim=-1)
+    return p.to(torch.float32).to(torch.bfloat16).to(torch.float64)
+
+
+def attention_core_plain(q, k, v, c1, s_a, s1_over_s2, *, n_real, bits=4,
+                         lis=True, lis_fast=False):
+    """The attention core that K1, K5 and K6 run, on int8 codes q, k, v
+    (..., Npad, D) of the qact1 grid: scores -> qact_attn1 codes -> the
+    LIS (weights x 2^15, attn@v exact) or the bfloat16 float softmax
+    (attn@v in float64, rounded once: products of bfloat16 weights and int8
+    values are exact, and so is their float64 sum at these exponent
+    spreads) -> x s1/s2 -> int8 on the qact2 grid.  Keys at or past
+    ``n_real`` are masked."""
+    scores = int_matmul(q, k.transpose(-1, -2))
+    a_int = torch.clamp(torch.round(scores.to(torch.float32) * c1), -128, 127)
+    col_ok = torch.arange(k.shape[-2], device=k.device) < n_real
+    if lis:
+        weights = lis_body_plain(a_int, s_a, bits, col_ok, fast=lis_fast)
+        acc = _weighted_values(weights, v).to(torch.float32) * 2.0**-15
+    else:
+        weights = _softmax_weights_plain(a_int, s_a, col_ok)
+        acc = torch.matmul(weights, v.to(torch.float64)).to(torch.float32)
+    o = torch.round(acc * s1_over_s2)
     return torch.clamp(o, -128, 127).to(torch.int8)
 
 
 def _check_contract(bits, lis):
-    if not lis:
-        raise NotImplementedError(
-            "fused_qkv_attention_v2: only the LIS softmax is ported "
-            "(lis=False is later work)")
-    if bits > 4:
+    if lis and bits > 4:
         raise NotImplementedError(
             "fused_qkv_attention_v2: LIS supports bits <= 4 only")
 
@@ -170,15 +187,18 @@ def fused_qkv_attention_v2_plain(x_i8, w_all, mult, bias, scalars, *,
     _check_contract(bits, lis)
     mb = fold_requant(mult, bias, scalars[2], w_all.shape[1])
     qkv = qkv_projection_plain(x_i8, w_all, mb)
-    return lis_attention_plain(qkv, scalars, num_heads=num_heads,
-                               head_dim=head_dim, n_real=n_real, bits=bits,
-                               lis_fast=lis_fast)
+    b, npad, _ = qkv.shape
+    t = qkv.reshape(b, npad, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
+    return attention_core_plain(t[0], t[1], t[2], scalars[1], scalars[0],
+                                scalars[3], n_real=n_real, bits=bits,
+                                lis=lis, lis_fast=lis_fast)
 
 
 def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
                            head_dim, n_real, bits=4, lis=True,
                            lis_fast=False):
-    """Fused qkv projection + LIS attention.
+    """Fused qkv projection + attention (the LIS, or for ``lis=False`` the
+    float softmax rounded to bfloat16).
 
     x_i8: (B, Npad, Cin) int8 LN codes (rows at or past ``n_real`` are
     padding: they are computed, and never used as keys); w_all: (Cin, 3C)
@@ -217,7 +237,8 @@ def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
     err = load_library().dvt_qkv_attention(
         x_i8.data_ptr(), w_all.data_ptr(), mb.data_ptr(), scalars.data_ptr(),
         qkv.data_ptr(), out.data_ptr(), b, npad, cin, num_heads, head_dim,
-        n_real, int(lis_fast), torch.cuda.current_stream(x_i8.device).cuda_stream)
+        n_real, int(lis), int(lis_fast),
+        torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, "fused_qkv_attention_v2")
     fused_qkv_attention_v2.launches += 1
     return out
@@ -226,36 +247,12 @@ def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
 fused_qkv_attention_v2.launches = 0
 
 
-def _softmax_weights_plain(a_int, s_a, col_ok):
-    """The float-softmax branch (``lis=False``) of ``_attn_kernel``: softmax
-    of the float32 logits ``a_int * s_a`` over the columns ``col_ok``, taken
-    in float64, rounded to float32 and then to bfloat16; returned as
-    float64.  (The reference takes it in float32, where the exponential and
-    the order of the row sum differ by an ulp between devices; float64
-    rounded once does not.)"""
-    logits = torch.where(col_ok, a_int * s_a, -torch.inf)
-    p = torch.softmax(logits.to(torch.float64), dim=-1)
-    return p.to(torch.float32).to(torch.bfloat16).to(torch.float64)
-
-
 def fused_int_attention_plain(qkv_i8, scalars, *, num_heads, n_real, bits=4,
                               lis=True):
-    """Plain PyTorch version of :func:`fused_int_attention`."""
-    q, k, v = qkv_i8[:, 0], qkv_i8[:, 1], qkv_i8[:, 2]
-    scores = int_matmul(q, k.transpose(-1, -2))
-    a_int = torch.clamp(torch.round(scores.to(torch.float32) * scalars[0]),
-                        -128, 127)
-    col_ok = torch.arange(q.shape[-2], device=q.device) < n_real
-    if lis:
-        weights = lis_body_plain(a_int, scalars[2], bits, col_ok)
-        acc = _weighted_values(weights, v).to(torch.float32) * 2.0**-15
-    else:
-        # products of bfloat16 weights and int8 values are exact, and their
-        # float64 sum is too at these exponent spreads: one rounding
-        weights = _softmax_weights_plain(a_int, scalars[2], col_ok)
-        acc = torch.matmul(weights, v.to(torch.float64)).to(torch.float32)
-    o = torch.round(acc * scalars[1])
-    return torch.clamp(o, -128, 127).to(torch.int8)
+    """Plain PyTorch version of :func:`fused_int_attention` (the slow LIS)."""
+    return attention_core_plain(qkv_i8[:, 0], qkv_i8[:, 1], qkv_i8[:, 2],
+                                scalars[0], scalars[2], scalars[1],
+                                n_real=n_real, bits=bits, lis=lis)
 
 
 def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,

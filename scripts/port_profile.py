@@ -2,8 +2,10 @@
 
     python3 scripts/port_profile.py [--forwards 5] [--batches 1 8 64]
 
-For DeiT-S int4, the FQ-ViT DeiT-S int8 (SmoothQuant off) and Swin-T int4
-— seeded random weights at full width and depth, int8 input codes — and
+For DeiT-S int4 (per kernel, and served resident: the encoder in one K6
+launch per chunk of 8 images), the FQ-ViT DeiT-S int8 (SmoothQuant off)
+and Swin-T int4 — seeded random weights at full width and depth, int8
+input codes — and
 each batch size: the forward's time (CUDA events, mean of 10, not
 profiled), then ``torch.profiler`` over ``--forwards`` forwards: the summed
 device time of everything the card ran, per forward; the number of device
@@ -40,14 +42,16 @@ from diffvit_tpu_torch.testing import (random_int_model,  # noqa: E402
 def models():
     deit, swin = VIT_SPECS["deit_small"], SWIN_SPECS["swin_tiny"]
     fq = QuantConfig(smoothquant=False, bit_w=BIT_TYPE_DICT["int8"])
+    int4 = random_int_model(deit, QuantConfig(), seed=0)
+    # name -> (spec, cfg, int-model, resident)
     return {
-        "deit_small int4": (deit, QuantConfig(),
-                            random_int_model(deit, QuantConfig(), seed=0)),
+        "deit_small int4": (deit, QuantConfig(), int4, False),
+        "deit_small int4 resident": (deit, QuantConfig(), int4, True),
         "deit_small fqvit_int8": (deit, fq, random_int_model(deit, fq,
-                                                             seed=0)),
+                                                             seed=0), False),
         "swin_tiny int4": (swin, QuantConfig(),
                            random_swin_int_model(swin, QuantConfig(),
-                                                 seed=0)),
+                                                 seed=0), False),
     }
 
 
@@ -91,8 +95,8 @@ def main():
                       "nvidia_smi": smi}), flush=True)
     build.load_library()
     rng = np.random.default_rng(1)
-    for name, (spec, cfg, ip_np) in models().items():
-        model = engine.IntModel(ip_np, spec, cfg, "cuda")
+    for name, (spec, cfg, ip_np, resident) in models().items():
+        model = engine.IntModel(ip_np, spec, cfg, "cuda", resident=resident)
         for b in args.batches:
             px = rng.integers(0, 256, (b, 3, spec.img_size, spec.img_size),
                               dtype=np.uint8)

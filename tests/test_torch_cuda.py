@@ -3,14 +3,16 @@
 This file imports neither JAX nor the JAX package, so it runs where the
 card is: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (tests/conftest.py imports JAX).  Every test carries the ``cuda`` marker;
-without a card each skips."""
+without a card each skips.  K1, K2 and K5 share their device code with
+the resident kernel K6 (``csrc/attention_core.cuh``, ``int8_gemm.cuh``,
+``int_mlp.cuh``); their tests here hold them exact after that move."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from diffvit_tpu_torch import QuantConfig
+from diffvit_tpu_torch import QuantConfig, engine
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_constants,
                                               int_attn_scalars,
@@ -25,6 +27,9 @@ from diffvit_tpu_torch.ops.kernels.attention import (
     fused_qkv_attention_v2_plain)
 from diffvit_tpu_torch.ops.kernels.mlp import (fused_int_mlp,
                                                fused_int_mlp_plain)
+from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
+                                                 resident_codes,
+                                                 resident_codes_plain)
 from diffvit_tpu_torch.ops.kernels.swin_attention import (
     fused_swin_attention, fused_swin_attention_v2, swin_attention_plain)
 from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
@@ -32,6 +37,7 @@ from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 SMALL = dataclasses.replace(VIT_SPECS["deit_small"], depth=1)
+SMALL2 = dataclasses.replace(VIT_SPECS["deit_small"], depth=2)
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +79,88 @@ def test_qkv_attention_kernel_matches_plain(cuda, spec, batch, npad, n_real,
     assert fused_qkv_attention_v2.launches == before + 1
     want = fused_qkv_attention_v2_plain(*args, **kw)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _assert_softmax_codes_close(got, want):
+    """The float softmax's rule (the JAX suite's): within 1 code on fewer
+    than 2% of codes."""
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and np.mean(diff > 0) < 0.02, \
+        (diff.max(), np.mean(diff > 0))
+
+
+@pytest.mark.parametrize("spec,batch,npad", [(TINY, 2, 200), (SMALL, 2, 197),
+                                             (SMALL, 1, 256)])
+def test_qkv_attention_float_softmax_kernel_matches_plain(cuda, spec, batch,
+                                                          npad):
+    """K1 with lis=False (the float softmax rounded to bfloat16)."""
+    ib, scalars = _block(spec)
+    dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    q = ib["qkv"]
+    args = (dev(_codes((batch, npad, spec.embed_dim), 5)), dev(q["w_int"]),
+            dev(q["mult"]), dev(q["b"]), dev(scalars))
+    kw = dict(num_heads=spec.num_heads, head_dim=spec.head_dim, n_real=197,
+              bits=8, lis=False)
+    before = fused_qkv_attention_v2.launches
+    got = fused_qkv_attention_v2(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention_v2.launches == before + 1
+    want = fused_qkv_attention_v2_plain(*args, **kw)
+    _assert_softmax_codes_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("lis", [True, False], ids=["lis", "softmax"])
+@pytest.mark.parametrize("spec,batch,npad", [
+    (TINY, 1, 197), (TINY, 3, 200), (SMALL2, 1, 197), (SMALL2, 3, 197),
+    (SMALL2, 8, 197)])
+def test_resident_kernel_matches_plain(cuda, spec, batch, npad, lis):
+    """K6 (every block in one cooperative launch) vs its plain version;
+    rows past the 197 tokens of an image are zero padding."""
+    cfg = QuantConfig()
+    ip = int_model_from_numpy(random_int_model(spec, cfg, seed=2), spec,
+                              cuda, cfg)
+    packed = prepare_resident(ip, spec, cfg)
+    x = _codes((batch, npad, spec.embed_dim), 6)
+    x[:, 197:] = 0
+    x = torch.tensor(x.reshape(batch * npad, -1), device=cuda)
+    kw = dict(n_real=197, bits=4, lis=lis, nelems=batch)
+    before = resident_codes.launches
+    got = resident_codes(packed, x, **kw)
+    torch.cuda.synchronize()
+    assert resident_codes.launches == before + 1
+    want = resident_codes_plain(packed, x, **kw)
+    def real(t):
+        return t.reshape(batch, npad, -1)[:, :197].cpu().numpy()
+    if lis:
+        np.testing.assert_array_equal(real(got), real(want))
+    else:
+        _assert_softmax_codes_close(real(got), real(want))
+
+
+def test_resident_forward_on_card_equals_per_kernel(cuda):
+    """IntModel(resident=True) on the card: one K6 launch per chunk of 2
+    images and no K1 or K2; its logits equal the per-kernel forward's on
+    the card, and agree with the resident forward on the CPU."""
+    cfg = QuantConfig()
+    ip_np = random_int_model(SMALL2, cfg, seed=4)
+    x = np.random.default_rng(3).integers(-60, 60, (3, 3, 224, 224)) \
+        .astype(np.int8)
+    resident = engine.IntModel(ip_np, SMALL2, cfg, cuda, resident=True)
+    per_kernel = engine.IntModel(ip_np, SMALL2, cfg, cuda)
+    before = (resident_codes.launches, fused_qkv_attention_v2.launches,
+              fused_int_mlp.launches)
+    xt = torch.tensor(x, device=cuda)
+    with torch.inference_mode():
+        got = vit_int.forward_q_int_serve(resident.ip, SMALL2, cfg, xt,
+                                          packed=resident.packed,
+                                          microbatch=2)
+    torch.cuda.synchronize()
+    assert (resident_codes.launches, fused_qkv_attention_v2.launches,
+            fused_int_mlp.launches) == (before[0] + 2, before[1], before[2])
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  per_kernel(x).cpu().numpy())
+    cpu = engine.IntModel(ip_np, SMALL2, cfg, "cpu", resident=True)(x)
+    _assert_paths_agree(got.cpu().numpy(), cpu.numpy())
 
 
 @pytest.mark.parametrize("spec,rows", [(TINY, 391), (SMALL, 197 * 2)])
@@ -126,9 +214,10 @@ def test_int_attention_kernel_matches_plain(cuda, spec, batch, n_real, lis):
     (QuantConfig(ptf=False, lis=False, smoothquant=False,
                  bit_w=BIT_TYPE_DICT["int8"]), None),
     (QuantConfig(), (4, -1, 4, 4, 4, 4, -1, 4, -1, -1)),
-    (QuantConfig(), "sym_acts")],
+    (QuantConfig(), "sym_acts"),
+    (QuantConfig(lis=False), None)],
     ids=["default", "fqvit_int8", "ptf_off", "legacy", "float_sites",
-         "asymmetric"])
+         "asymmetric", "float_softmax"])
 def test_forward_on_card_matches_cpu(cuda, cfg, bits):
     """A width whose reciprocal is inexact (1/96): CUDA torch divides by a
     Python number through its reciprocal, which the port must avoid.  Every

@@ -110,9 +110,10 @@ def test_wrappers_refuse_other_devices(block0):
 def test_wrapper_contract_raises(block0):
     ib, scalars, x = block0
     args = _attn_args(ib, scalars, x, torch.tensor)
-    with pytest.raises(NotImplementedError, match="lis"):
-        fused_qkv_attention_v2(*args, num_heads=2, head_dim=32, n_real=N,
-                               lis=False)
+    # the float softmax (lis=False) takes any bits; the LIS at most 4
+    out = fused_qkv_attention_v2(*args, num_heads=2, head_dim=32, n_real=N,
+                                 bits=8, lis=False)
+    assert out.shape == (2, 2, NPAD, 32) and out.dtype == torch.int8
     with pytest.raises(NotImplementedError, match="bits"):
         fused_qkv_attention_v2(*args, num_heads=2, head_dim=32, n_real=N,
                                bits=8)
