@@ -28,7 +28,20 @@
 5. branches: the other branches of the ViT forward at DeiT-S width, b = 8:
             float (-1) sites, float LayerNorm (PTF off), asymmetric
             activations, the float softmax (K1 with lis=False); launches
-            per forward and card vs CPU.
+            per forward and card vs CPU;
+6. alternatives: the kernels on no model path.  Kernel rows against
+            their plain versions: K8 (fused_qkv_attention v1, _v3, _v4,
+            _v5) and K7a (fused_attention_block) at DeiT-S b = 1, 8, 64,
+            LIS and float softmax; K7b (fused_int_mlp_block) at b = 1, 8,
+            64; K3 (fused_int_linear) at the DeiT-S patch, qkv, proj, fc1
+            and head sites and Swin-T's patch and stage-0 qkv, b = 1 and
+            64, every mode, with torch._int_mm's time beside it (the GEMM
+            alone: a yardstick the port never calls).  Then the path: all
+            of them fed from block 0 of DeiT-S int4 on a b = 8 request,
+            held against what they stand for (K8 v1 against K1, K7a
+            against K1 + proj + code fences, K7b against the fences + LN2
+            + K2 + qact4; K3's raw mode bit for bit against the forward's
+            int_matmul(x, w) * mult + b at the patch, proj and head).
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -53,19 +66,23 @@ import torch
 
 from diffvit_tpu_torch import QuantConfig, engine
 from diffvit_tpu_torch.models import swin_int, vit_int
-from diffvit_tpu_torch.models.convert import (attn_constants,
+from diffvit_tpu_torch.models.convert import (attn_block_operands,
+                                              attn_constants,
                                               int_attn_scalars,
                                               int_model_from_numpy,
+                                              mlp_block_operands,
                                               swin_block_constants)
 from diffvit_tpu_torch.models.swin import SWIN_SPECS
-from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
+from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec, patchify
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
-from diffvit_tpu_torch.ops.kernels import (attention, build, mlp,
+from diffvit_tpu_torch.ops.kernels import (attention, build, linear, mlp,
                                            swin_attention)
 from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
                                                  resident_codes,
                                                  resident_codes_plain)
-from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
+from diffvit_tpu_torch.testing import (alt_kernel_cases, linear_site_cases,
+                                       random_int_model,
+                                       random_swin_int_model)
 
 SPEC = VIT_SPECS["deit_small"]  # full width and depth: 384 wide, 12 blocks
 SWIN = SWIN_SPECS["swin_tiny"]  # full width and depth: 96..768, 2/2/6/2
@@ -126,7 +143,34 @@ KERNELS = {
         fn=resident_codes, plain=resident_codes_plain,
         source="diffvit_tpu_torch/csrc/resident.cu",
         replaces="diffvit_tpu/ops/pallas/serve.py:316"),
+    "fused_int_linear": dict(
+        fn=linear.fused_int_linear, plain=linear.fused_int_linear_plain,
+        source="diffvit_tpu_torch/csrc/int_linear.cu",
+        replaces="diffvit_tpu/ops/pallas/linear.py:69"),
+    "fused_attention_block": dict(
+        fn=attention.fused_attention_block,
+        plain=attention.fused_attention_block_plain,
+        source="diffvit_tpu_torch/csrc/qkv_attention.cu",
+        replaces="diffvit_tpu/ops/pallas/attention.py:698"),
+    "fused_int_mlp_block": dict(
+        fn=mlp.fused_int_mlp_block, plain=mlp.fused_int_mlp_block_plain,
+        source="diffvit_tpu_torch/csrc/int_mlp_block.cu",
+        replaces="diffvit_tpu/ops/pallas/mlp.py:231"),
+    "fused_qkv_attention": dict(
+        fn=attention.fused_qkv_attention,
+        plain=attention.fused_qkv_attention_plain,
+        source="diffvit_tpu_torch/csrc/qkv_attention.cu",
+        replaces="diffvit_tpu/ops/pallas/attention.py:734"),
 }
+# K8's scheduling variants: v1's function on K1's weight layout, one kernel
+for _v, _line in (("v3", 398), ("v4", 489), ("v5", 597)):
+    KERNELS[f"fused_qkv_attention_{_v}"] = dict(
+        fn=getattr(attention, f"fused_qkv_attention_{_v}"),
+        plain=attention.fused_qkv_attention_v3_plain,
+        source="diffvit_tpu_torch/csrc/qkv_attention.cu",
+        replaces=f"diffvit_tpu/ops/pallas/attention.py:{_line}")
+K8 = ("fused_qkv_attention", "fused_qkv_attention_v3",
+      "fused_qkv_attention_v4", "fused_qkv_attention_v5")
 
 
 def emit(**record):
@@ -192,7 +236,27 @@ def work(name, args, kw):
     """(operations, bytes) one call needs: every input byte read once and
     every output byte written once; the integer products, and for the
     attention cores the scores and attn@v over the real keys."""
-    inputs = sum(nbytes(a) for a in args)
+    inputs = sum(nbytes(a) for a in (*args, *kw.values()))
+    if name == "fused_int_linear":
+        x, w = args[:2]
+        rows, k = x.shape
+        n = w.shape[1]
+        out = rows * n * (1 if kw.get("emit_codes") else 4)
+        return 2 * rows * k * n, inputs + out
+    if name in K8 or name == "fused_attention_block":
+        x = args[0]
+        b, n, cin = x.shape
+        w = args[2] if name == "fused_attention_block" else args[1]
+        c = w.shape[0] * w.shape[2] if w.dim() == 3 else w.shape[1] // 3
+        ops = 2 * b * n * cin * 3 * c + 4 * b * n * kw["n_real"] * c
+        if name != "fused_attention_block":
+            return ops, inputs + b * n * c
+        cout = args[5].shape[2]
+        return ops + 2 * b * n * c * cout, inputs + b * n * cout * 4
+    if name == "fused_int_mlp_block":
+        rows, c = args[0].shape
+        hid = kw["w1"].shape[1]
+        return 4 * rows * c * hid, inputs + rows * c * 4
     if name == "resident_codes":
         packed, x = args
         rows, c = x.shape
@@ -277,7 +341,7 @@ def hold(name, args, kw, tol="exact", decode=None, **where):
     torch.cuda.synchronize()
     if decode is not None:
         got, want = decode(got), decode(want)
-    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
     equal = float((got == want).float().mean())
     max_diff = int(diff.max())
     t = [cuda_ms(lambda: f(*args, **kw))
@@ -296,22 +360,24 @@ def hold(name, args, kw, tol="exact", decode=None, **where):
     return max_diff, ms, plain_ms
 
 
-def phase_kernels(dev):
-    """Each kernel vs its plain version on the card; returns per kernel the
-    largest |diff| and, at the heaviest shape of the main paths (DeiT-S
-    b=64 for K1, K2, K5 and K6; Swin-T stage 0 b=64 for K4 and K4b), its
-    times and its bound."""
-    summary = {name: {"max_abs_err": 0} for name in KERNELS}
+def note(summary, name, result, heaviest=None, library_ms=None):
+    """Record a kernel row's |diff| in ``summary[name]`` and, for the row
+    at the kernel's heaviest shape (``heaviest`` = (label, args, kw)), its
+    times, its bound and the library call's time."""
+    s = summary[name]
+    s["max_abs_err"] = max(s["max_abs_err"], result[0])
+    if heaviest:
+        at, args, kw = heaviest
+        s["ms"], s["plain_ms"] = result[1], result[2]
+        s["bound_ms"], s["bound_by"] = bound(name, args, kw)
+        s["library_ms"], s["at"] = library_ms, at
 
-    def note(name, result, heaviest=None):
-        s = summary[name]
-        s["max_abs_err"] = max(s["max_abs_err"], result[0])
-        if heaviest:
-            at, args, kw = heaviest
-            s["ms"], s["plain_ms"] = result[1], result[2]
-            s["bound_ms"], s["bound_by"] = bound(name, args, kw)
-            s["library_ms"], s["at"] = None, at
 
+def phase_kernels(dev, summary):
+    """Each kernel of the model paths vs its plain version on the card;
+    records per kernel the largest |diff| and, at the heaviest shape of
+    the main paths (DeiT-S b=64 for K1, K2, K5 and K6; Swin-T stage 0 b=64
+    for K4 and K4b), its times and its bound."""
     for spec, batches in ((SPEC, (1, 8, 64)), (TINY, (2,))):
         ib = random_int_model(spec, CFG, seed=0)["blocks"][0]
         ib_fq = random_int_model(spec, FQVIT, seed=0)["blocks"][0]
@@ -335,8 +401,8 @@ def phase_kernels(dev):
                         return torch.round(y / s)
                 heaviest = spec is SPEC and b == 64 and main_row \
                     and (f"{spec.name} b=64", args, kw)
-                note(name, hold(name, args, kw, tol, decode, spec=spec.name,
-                                batch=b), heaviest)
+                note(summary, name, hold(name, args, kw, tol, decode,
+                                         spec=spec.name, batch=b), heaviest)
         # K6: the whole encoder (12 blocks at DeiT-S) in one launch
         ip = int_model_from_numpy(random_int_model(spec, CFG, seed=0), spec,
                                   dev, CFG)
@@ -349,7 +415,7 @@ def phase_kernels(dev):
                 kw = dict(n_real=spec.seq_len, bits=4, lis=lis, nelems=b)
                 heaviest = spec is SPEC and b == 64 and lis \
                     and (f"{spec.name} b=64", args, kw)
-                note("resident_codes",
+                note(summary, "resident_codes",
                      hold("resident_codes", args, kw, tol, spec=spec.name,
                           batch=b), heaviest)
     ip = random_swin_int_model(SWIN, CFG, seed=0)
@@ -358,9 +424,8 @@ def phase_kernels(dev):
             for name, (args, kw) in swin_cases(ip, stage, b, dev).items():
                 heaviest = name != "fused_int_mlp" and stage == 0 \
                     and b == 64 and (f"{SWIN.name} stage 0 b=64", args, kw)
-                note(name, hold(name, args, kw, spec=SWIN.name, stage=stage,
-                                batch=b), heaviest)
-    return summary
+                note(summary, name, hold(name, args, kw, spec=SWIN.name,
+                                         stage=stage, batch=b), heaviest)
 
 
 def at_bounds(codes):
@@ -637,6 +702,210 @@ def phase_serving_swin(dev):
     return launches, launches_v2
 
 
+def int_mm_ms(x, w):
+    """The time of ``torch._int_mm(x, w)``, the GEMM alone with int32 out
+    (K3's yardstick; the port never calls it), or None where it takes no
+    such shape (it needs M > 16 and K and N multiples of 8)."""
+    if x.shape[0] <= 16 or x.shape[1] % 8 or w.shape[1] % 8:
+        return None
+    return cuda_ms(lambda: torch._int_mm(x, w))
+
+
+def linear_modes(out_scale):
+    """K3's three modes: (mode, kwargs, decode to comparable integers)."""
+    return (("raw", {}, lambda y: y.view(torch.int32)),
+            ("fq", dict(out_scale=out_scale),
+             lambda y, s=out_scale: torch.round(y / s)),
+            ("codes", dict(out_scale=out_scale, emit_codes=True), None))
+
+
+def phase_alternatives_kernels(dev, summary):
+    """The kernels that no model path runs, each vs its plain version on the
+    card: K8 (v1, v3, v4, v5) and K7a at DeiT-S b = 1, 8, 64 (200 rows,
+    197 real), LIS and float softmax; K7b at b = 1, 8, 64 (B * 197 rows);
+    K3 at the DeiT-S patch, qkv, proj, fc1 and head sites and at Swin-T's
+    patch (K = 48) and stage-0 qkv, b = 1 and 64, each mode, with
+    ``torch._int_mm``'s time at the same shape beside it.  v5 takes an
+    even batch only: its b = 1 call must raise, and it runs at b = 2."""
+    ip_np = random_int_model(SPEC, CFG, seed=0)
+    for lis, tol in ((True, "exact"), (False, "softmax")):
+        for b in (1, 8, 64):
+            cases = alt_kernel_cases(SPEC, ip_np, b, dev, npad=200, lis=lis,
+                                     seed=b)
+            for name in K8 + ("fused_attention_block", "fused_int_mlp_block"):
+                if name == "fused_int_mlp_block" and not lis:
+                    continue  # K7b has no softmax
+                args, kw = cases[name]
+                batch = b
+                if name == "fused_qkv_attention_v5" and b % 2:
+                    try:
+                        attention.fused_qkv_attention_v5(*args, **kw)
+                    except ValueError as e:
+                        emit(phase="kernel", kernel=name, batch=b,
+                             refused=str(e))
+                    else:
+                        raise RuntimeError("fused_qkv_attention_v5 took an "
+                                           f"odd batch, B={b}")
+                    batch = b + 1
+                    args, kw = alt_kernel_cases(SPEC, ip_np, batch, dev,
+                                                npad=200, lis=lis,
+                                                seed=b)[name]
+                decode = None
+                if name == "fused_attention_block":
+                    def decode(y, s=args[8][3]):  # the qact2 grid
+                        return torch.round(y / s)
+                elif name == "fused_int_mlp_block":
+                    def decode(y, s=kw["s4_vec"]):  # the qact4 grid
+                        return torch.round(y / s)
+                heaviest = b == 64 and lis and (f"{SPEC.name} b=64", args,
+                                                kw)
+                note(summary, name, hold(name, args, kw, tol, decode,
+                                         spec=SPEC.name, batch=batch),
+                     heaviest)
+    swin_np = random_swin_int_model(SWIN, CFG, seed=0)
+    best = 0.0
+    for b in (1, 64):
+        for spec, model in ((SPEC, ip_np), (SWIN, swin_np)):
+            for site, (args, out_scale) in linear_site_cases(
+                    spec, model, b, dev, seed=b).items():
+                lib_ms = int_mm_ms(args[0], args[1])
+                for mode, kw, decode in linear_modes(out_scale):
+                    result = hold("fused_int_linear", args, kw, "exact",
+                                  decode, spec=spec.name, site=site,
+                                  batch=b, mode=mode, library_ms=lib_ms)
+                    b_ms = bound("fused_int_linear", args, kw)[0]
+                    heaviest = b_ms > best and (
+                        f"{spec.name} {site} b={b} {mode}", args, kw)
+                    best = max(best, b_ms)
+                    note(summary, "fused_int_linear", result, heaviest,
+                         lib_ms)
+
+
+def alternatives_path(model, x):
+    """The model-fed run of K3, K7a, K7b and K8: block 0 of ``model`` (an
+    IntModel of DeiT-S int4) on the int8 input codes ``x``.  The embed and
+    block 0's LN1 give real LN codes; K1, its proj and the code fences are
+    the per-kernel composition that K7a replaces; the fake-quant fences,
+    LN2, K2 and qact4 the default MLP half that K7b replaces; K3 runs the
+    patch, proj and head GEMMs beside the forward's own expression.
+    Returns the outputs to compare."""
+    ip, cfg, spec = model.ip, model.cfg, model.spec
+    ib = ip["blocks"][0]
+    b, n, c = x.shape[0], spec.seq_len, spec.embed_dim
+    eps, bt = spec.ln_eps, cfg.bit_a
+    in_scale = ip["qact1"]["scale"]
+    hc = vit_int._codes(vit_int._embed_front(ip, spec, cfg, x), in_scale, bt)
+    x1 = vit_int._ln_int8(None, ib["norm1"], in_scale, ib["qkv"]["in_scale"],
+                          eps, x_codes=hc)
+    h = hc.to(torch.float32) * in_scale
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 200 - n))  # noqa
+    ab = attn_block_operands(ib, spec)
+    q = ib["qkv"]
+    heads = dict(num_heads=spec.num_heads, head_dim=spec.head_dim, n_real=n)
+    out = {}
+    # K1, the proj and the codes fences (the per-kernel composition)
+    o1 = attention.fused_qkv_attention_v2(
+        x1, q["w_int"], q["mult"], q["b"], ib["attn_scalars"],
+        lis_fast=ib["lis_fast"], **heads)
+    out["k1"] = o1
+    o_rows = o1.permute(0, 2, 1, 3).reshape(b * n, c)
+    y = vit_int._int_linear(o_rows, ib["proj"])
+    s3, s_blk2 = ib["attn.qact3"]["scale"], ib["qact2"]["scale"]
+    yq3 = torch.clamp(torch.round(y / s3), bt.lower_bound, bt.upper_bound)
+    out["composition_qact2"] = vit_int._codes(
+        h.reshape(b * n, c) + yq3 * s3, s_blk2, bt).to(torch.float32)
+    # K8's four entries on the same LN1 codes, padded to 200 rows
+    out["fused_qkv_attention"] = attention.fused_qkv_attention(
+        pad(x1), ab["wq"], ab["wk"], ab["wv"], ab["mult"], ab["bias"],
+        ab["scalars"], n_real=n)
+    for name in K8[1:]:
+        out[name] = KERNELS[name]["fn"](pad(x1), q["w_int"], q["mult"],
+                                        q["b"], ab["scalars"], **heads)
+    # K7a on the LN1 codes and the residual
+    out["k7a_qact2"] = torch.round(attention.fused_attention_block(
+        pad(x1), pad(h), **ab, n_real=n)[:, :n].reshape(b * n, c) / s_blk2)
+    # K7b and the default MLP half (fake-quant fences, LN2, K2, qact4)
+    mops = mlp_block_operands(ib)
+    out["k7b"] = mlp.fused_int_mlp_block(y, h.reshape(b * n, c), **mops)
+    y3 = vit_int._fq_site(ib["attn.qact3"], y, bt)
+    h2 = vit_int._fq_site(ib["qact2"], h.reshape(b * n, c) + y3, bt)
+    x2 = vit_int._ln_int8(h2, ib["norm2"], s_blk2, mops["ln_out_scale"], eps,
+                          rescale=mops["ln_rescale"])
+    y2 = vit_int._mlp_kernel(ib, x2.reshape(b, n, c), emit_codes=False)
+    out["default_mlp"] = vit_int._fq_site(ib["qact4"],
+                                          h2 + y2.reshape(b * n, c), bt)
+    # K3 raw at the patch, proj and head sites vs the forward's expression
+    head_x = vit_int._ln_int8(None, ip["norm"], in_scale, ip["qact2"]["scale"],
+                              eps, x_codes=hc[:, 0])
+    for site, s, xs in (("patch", ip["patch"], patchify(x, spec)),
+                        ("proj", ib["proj"], o_rows),
+                        ("head", ip["head"], head_x)):
+        xs = xs.reshape(-1, s["w_int"].shape[0]).contiguous()
+        out[f"k3_{site}"] = linear.fused_int_linear(xs, s["w_int"], s["mult"],
+                                                    s["b"])
+        out[f"forward_{site}"] = vit_int._int_linear(xs, s)
+    return out
+
+
+def model_fed_checks(out, n):
+    """The shares of equal codes between the alternatives and what they
+    stand for, and the failures: K3 raw not bit-equal to the forward's
+    expression, v3-v5 not equal to v1, K8 v1 / K7a / K7b beyond the
+    kernel rule (>= 99.9% equal, |diff| <= 1 code) against K1 / the
+    composition / the default MLP half, or a non-finite output."""
+    def share(a, b):
+        return float((a == b).float().mean())
+
+    def max_diff(a, b):
+        return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+    v1 = out["fused_qkv_attention"][:, :, :n]
+    res = {"k8_v1_vs_k1": share(v1, out["k1"]),
+           "k8_v1_vs_k1_max_diff": max_diff(v1, out["k1"])}
+    for name in K8[1:]:
+        res[f"{name}_vs_v1"] = share(out[name][:, :, :n], v1)
+    res["k7a_vs_composition"] = share(out["k7a_qact2"],
+                                      out["composition_qact2"])
+    res["k7a_vs_composition_max_diff"] = max_diff(out["k7a_qact2"],
+                                                  out["composition_qact2"])
+    res["k7b_vs_default_mlp"] = share(out["k7b"], out["default_mlp"])
+    for site in ("patch", "proj", "head"):
+        res[f"k3_{site}_raw_bit_equal"] = bool(torch.equal(
+            out[f"k3_{site}"], out[f"forward_{site}"]))
+    finite = all(bool(torch.isfinite(t.to(torch.float32)).all())
+                 for t in out.values())
+    failed = [k for k, v in res.items()
+              if (k.endswith("bit_equal") and not v)
+              or (k.endswith("_vs_v1") and v != 1.0)
+              or (k in ("k8_v1_vs_k1", "k7a_vs_composition",
+                        "k7b_vs_default_mlp") and v < 0.999)
+              or (k.endswith("max_diff") and v > 1)]
+    return res, finite, failed
+
+
+def phase_alternatives_path(dev):
+    """K3, K7a, K7b and K8 fed from block 0 of DeiT-S int4 on a b=8
+    request, through their public wrappers, with every count set to 0
+    before and read after: each runs (K3 three times, the rest once), as
+    do K1 and K2 for the compositions they are held against."""
+    model = engine.IntModel(random_int_model(SPEC, CFG, seed=0), SPEC, CFG,
+                            dev)
+    x = torch.tensor(model.encode(np.random.default_rng(6).integers(
+        0, 256, (8, 3, 224, 224), dtype=np.uint8)), device=dev)
+    expected = {name: 1 for name in K8 + (
+        "fused_attention_block", "fused_int_mlp_block",
+        "fused_qkv_attention_v2", "fused_int_mlp")}
+    expected["fused_int_linear"] = 3
+    out, launches = drive(expected, lambda: alternatives_path(model, x))
+    res, finite, failed = model_fed_checks(out, SPEC.seq_len)
+    emit(phase="alternatives", model=SPEC.name, batch=8, finite=finite,
+         **res)
+    if failed or not finite:
+        raise RuntimeError(f"model-fed alternatives failed: {failed}, "
+                           f"finite={finite}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -657,7 +926,10 @@ def main():
          library=os.path.relpath(path))
 
     t = [time.perf_counter()]
-    summary = phase_kernels(dev)
+    summary = {name: {"max_abs_err": 0} for name in KERNELS}
+    phase_kernels(dev, summary)
+    t.append(time.perf_counter())
+    phase_alternatives_kernels(dev, summary)
     t.append(time.perf_counter())
     paths = {SPEC.name: phase_serving(dev)}
     t.append(time.perf_counter())
@@ -669,9 +941,12 @@ def main():
     t.append(time.perf_counter())
     paths[SWIN.name], paths[f"{SWIN.name} attn_v2"] = phase_serving_swin(dev)
     t.append(time.perf_counter())
+    paths[f"{SPEC.name} alternatives"] = phase_alternatives_path(dev)
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
-        ("kernels", "deit_small", "deit_small_fqvit", "deit_small_resident",
-         "branches", "swin_tiny"), t, t[1:])})
+        ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
+         "deit_small_resident", "branches", "swin_tiny", "alternatives"),
+        t, t[1:])})
 
     kernels = []
     for name, k in KERNELS.items():

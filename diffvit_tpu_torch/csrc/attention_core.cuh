@@ -1,5 +1,5 @@
-// The attention core shared by K1 and K5 (qkv_attention.cu) and by the
-// resident encoder (resident.cu): for one (image, head, tile of 32 query
+// The attention core shared by K1, K5, K7a and K8 (qkv_attention.cu) and
+// by the resident encoder (resident.cu): for one (image, head, tile of 32 query
 // rows), integer scores, the Log-Int-Softmax or the float softmax, attn@v
 // and the requant onto the qact2 grid.  Also the qkv GEMM's requant
 // epilogue.  Kept in one place so that the kernels cannot drift apart.
@@ -35,13 +35,18 @@ constexpr int kAttnWarps = 4;
 constexpr int kQueryTile = 32;
 constexpr int kKeysPerLane = kMaxKeys / 32;
 
-// The qkv GEMM's epilogue: rint(acc * mult/s1 + bias/s1) clipped to int8.
+// The qkv GEMM's epilogue, in one of two requant orders: K1's
+// rint(acc * mult/s1 + bias/s1) (mb folded by the wrapper, s1_inv null),
+// or K8's (the Pallas v1, v3-v5) rint((acc * mult + bias) * (1/s1)),
+// clipped to int8.
 struct QkvEpilogue {
-  const float* mb;  // (2, 3C): [mult/s1, bias/s1]
-  int8_t* out;      // (rows, 3C)
-  int n;            // 3C
+  const float* mb;      // (2, 3C): [mult/s1, bias/s1], or [mult, bias]
+  int8_t* out;          // (rows, 3C)
+  int n;                // 3C
+  const float* s1_inv = nullptr;  // device scalar 1/s1 for K8's order
   __device__ void operator()(int r, int c, int acc) const {
-    const float y = static_cast<float>(acc) * mb[c] + mb[n + c];
+    float y = static_cast<float>(acc) * mb[c] + mb[n + c];
+    if (s1_inv != nullptr) y = y * *s1_inv;
     out[(size_t)r * n + c] = clip_i8(rintf(y));
   }
 };

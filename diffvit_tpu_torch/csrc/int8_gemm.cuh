@@ -1,11 +1,12 @@
 // Shared int8 GEMM tile core with a fused epilogue, for the kernels in this
-// directory (qkv_attention.cu, int_mlp.cu, and resident.cu, whose persistent
-// blocks call the tile function for one output tile after another).
+// directory (qkv_attention.cu, int_mlp.cu, int_linear.cu, int_mlp_block.cu,
+// and resident.cu, whose persistent blocks call the tile function for one
+// output tile after another).
 //
-// Computes C[M, N] = A[M, K] @ B[K, N] for row-major int8 A and B (B is a
-// weight in the JAX package's (Cin, Cout) layout), accumulating exactly in
-// int32 with the tensor cores' mma.sync m16n8k32 s8 instruction, and hands
-// every accumulator to an epilogue functor ``epi(row, col, acc)`` that
+// Computes C[M, N] = A[M, K] @ B[K, N] for int8 A and B (B is a weight in
+// the JAX package's (Cin, Cout) layout), accumulating exactly in int32 with
+// the tensor cores' mma.sync m16n8k32 s8 instruction, and hands every
+// accumulator to an epilogue functor ``epi(row, col, acc)`` that
 // requantizes and stores it.  The whole epilogue runs on the registers, so
 // the int32 product never reaches device memory.
 //
@@ -13,10 +14,20 @@
 // 32x32 (2 x 4 mma tiles); K in steps of 32 through shared memory, with no
 // double buffering.  B is transposed into shared memory on the way in
 // (mma's B operand wants K contiguous per column).  Rows are padded to 48
-// bytes so that the fragment loads are free of bank conflicts.  The ragged
-// M edge is zero-filled and masked; the caller guarantees K % 32 == 0,
-// N % 16 == 0 and 16-byte aligned A and B.  wgmma/TMA pipelining is later
-// work.
+// bytes so that the fragment loads are free of bank conflicts.  Two operand
+// loaders fill the tiles:
+//  * DenseOperands: row-major A and B; the caller guarantees K % 32 == 0,
+//    N % 16 == 0 and 16-byte aligned A and B (K2, K6, K7b);
+//  * ViewOperands: row-major A with any K, and B read through a BView
+//    (pointers and element strides, see below) with any N, so that K1's
+//    and K8's weights are read in place and K3 takes the ragged shapes of
+//    its sites; the ragged K and N edges are zero-filled, and a 16-byte
+//    chunk is one vector load where it is in range and aligned, else
+//    loaded byte by byte (K1, K3, K7a, K8).  Its checks cost K2 about 19%
+//    at DeiT-S b=64 on an H100 80GB HBM3 at 700 W (PERF.md), so the dense
+//    callers keep the first.
+// The ragged M edge is zero-filled and masked in both.  wgmma/TMA
+// pipelining is later work.
 #pragma once
 
 #include <cstdint>
@@ -45,21 +56,149 @@ struct GemmSmem {
   __align__(16) int8_t Bs[kGemmBN][kGemmStride];  // Bs[n][k]
 };
 
-// The output tile at (m0, n0), by the block's kGemmThreads threads.  A and
-// B are read with plain loads (no __restrict__): resident.cu passes
-// buffers that the same launch wrote before a grid barrier.  The last use
-// of `sm` is followed by a __syncthreads() (the epilogue runs on
+// Each loader's thread fills one 16-byte chunk of the A tile (row tid/2,
+// bytes (tid%2)*16..) and one of the B tile (k-row tid/4, columns
+// (tid%4)*16..).  A and B are read with plain loads (no __restrict__):
+// resident.cu passes buffers that the same launch wrote before a grid
+// barrier.
+__device__ __forceinline__ void store_b_chunk(GemmSmem& sm, int c, int kr, int4 v) {
+  const int8_t* bytes = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sm.Bs[c + i][kr] = bytes[i];
+}
+
+// Row-major A (M, K) and B (K, N); K % 32 == 0, N % 16 == 0, 16-byte
+// aligned.
+struct DenseOperands {
+  const int8_t* A;
+  const int8_t* B;
+  int M, N, K;
+  struct Thread {};
+  __device__ Thread thread(int, int, int) const { return {}; }
+  __device__ void load(const Thread&, GemmSmem& sm, int m0, int n0, int k0, int tid) const {
+    {  // A tile: 64 rows x 32 bytes
+      const int r = tid >> 1, c = (tid & 1) * 16;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (m0 + r < M)
+        v = *reinterpret_cast<const int4*>(A + (size_t)(m0 + r) * K + k0 + c);
+      *reinterpret_cast<int4*>(&sm.As[r][c]) = v;
+    }
+    {  // B tile: 32 k-rows x 64 columns, transposed
+      const int kr = tid >> 2, c = (tid & 3) * 16;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (n0 + c < N)
+        v = *reinterpret_cast<const int4*>(B + (size_t)(k0 + kr) * N + n0 + c);
+      store_b_chunk(sm, c, kr, v);
+    }
+  }
+};
+
+// B read in place through pointers and element strides: column n is
+// n = slot * c + h * dh + d, element (k, n) is at
+// base[slot] + h * sh + k * sk + d * sd.  A (K, N) row-major weight is
+// base[0] = w, c = dh = N, sh = 0, sk = N, sd = 1; K1's (Cin, 3C) weight
+// with its [slot, head, d] columns and K8 v1's three (H, Cin, D) per-head
+// tensors are the same view with three slots of H heads.
+struct BView {
+  const int8_t* base[3];
+  long long sh, sk, sd;
+  int c, dh;
+  __device__ __forceinline__ const int8_t* col(int n) const {
+    const int slot = n / c, rem = n - slot * c;
+    const int h = rem / dh, d = rem - h * dh;
+    return base[slot] + h * sh + d * sd;
+  }
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 16 bytes, byte i from *addr(i) for i < valid and 0 past it (unrolled, so
+// that the chunk stays in registers).
+template <class Addr>
+__device__ __forceinline__ int4 gather16(int valid, const Addr& addr) {
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (i < valid)
+      w[i >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(*addr(i))) << (8 * (i & 3));
+  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
+                   static_cast<int>(w[3]));
+}
+
+// Row-major A (M, K) with row stride lda, any K; B through a BView, any N.
+// thread() works out each thread's addresses once per output tile.
+struct ViewOperands {
+  const int8_t* A;
+  long long lda;
+  int M, N, K;
+  BView b;
+  struct Thread {
+    const int8_t* a_row;  // nullptr past M
+    const int8_t* b_col;  // column n of the chunk; nullptr past N
+    int b_n;              // the chunk's first column
+    bool a_vec;           // 16-byte loads of A where in range
+    bool b_vec;           // the chunk is one aligned 16-byte run of B
+    bool b_run;           // the chunk's columns are contiguous in B
+  };
+  __device__ Thread thread(int m0, int n0, int tid) const {
+    Thread t;
+    const int r = m0 + (tid >> 1);
+    t.a_row = r < M ? A + r * lda : nullptr;
+    t.a_vec = lda % 16 == 0 && aligned16(A);
+    t.b_n = n0 + (tid & 3) * 16;
+    t.b_col = t.b_n < N ? b.col(t.b_n) : nullptr;
+    const int d = t.b_n % b.c % b.dh;
+    t.b_run = t.b_col != nullptr && b.sd == 1 && d + 16 <= b.dh;
+    t.b_vec = t.b_run && t.b_n + 16 <= N && b.sk % 16 == 0 && aligned16(t.b_col);
+    return t;
+  }
+  __device__ void load(const Thread& t, GemmSmem& sm, int, int, int k0, int tid) const {
+    {  // A tile: 64 rows x 32 bytes
+      const int r = tid >> 1, c = (tid & 1) * 16, kc = k0 + c;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (t.a_row != nullptr && kc < K) {
+        const int8_t* p = t.a_row + kc;
+        if (t.a_vec && kc + 16 <= K)
+          v = *reinterpret_cast<const int4*>(p);
+        else
+          v = gather16(K - kc, [p](int i) { return p + i; });
+      }
+      *reinterpret_cast<int4*>(&sm.As[r][c]) = v;
+    }
+    {  // B tile: 32 k-rows x 64 columns, transposed
+      const int kr = tid >> 2, c = (tid & 3) * 16, k = k0 + kr;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (t.b_col != nullptr && k < K) {
+        const long long koff = k * b.sk;
+        const int8_t* p = t.b_col + koff;
+        if (t.b_vec)
+          v = *reinterpret_cast<const int4*>(p);
+        else if (t.b_run)
+          v = gather16(N - t.b_n, [p](int i) { return p + i; });
+        else
+          v = gather16(N - t.b_n, [&](int i) { return b.col(t.b_n + i) + koff; });
+      }
+      store_b_chunk(sm, c, kr, v);
+    }
+  }
+};
+
+// The output tile at (m0, n0), by the block's kGemmThreads threads.  The
+// last use of `sm` is followed by a __syncthreads() (the epilogue runs on
 // registers), so the caller may reuse `sm` at once.
-template <class Epi>
-__device__ __forceinline__ void int8_gemm_tile(const int8_t* A, const int8_t* B,
-                                               int M, int N, int K, int m0, int n0,
-                                               const Epi& epi, GemmSmem& sm) {
+template <class Ops, class Epi>
+__device__ __forceinline__ void int8_gemm_tile_ops(const Ops& ops, int m0, int n0,
+                                                   const Epi& epi, GemmSmem& sm) {
+  const int M = ops.M, N = ops.N, K = ops.K;
   auto& As = sm.As;
   auto& Bs = sm.Bs;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const typename Ops::Thread th = ops.thread(m0, n0, tid);
 
   int acc[2][4][4];
 #pragma unroll
@@ -70,22 +209,7 @@ __device__ __forceinline__ void int8_gemm_tile(const int8_t* A, const int8_t* B,
       for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
 
   for (int k0 = 0; k0 < K; k0 += kGemmBK) {
-    {  // A tile: 64 rows x 32 bytes, 16 bytes per thread
-      const int r = tid >> 1, c = (tid & 1) * 16;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const int4*>(A + (size_t)(m0 + r) * K + k0 + c);
-      *reinterpret_cast<int4*>(&As[r][c]) = v;
-    }
-    {  // B tile: 32 k-rows x 64 columns, 16 columns per thread, transposed
-      const int kr = tid >> 2, c = (tid & 3) * 16;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (n0 + c < N)
-        v = *reinterpret_cast<const int4*>(B + (size_t)(k0 + kr) * N + n0 + c);
-      const int8_t* bytes = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) Bs[c + i][kr] = bytes[i];
-    }
+    ops.load(th, sm, m0, n0, k0, tid);
     __syncthreads();
 
     unsigned af[2][4], bf[4][2];
@@ -126,20 +250,31 @@ __device__ __forceinline__ void int8_gemm_tile(const int8_t* A, const int8_t* B,
       }
 }
 
+// The tile of row-major A and B (K2, K6).
 template <class Epi>
-__global__ void __launch_bounds__(kGemmThreads)
-    int8_gemm_kernel(const int8_t* __restrict__ A,
-                     const int8_t* __restrict__ B, int M, int N, int K,
-                     Epi epi) {
-  __shared__ GemmSmem sm;
-  int8_gemm_tile(A, B, M, N, K, blockIdx.y * kGemmBM, blockIdx.x * kGemmBN, epi, sm);
+__device__ __forceinline__ void int8_gemm_tile(const int8_t* A, const int8_t* B, int M,
+                                               int N, int K, int m0, int n0,
+                                               const Epi& epi, GemmSmem& sm) {
+  int8_gemm_tile_ops(DenseOperands{A, B, M, N, K}, m0, n0, epi, sm);
 }
 
+template <class Ops, class Epi>
+__global__ void __launch_bounds__(kGemmThreads) int8_gemm_kernel(Ops ops, Epi epi) {
+  __shared__ GemmSmem sm;
+  int8_gemm_tile_ops(ops, blockIdx.y * kGemmBM, blockIdx.x * kGemmBN, epi, sm);
+}
+
+template <class Ops, class Epi>
+inline void launch_int8_gemm_ops(const Ops& ops, Epi epi, cudaStream_t stream) {
+  dim3 grid((ops.N + kGemmBN - 1) / kGemmBN, (ops.M + kGemmBM - 1) / kGemmBM);
+  int8_gemm_kernel<Ops, Epi><<<grid, kGemmThreads, 0, stream>>>(ops, epi);
+}
+
+// The dense GEMM launch of K2 and K7b.
 template <class Epi>
 inline void launch_int8_gemm(const int8_t* A, const int8_t* B, int M, int N,
                              int K, Epi epi, cudaStream_t stream) {
-  dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  int8_gemm_kernel<Epi><<<grid, kGemmThreads, 0, stream>>>(A, B, M, N, K, epi);
+  launch_int8_gemm_ops(DenseOperands{A, B, M, N, K}, epi, stream);
 }
 
 // clip(v, -128, 127) of an integer-valued float, as int8

@@ -57,6 +57,7 @@
 
 #include "attention_core.cuh"
 #include "int8_gemm.cuh"
+#include "int_ln.cuh"
 #include "int_mlp.cuh"
 #include "lis.cuh"
 
@@ -130,18 +131,10 @@ __device__ void ln_row(const int8_t* xrow, int8_t* yrow, int c, const float* mas
   for (int j = lane; j < c; j += 32) {
     const float xq = static_cast<float>(xrow[j]) * mask[j];
     const float a = (sd * w[j]) / out_scale[j];
-    const float aa = fabsf(a);
-    // get_mn: n = clip(7 - floor(log2 |a|), 0, 31); log2 0 = -inf, log2 inf = inf
-    float n;
-    if (aa > 0.f && aa < INFINITY)
-      n = fminf(fmaxf(7.f - static_cast<float>(ilogbf(aa)), 0.f), 31.f);
-    else
-      n = aa == 0.f ? 31.f : 0.f;
-    const float p2n = ldexpf(1.f, static_cast<int>(n));
-    const float m = fminf(fmaxf(floorf(aa * p2n), 0.f), 255.f);
+    const dvt::Mn mn = dvt::get_mn(fabsf(a));
     const float sgn = a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
-    const float bq = rintf((b[j] - ms * w[j]) / out_scale[j] * p2n);
-    float y = rintf((sgn * m * xq + bq) / p2n);
+    const float bq = rintf((b[j] - ms * w[j]) / out_scale[j] * mn.p2n);
+    float y = rintf((sgn * mn.m * xq + bq) / mn.p2n);
     if (rescale != nullptr) y = rintf(y * rescale[j]);
     yrow[j] = dvt::clip_i8(y);
   }

@@ -91,6 +91,54 @@ def int_model_from_numpy(ip, spec: ViTSpec, device,
     return out
 
 
+def qkv_head_blocks(ib, spec: ViTSpec) -> dict:
+    """The per-head layout of a converted block's qkv site that K8 v1 and
+    K7a read (``vit_int.py:140-153``, ``qkv_head_blocks``): ``wq_h``,
+    ``wk_h``, ``wv_h`` (H, Cin, D) int8 and ``mult_h``, ``bias_h`` (3, H,
+    D) float32, on the block's device.  Built on request: the served
+    models carry only the (Cin, 3C) weight."""
+    site = ib["qkv"]
+    h, d, c = spec.num_heads, spec.head_dim, spec.embed_dim
+    codes = site["w_int"].T.reshape(3, h, d, -1).permute(0, 1, 3, 2)
+    return {"wq_h": codes[0].contiguous(), "wk_h": codes[1].contiguous(),
+            "wv_h": codes[2].contiguous(),
+            "mult_h": site["mult"].expand(3 * c).reshape(3, h, d)
+            .to(torch.float32),
+            "bias_h": site["b"].reshape(3, h, d).to(torch.float32)}
+
+
+def attn_block_operands(ib, spec: ViTSpec) -> dict:
+    """K7a's operands beside x and h, from a converted block (with the LIS
+    scalars ``attn_scalars`` of :func:`int_model_from_numpy`): the per-head
+    qkv layout, ``wp`` = proj.w_int as (H, D, C), and ``pvec`` (4, C)
+    float32 [mult_p, bias_p, s_qact3, s_qact2]; keyword names of
+    ``fused_attention_block``."""
+    hb = qkv_head_blocks(ib, spec)
+    h, d, c = spec.num_heads, spec.head_dim, spec.embed_dim
+    proj = ib["proj"]
+    pvec = torch.stack([t.expand(c) for t in (
+        proj["mult"], proj["b"], ib["attn.qact3"]["scale"],
+        ib["qact2"]["scale"])]).to(torch.float32).contiguous()
+    return dict(wq=hb["wq_h"], wk=hb["wk_h"], wv=hb["wv_h"],
+                wp=proj["w_int"].reshape(h, d, c), mult=hb["mult_h"],
+                bias=hb["bias_h"], pvec=pvec, scalars=ib["attn_scalars"])
+
+
+def mlp_block_operands(ib) -> dict:
+    """K7b's operands beside y and h, from a converted block; keyword names
+    of ``fused_int_mlp_block`` (which folds them)."""
+    fc1, fc2 = ib["fc1"], ib["fc2"]
+    return dict(w1=fc1["w_int"], w2=fc2["w_int"], mult1=fc1["mult"],
+                bias1=fc1["b"], mult2=fc2["mult"], bias2=fc2["b"],
+                mlp_out_scale=ib["mlp.qact2"]["scale"],
+                s_q1=ib["mlp.qact1"]["scale"], ln=ib["norm2"],
+                ln_in_scale=ib["qact2"]["scale"],
+                ln_out_scale=fc1.get("ln_out_scale", fc1["in_scale"]),
+                ln_rescale=fc1.get("ln_rescale"),
+                s3=ib["attn.qact3"]["scale"], s2_vec=ib["qact2"]["scale"],
+                s4_vec=ib["qact4"]["scale"])
+
+
 def _fq_np(x, qp, path, bit_type):
     """The reference's ``fq(path, x)`` on numpy float32, through the
     port's fake_quant (the same float32 operations as the JAX one)."""

@@ -73,6 +73,32 @@ def ln_codes(x_q, in_scale1, weight, bias, out_scale, std_floor=None):
     return torch.round((torch.sign(a) * m * x_q + b) / p2n)
 
 
+def mlp_block_ln_codes(codes, r, s_min, lnw_out, lnb_out, rescale, c):
+    """The integer LN of the whole-MLP-block kernel K7b, in its own order
+    (``diffvit_tpu/ops/pallas/mlp.py:182-193``), which is not
+    :func:`ln_codes`'s: the weight and bias arrive divided by the output
+    scale (``lnw_out``, ``lnb_out``), ``a = (s_min / std) * lnw_out`` and
+    ``b = rint((lnb_out - (mean / std) * lnw_out) * 2^n)``.  ``codes`` are
+    the float32 qact2 codes of the rows, ``r = rint(in_scale / s_min)``,
+    ``c`` the width as a float32 tensor.  The sums are exact int64 sums
+    rounded once to float32 and the root is taken in float64 and rounded
+    once, as in :func:`ln_codes`.  Returns the float32 codes, rescaled and
+    clipped to int8 values."""
+    x_q = codes * r
+    xi = x_q.to(torch.int64)
+    sum_x = xi.sum(-1, keepdim=True).to(torch.float32)
+    sum_x2 = (xi * xi).sum(-1, keepdim=True).to(torch.float32)
+    mean = (sum_x / c) * s_min
+    var = (c * sum_x2 - sum_x * sum_x).to(torch.float64)
+    std = (s_min / c) * torch.sqrt(var).to(torch.float32)
+    a = (s_min / std) * lnw_out
+    m, n = get_mn(torch.abs(a))
+    p2n = pow2(n)
+    b = torch.round((lnb_out - (mean / std) * lnw_out) * p2n)
+    y = torch.round((torch.sign(a) * m * x_q + b) / p2n)
+    return torch.clamp(torch.round(y * rescale), -128, 127)
+
+
 def int_layernorm(x, weight, bias, in_scale, out_scale):
     """Integer LayerNorm of the fake-quantized float32 ``x`` (values on the
     ``in_scale`` grid), returned as float32 values on the ``out_scale``

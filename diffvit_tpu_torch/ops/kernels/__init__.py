@@ -3,7 +3,15 @@
 Each wrapper takes its kernel for a CUDA tensor and its plain version for a
 CPU tensor, raises for any other device, and counts the kernel launches in
 an integer attribute (``fused_qkv_attention_v2.launches``,
-``fused_int_attention.launches``, ``fused_int_mlp.launches``, ...)."""
+``fused_int_attention.launches``, ``fused_int_mlp.launches``, ...).
+
+    attention.py  K1 fused_qkv_attention_v2, K5 fused_int_attention, K7a
+                  fused_attention_block, K8 fused_qkv_attention (v1) and
+                  fused_qkv_attention_v3 / _v4 / _v5
+    mlp.py        K2 fused_int_mlp, K7b fused_int_mlp_block
+    linear.py     K3 fused_int_linear
+    swin_attention.py  K4 fused_swin_attention, K4b fused_swin_attention_v2
+    serve.py      K6 resident_codes (the whole ViT encoder)"""
 from __future__ import annotations
 
 import torch

@@ -1,17 +1,21 @@
 """Integer MLP: fc1 -> polynomial GELU -> qact1 -> fc2 -> PTF qact2
-(counterpart of ``diffvit_tpu/ops/pallas/mlp.py::fused_int_mlp``).
+(counterpart of ``diffvit_tpu/ops/pallas/mlp.py::fused_int_mlp``, K2), and
+the whole MLP half-block with its fences and integer LN
+(``::fused_int_mlp_block``, K7b).
 
-The CUDA kernel is ``csrc/int_mlp.cu``; the plain version below is its
-exact specification.  Every product and sum rounds on its own (the kernel
-is built with ``-fmad=false``).  A jitted XLA computation contracts
-``a*b + c`` into one fused multiply-add, so where the reference runs fused
-its codes can differ on rare rounding-boundary elements; against the
-interpret-mode Pallas kernel the codes agree exactly."""
+The CUDA kernels are ``csrc/int_mlp.cu`` and ``csrc/int_mlp_block.cu``;
+the plain versions below are their exact specifications.  Every product
+and sum rounds on its own (the kernels are built with ``-fmad=false``).  A
+jitted XLA computation contracts ``a*b + c`` into one fused multiply-add,
+so where the reference runs fused its codes can differ on rare
+rounding-boundary elements; against the interpret-mode Pallas kernel K2's
+codes agree exactly."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..int_layernorm import mlp_block_ln_codes
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
 from .build import check, load_library
@@ -105,3 +109,129 @@ def fused_int_mlp(x_i8, w1, w2, mult1, bias1, mult2, bias2, out_scale, s_q1,
 
 
 fused_int_mlp.launches = 0
+
+
+# ---- K7b: the whole MLP half-block on the float32 residual stream ----
+
+def mlp_block_vectors(y, w1, w2, mult1, bias1, mult2, bias2, mlp_out_scale,
+                      s_q1, ln, ln_in_scale, ln_out_scale, ln_rescale, s3,
+                      s4_vec):
+    """The Pallas wrapper's fold (``mlp.py:246-264``) of
+    :func:`fused_int_mlp_block`'s arguments, in float32 on the arguments'
+    device, every reciprocal and quotient one IEEE division by a tensor:
+    v (10, C) [1/s3, s3, 1/s2, s2, 1/s4, s4, r = rint(s2 / s2min), lnw/out,
+    lnb/out, rescale (ones when absent)], v1 (2, Hid) [mult1, bias1], v2
+    (4, C) [mult2, bias2, out_scale, 1/out_scale] and scal (3,) [s2min,
+    1/s_q1, C], where s2 is ``ln_in_scale``."""
+    f32, dev = torch.float32, mult1.device
+    cin, hid, cout = y.shape[-1], w1.shape[1], w2.shape[1]
+
+    def bc(t, n=cin):
+        return torch.as_tensor(t, dtype=f32, device=dev).expand(n)
+
+    def inv(t):
+        return torch.ones_like(t) / t
+
+    in_scale = bc(ln_in_scale)
+    s2min = in_scale.min()
+    out_sc = bc(ln_out_scale)
+    v = torch.stack([
+        inv(bc(s3)), bc(s3), inv(in_scale), in_scale, inv(bc(s4_vec)),
+        bc(s4_vec), torch.round(in_scale / s2min), bc(ln["w"]) / out_sc,
+        bc(ln["b"]) / out_sc,
+        bc(ln_rescale) if ln_rescale is not None
+        else torch.ones(cin, dtype=f32, device=dev)])
+    v1 = torch.stack([bc(mult1, hid), bc(bias1, hid)])
+    out_b = bc(mlp_out_scale, cout)
+    v2 = torch.stack([bc(mult2, cout), bc(bias2, cout), out_b, inv(out_b)])
+    scal = torch.stack([s2min, inv(torch.as_tensor(s_q1, dtype=f32,
+                                                   device=dev).reshape(())),
+                        torch.tensor(float(cin), dtype=f32, device=dev)])
+    return v, v1, v2, scal
+
+
+def fused_int_mlp_block_plain(y, h, w1, w2, mult1, bias1, mult2, bias2,
+                              mlp_out_scale, s_q1, *, ln, ln_in_scale,
+                              ln_out_scale, ln_rescale, s3, s2_vec, s4_vec):
+    """Plain PyTorch version of :func:`fused_int_mlp_block`:
+    ``_mlp_block_kernel`` op for op on the folded vectors."""
+    del s2_vec  # unused, as in the Pallas wrapper (see fused_int_mlp_block)
+    v, v1, v2, scal = mlp_block_vectors(
+        y, w1, w2, mult1, bias1, mult2, bias2, mlp_out_scale, s_q1, ln,
+        ln_in_scale, ln_out_scale, ln_rescale, s3, s4_vec)
+    yq = torch.clamp(torch.round(y * v[0]), -128, 127) * v[1]      # qact3
+    codes2 = torch.clamp(torch.round((h + yq) * v[2]), -128, 127)  # qact2
+    h2 = codes2 * v[3]
+    x_i8 = mlp_block_ln_codes(codes2, v[6], scal[0], v[7], v[8], v[9],
+                              scal[2]).to(torch.int8)
+    mid = int_matmul(x_i8, w1).to(torch.float32) * v1[0] + v1[1]
+    g = torch.clamp(torch.round(gelu_poly(mid) * scal[1]), -128, 127)
+    ym = int_matmul(g.to(torch.int8), w2).to(torch.float32) * v2[0] + v2[1]
+    ym = torch.clamp(torch.round(ym * v2[3]), -128, 127) * v2[2]  # mlp.qact2
+    hn = h2 + ym                                                   # residual
+    return torch.clamp(torch.round(hn * v[4]), -128, 127) * v[5]   # qact4
+
+
+def fused_int_mlp_block(y, h, w1, w2, mult1, bias1, mult2, bias2,
+                        mlp_out_scale, s_q1, *, ln, ln_in_scale, ln_out_scale,
+                        ln_rescale, s3, s2_vec, s4_vec):
+    """The MLP half of a block on the float32 residual stream (the Pallas
+    ``fused_int_mlp_block``, K7b): attn.qact3 of the proj output ``y``,
+    the residual add to ``h``, the qact2 fence, its integer LN
+    (:func:`~diffvit_tpu_torch.ops.int_layernorm.mlp_block_ln_codes`),
+    fc1, the polynomial GELU, the qact1 requant, fc2, the mlp.qact2 fence,
+    the residual add and the qact4 fence.
+
+    y, h: (R, C) float32; w1: (C, Hid), w2: (Hid, C) int8; mult*/bias*:
+    per-channel float32; mlp_out_scale: the mlp.qact2 scale; s_q1: the
+    mlp.qact1 scale; ln: {"w", "b"}; ln_in_scale: the qact2 scale (the
+    fence's and the LN input's grid); ln_out_scale: the fc1 input grid;
+    ln_rescale: the norm2 channel-grid conversion or None; s3: the
+    attn.qact3 scale; s4_vec: the qact4 scale.  ``s2_vec`` is accepted and
+    unused, as in the Pallas wrapper, whose qact2 fence takes
+    ``ln_in_scale``.  Returns (R, C) float32, the residual stream after
+    qact4.  R needs no padding; the TPU's block_rows/sub/interpret knobs
+    have no counterpart.
+
+    A CUDA tensor runs ``csrc/int_mlp_block.cu``; a CPU tensor runs
+    :func:`fused_int_mlp_block_plain`."""
+    kw = dict(ln=ln, ln_in_scale=ln_in_scale, ln_out_scale=ln_out_scale,
+              ln_rescale=ln_rescale, s3=s3, s2_vec=s2_vec, s4_vec=s4_vec)
+    args = (y, h, w1, w2, mult1, bias1, mult2, bias2, mlp_out_scale, s_q1)
+    tensors = [t for t in (*args, *ln.values(), ln_in_scale, ln_out_scale,
+                           ln_rescale, s3, s4_vec)
+               if isinstance(t, torch.Tensor)]
+    if route(*tensors) == "cpu":
+        return fused_int_mlp_block_plain(*args, **kw)
+    rows, c = y.shape
+    hid = w1.shape[1]
+    check_for_kernel(y, "y", torch.float32, 2)
+    check_for_kernel(h, "h", torch.float32, 2)
+    check_for_kernel(w1, "w1", torch.int8, 2)
+    check_for_kernel(w2, "w2", torch.int8, 2)
+    require(h.shape == y.shape and w1.shape[0] == c
+            and w2.shape == (hid, c),
+            f"y {tuple(y.shape)}, h {tuple(h.shape)}, w1 {tuple(w1.shape)} "
+            f"and w2 {tuple(w2.shape)} do not chain")
+    require(rows > 0 and c % 32 == 0 and hid % 32 == 0,
+            f"R={rows} must be positive, C={c} and Hid={hid} multiples of 32")
+    packed = [t.contiguous() for t in mlp_block_vectors(
+        y, w1, w2, mult1, bias1, mult2, bias2, mlp_out_scale, s_q1, ln,
+        ln_in_scale, ln_out_scale, ln_rescale, s3, s4_vec)]
+    dev = y.device
+    x_codes = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    h2 = torch.empty((rows, c), dtype=torch.float32, device=dev)
+    hidden = torch.empty((rows, hid), dtype=torch.int8, device=dev)
+    out = torch.empty((rows, c), dtype=torch.float32, device=dev)
+    v, v1, v2, scal = (t.data_ptr() for t in packed)
+    err = load_library().dvt_int_mlp_block(
+        y.data_ptr(), h.data_ptr(), v, w1.data_ptr(), w2.data_ptr(), v1, v2,
+        scal, x_codes.data_ptr(), h2.data_ptr(), hidden.data_ptr(),
+        out.data_ptr(), rows, c, hid,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "fused_int_mlp_block")
+    fused_int_mlp_block.launches += 1
+    return out
+
+
+fused_int_mlp_block.launches = 0

@@ -19,13 +19,20 @@ valid int-models, not private formats.
   activations keep a spread of about one in value space, use a good part
   of the int8 range and saturate only in the tails;
 * the softmax scale lies inside ``lis_fast_ok``'s window.
+
+``alt_kernel_cases`` and ``linear_site_cases`` cut the arguments of the
+kernels that no model path runs (K3, K7a, K7b, K8) from such a model's
+blocks and sites, for the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .config import QuantConfig
 from .models import swin
+from .models.convert import (attn_block_operands, int_model_from_numpy,
+                             mlp_block_operands, swin_int_model_from_numpy)
 from .models.vit import ViTSpec, num_bit_slots
 
 
@@ -229,3 +236,92 @@ def random_swin_int_model(spec: swin.SwinSpec,
     site("act_out", 2 * act)
     ip["sym_acts"] = True
     return ip
+
+
+def int8_codes(shape, seed, std=30.0) -> np.ndarray:
+    """Seeded int8 codes of about ``std`` spread (an LN output's, by
+    default)."""
+    rng = np.random.default_rng(seed)
+    return np.clip(np.round(rng.standard_normal(shape) * std), -128,
+                   127).astype(np.int8)
+
+
+def alt_kernel_cases(spec: ViTSpec, ip, batch, device, *, npad=None,
+                     lis=True, seed=0) -> dict:
+    """The arguments of K8 (``fused_qkv_attention`` v1, ``_v3``, ``_v4``,
+    ``_v5``), K7a (``fused_attention_block``) and K7b
+    (``fused_int_mlp_block``) at block 0 of the ViT int-model ``ip``
+    (numpy, ``random_int_model``'s schema), for ``batch`` images:
+    LN-like int8 codes x (B, Npad, C), zero at and past the spec's
+    ``seq_len`` as the JAX callers pad them; a residual h (codes on the
+    block's input grid) and, for K7b, a proj output y of the qact3 grid's
+    spread, (B * seq_len, C).  Returns ``{name: (args, kwargs)}`` of torch
+    tensors on ``device``."""
+    ib = int_model_from_numpy(ip, spec, device)["blocks"][0]
+    n, c = spec.seq_len, spec.embed_dim
+    npad = npad or n
+    t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+    x = int8_codes((batch, npad, c), seed)
+    x[:, n:] = 0
+    in_scale = np.broadcast_to(np.asarray(ip["qact1"]["scale"], f32), (c,))
+    h = (int8_codes((batch, npad, c), seed + 1, std=40) * in_scale).astype(f32)
+    s3 = np.asarray(ip["blocks"][0]["attn.qact3"]["scale"], f32)
+    rng = np.random.default_rng(seed + 2)
+    y = (rng.standard_normal((batch * n, c)) * 30 * s3).astype(f32)
+    h_rows = (int8_codes((batch * n, c), seed + 3, std=40)
+              * in_scale).astype(f32)
+    ab = attn_block_operands(ib, spec)
+    q = ib["qkv"]
+    k8 = dict(num_heads=spec.num_heads, head_dim=spec.head_dim, n_real=n,
+              lis=lis)
+    v345 = ((t(x), q["w_int"], q["mult"], q["b"], ab["scalars"]), k8)
+    heads = tuple(ab[k] for k in ("wq", "wk", "wv", "mult", "bias"))
+    return {
+        "fused_qkv_attention": ((t(x), *heads, ab["scalars"]),
+                                dict(n_real=n, lis=lis)),
+        "fused_qkv_attention_v3": v345,
+        "fused_qkv_attention_v4": v345,
+        "fused_qkv_attention_v5": v345,
+        "fused_attention_block": (
+            (t(x), t(h), *heads[:3], ab["wp"], *heads[3:], ab["pvec"],
+             ab["scalars"]), dict(n_real=n, lis=lis)),
+        "fused_int_mlp_block": (
+            (t(y), t(h_rows)), mlp_block_operands(ib)),
+    }
+
+
+def linear_site_cases(spec, ip, batch, device, *, seed=0) -> dict:
+    """K3's (``fused_int_linear``) arguments at the integer GEMM sites of a
+    model for ``batch`` images: for a ViT int-model (numpy,
+    ``random_int_model``'s schema) the patch embed (K = 3 * 16 * 16), the
+    block-0 qkv, proj and fc1 and the head (one row an image); for a Swin
+    one (``random_swin_int_model``'s) the patch embed (K = 48) and the
+    stage-0 qkv over every window row.  Each site is ``(args, out_scale)``
+    with args (x, w_int, mult, bias) of torch tensors on ``device`` and
+    out_scale the grid of the site's consumer (its next fence), for the fq
+    and codes modes."""
+    if isinstance(spec, swin.SwinSpec):
+        m = swin_int_model_from_numpy(ip, spec, device)
+        qp = m["qp"]
+        res = spec.img_size // spec.patch_size
+        sites = {"patch": (m["patch"], batch * res * res,
+                           qp["patch.qact.scale"]),
+                 "qkv": (m["layers"][0]["blocks"][0]["qkv"],
+                         batch * res * res,
+                         qp["layers.0.blocks.0.attn.qact1.scale"])}
+    else:
+        m = int_model_from_numpy(ip, spec, device)
+        ib = m["blocks"][0]
+        rows = batch * spec.seq_len
+        sites = {"patch": (m["patch"], batch * (spec.seq_len - 1),
+                           m["patch.qact"]["scale"]),
+                 "qkv": (ib["qkv"], rows, ib["attn.qact1"]["scale"]),
+                 "proj": (ib["proj"], rows, ib["attn.qact3"]["scale"]),
+                 "fc1": (ib["fc1"], rows, ib["mlp.qact1"]["scale"]),
+                 "head": (m["head"], batch, m["act_out"]["scale"])}
+    out = {}
+    for i, (name, (site, rows, out_scale)) in enumerate(sites.items()):
+        x = torch.tensor(int8_codes((rows, site["w_int"].shape[0]),
+                                    seed + i), device=device)
+        out[name] = ((x, site["w_int"], site["mult"], site["b"]), out_scale)
+    return out

@@ -5,7 +5,8 @@ card is: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (tests/conftest.py imports JAX).  Every test carries the ``cuda`` marker;
 without a card each skips.  K1, K2 and K5 share their device code with
 the resident kernel K6 (``csrc/attention_core.cuh``, ``int8_gemm.cuh``,
-``int_mlp.cuh``); their tests here hold them exact after that move."""
+``int_mlp.cuh``), and K3, K7a, K7b and K8 with them; their tests here hold
+each exact against its plain version."""
 import dataclasses
 
 import numpy as np
@@ -301,3 +302,110 @@ def test_swin_forward_on_card_matches_cpu(cuda):
         got = swin_int.forward_q_int(ip, spec, cfg, torch.tensor(x, device=cuda),
                                      attn_v2=attn_v2).cpu().numpy()
         _assert_paths_agree(got, ref)
+
+
+# ---- K3, K7a, K7b and K8 (the kernels on no model path) ----
+
+def _alt_pairs():
+    from diffvit_tpu_torch.ops.kernels import attention, mlp
+    names = ("fused_qkv_attention", "fused_qkv_attention_v3",
+             "fused_qkv_attention_v4", "fused_qkv_attention_v5",
+             "fused_attention_block")
+    pairs = {n: (getattr(attention, n), getattr(attention, n + "_plain")
+                 if n in ("fused_qkv_attention", "fused_attention_block")
+                 else attention.fused_qkv_attention_v3_plain) for n in names}
+    pairs["fused_int_mlp_block"] = (mlp.fused_int_mlp_block,
+                                    mlp.fused_int_mlp_block_plain)
+    return pairs
+
+
+@pytest.mark.parametrize("lis", [True, False], ids=["lis", "softmax"])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_alt_kernels_match_plain(cuda, batch, lis):
+    """K8 (v1, v3, v4, v5), K7a and K7b at DeiT-S width (one block, 200
+    rows with 197 real) against their plain versions on the card; v5 takes
+    an even batch only and raises for B = 1 and 3."""
+    from diffvit_tpu_torch.testing import alt_kernel_cases
+    cases = alt_kernel_cases(SMALL, random_int_model(SMALL, seed=0), batch,
+                             cuda, npad=200, lis=lis, seed=batch)
+    for name, (fn, plain) in _alt_pairs().items():
+        args, kw = cases[name]
+        if name == "fused_qkv_attention_v5" and batch % 2:
+            with pytest.raises(ValueError, match="even batch"):
+                fn(*args, **kw)
+            continue
+        if name == "fused_int_mlp_block" and not lis:
+            continue  # no softmax in K7b: its rows run once, with the LIS
+        before = fn.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        want = plain(*args, **kw)
+        if name == "fused_attention_block":
+            s2 = args[8][3]
+            got, want = torch.round(got / s2), torch.round(want / s2)
+        elif name == "fused_int_mlp_block":
+            s4 = kw["s4_vec"]
+            got, want = torch.round(got / s4), torch.round(want / s4)
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        if lis:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            _assert_softmax_codes_close(g, w)
+
+
+def test_qkv_attention_v1_reads_strided_weights(cuda):
+    """K8 v1 on per-head weights that are strided views of K1's (Cin, 3C)
+    weight (no copy) gives the codes of the contiguous copies, and of the
+    plain version."""
+    from diffvit_tpu_torch.models.convert import qkv_head_blocks
+    from diffvit_tpu_torch.ops.kernels.attention import (
+        fused_qkv_attention, fused_qkv_attention_plain)
+    spec = SMALL
+    ib = int_model_from_numpy(random_int_model(spec, seed=1), spec,
+                              cuda)["blocks"][0]
+    hb = qkv_head_blocks(ib, spec)
+    h, d, c = spec.num_heads, spec.head_dim, spec.embed_dim
+    views = ib["qkv"]["w_int"].view(c, 3, h, d).permute(1, 2, 0, 3)
+    assert not views[0].is_contiguous()
+    x = torch.tensor(_codes((3, 200, c), 8), device=cuda)
+    x[:, 197:] = 0
+    rest = (hb["mult_h"], hb["bias_h"], ib["attn_scalars"])
+    got = fused_qkv_attention(x, *views, *rest, n_real=197)
+    dense = fused_qkv_attention(x, hb["wq_h"], hb["wk_h"], hb["wv_h"], *rest,
+                                n_real=197)
+    want = fused_qkv_attention_plain(x, *views, *rest, n_real=197)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), dense.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("rows,k,n", [(200, 48, 1000), (3136, 48, 96),
+                                      (3136, 96, 288), (197, 384, 1152),
+                                      (1, 384, 1000), (77, 100, 37)])
+@pytest.mark.parametrize("mode", ["raw", "fq", "codes"])
+def test_int_linear_kernel_matches_plain(cuda, rows, k, n, mode):
+    """K3 at the tail shapes (K = 48, N = 1000, the 96/288-wide Swin
+    outputs, a ragged K and N) and a DeiT-S qkv site, every mode, bit for
+    bit; the raw mode equals the forward's int_matmul(x, w) * mult + b."""
+    from diffvit_tpu_torch.ops.kernels.linear import (fused_int_linear,
+                                                      fused_int_linear_plain)
+    from diffvit_tpu_torch.ops.quant import int_matmul
+    rng = np.random.default_rng(rows + k + n)
+    dev = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    x = dev(_codes((rows, k), 9))
+    w = dev(rng.integers(-8, 8, (k, n)).astype(np.int8))
+    mult = dev(rng.uniform(0.001, 0.01, n).astype(np.float32))
+    bias = dev(rng.standard_normal(n).astype(np.float32))
+    kw = {"raw": {}, "fq": dict(out_scale=dev(np.float32(0.05))),
+          "codes": dict(out_scale=dev(np.float32(0.05)),
+                        emit_codes=True)}[mode]
+    before = fused_int_linear.launches
+    got = fused_int_linear(x, w, mult, bias, **kw)
+    torch.cuda.synchronize()
+    assert fused_int_linear.launches == before + 1
+    want = fused_int_linear_plain(x, w, mult, bias, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if mode == "raw":
+        fwd = int_matmul(x, w).to(torch.float32) * mult + bias
+        np.testing.assert_array_equal(got.cpu().numpy(), fwd.cpu().numpy())
