@@ -11,7 +11,10 @@
             12-block encoder in one launch; LIS, and the float softmax at
             b = 8) at DeiT-S shapes (B = 1, 8, 64) and a tiny shape; K4 and
             K4b at Swin-T's four stage geometries and K2 at its four widths
-            (B = 1, 8, 64);
+            (B = 1, 8, 64); K4 and K4b with the float softmax (lis=False)
+            at stage 0 (B = 1, 8, 64) and stages 1-3 (B = 8, 64), on a
+            shifted (masked) and an unshifted block each, and K2 emitting
+            float32 at Swin-T's four widths at the same batches;
 4. serving: for DeiT-S int4, the FQ-ViT DeiT-S int8 (SmoothQuant off: K5
             and K2 emitting float32), DeiT-S int4 served resident (K6 once
             per chunk of 8 images, no K1 or K2; its logits must equal the
@@ -28,8 +31,20 @@
 5. branches: the other branches of the ViT forward at DeiT-S width, b = 8:
             float (-1) sites, float LayerNorm (PTF off), asymmetric
             activations, the float softmax (K1 with lis=False); launches
-            per forward and card vs CPU;
-6. alternatives: the kernels on no model path.  Kernel rows against
+            per forward, and the first two images' logits against the CPU
+            plain path;
+6. swin_branches: the other branches of the Swin forward at Swin-T's full
+            width and depth, b = 8, one request each through IntModel:
+            float LayerNorm (PTF off), asymmetric activations (the float32
+            stream, nonzero zero-points at the residual, patch and
+            attention-output fences), the float softmax through K4 and
+            through K4b,
+            input_quant=False (uint8 and float32 wires, which must agree
+            bit for bit) and a mixed {4, 8} bit config; launches per
+            forward (K4 or K4b 12, K2 12), the first two images' logits
+            against the CPU plain path, forward time; and one
+            float-softmax request at b = 64;
+7. alternatives: the kernels on no model path.  Kernel rows against
             their plain versions: K8 (fused_qkv_attention v1, _v3, _v4,
             _v5) and K7a (fused_attention_block) at DeiT-S b = 1, 8, 64,
             LIS and float softmax; K7b (fused_int_mlp_block) at b = 1, 8,
@@ -53,8 +68,11 @@ pretrained ones.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -65,6 +83,7 @@ import numpy as np
 import torch
 
 from diffvit_tpu_torch import QuantConfig, engine
+from diffvit_tpu_torch.data.imagenet import device_normalize
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               attn_constants,
@@ -72,7 +91,7 @@ from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               int_model_from_numpy,
                                               mlp_block_operands,
                                               swin_block_constants)
-from diffvit_tpu_torch.models.swin import SWIN_SPECS
+from diffvit_tpu_torch.models.swin import SWIN_SPECS, num_bit_slots
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec, patchify
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 from diffvit_tpu_torch.ops.kernels import (attention, build, linear, mlp,
@@ -101,18 +120,18 @@ PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM: int8 op/s, HBM B/s
 
 
 def _swin_plain(qkv5, bias_q, mask_div, scalars, *, num_heads, n_real,
-                n_windows):
+                n_windows, bits=4, lis=True):
     return swin_attention.swin_attention_plain(
         qkv5[:, 0], qkv5[:, 1], qkv5[:, 2], bias_q, mask_div, scalars,
-        n_real=n_real, n_windows=n_windows)
+        n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
 
 
 def _swin_plain_v2(qkv, bias_q, mask_div, scalars, *, num_heads, head_dim,
-                   n_real, n_windows):
+                   n_real, n_windows, bits=4, lis=True):
     bw, npad, c3 = qkv.shape
     view = qkv.view(bw, npad, 3, num_heads, head_dim).permute(0, 2, 3, 1, 4)
     o = _swin_plain(view, bias_q, mask_div, scalars, num_heads=num_heads,
-                    n_real=n_real, n_windows=n_windows)
+                    n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
     return o.permute(0, 2, 1, 3).reshape(bw, npad, c3 // 3)
 
 
@@ -300,22 +319,27 @@ def bound(name, args, kw):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def swin_cases(ip, stage, batch, dev):
+def swin_cases(ip, stage, batch, dev, blk=1, cfg=CFG, emit_codes=True):
     """K4, K4b and K2 arguments at Swin-T stage ``stage`` for ``batch``
-    images: the stage's shifted block (block 1; a mask in stages 0-2),
-    qkv as the qkv GEMM emits it, K4 on its strided (Bw, 3, H, n, D)
-    view."""
-    p = f"layers.{stage}.blocks.1"
-    ib, qp = ip["layers"][stage]["blocks"][1], ip["qp"]
-    k = swin_block_constants(ib, qp, p, SWIN, stage, 1, CFG)
+    images: block ``blk`` of the stage (block 1 is shifted: a mask in
+    stages 0-2; block 0 has none), qkv as the qkv GEMM emits it, K4 on its
+    strided (Bw, 3, H, n, D) view.  ``cfg.lis`` False gives the float
+    softmax's arguments; ``emit_codes`` False K2 emitting float32."""
+    p = f"layers.{stage}.blocks.{blk}"
+    ib, qp = ip["layers"][stage]["blocks"][blk], ip["qp"]
+    k = swin_block_constants(ib, qp, p, SWIN, stage, blk, cfg)
     t = lambda a: None if a is None else torch.tensor(  # noqa: E731
         np.asarray(a), device=dev)
     res = SWIN.stage_resolution(stage)[0]
     nw, heads, c = (res // 7) ** 2, SWIN.num_heads[stage], \
         SWIN.stage_dim(stage)
-    qkv = codes((batch * nw, 49, 3 * c), 100 * stage + batch, dev)
+    qkv = codes((batch * nw, 49, 3 * c),
+                100 * stage + batch + 1000 * (1 - blk), dev)
     consts = (t(k["bias_q"]), t(k["mask_div"]), t(k["attn_scalars"]))
-    kw = dict(num_heads=heads, n_real=49, n_windows=nw)
+    kw = dict(num_heads=heads, n_real=49,
+              n_windows=1 if k["mask_div"] is None else nw)
+    if not cfg.lis:
+        kw.update(bits=cfg.bit_s.bits, lis=False)
     view = qkv.view(batch * nw, 49, 3, heads, c // heads) \
         .permute(0, 2, 3, 1, 4)
     f1, f2 = ib["fc1"], ib["fc2"]
@@ -327,7 +351,7 @@ def swin_cases(ip, stage, batch, dev):
     return {"fused_swin_attention": ((view, *consts), kw),
             "fused_swin_attention_v2": ((qkv, *consts),
                                         dict(kw, head_dim=c // heads)),
-            "fused_int_mlp": (mlp_args, dict(emit_codes=True))}
+            "fused_int_mlp": (mlp_args, dict(emit_codes=emit_codes))}
 
 
 def hold(name, args, kw, tol="exact", decode=None, **where):
@@ -360,13 +384,22 @@ def hold(name, args, kw, tol="exact", decode=None, **where):
     return max_diff, ms, plain_ms
 
 
-def note(summary, name, result, heaviest=None, library_ms=None):
+def note(summary, name, result, heaviest=None, library_ms=None,
+         variant=None):
     """Record a kernel row's |diff| in ``summary[name]`` and, for the row
     at the kernel's heaviest shape (``heaviest`` = (label, args, kw)), its
-    times, its bound and the library call's time."""
+    times, its bound and the library call's time.  ``variant`` names a
+    second branch of the kernel (the float softmax, float32 out): its
+    heaviest row's times go under ``{variant}_ms``, ``{variant}_plain_ms``
+    and ``{variant}_bound_ms`` beside the main branch's."""
     s = summary[name]
     s["max_abs_err"] = max(s["max_abs_err"], result[0])
-    if heaviest:
+    if heaviest and variant:
+        at, args, kw = heaviest
+        s[f"{variant}_ms"], s[f"{variant}_plain_ms"] = result[1], result[2]
+        s[f"{variant}_bound_ms"], s[f"{variant}_at"] = \
+            bound(name, args, kw)[0], at
+    elif heaviest:
         at, args, kw = heaviest
         s["ms"], s["plain_ms"] = result[1], result[2]
         s["bound_ms"], s["bound_by"] = bound(name, args, kw)
@@ -426,6 +459,36 @@ def phase_kernels(dev, summary):
                     and b == 64 and (f"{SWIN.name} stage 0 b=64", args, kw)
                 note(summary, name, hold(name, args, kw, spec=SWIN.name,
                                          stage=stage, batch=b), heaviest)
+    # K4 and K4b with the float softmax, on a shifted (masked) and an
+    # unshifted block, and K2 emitting float32, at every shape the Swin-T
+    # branch forwards give them (b=8 and b=64; b=1 at stage 0 as well)
+    lis_off = QuantConfig(lis=False)
+    ip = random_swin_int_model(SWIN, lis_off, seed=0)
+    for stage in range(SWIN.num_layers):
+        for b in ((1, 8, 64) if stage == 0 else (8, 64)):
+            top = stage == 0 and b == 64
+            for blk in (1, 0):
+                cases = swin_cases(ip, stage, b, dev, blk, lis_off,
+                                   emit_codes=False)
+                for name in ("fused_swin_attention",
+                             "fused_swin_attention_v2"):
+                    args, kw = cases[name]
+                    heaviest = top and blk == 1 and (
+                        f"{SWIN.name} stage 0 b=64", args, kw)
+                    note(summary, name,
+                         hold(name, args, kw, "exact", spec=SWIN.name,
+                              stage=stage, batch=b,
+                              block="shifted" if blk else "unshifted"),
+                         heaviest, variant="float_softmax")
+            args, kw = cases["fused_int_mlp"]  # block 0's weights
+
+            def decode(y, s=args[7]):  # float32 out: its mlp.qact2 codes
+                return torch.round(y / s)
+            note(summary, "fused_int_mlp",
+                 hold("fused_int_mlp", args, kw, "exact", decode,
+                      spec=SWIN.name, stage=stage, batch=b),
+                 top and (f"{SWIN.name} stage 0 b=64", args, kw),
+                 variant="float32_out")
 
 
 def at_bounds(codes):
@@ -639,8 +702,9 @@ def phase_serving_resident(dev):
 def phase_branches(dev):
     """The other branches of the ViT forward at DeiT-S width and depth, one
     b=8 request each through IntModel: launches per forward as the
-    reference's branch rules give them, the card's logits against the CPU
-    plain path, and the forward's time."""
+    reference's branch rules give them, the forward's time, and the card's
+    logits for the first two images against the CPU plain path on those
+    two."""
     k1, k2, k5 = "fused_qkv_attention_v2", "fused_int_mlp", \
         "fused_int_attention"
     bc = [4] * (4 * SPEC.depth + 2)
@@ -670,9 +734,12 @@ def phase_branches(dev):
                                                      lambda: model(x))
         xc = torch.tensor(model.encode(x), device=dev)
         fwd_ms = cuda_ms(lambda: model(xc), iters=5)
-        want = engine.IntModel(ip_np, SPEC, cfg, "cpu")(x).numpy()
-        agree(got.cpu().numpy(), want, (8, SPEC.num_classes),
-              phase="branches", branch=name, batch=8, forward_ms=fwd_ms)
+        got = got.cpu().numpy()
+        if got.shape != (8, SPEC.num_classes) or not np.isfinite(got).all():
+            raise RuntimeError(f"{name}: bad logits, shape {got.shape}")
+        want = engine.IntModel(ip_np, SPEC, cfg, "cpu")(x[:2]).numpy()
+        agree(got[:2], want, (2, SPEC.num_classes), phase="branches",
+              branch=name, batch=8, images_held=2, forward_ms=fwd_ms)
     return launches
 
 
@@ -700,6 +767,91 @@ def phase_serving_swin(dev):
         raise RuntimeError("the K4b forward's logits differ from K4's, or "
                            "are identical across images")
     return launches, launches_v2
+
+
+def phase_swin_branches(dev):
+    """The other branches of the Swin forward at Swin-T's full width and
+    depth, one b=8 request each through IntModel: launches per forward (K4
+    or K4b once a block, K2 once a block), the forward's time, and the
+    card's logits for the first two images against the CPU plain path on
+    those two (a Swin-T forward of 8 on the CPU takes seconds a case).
+    The asymmetric model's residual fences have a nonzero zero-point.
+    ``input_quant=False`` has no codes wire: its uint8 request is
+    normalized on the card and must equal the float32 wire's logits bit
+    for bit.  Then one float-softmax request at b=64, timed."""
+    k4, k4b, k2 = "fused_swin_attention", "fused_swin_attention_v2", \
+        "fused_int_mlp"
+    depth = sum(SWIN.depths)
+    ptf_off, lis_off = QuantConfig(ptf=False), QuantConfig(lis=False)
+    niq = dataclasses.replace(SWIN, input_quant=False)
+    n = num_bit_slots(SWIN)
+    mixed = [8, 4] * (n // 2) + [8] * (n % 2)
+    asym = dict(random_swin_int_model(SWIN, CFG, 3), sym_acts=False)
+    # the residual fences, the patch fence and the attention's output fence
+    fences = re.compile(r"(blocks\.\d+\.(attn\.qact4|qact[24])|patch\.qact)"
+                        r"\.zp$")
+    asym["qp"] = {k: v + np.float32(3.0) if fences.search(k) else v
+                  for k, v in asym["qp"].items()}
+    # name -> (spec, config, int-model, the attention contracts it runs)
+    cases = {
+        "float_ln": (SWIN, ptf_off, random_swin_int_model(SWIN, ptf_off, 3),
+                     (k4,)),
+        "asymmetric": (SWIN, CFG, asym, (k4,)),
+        "float_softmax": (SWIN, lis_off,
+                          random_swin_int_model(SWIN, lis_off, 3), (k4, k4b)),
+        "no_input_quant": (niq, CFG, random_swin_int_model(niq, CFG, 3),
+                           (k4,)),
+        "mixed_bits": (SWIN, CFG, random_swin_int_model(
+            SWIN, CFG, 3, bit_config=mixed), (k4,)),
+    }
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, (8, 3, 224, 224), dtype=np.uint8)
+    x64 = rng.integers(0, 256, (64, 3, 224, 224), dtype=np.uint8)
+    launches = {}
+
+    def wire(model, pixels):
+        """The request as the forward takes it: codes, or float32 pixels
+        where the model has no codes wire."""
+        if model.input_lut is None:
+            return device_normalize(torch.tensor(pixels, device=dev))
+        return torch.tensor(model.encode(pixels), device=dev)
+
+    for name, (spec, cfg, ip_np, contracts) in cases.items():
+        model = engine.IntModel(ip_np, spec, cfg, dev)
+        model_cpu = engine.IntModel(ip_np, spec, cfg, "cpu")
+        for attn in contracts:
+            label = name + ("_v2" if attn == k4b else "")
+            for m in (model, model_cpu):
+                m._forward = functools.partial(swin_int.forward_q_int,
+                                               attn_v2=attn == k4b)
+            got, launches[f"{SWIN.name} {label}"] = drive(
+                {attn: depth, k2: depth}, lambda: model(x))
+            xw = wire(model, x)
+            fwd_ms = cuda_ms(lambda: model(xw), iters=5)
+            got = got.cpu().numpy()
+            if got.shape != (8, SWIN.num_classes) \
+                    or not np.isfinite(got).all():
+                raise RuntimeError(f"{label}: bad logits, shape {got.shape}")
+            agree(got[:2], model_cpu(x[:2]).numpy(), (2, SWIN.num_classes),
+                  phase="swin_branches", branch=label, batch=8,
+                  images_held=2, forward_ms=fwd_ms)
+            if model.input_lut is None and not np.array_equal(
+                    model(xw).cpu().numpy(), got):
+                raise RuntimeError(f"{label}: the uint8 wire's logits "
+                                   "differ from the float32 wire's")
+        if name == "float_softmax":  # the same model at b=64, through K4
+            model._forward = swin_int.forward_q_int
+            out, launches[f"{SWIN.name} float_softmax b=64"] = drive(
+                {k4: depth, k2: depth}, lambda: model(x64))
+            xw = wire(model, x64)
+            fwd_ms = cuda_ms(lambda: model(xw), iters=5)
+            finite = bool(torch.isfinite(out).all())
+            emit(phase="swin_branches", branch="float_softmax", batch=64,
+                 forward_ms=fwd_ms, forward_img_per_s=64e3 / fwd_ms,
+                 finite=finite)
+            if not finite or tuple(out.shape) != (64, SWIN.num_classes):
+                raise RuntimeError("float_softmax b=64: bad logits")
+    return launches
 
 
 def int_mm_ms(x, w):
@@ -941,11 +1093,14 @@ def main():
     t.append(time.perf_counter())
     paths[SWIN.name], paths[f"{SWIN.name} attn_v2"] = phase_serving_swin(dev)
     t.append(time.perf_counter())
+    paths.update(phase_swin_branches(dev))
+    t.append(time.perf_counter())
     paths[f"{SPEC.name} alternatives"] = phase_alternatives_path(dev)
     t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
-         "deit_small_resident", "branches", "swin_tiny", "alternatives"),
+         "deit_small_resident", "branches", "swin_tiny", "swin_branches",
+         "alternatives"),
         t, t[1:])})
 
     kernels = []

@@ -101,10 +101,12 @@ __device__ __forceinline__ void softmax_row_bf16(const float (&a)[KeysPerLane],
 }
 
 // One score row's weights per warp, by softmax branch.
-union RowWeights {
-  int lis[kAttnWarps][kMaxKeys];     // 2^(15 - code)
-  float soft[kAttnWarps][kMaxKeys];  // bfloat16-rounded float softmax
+template <int Warps, int Keys>
+union RowWeightsT {
+  int lis[Warps][Keys];     // 2^(15 - code)
+  float soft[Warps][Keys];  // bfloat16-rounded float softmax
 };
+using RowWeights = RowWeightsT<kAttnWarps, kMaxKeys>;
 
 struct AttnSmem {
   int k_words[kMaxKeys][kMaxHeadDim / 4 + 1];  // +1: no bank conflicts

@@ -1,5 +1,5 @@
 // Fused Swin window attention (scores, relative-position bias, shift mask,
-// Log-Int-Softmax, attn@v) for Hopper.
+// Log-Int-Softmax or float softmax, attn@v) for Hopper.
 //
 // Replaces the Pallas kernels diffvit_tpu/ops/pallas/attention.py::
 // fused_swin_attention (body _swin_attn_kernel, the (Bw, 3, H, npad, D)
@@ -39,11 +39,18 @@
 //  * rintf rounds half to even, like torch.round;
 //  * the LIS row is lis.cuh's, shared with qkv_attention.cu (exact powers,
 //    logs and int64 row sum; fast = false, as the Pallas kernel runs it);
-//  * attn@v accumulates v * 2^(15-code) in int32, converted once to float.
+//  * attn@v accumulates v * 2^(15-code) in int32, converted once to float;
+//  * the float softmax (lis = 0) is attention_core.cuh's softmax_row_bf16
+//    (double, rounded once to float, then to bfloat16) on the logits
+//    (a2c + mask) * s_a2, and attn@v a double sum rounded once.  The shift
+//    mask puts weights near e^-100 (bfloat16 subnormals) beside weights
+//    near 1; a weight below 2^-32 is set to 0 here and in the plain version,
+//    so that every partial sum is a multiple of 2^-39 of at most 2^13: the
+//    double sum is exact in any order, and subnormals never reach it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "int8_gemm.cuh"  // dvt::clip_i8
+#include "attention_core.cuh"  // dvt::softmax_row_bf16, RowWeightsT, clip_i8
 #include "lis.cuh"
 
 namespace {
@@ -52,6 +59,7 @@ constexpr int kMaxKeys = 64;  // two keys per lane
 constexpr int kKeysPerLane = kMaxKeys / 32;
 constexpr int kMaxHeadDim = 64;
 constexpr int kWarps = 4;
+constexpr float kWeightFloor = 0x1p-32f;  // float-softmax weights below it are 0
 
 struct Strides {
   long long q_window, q_slot, q_head, q_row;  // qkv, in elements
@@ -64,10 +72,10 @@ __global__ void __launch_bounds__(kWarps * 32)
                           const float* __restrict__ mask,
                           const float* __restrict__ scalars,
                           int8_t* __restrict__ out, int npad, int d,
-                          int n_real, int n_windows, Strides st) {
+                          int n_real, int n_windows, int lis, Strides st) {
   __shared__ int k_words[kMaxKeys][kMaxHeadDim / 4 + 1];  // +1: no bank conflicts
   __shared__ __align__(16) int8_t v_rows[kMaxKeys][kMaxHeadDim];
-  __shared__ int weights[kWarps][kMaxKeys];
+  __shared__ dvt::RowWeightsT<kWarps, kMaxKeys> weights;
   __shared__ int q_words[kWarps][kMaxHeadDim / 4];
 
   const int win = blockIdx.x, h = blockIdx.y;
@@ -86,8 +94,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   // scalars = [c1, s_a1, 1/s_a2, s_a2, c2]
   const float c1 = scalars[0], s_a1 = scalars[1], inv_s2 = scalars[2];
-  const float c2 = scalars[4];
-  const dvt::LisConsts lis = dvt::lis_consts(scalars[3]);
+  const float s_a2 = scalars[3], c2 = scalars[4];
+  const dvt::LisConsts lis_k = dvt::lis_consts(s_a2);
   const float* bias_h = bias + (size_t)h * npad * npad;
   const float* mask_w =
       mask ? mask + (size_t)(win % n_windows) * npad * npad : nullptr;
@@ -114,15 +122,32 @@ __global__ void __launch_bounds__(kWarps * 32)
         a[u] = am;
       }
     }
-    dvt::lis_row(a, n_real, lis, false, weights[warp], lane);
+    if (lis) {
+      dvt::lis_row(a, n_real, lis_k, false, weights.lis[warp], lane);
+    } else {
+      dvt::softmax_row_bf16(a, n_real, s_a2, weights.soft[warp], lane);
+#pragma unroll
+      for (int u = 0; u < kKeysPerLane; ++u) {  // each lane its own keys
+        const int j = lane + 32 * u;
+        if (j < n_real && weights.soft[warp][j] < kWeightFloor) weights.soft[warp][j] = 0.f;
+      }
+    }
     __syncwarp();
 
     // attn @ v, requantized onto the qact3 grid
     for (int dd = lane; dd < d; dd += 32) {
-      int acc = 0;
-      for (int j = 0; j < n_real; ++j) acc += weights[warp][j] * v_rows[j][dd];
-      const float o = rintf(static_cast<float>(acc) * 0x1p-15f * c2);
-      out_wh[i * st.o_row + dd] = dvt::clip_i8(o);
+      float o;
+      if (lis) {
+        int acc = 0;
+        for (int j = 0; j < n_real; ++j) acc += weights.lis[warp][j] * v_rows[j][dd];
+        o = static_cast<float>(acc) * 0x1p-15f;
+      } else {
+        double acc = 0.0;  // exact: see the note on the weight floor above
+        for (int j = 0; j < n_real; ++j)
+          acc += (double)weights.soft[warp][j] * (double)v_rows[j][dd];
+        o = __double2float_rn(acc);
+      }
+      out_wh[i * st.o_row + dd] = dvt::clip_i8(rintf(o * c2));
     }
     __syncwarp();
   }
@@ -134,12 +159,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 // window*sq_w + slot*sq_s + head*sq_h + row*sq_r + d; bias: (H, npad, npad)
 // f32; mask: (nW, npad, npad) f32 or null; scalars: (5,) f32 on the device;
 // out: int8, element (window, head, row, d) at
-// window*so_w + head*so_h + row*so_r + d.  Requires n_real <= 64, D <= 64,
-// D % 4 == 0, every stride a multiple of 4 (checked by the Python wrapper).
+// window*so_w + head*so_h + row*so_r + d.  lis: 1 the Log-Int-Softmax, 0 the
+// float softmax.  Requires n_real <= 64, D <= 64, D % 4 == 0, every stride a
+// multiple of 4 (checked by the Python wrapper).
 extern "C" int dvt_swin_attention(const void* qkv, const void* bias,
                                   const void* mask, const void* scalars,
                                   void* out, int windows, int heads, int npad,
-                                  int d, int n_real, int n_windows,
+                                  int d, int n_real, int n_windows, int lis,
                                   long long sq_w, long long sq_s,
                                   long long sq_h, long long sq_r,
                                   long long so_w, long long so_h,
@@ -149,6 +175,6 @@ extern "C" int dvt_swin_attention(const void* qkv, const void* bias,
   swin_attention_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const float*>(scalars),
-      static_cast<int8_t*>(out), npad, d, n_real, n_windows, st);
+      static_cast<int8_t*>(out), npad, d, n_real, n_windows, lis, st);
   return cudaGetLastError();
 }

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from .config import QuantConfig
-from .data.imagenet import IMAGENET_MEAN, IMAGENET_STD, input_code_lut
+from .data.imagenet import (IMAGENET_MEAN, IMAGENET_STD, device_normalize,
+                            input_code_lut, normalize_lut)
 from .models import swin_int, vit_int
 from .models.convert import int_model_from_numpy, swin_int_model_from_numpy
 from .models.swin import SwinSpec
@@ -25,17 +26,27 @@ class IntModel:
     int-model on one device plus its spec and QuantConfig.
 
     ``__call__`` takes a (B, 3, H, W) batch as numpy or torch: int8 input
-    codes, uint8 pixels (encoded host-side with ``input_lut`` into codes —
-    the same codes the reference derives on its device), or float32
-    normalized pixels.  It returns float32 logits on the model's device.
+    codes, uint8 pixels, or float32 normalized pixels.  It returns float32
+    logits on the model's device.  uint8 pixels are encoded host-side with
+    ``input_lut`` into codes, the same codes the reference derives on its
+    device.  Where the codes wire would not carry the float32 wire's values
+    there is no ``input_lut``: a model with ``input_quant=False``, or one
+    whose float patch site sees a qact_input with a nonzero zero-point (the
+    int8 code clips ``q - zp``, the float patch takes it unclipped).  Then
+    uint8 pixels are normalized on the model's device
+    (``data.imagenet.device_normalize``) and take the float32 wire, as
+    every uint8 batch does in the reference, and int8 codes raise
+    ``ValueError``.  ``input_norm``: the (mean, std) of both.
 
     ``resident=True`` (ViT family): the encoder runs as one launch of the
     resident kernel K6 (``vit_int.forward_q_int_serve``), packed once here;
     on a CUDA device it runs K6 or raises."""
 
     def __init__(self, ip, spec: ViTSpec | SwinSpec, cfg: QuantConfig,
-                 device="cuda", resident=False):
+                 device="cuda", resident=False,
+                 input_norm=(IMAGENET_MEAN, IMAGENET_STD)):
         self.spec, self.cfg = spec, cfg
+        self.input_norm = tuple(input_norm)
         self.device = torch.device(device)
         self.is_swin = isinstance(spec, SwinSpec)
         self.packed = None
@@ -46,7 +57,7 @@ class IntModel:
             self.ip = swin_int_model_from_numpy(ip, spec, self.device, cfg)
             self._forward = swin_int.forward_q_int
             qp = ip["qp"]
-            scale, zp = qp["qact_input.scale"], qp["qact_input.zp"]
+            scale, zp = qp.get("qact_input.scale"), qp.get("qact_input.zp")
         else:
             self.ip = int_model_from_numpy(ip, spec, self.device, cfg)
             self._forward = vit_int.forward_q_int
@@ -54,14 +65,28 @@ class IntModel:
                 self.packed = vit_int.prepare_resident(self.ip, spec, cfg)
                 self._forward = functools.partial(
                     vit_int.forward_q_int_serve, packed=self.packed)
-            scale, zp = ip["qact_input"]["scale"], ip["qact_input"]["zp"]
+            site = ip.get("qact_input", {})
+            scale, zp = site.get("scale"), site.get("zp")
+        # Swin's integer path has no float sites beside input_quant=False
+        float_patch = not self.is_swin and ip["patch"]["fp"]
+        # (3, 256) float32 table on the device: uint8 pixel -> normalized
+        self._norm_lut = torch.tensor(normalize_lut(*self.input_norm),
+                                      device=self.device)
         # (3, 256) int8 table: uint8 pixel -> qact_input code per channel
         self.input_lut = None
-        if spec.input_quant:
+        if not spec.input_quant:
+            self._no_codes = "the codes wire requires input_quant=True"
+        elif float_patch and np.any(np.asarray(zp) != 0):
+            self._no_codes = (
+                "the codes wire cannot carry a nonzero qact_input zero-point "
+                "into a float patch site (the int8 code clips q - zp); send "
+                "uint8 or float32 pixels")
+        else:
             bt = cfg.bit_a
+            mean, std = self.input_norm
             self.input_lut = input_code_lut(
-                np.asarray(scale), np.asarray(zp), mean=IMAGENET_MEAN,
-                std=IMAGENET_STD, qmin=bt.lower_bound, qmax=bt.upper_bound)
+                np.asarray(scale), np.asarray(zp), mean=mean, std=std,
+                qmin=bt.lower_bound, qmax=bt.upper_bound)
 
     def encode(self, x) -> np.ndarray:
         """uint8 NCHW batch -> int8 input codes (host-side numpy)."""
@@ -69,18 +94,22 @@ class IntModel:
         if x.dtype != np.uint8:
             raise TypeError(f"encode expects uint8 pixels, got {x.dtype}")
         if self.input_lut is None:
-            raise ValueError("the codes wire requires input_quant=True")
+            raise ValueError(self._no_codes)
         return np.stack([self.input_lut[c][x[:, c]] for c in range(3)], 1)
 
     def __call__(self, x):
-        if isinstance(x, torch.Tensor) and x.dtype == torch.uint8:
-            x = x.cpu().numpy()
-        if isinstance(x, np.ndarray) and x.dtype == np.uint8:
-            x = self.encode(x)
-        x = torch.as_tensor(x, device=self.device)
+        if self.input_lut is not None:  # uint8 -> codes on the host
+            if isinstance(x, torch.Tensor) and x.dtype == torch.uint8:
+                x = x.cpu().numpy()
+            if isinstance(x, np.ndarray) and x.dtype == np.uint8:
+                x = self.encode(x)
+        x = device_normalize(torch.as_tensor(x, device=self.device),
+                             lut=self._norm_lut)
         if x.dtype not in (torch.int8, torch.float32):
             raise TypeError(f"IntModel takes int8 codes, uint8 or float32 "
                             f"pixels, got {x.dtype}")
+        if x.dtype == torch.int8 and self.input_lut is None:
+            raise ValueError(self._no_codes)
         with torch.inference_mode():
             return self._forward(self.ip, self.spec, self.cfg, x)
 
@@ -96,7 +125,8 @@ def save_int_model(path, ip, spec: ViTSpec | SwinSpec,
                                 "is_swin": isinstance(spec, SwinSpec)})
 
 
-def load_int_model(path, device="cuda", resident=False) -> IntModel:
+def load_int_model(path, device="cuda", resident=False,
+                   input_norm=(IMAGENET_MEAN, IMAGENET_STD)) -> IntModel:
     """Load a ``save_int_model`` artifact (a ``save_pytree`` .npz) onto
     ``device``, served per kernel or (``resident``) through K6.  The spec
     is rebuilt from the embedded dataclass fields."""
@@ -113,7 +143,7 @@ def load_int_model(path, device="cuda", resident=False) -> IntModel:
     else:
         spec = ViTSpec(**sd)
     return IntModel(ip, spec, QuantConfig.from_dict(meta["cfg"]), device,
-                    resident=resident)
+                    resident=resident, input_norm=input_norm)
 
 
 def validate(model, loader, print_freq=100, log=print):

@@ -154,7 +154,9 @@ def swin_block_constants(ib, qp, p, spec: SwinSpec, stage: int, blk: int,
     (``swin_int.py:234-255``), in numpy: ``bias_q``, the fake-quantized
     relative-position table gathered to (H, n, n); ``mask_div``, the shift
     mask over s_a2 (or None); ``attn_scalars``, the kernel's
-    [c1, s_a1, 1/s_a2, s_a2, c2] in float32."""
+    [c1, s_a1, 1/s_a2, s_a2, c2] in float32.  With ``cfg.lis`` the softmax
+    scale must keep the exact LIS row sum in int64 (:func:`lis_sum_fits`);
+    the float softmax takes any scale."""
     _, ws, _, mask = block_geometry(spec, stage, blk)
     n, nh = ws * ws, spec.num_heads[stage]
     hd = spec.stage_dim(stage) // nh
@@ -162,7 +164,8 @@ def swin_block_constants(ib, qp, p, spec: SwinSpec, stage: int, blk: int,
     s_a1 = _scalar(qp[f"{p}.attn.qact_attn1.scale"])
     s_a2 = _scalar(qp[f"{p}.attn.qact2.scale"])
     s_a3 = _scalar(qp[f"{p}.attn.qact3.scale"])
-    _check_lis_sum(s_a2, n, p)
+    if cfg.lis:
+        _check_lis_sum(s_a2, n, p)
     table_q = _fq_np(ib["rel_bias_table"], qp, f"{p}.attn.qact_table",
                      cfg.bit_a)
     idx = relative_position_index(ws).reshape(-1)
@@ -188,9 +191,11 @@ def swin_int_model_from_numpy(ip, spec: SwinSpec, device,
                               cfg: QuantConfig | None = None) -> dict:
     """The Swin int-model of ``diffvit_tpu.models.swin_int.prepare_int`` on
     ``device``: every array as a torch tensor (as ``int_model_from_numpy``
-    does), every ``int_linear`` site with its ``mult``, and per block the
-    window-attention constants of :func:`swin_block_constants`
-    (``cfg.bit_a`` fake-quantizes the bias table)."""
+    does), every ``int_linear`` site with its ``mult`` (the patch site
+    only under ``input_quant``: without it the patch product is float and
+    there is no qact_input), and per block the window-attention constants
+    of :func:`swin_block_constants` (``cfg.bit_a`` fake-quantizes the bias
+    table)."""
     cfg = cfg or QuantConfig()
     qp = {k: np.asarray(v) for k, v in ip["qp"].items()}
 
@@ -213,7 +218,8 @@ def swin_int_model_from_numpy(ip, spec: SwinSpec, device,
             ds = dict(ds, reduction=_with_mult(
                 ds["reduction"], s(f"layers.{si}.downsample.qact1")))
         layers.append({"blocks": blocks, "downsample": ds})
-    ip = dict(ip, layers=layers, qp=qp,
-              patch=_with_mult(ip["patch"], s("qact_input")),
+    patch = _with_mult(ip["patch"], s("qact_input")) if spec.input_quant \
+        else ip["patch"]
+    ip = dict(ip, layers=layers, qp=qp, patch=patch,
               head=_with_mult(ip["head"], s("qact3")))
     return _to_torch(ip, device)

@@ -1,7 +1,7 @@
 """Fused Swin window attention: scores, relative-position bias, shift mask,
-Log-Int-Softmax and attn@v in one kernel (counterpart of
-``diffvit_tpu/ops/pallas/attention.py::fused_swin_attention`` and
-``::fused_swin_attention_v2``).
+Log-Int-Softmax (or the float softmax) and attn@v in one kernel
+(counterpart of ``diffvit_tpu/ops/pallas/attention.py::
+fused_swin_attention`` and ``::fused_swin_attention_v2``).
 
 Per window w and head h, with scalars = [c1, s_a1, 1/s_a2, s_a2, c2]:
 
@@ -17,6 +17,18 @@ non-kernel path divides; the two agree for power-of-two scales).  The LIS
 is ``attention.lis_body_plain`` (exact int64 row sum, ``fast=False``) and
 attn@v the exact integer sum of K1's plain version.
 
+With ``lis=False`` the weights are the float softmax of ``am * s_a2`` over
+the real keys, rounded to bfloat16 (``attention._softmax_weights_plain``,
+taken in float64 as K1's), and attn@v is summed in float64 and rounded
+once.  The shift mask puts weights near e^-100 (bfloat16 subnormals)
+beside weights near 1, too wide a spread for an exact float64 sum, so a
+weight below ``WEIGHT_FLOOR`` = 2^-32 counts as 0, in the kernel and here
+alike: the weights left are multiples of 2^-39, their products with int8
+values sum to at most 2^13, and every partial sum fits 53 bits, so the
+sum is exact in any order and no device's handling of subnormals matters.
+A dropped weight moves ``o`` by less than 2^-19, far below the float32
+rounding of the reference's own sum.
+
 One CUDA kernel (``csrc/swin_attention.cu``) serves both contracts: the
 wrapper passes the element strides of qkv's (window, slot, head, row) axes
 and of the output's (window, head, row) axes, so v1 may be a strided view
@@ -28,19 +40,22 @@ import torch
 
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
-from .attention import _weighted_values, lis_body_plain
+from .attention import (_softmax_weights_plain, _weighted_values,
+                        lis_body_plain)
 from .build import check, load_library
 
 MAX_KEYS = 64  # keys per window the kernel holds: two per lane of a warp
 MAX_HEAD_DIM = 64
+WEIGHT_FLOOR = 2.0**-32  # float-softmax weights below it count as 0
 
 
 def swin_attention_plain(q, k, v, bias_q, mask_div, scalars, *, n_real,
-                         n_windows, bits=4):
+                         n_windows, bits=4, lis=True):
     """The specification.  q, k, v: (Bw, H, npad, D) int8 (views are
     fine); bias_q: (H, npad, npad) float32; mask_div: (nW, npad, npad)
     float32 or None; scalars: (5,) float32.  Returns (Bw, H, npad, D) int8
-    on the qact3 grid; keys at or past ``n_real`` are masked out."""
+    on the qact3 grid; keys at or past ``n_real`` are masked out.  ``lis``:
+    the Log-Int-Softmax, else the float softmax (``bits`` unused)."""
     bw, heads, npad, _ = q.shape
     scores = int_matmul(q, k.transpose(-1, -2)).to(torch.float32)
     a1c = torch.clamp(torch.round(scores * scalars[0]), -128, 127)
@@ -50,22 +65,23 @@ def swin_attention_plain(q, k, v, bias_q, mask_div, scalars, *, n_real,
         am = (am.reshape(bw // n_windows, n_windows, heads, npad, npad)
               + mask_div[None, :, None]).reshape(bw, heads, npad, npad)
     col_ok = torch.arange(npad, device=q.device) < n_real
-    weights = lis_body_plain(am, scalars[3], bits, col_ok, fast=False)
-    acc = _weighted_values(weights, v)
-    o = torch.round(acc.to(torch.float32) * 2.0**-15 * scalars[4])
+    if lis:
+        weights = lis_body_plain(am, scalars[3], bits, col_ok, fast=False)
+        acc = _weighted_values(weights, v).to(torch.float32) * 2.0**-15
+    else:
+        weights = _softmax_weights_plain(am, scalars[3], col_ok)
+        weights = torch.where(weights < WEIGHT_FLOOR, 0.0, weights)
+        acc = torch.matmul(weights, v.to(torch.float64)).to(torch.float32)
+    o = torch.round(acc * scalars[4])
     return torch.clamp(o, -128, 127).to(torch.int8)
 
 
 def _check_contract(name, bits, lis):
-    if not lis:
-        raise NotImplementedError(
-            f"{name}: only the LIS softmax is ported (lis=False, the float "
-            "softmax branch, is later work)")
-    if bits > 4:
+    if lis and bits > 4:
         raise NotImplementedError(f"{name}: LIS supports bits <= 4 only")
 
 
-def _launch(qkv5, out4, bias_q, mask_div, scalars, n_real, n_windows):
+def _launch(qkv5, out4, bias_q, mask_div, scalars, n_real, n_windows, lis):
     """Run ``csrc/swin_attention.cu`` on qkv5, a (Bw, 3, H, npad, D) int8
     view, into out4, a (Bw, H, npad, D) int8 view of the output."""
     bw, _, heads, npad, d = qkv5.shape
@@ -98,7 +114,7 @@ def _launch(qkv5, out4, bias_q, mask_div, scalars, n_real, n_windows):
         qkv5.data_ptr(), bias_q.data_ptr(),
         None if mask_div is None else mask_div.data_ptr(),
         scalars.data_ptr(), out4.data_ptr(), bw, heads, npad, d, n_real,
-        n_windows, *strides,
+        n_windows, int(lis), *strides,
         torch.cuda.current_stream(qkv5.device).cuda_stream)
     check(err, "fused_swin_attention")
 
@@ -115,7 +131,8 @@ def fused_swin_attention(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
     mask_div: (nW, npad, npad) float32 shift mask over s_a2, or None
     (window w takes mask w mod nW); scalars: (5,) float32
     [c1, s_a1, 1/s_a2, s_a2, c2].  Returns (Bw, H, npad, D) int8 on the
-    qact3 grid.
+    qact3 grid.  ``lis``: the Log-Int-Softmax (``bits`` <= 4), else the
+    float softmax rounded to bfloat16 (any ``bits``).
 
     A CUDA tensor runs ``csrc/swin_attention.cu``; a CPU tensor runs
     :func:`swin_attention_plain`."""
@@ -127,10 +144,10 @@ def fused_swin_attention(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
     if route(*_tensors(qkv_i8, bias_q, mask_div, scalars)) == "cpu":
         return swin_attention_plain(
             qkv_i8[:, 0], qkv_i8[:, 1], qkv_i8[:, 2], bias_q, mask_div,
-            scalars, n_real=n_real, n_windows=n_windows, bits=bits)
+            scalars, n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
     out = torch.empty((bw, heads, npad, d), dtype=torch.int8,
                       device=qkv_i8.device)
-    _launch(qkv_i8, out, bias_q, mask_div, scalars, n_real, n_windows)
+    _launch(qkv_i8, out, bias_q, mask_div, scalars, n_real, n_windows, lis)
     fused_swin_attention.launches += 1
     return out
 
@@ -153,11 +170,11 @@ def fused_swin_attention_v2(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
     if route(*_tensors(qkv_i8, bias_q, mask_div, scalars)) == "cpu":
         o = swin_attention_plain(
             view[:, 0], view[:, 1], view[:, 2], bias_q, mask_div, scalars,
-            n_real=n_real, n_windows=n_windows, bits=bits)
+            n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
         return o.permute(0, 2, 1, 3).reshape(bw, npad, c)
     out = torch.empty((bw, npad, c), dtype=torch.int8, device=qkv_i8.device)
     _launch(view, out.view(bw, npad, num_heads, head_dim).permute(0, 2, 1, 3),
-            bias_q, mask_div, scalars, n_real, n_windows)
+            bias_q, mask_div, scalars, n_real, n_windows, lis)
     fused_swin_attention_v2.launches += 1
     return out
 

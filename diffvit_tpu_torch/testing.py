@@ -6,8 +6,9 @@ only, the int-model pytree that ``diffvit_tpu.models.vit_int.prepare_int``
 would bake for a DeiT/ViT spec, a QuantConfig and a bit config: exactly
 the keys that ``_embed_front``, ``_block_int`` and ``_head_tail`` read,
 plus ``bit_config`` and ``sym_acts=True``.  ``random_swin_int_model`` does
-the same for ``diffvit_tpu.models.swin_int.prepare_int`` and a Swin spec
-at a uniform bit width.  The JAX forwards accept them unchanged
+the same for ``diffvit_tpu.models.swin_int.prepare_int`` and a Swin spec,
+at a uniform bit width or a per-slot {4, 8} bit config.  The JAX forwards
+accept them unchanged
 (``tests/test_torch_vit_int.py``, ``tests/test_torch_fqvit.py`` and
 ``tests/test_torch_swin.py`` hold each against the port), so they are
 valid int-models, not private formats.
@@ -155,17 +156,25 @@ def random_int_model(spec: ViTSpec, cfg: QuantConfig | None = None,
 
 def random_swin_int_model(spec: swin.SwinSpec,
                           cfg: QuantConfig | None = None,
-                          seed: int = 0) -> dict:
+                          seed: int = 0, bit_config=None) -> dict:
     """Swin ``prepare_int``'s schema (``diffvit_tpu/models/swin_int.py:
     25-82``): ``qp``, the flat ``{site}.scale`` / ``{site}.zp`` dict of the
     activation sites (and ``{weight}.int{bits}.scale``), ``layers`` of
     blocks and downsamples, ``patch``, ``patch_norm``, ``norm``, ``head``,
-    ``bit_config`` and ``sym_acts=True``.  Weights take ``cfg.bit_w``.
-    Every scale is a power of two; the LN inputs (qact2, qact4, mlp.qact2,
-    the downsample's qact2) take per-channel PTF grids; the softmax scale
-    attn.qact2 is 2^-4, well inside ``lis_sum_fits`` for a window."""
+    ``bit_config`` and ``sym_acts=True``.  Each weight takes its slot of
+    ``bit_config`` (4 or 8; default: every slot ``cfg.bit_w``), in
+    ``prepare_int``'s order: the patch, four per block, a stage's reduction
+    after its blocks, the head.  Every scale is a power of two; under PTF
+    the LN inputs (qact2, qact4, mlp.qact2, the downsample's qact2) take
+    per-channel grids, without it layer-wise ones; the softmax scale
+    attn.qact2 is 2^-4, well inside ``lis_sum_fits`` for a window;
+    ``input_quant=False`` gives no ``qact_input``."""
     cfg = cfg or QuantConfig()
-    bits = cfg.bit_w.bits
+    bc = swin.normalize_bit_config(
+        spec, bit_config if bit_config is not None else cfg.bit_w.bits)
+    if not all(b in (4, 8) for b in bc):
+        raise ValueError("the Swin integer path takes {4, 8} slots only")
+    slots = iter(bc)
     rng = np.random.default_rng(seed)
     qp = {}
     act = f32(2.0**-5)  # activations of std ~1 span +-4
@@ -175,9 +184,10 @@ def random_swin_int_model(spec: swin.SwinSpec,
         qp[f"{path}.zp"] = np.asarray(0.0, f32)
 
     def ptf(path, base, c):
-        site(path, base * 2.0 ** rng.integers(0, 2, c))
+        site(path, base * 2.0 ** rng.integers(0, 2, c) if cfg.ptf else base)
 
     def w_site(path, fan_in, fan_out, gain, bias=True):
+        bits = next(slots)
         w, s_w = _weight(rng, bits, fan_in, fan_out, gain)
         qp[f"{path}.int{bits}.scale"] = s_w
         b = (0.02 * rng.standard_normal(fan_out)).astype(f32) if bias \
@@ -185,9 +195,9 @@ def random_swin_int_model(spec: swin.SwinSpec,
         return {"w_int": w, "sw": s_w, "bit": bits, "b": b}
 
     c0 = spec.embed_dim
-    site("qact_input", act)  # ImageNet-normalized pixels span about +-2.6
-    ip = {"bit_config": (bits,) * swin.num_bit_slots(spec), "layers": [],
-          "qp": qp,
+    if spec.input_quant:
+        site("qact_input", act)  # normalized pixels span about +-2.6
+    ip = {"bit_config": bc, "layers": [], "qp": qp,
           "patch": w_site("patch.w", 3 * spec.patch_size**2, c0, 1.0)}
     ip["patch_norm"] = _norm(rng, c0) if spec.patch_norm else None
     site("patch.qact_bn", act)

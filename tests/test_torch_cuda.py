@@ -304,6 +304,117 @@ def test_swin_forward_on_card_matches_cpu(cuda):
         _assert_paths_agree(got, ref)
 
 
+def _swin_softmax_case(spec, stage, windows_of, cuda, wide=False):
+    """K4/K4b arguments for ``lis=False`` at a stage's shifted block:
+    ``windows_of`` images of qkv codes.  ``wide``: s_a1 = s_a2 = 0.5, so
+    that the logits span +-64 under the mask's -100 and the rows hold
+    weights down to the bfloat16 subnormals."""
+    cfg = QuantConfig(lis=False)
+    ip = random_swin_int_model(spec, cfg, seed=0)
+    k = swin_block_constants(ip["layers"][stage]["blocks"][1], ip["qp"],
+                             f"layers.{stage}.blocks.1", spec, stage, 1, cfg)
+    if wide:
+        k["attn_scalars"][1:4] = (0.5, 2.0, 0.5)
+        k["mask_div"] = np.where(k["mask_div"] != 0, -200.0, 0.0) \
+            .astype(np.float32)
+    res = spec.stage_resolution(stage)[0]
+    nw, heads = (res // 7) ** 2, spec.num_heads[stage]
+    c = spec.stage_dim(stage)
+    dev = lambda a: None if a is None else torch.tensor(  # noqa: E731
+        np.asarray(a), device=cuda)
+    qkv = dev(_codes((windows_of * nw, 49, 3 * c), stage + 3))
+    consts = (dev(k["bias_q"]), dev(k["mask_div"]), dev(k["attn_scalars"]))
+    return qkv, consts, dict(num_heads=heads, n_real=49, n_windows=nw,
+                             bits=8, lis=False), c // heads
+
+
+@pytest.mark.parametrize("spec_name,stage,wide", [
+    ("swin_tiny", 0, False), ("swin_tiny", 1, False), ("swin_tiny", 2, False),
+    ("swin_tiny", 3, False), ("swin_tiny", 0, True), ("tiny", 0, False),
+    ("tiny", 0, True)])
+def test_swin_attention_float_softmax_kernel_matches_plain(cuda, spec_name,
+                                                           stage, wide):
+    """K4 (on a strided view of the natural qkv, and on a contiguous copy)
+    and K4b with ``lis=False`` vs the plain version, at Swin-T's stages and
+    at the CPU tests' tiny Swin (2 heads of 16): >= 99.9% of codes equal
+    and within 1 code (measured: all equal)."""
+    spec = SWIN_SPECS["swin_tiny"] if spec_name == "swin_tiny" else SwinSpec(
+        "swin_test2", embed_dim=32, depths=(2, 1), num_heads=(2, 4),
+        img_size=56, num_classes=10)
+    qkv, consts, kw, hd = _swin_softmax_case(spec, stage, 2, cuda, wide)
+    bw, heads = qkv.shape[0], kw["num_heads"]
+    view = qkv.view(bw, 49, 3, heads, hd).permute(0, 2, 3, 1, 4)
+    want = swin_attention_plain(
+        view[:, 0], view[:, 1], view[:, 2], *consts, n_real=49,
+        n_windows=kw["n_windows"], lis=False).cpu().numpy()
+    before = (fused_swin_attention.launches,
+              fused_swin_attention_v2.launches)
+    got = fused_swin_attention(view, *consts, **kw)
+    got_c = fused_swin_attention(view.contiguous(), *consts, **kw)
+    got2 = fused_swin_attention_v2(qkv, *consts, head_dim=hd, **kw)
+    torch.cuda.synchronize()
+    assert (fused_swin_attention.launches,
+            fused_swin_attention_v2.launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    got2 = got2.view(bw, 49, heads, hd).permute(0, 2, 1, 3)
+    for g in (got, got_c, got2):
+        diff = np.abs(g.cpu().numpy().astype(np.int32) - want)
+        print(spec_name, stage, wide, "equal", float(np.mean(diff == 0)))
+        assert diff.max() <= 1 and np.mean(diff == 0) >= 0.999
+    assert len(np.unique(want)) > 32
+
+
+def _swin_branch_model(branch):
+    """(spec, cfg, numpy int-model) of a two-stage Swin at Swin-T's widths
+    and a 112 input, for one branch of the forward."""
+    kw = dict(embed_dim=96, depths=(2, 2), num_heads=(3, 6), img_size=112,
+              num_classes=10)
+    spec = SwinSpec("swin_t2", input_quant=branch != "no_input_quant", **kw)
+    cfg = {"float_ln": QuantConfig(ptf=False),
+           "float_softmax": QuantConfig(lis=False)}.get(branch, QuantConfig())
+    bc = None
+    if branch == "mixed_bits":
+        n = 1 + 4 * 4 + 1 + 1
+        bc = [8, 4] * (n // 2) + [8] * (n % 2)
+    ip = random_swin_int_model(spec, cfg, seed=1, bit_config=bc)
+    if branch == "asymmetric":
+        ip["sym_acts"] = False
+        for k in ip["qp"]:
+            if k.endswith(".qact2.zp") and ".attn." not in k:
+                ip["qp"][k] = ip["qp"][k] + np.float32(3.0)
+    return spec, cfg, ip
+
+
+@pytest.mark.parametrize("branch", ["float_ln", "asymmetric", "float_softmax",
+                                    "no_input_quant", "mixed_bits"])
+def test_swin_branch_forward_on_card_matches_cpu(cuda, branch):
+    """Every branch of the Swin forward beside the codes path, both
+    attention contracts: the card's logits vs the plain path on the CPU,
+    on float32 pixels, and through the engine on uint8 pixels."""
+    spec, cfg, ip_np = _swin_branch_model(branch)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 3, 112, 112)).astype(np.float32)
+    ref = swin_int.forward_q_int(
+        swin_int_model_from_numpy(ip_np, spec, "cpu", cfg), spec, cfg,
+        torch.tensor(x)).numpy()
+    ip = swin_int_model_from_numpy(ip_np, spec, cuda, cfg)
+    for attn_v2 in (False, True):
+        before = (fused_swin_attention.launches,
+                  fused_swin_attention_v2.launches, fused_int_mlp.launches)
+        got = swin_int.forward_q_int(ip, spec, cfg,
+                                     torch.tensor(x, device=cuda),
+                                     attn_v2=attn_v2).cpu().numpy()
+        after = (fused_swin_attention.launches,
+                 fused_swin_attention_v2.launches, fused_int_mlp.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == \
+            ((0, 4, 4) if attn_v2 else (4, 0, 4))
+        _assert_paths_agree(got, ref)
+    pixels = rng.integers(0, 256, (2, 3, 112, 112), dtype=np.uint8)
+    _assert_paths_agree(
+        engine.IntModel(ip_np, spec, cfg, cuda)(pixels).cpu().numpy(),
+        engine.IntModel(ip_np, spec, cfg, "cpu")(pixels).numpy())
+
+
 # ---- K3, K7a, K7b and K8 (the kernels on no model path) ----
 
 def _alt_pairs():

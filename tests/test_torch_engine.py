@@ -13,6 +13,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from diffvit_tpu.config import QuantConfig
 from diffvit_tpu.data import imagenet as jax_imagenet
@@ -99,6 +100,107 @@ def test_validate_prints_reference_format(artifact):
     assert re.fullmatch(r" \* Prec@1 \d+\.\d{3} Prec@5 \d+\.\d{3} "
                         r"Time \d+\.\d{3}", lines[-1]), lines[-1]
     assert 0.0 <= top1 <= top5 <= 100.0 and np.isfinite(loss)
+
+
+# ---- the uint8 wire where the codes wire cannot stand for it --------------
+
+SPEC64 = ViTSpec("t64", embed_dim=64, depth=2, num_heads=2, num_classes=10)
+NORM = ((0.5, 0.4, 0.3), (0.25, 0.2, 0.3))
+
+
+def _float_patch_model(zp):
+    """A float patch site (slot 0 = -1) behind a qact_input of scale 2^-6
+    and zero-point ``zp``: for ``zp`` != 0 the int8 code clips q - zp."""
+    bc = (-1,) + (4,) * (4 * SPEC64.depth + 1)
+    ip = random_int_model(SPEC64, seed=3, bit_config=bc)
+    ip["qact_input"] = {"scale": np.float32(2.0**-6), "zp": np.float32(zp)}
+    ip["sym_acts"] = zp == 0
+    return SPEC64, ip
+
+
+def _no_input_quant_model():
+    spec = dataclasses.replace(SPEC64, input_quant=False)
+    return spec, random_int_model(spec, seed=3)
+
+
+@pytest.mark.parametrize("case,input_norm", [
+    ("float_patch_zp", None), ("no_input_quant", None),
+    ("float_patch_zp", NORM), ("no_input_quant", NORM), ("codes", NORM)],
+    ids=["float_patch_zp", "no_input_quant", "float_patch_zp-norm",
+         "no_input_quant-norm", "codes-norm"])
+def test_uint8_wire_matches_float32_wire_and_jax(artifact, tmp_path, case,
+                                                 input_norm):
+    """uint8 pixels against the float32 wire of the same pixels, in the
+    port (bit for bit) and against the JAX IntModel on both wires, for a
+    float patch behind a nonzero input zero-point and for
+    ``input_quant=False`` (both normalize on the device: no codes wire,
+    int8 codes refused), and for a model with a codes wire under a custom
+    ``input_norm`` (the LUT's codes are the float32 wire's)."""
+    spec, ip = {"float_patch_zp": lambda: _float_patch_model(-15.0),
+                "no_input_quant": _no_input_quant_model,
+                "codes": lambda: (SPEC64, random_int_model(SPEC64, seed=3)),
+                }[case]()
+    kw = {} if input_norm is None else {"input_norm": input_norm}
+    path = str(tmp_path / "m.npz")
+    engine.save_int_model(path, ip, spec, QuantConfig())
+    served = engine.load_int_model(path, "cpu", **kw)
+    jax_served = jax_load_int_model(path, **kw)
+    pixels = artifact[1]
+    normalized = np.array(jax_imagenet.device_normalize(
+        jax.numpy.asarray(pixels), *(input_norm or ())))
+    np.testing.assert_array_equal(
+        imagenet.device_normalize(torch.tensor(pixels),
+                                  *(input_norm or ())).numpy(), normalized)
+    got = served(pixels).numpy()
+    np.testing.assert_array_equal(served(normalized).numpy(), got)
+    np.testing.assert_array_equal(served(torch.tensor(pixels)).numpy(), got)
+    _assert_paths_agree(got, np.asarray(jax_served(pixels)))
+    _assert_paths_agree(got, np.asarray(jax_served(normalized)))
+    assert not np.array_equal(got[0], got[1])
+    if case == "codes":
+        np.testing.assert_array_equal(served.input_lut, jax_served.input_lut)
+        np.testing.assert_array_equal(served(served.encode(pixels)).numpy(),
+                                      got)
+        assert not np.array_equal(
+            served.input_lut, engine.load_int_model(path, "cpu").input_lut)
+    else:
+        assert served.input_lut is None
+        match = "input_quant" if case == "no_input_quant" else "zero-point"
+        for refused in (served.encode, lambda x: served(x.astype(np.int8))):
+            with pytest.raises(ValueError, match=match):
+                refused(pixels)
+
+
+def test_float_patch_with_zero_zp_keeps_the_codes_wire():
+    """Everywhere else the LUT stays: a float patch behind zp = 0 takes
+    codes, and they give the float32 wire's logits."""
+    spec, ip = _float_patch_model(0.0)
+    served = engine.IntModel(ip, spec, QuantConfig(), "cpu")
+    pixels = np.random.default_rng(1).integers(0, 256, (2, 3, 224, 224),
+                                               dtype=np.uint8)
+    assert served.input_lut is not None
+    normalized = imagenet.device_normalize(torch.tensor(pixels))
+    np.testing.assert_array_equal(served(pixels).numpy(),
+                                  served(normalized).numpy())
+
+
+def test_clipped_codes_would_miss_the_float32_wire():
+    """The fault the refusal guards against: with zp = -15 the LUT's codes
+    clip q - zp at 127, and a float patch fed codes * scale departs from
+    the float32 wire."""
+    spec, ip = _float_patch_model(-15.0)
+    served = engine.IntModel(ip, spec, QuantConfig(), "cpu")
+    pixels = np.random.default_rng(1).integers(0, 256, (2, 3, 224, 224),
+                                               dtype=np.uint8)
+    site = ip["qact_input"]
+    lut = imagenet.input_code_lut(site["scale"], site["zp"])
+    codes = np.stack([lut[c][pixels[:, c]] for c in range(3)], 1)
+    assert (codes == 127).mean() > 0.01  # the clip is reached
+    from diffvit_tpu_torch.models import vit_int
+    with torch.inference_mode():
+        clipped = vit_int.forward_q_int(served.ip, spec, served.cfg,
+                                        torch.tensor(codes)).numpy()
+    assert np.mean(clipped == served(pixels).numpy()) < 0.995
 
 
 def test_port_runs_without_jax():
