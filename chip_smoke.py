@@ -57,6 +57,20 @@
             against K1 + proj + code fences, K7b against the fences + LN2
             + K2 + qact4; K3's raw mode bit for bit against the forward's
             int_matmul(x, w) * mult + b at the patch, proj and head).
+8. probes:  the H100 counterparts of the inline Pallas kernels of scripts/
+            (diffvit_tpu_torch/probes, their own library built from
+            csrc/probes): each probe kernel against its plain version at
+            the script's full geometry (P1 producer, consumer and paired
+            at B = 128, P2's five modes at 32768 x 512 with 220 chain
+            steps, P3's five modes at 50,688 rows, P4 on a b = 64 uint8
+            batch cast to float32, P5 at B = 256), paired against the two
+            halves, and the served kernels that the legs time beside them
+            at the legs' shapes (K1 with the fast LIS and the float
+            softmax, K8's _v3, _v4 with group 2 and 4 and _v5 at B = 256;
+            K2 at 50,688 rows); then each probe's timing legs once, with
+            every count set to 0 before and checked after against the
+            legs' exact launch counts, and each probe's answer (medians
+            with their min and max over five rounds) as one JSON line.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -68,6 +82,7 @@ pretrained ones.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -77,7 +92,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 import torch
@@ -99,6 +114,8 @@ from diffvit_tpu_torch.ops.kernels import (attention, build, linear, mlp,
 from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
                                                  resident_codes,
                                                  resident_codes_plain)
+from diffvit_tpu_torch.probes import (attn_overlap, ingest, overlap,
+                                      overlap_mlp, pingpong, timing)
 from diffvit_tpu_torch.testing import (alt_kernel_cases, linear_site_cases,
                                        random_int_model,
                                        random_swin_int_model)
@@ -117,6 +134,9 @@ MICROBATCH = 8  # forward_q_int_serve's default chunk
 # fewer than 2% of codes
 TOL = {"exact": (0.999, 1), "softmax": (0.98, 1)}
 PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM: int8 op/s, HBM B/s
+# H100 SXM dense peaks by operand type (op/s); the probes' tanh chain,
+# which has no published rate, counts three float32 operations a step
+PEAKS = {"int8": PEAK_OPS, "bf16": 989e12, "float32": 67e12}
 
 
 def _swin_plain(qkv5, bias_q, mask_div, scalars, *, num_heads, n_real,
@@ -181,15 +201,54 @@ KERNELS = {
         source="diffvit_tpu_torch/csrc/qkv_attention.cu",
         replaces="diffvit_tpu/ops/pallas/attention.py:734"),
 }
+
+
+def _v345_plain(*args, group=None, **kw):
+    """v3's plain version for v3, v4 and v5 (v4's ``group`` changes
+    nothing)."""
+    return attention.fused_qkv_attention_v3_plain(*args, **kw)
+
+
 # K8's scheduling variants: v1's function on K1's weight layout, one kernel
 for _v, _line in (("v3", 398), ("v4", 489), ("v5", 597)):
     KERNELS[f"fused_qkv_attention_{_v}"] = dict(
         fn=getattr(attention, f"fused_qkv_attention_{_v}"),
-        plain=attention.fused_qkv_attention_v3_plain,
+        plain=_v345_plain,
         source="diffvit_tpu_torch/csrc/qkv_attention.cu",
         replaces=f"diffvit_tpu/ops/pallas/attention.py:{_line}")
 K8 = ("fused_qkv_attention", "fused_qkv_attention_v3",
       "fused_qkv_attention_v4", "fused_qkv_attention_v5")
+
+# The probes: name -> (wrapper, plain version, source, Pallas kernel)
+_PROBE_SRC = "diffvit_tpu_torch/csrc/probes/"
+PROBES = {
+    "attn_overlap.qkv_attention_nv": (
+        attn_overlap.qkv_attention_nv, attn_overlap.qkv_attention_nv_plain,
+        "attn_nv.cu", "scripts/ab_attn_overlap_r3.py:75"),
+    "pingpong.producer": (pingpong.producer, pingpong.producer_plain,
+                          "pingpong.cu", "scripts/ab_pingpong_probe.py:80"),
+    "pingpong.consumer": (pingpong.consumer, pingpong.consumer_plain,
+                          "pingpong.cu", "scripts/ab_pingpong_probe.py:102"),
+    "pingpong.paired": (pingpong.paired, pingpong.paired_plain,
+                        "pingpong.cu", "scripts/ab_pingpong_probe.py:119"),
+    "ingest.tile_sum": (ingest.tile_sum, ingest.tile_sum_plain, "ingest.cu",
+                        "scripts/ab_regime_discriminate.py:45"),
+}
+for _m, _line in zip(overlap.MODES, (38, 44, 49, 56, 63)):
+    PROBES[f"overlap.{_m}"] = (
+        overlap.KERNELS[_m], functools.partial(
+            lambda a, b, v, *, iters, mode: overlap.overlap_plain(
+                a, b, v, mode, iters), mode=_m),
+        "overlap.cu", f"scripts/overlap_probe.py:{_line}")
+for _m in overlap_mlp.MODES:
+    PROBES[f"overlap_mlp.mlp_{_m}"] = (
+        overlap_mlp.KERNELS[f"mlp_{_m}"], functools.partial(
+            lambda *a, mode: overlap_mlp.overlap_mlp_plain(*a, mode),
+            mode=_m),
+        "overlap_mlp.cu", "scripts/overlap_probe_mlp.py:36")
+for _name, (_fn, _plain, _src, _at) in PROBES.items():
+    KERNELS[_name] = dict(fn=_fn, plain=_plain, source=_PROBE_SRC + _src,
+                          replaces=_at)
 
 
 def emit(**record):
@@ -256,6 +315,8 @@ def work(name, args, kw):
     every output byte written once; the integer products, and for the
     attention cores the scores and attn@v over the real keys."""
     inputs = sum(nbytes(a) for a in (*args, *kw.values()))
+    if name in PROBES:
+        return probe_work(name, args, kw, inputs)
     if name == "fused_int_linear":
         x, w = args[:2]
         rows, k = x.shape
@@ -309,12 +370,59 @@ def work(name, args, kw):
     return 4 * b * n * n_real * c, inputs + b * n * c
 
 
+def probe_work(name, args, kw, inputs):
+    """(operations by operand type, bytes) of one probe call, as
+    :func:`work`: the bytes each input read once and each output written
+    once (P3's g_src only where its mode reads it); P1 and P5 count their
+    int8 GEMM, scores and attn@v (P1's consumer over the real keys, P5 over
+    all Npad), P2 its bf16 dot and three float32 operations a chain step,
+    P3 its two int8 GEMMs, P4 one float32 add an element."""
+    probe = name.split(".")[1]
+    if probe == "consumer":
+        scores, v = args[0], args[1]
+        rows = scores.numel() // scores.shape[-1]
+        return ({"int8": 2 * rows * kw["n_real"] * v.shape[-1]},
+                 inputs + v.numel())
+    if probe in ("qkv_attention_nv", "producer", "paired"):
+        x, w = args[0], args[1]
+        b, n, cin = x.shape
+        c = w.shape[1] // 3
+        ops = 2 * b * n * cin * 3 * c + 2 * b * n * n * c  # GEMM, scores
+        if probe == "qkv_attention_nv":
+            return {"int8": ops + 2 * b * n * n * c}, inputs + b * n * c
+        out = b * c // kw["head_dim"] * n * n
+        if probe == "paired":
+            consumer, more = probe_work("pingpong.consumer", args[3:5], kw, 0)
+            ops += consumer["int8"]
+            out += more
+        return {"int8": ops}, inputs + out
+    if probe == "tile_sum":
+        return {"float32": args[0].numel()}, inputs + 8 * 128 * 4
+    if probe.startswith("mlp_"):
+        x, w1 = args[0], args[1]
+        rows, cin = x.shape
+        if probe != "mlp_input":
+            inputs -= nbytes(args[5])  # g_src is read in mode input only
+        return ({"int8": 4 * rows * cin * w1.shape[1]},
+                inputs + rows * cin * 4)
+    a, b, v = args
+    chain = 0 if probe == "dot_only" else 3 * kw["iters"] * v.numel()
+    ops = {"float32": chain}
+    if probe != "vpu_only":
+        ops["bf16"] = 2 * a.shape[0] * a.shape[1] * b.shape[1]
+    return ops, inputs + 2 * v.numel() * 4
+
+
 def bound(name, args, kw):
     """The least time the card could take for the call: the larger of the
-    operations over the int8 tensor-core peak and the bytes over the HBM
-    rate.  Returns (ms, "operations" or "bytes")."""
+    operations over the peak rate of their type (the int8 tensor cores
+    unless the work says otherwise) and the bytes over the HBM rate.
+    Returns (ms, "operations" or "bytes")."""
     ops, nbytes = work(name, args, kw)
-    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    if not isinstance(ops, dict):
+        ops = {"int8": ops}
+    t_ops = max(n / PEAKS[kind] for kind, n in ops.items())
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -354,33 +462,44 @@ def swin_cases(ip, stage, batch, dev, blk=1, cfg=CFG, emit_codes=True):
             "fused_int_mlp": (mlp_args, dict(emit_codes=emit_codes))}
 
 
-def hold(name, args, kw, tol="exact", decode=None, **where):
+def hold(name, args, kw, tol="exact", decode=None, compare=None, iters=20,
+         **where):
     """The kernel vs its plain version on the same inputs on the card, both
-    timed in turns (plain, kernel, kernel, plain); one JSON line.  Fails
-    beyond the tolerance ``TOL[tol]``.  ``decode`` turns a float32 output
-    into its int8-grid codes.  Returns (max |diff|, ms, plain ms)."""
+    timed in turns (plain, kernel, kernel, plain; ``iters`` calls each); one
+    JSON line.  Fails beyond the tolerance ``TOL[tol]``.  ``decode`` turns a
+    float32 output into its int8-grid codes; a tuple of outputs is held as
+    one.  ``compare(got, want)`` -> (share, max |diff|, ok) replaces the
+    codes rule for float outputs.  Returns (max |diff|, ms, plain ms)."""
     k = KERNELS[name]
     got = k["fn"](*args, **kw)
     want = k["plain"](*args, **kw)
     torch.cuda.synchronize()
-    if decode is not None:
-        got, want = decode(got), decode(want)
-    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
-    equal = float((got == want).float().mean())
-    max_diff = int(diff.max())
-    t = [cuda_ms(lambda: f(*args, **kw))
+    if compare is not None:
+        equal, max_diff, ok = compare(got, want)
+    else:
+        if isinstance(got, tuple):
+            got, want = (torch.cat([t.flatten() for t in o])
+                         for o in (got, want))
+        if decode is not None:
+            got, want = decode(got), decode(want)
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        equal = float((got == want).float().mean())
+        max_diff = int(diff.max())
+        min_equal, max_allowed = TOL[tol]
+        ok = equal >= min_equal and max_diff <= max_allowed
+    t = [cuda_ms(lambda: f(*args, **kw), iters)
          for f in (k["plain"], k["fn"], k["fn"], k["plain"])]
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    opts = {key: v for key, v in kw.items() if key in ("lis", "emit_codes")}
+    opts = {key: v for key, v in kw.items()
+            if key in ("lis", "lis_fast", "group", "emit_codes", "iters")}
     shape = next(a for a in args if isinstance(a, torch.Tensor)).shape
     emit(phase="kernel", kernel=name, **where, **opts,
          shape=list(shape), equal=equal, max_abs_diff=max_diff,
          ms=ms, plain_ms=plain_ms)
-    min_equal, max_allowed = TOL[tol]
-    if equal < min_equal or max_diff > max_allowed:
+    if not ok:
         raise RuntimeError(
-            f"{name} {where} {opts}: {equal:.6f} of codes equal, max |diff| "
-            f"{max_diff} (tolerance >= {min_equal}, <= {max_allowed})")
+            f"{name} {where} {opts}: {equal:.6f} equal or within tolerance, "
+            f"max |diff| {max_diff} (tolerance {compare or TOL[tol]})")
     return max_diff, ms, plain_ms
 
 
@@ -545,8 +664,8 @@ def code_stats(model, x):
 
 def drive(expected, run):
     """Set every kernel's count to 0, call ``run``, read the counts: fails
-    unless each kernel launched exactly ``expected[name]`` times (0 for
-    the kernels not named).  Returns run's result and the counts."""
+    unless each kernel launched exactly ``expected[name]`` times (0 for the
+    kernels not named).  Returns run's result and the counts."""
     for k in KERNELS.values():
         k["fn"].launches = 0
     out = run()
@@ -1058,6 +1177,108 @@ def phase_alternatives_path(dev):
     return launches
 
 
+def _variant_name(fn):
+    """The KERNELS name of a wrapper of attn_overlap.VARIANTS."""
+    return "attn_overlap.qkv_attention_nv" \
+        if fn is attn_overlap.qkv_attention_nv else fn.__name__
+
+
+def phase_probes_kernels(dev, summary):
+    """Each probe kernel against its plain version at its script's full
+    geometry (iters 5 a side: the plain versions take up to tens of ms);
+    P1's paired against the producer and the consumer run alone; P4 with
+    torch.sum beside it (the function in one PyTorch call, which the port
+    never calls).  The served kernels that the legs time beside the probes
+    (K1 with the fast LIS and with the float softmax, K8's _v3, _v4 with
+    group 2 and 4, _v5; K2 on P3's operands) are held at the legs' shapes
+    and arguments too."""
+    def row(name, args, kw, label, library_ms=None, tol="exact",
+            beside=None, **opts):
+        # a served kernel's line names the probe it is timed beside
+        where = dict(beside=beside) if beside else \
+            dict(probe=name.split(".")[0])
+        result = hold(name, args, kw, tol, iters=5, at=label, **where,
+                      **opts)
+        note(summary, name, result,
+             None if beside else (label, args, kw), library_ms)
+
+    x, *ops = attn_overlap.inputs(dev)
+    at = f"B={x.shape[0]}"
+    for fn, kw in attn_overlap.VARIANTS.values():
+        name = _variant_name(fn)
+        row(name, (x, *ops), kw, at,
+            tol="exact" if kw.get("lis", True) else "softmax",
+            beside=None if name in PROBES else "attn_overlap")
+    heads = dict(num_heads=attn_overlap.H, head_dim=attn_overlap.D)
+
+    x, w, mb, scores, v, scal = pingpong.inputs(dev)
+    p_args, c_args = (x, w, mb, scal), (scores, v, scal)
+    n_real = dict(n_real=pingpong.N)
+    at = f"B={x.shape[0]}"
+    row("pingpong.producer", p_args, heads, at)
+    row("pingpong.consumer", c_args, n_real, at)
+    row("pingpong.paired", (x, w, mb, scores, v, scal), dict(heads, **n_real),
+        at)
+    sco, out = pingpong.paired(x, w, mb, scores, v, scal, **heads, **n_real)
+    halves = bool(torch.equal(sco, pingpong.producer(*p_args, **heads))
+                  and torch.equal(out, pingpong.consumer(*c_args, **n_real)))
+    emit(phase="probes", probe="pingpong", paired_equals_halves=halves)
+    if not halves:
+        raise RuntimeError("pingpong.paired differs from its two halves")
+
+    a, b, v = overlap.inputs(dev)
+    for mode in overlap.MODES:
+        row(f"overlap.{mode}", (a, b, v), dict(iters=overlap.ITERS),
+            f"{a.shape[0]}x{b.shape[1]}",
+            compare=lambda got, want, m=mode: overlap.compare(
+                m, a, b, got, want, overlap.ITERS))
+
+    args = overlap_mlp.inputs(dev)
+    at = f"rows={args[0].shape[0]}"
+    for mode in overlap_mlp.MODES:
+        row(f"overlap_mlp.mlp_{mode}", args, {}, at,
+            decode=lambda y, s=args[4][2]: torch.round(y / s))
+    k2 = overlap_mlp.production_args(*args)
+    row("fused_int_mlp", k2, {}, at, beside="overlap_mlp",
+        decode=lambda y, s=k2[7]: torch.round(y / s))
+
+    xf = torch.tensor(np.random.default_rng(0).integers(
+        0, 255, ingest.SHAPE, dtype=np.uint8), device=dev) \
+        .reshape(ingest.FLAT).to(torch.float32)
+    row("ingest.tile_sum", (xf,), {}, "b=64 uint8 batch",
+        library_ms=cuda_ms(lambda: torch.sum(xf, dtype=torch.float64)))
+
+
+def phase_probes(dev):
+    """Each probe's timing legs once, through the probes' and the port's
+    wrappers, with every kernel's launches counted: each function a leg
+    times is called ``timing.REPEATS * (WARMUP + STEPS)`` times, P1's and
+    P5's chains DEPTH launches a call.  One JSON line of answers a
+    probe."""
+    legs = {"attn_overlap": attn_overlap.legs, "pingpong": pingpong.legs,
+            "overlap": overlap.legs, "overlap_mlp": overlap_mlp.legs,
+            "ingest": ingest.legs}
+    calls = timing.REPEATS * (timing.WARMUP + timing.STEPS)
+    expected = Counter()
+    for fn, _ in attn_overlap.VARIANTS.values():  # K1 twice, _v4 twice
+        expected[_variant_name(fn)] += attn_overlap.DEPTH * calls
+    for role, chains in (("producer", 2), ("consumer", 2), ("paired", 1)):
+        # producer and consumer alone and on two streams; paired alone
+        expected[f"pingpong.{role}"] = chains * pingpong.DEPTH * calls
+    for mode in overlap.MODES:  # dot_only and vpu_only also size the chain
+        expected[f"overlap.{mode}"] = \
+            (2 if mode in ("dot_only", "vpu_only") else 1) * calls
+    for mode in overlap_mlp.MODES:
+        expected[f"overlap_mlp.mlp_{mode}"] = calls
+    expected["fused_int_mlp"] = calls
+    expected["ingest.tile_sum"] = 6 * calls  # one a step in each leg
+    answers, launches = drive(expected,
+                              lambda: {k: f(dev) for k, f in legs.items()})
+    for probe, answer in answers.items():
+        emit(phase="probes", probe=probe, **answer)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1072,10 +1293,13 @@ def main():
     emit(phase="device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    path, seconds = build.build()
-    build.load_library()
-    emit(phase="build", seconds=seconds, cached=seconds == 0.0,
-         library=os.path.relpath(path))
+    # both libraries at once, each with one nvcc per source
+    with concurrent.futures.ThreadPoolExecutor(len(build.LIBRARIES)) as ex:
+        built = list(ex.map(build.build, build.LIBRARIES))
+    for lib, (path, seconds) in zip(build.LIBRARIES, built):
+        build.load_library(lib)
+        emit(phase="build", library=os.path.relpath(path), seconds=seconds,
+             cached=seconds == 0.0)
 
     t = [time.perf_counter()]
     summary = {name: {"max_abs_err": 0} for name in KERNELS}
@@ -1097,10 +1321,13 @@ def main():
     t.append(time.perf_counter())
     paths[f"{SPEC.name} alternatives"] = phase_alternatives_path(dev)
     t.append(time.perf_counter())
+    phase_probes_kernels(dev, summary)
+    paths["probes"] = phase_probes(dev)
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
-         "alternatives"),
+         "alternatives", "probes"),
         t, t[1:])})
 
     kernels = []

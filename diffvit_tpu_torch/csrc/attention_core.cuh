@@ -115,10 +115,16 @@ struct AttnSmem {
   int q_words[kAttnWarps][kMaxHeadDim / 4];
 };
 
+// The weight rules of the attention core: the LIS (lis = 1) or the float
+// softmax (lis = 0), which K1, K5, K6, K7a and K8 run; or the probe rule
+// w = a * 2^-7 (probes/attn_nv.cu), kept as the integer a.
+enum WeightRule { kRuleLisOrSoftmax = 0, kRuleLinear = 1 };
+
 // The query rows q0 .. q0+31 (below npad) of head h of image b, by the
 // block's kAttnWarps warps.  qkv is read with plain loads (resident.cu
 // passes a buffer that the same launch wrote); keys at or past n_real are
 // masked.  Ends with a __syncthreads(), so the caller may reuse `sm`.
+template <int Rule = kRuleLisOrSoftmax>
 __device__ __forceinline__ void attention_item(const int8_t* qkv, const CoreScalars& sc,
                                                int8_t* out, int npad, int d,
                                                int n_real, int lis, int lis_fast,
@@ -164,16 +170,27 @@ __device__ __forceinline__ void attention_item(const int8_t* qkv, const CoreScal
         a[u] = fminf(fmaxf(rintf(static_cast<float>(s) * c1), -128.f), 127.f);
       }
     }
-    if (lis)
+    if constexpr (Rule == kRuleLinear) {
+#pragma unroll
+      for (int u = 0; u < kKeysPerLane; ++u)
+        if (lane + 32 * u < n_real) weights.lis[warp][lane + 32 * u] = static_cast<int>(a[u]);
+    } else if (lis) {
       lis_row(a, n_real, lis_k, lis_fast != 0, weights.lis[warp], lane);
-    else
+    } else {
       softmax_row_bf16(a, n_real, s_a, weights.soft[warp], lane);
+    }
     __syncwarp();
 
     // attn @ v, requantized onto the qact2 grid
     for (int dd = lane; dd < d; dd += 32) {
       float o;
-      if (lis) {
+      if constexpr (Rule == kRuleLinear) {
+        // sum of a * v in int32 (|sum| < 2^22), times 2^-7: exact, as the
+        // float32 sum of the bfloat16 products a * 2^-7 * v is
+        int acc = 0;
+        for (int j = 0; j < n_real; ++j) acc += weights.lis[warp][j] * v_rows[j][dd];
+        o = static_cast<float>(acc) * 0x1p-7f;
+      } else if (lis) {
         int acc = 0;
         for (int j = 0; j < n_real; ++j) acc += weights.lis[warp][j] * v_rows[j][dd];
         o = static_cast<float>(acc) * 0x1p-15f;

@@ -1,7 +1,10 @@
 // Shared int8 GEMM tile core with a fused epilogue, for the kernels in this
 // directory (qkv_attention.cu, int_mlp.cu, int_linear.cu, int_mlp_block.cu,
 // and resident.cu, whose persistent blocks call the tile function for one
-// output tile after another).
+// output tile after another) and the probes (probes/pingpong.cu, which runs
+// the tile inside its own kernel, and probes/overlap_mlp.cu, whose staged and
+// pipelined modes run their own double-buffered K loop on
+// int8_gemm_mma_step).
 //
 // Computes C[M, N] = A[M, K] @ B[K, N] for int8 A and B (B is a weight in
 // the JAX package's (Cin, Cout) layout), accumulating exactly in int32 with
@@ -185,22 +188,46 @@ struct ViewOperands {
   }
 };
 
-// The output tile at (m0, n0), by the block's kGemmThreads threads.  The
-// last use of `sm` is followed by a __syncthreads() (the epilogue runs on
-// registers), so the caller may reuse `sm` at once.
-template <class Ops, class Epi>
-__device__ __forceinline__ void int8_gemm_tile_ops(const Ops& ops, int m0, int n0,
-                                                   const Epi& epi, GemmSmem& sm) {
-  const int M = ops.M, N = ops.N, K = ops.K;
-  auto& As = sm.As;
-  auto& Bs = sm.Bs;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+using GemmAcc = int[2][4][4];
+
+// One K step of 32 from the tiles in `sm` into the warp's 32x32 of `acc`:
+// the fragments from shared memory, then 2 x 4 mma.
+__device__ __forceinline__ void int8_gemm_mma_step(const GemmSmem& sm, GemmAcc& acc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  unsigned af[2][4], bf[4][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int r = wm + mi * 16 + g;
+    af[mi][0] = *reinterpret_cast<const unsigned*>(&sm.As[r][t * 4]);
+    af[mi][1] = *reinterpret_cast<const unsigned*>(&sm.As[r + 8][t * 4]);
+    af[mi][2] = *reinterpret_cast<const unsigned*>(&sm.As[r][t * 4 + 16]);
+    af[mi][3] = *reinterpret_cast<const unsigned*>(&sm.As[r + 8][t * 4 + 16]);
+  }
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int c = wn + ni * 8 + g;
+    bf[ni][0] = *reinterpret_cast<const unsigned*>(&sm.Bs[c][t * 4]);
+    bf[ni][1] = *reinterpret_cast<const unsigned*>(&sm.Bs[c][t * 4 + 16]);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) mma_s8_m16n8k32(acc[mi][ni], af[mi], bf[ni]);
+}
+
+// The K loop of the output tile at (m0, n0), by the block's kGemmThreads
+// threads: the thread's accumulators (zeroed here) end in `acc`.  The last
+// use of `sm` is followed by a __syncthreads(), so the caller may reuse `sm`
+// at once.
+template <class Ops>
+__device__ __forceinline__ void int8_gemm_mainloop(const Ops& ops, int m0, int n0,
+                                                   GemmAcc& acc, GemmSmem& sm) {
+  const int K = ops.K;
+  const int tid = threadIdx.x;
   const typename Ops::Thread th = ops.thread(m0, n0, tid);
 
-  int acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -211,30 +238,20 @@ __device__ __forceinline__ void int8_gemm_tile_ops(const Ops& ops, int m0, int n
   for (int k0 = 0; k0 < K; k0 += kGemmBK) {
     ops.load(th, sm, m0, n0, k0, tid);
     __syncthreads();
-
-    unsigned af[2][4], bf[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = wm + mi * 16 + g;
-      af[mi][0] = *reinterpret_cast<const unsigned*>(&As[r][t * 4]);
-      af[mi][1] = *reinterpret_cast<const unsigned*>(&As[r + 8][t * 4]);
-      af[mi][2] = *reinterpret_cast<const unsigned*>(&As[r][t * 4 + 16]);
-      af[mi][3] = *reinterpret_cast<const unsigned*>(&As[r + 8][t * 4 + 16]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int c = wn + ni * 8 + g;
-      bf[ni][0] = *reinterpret_cast<const unsigned*>(&Bs[c][t * 4]);
-      bf[ni][1] = *reinterpret_cast<const unsigned*>(&Bs[c][t * 4 + 16]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8_m16n8k32(acc[mi][ni], af[mi], bf[ni]);
+    int8_gemm_mma_step(sm, acc);
     __syncthreads();
   }
+}
 
-  // accumulator fragment: c0,c1 at (g, 2t..2t+1), c2,c3 at (g+8, 2t..2t+1)
+// Hands the tile's accumulators to ``epi(row, col, acc)`` for the rows
+// below M and the columns below N.  Accumulator fragment: c0,c1 at (g,
+// 2t..2t+1), c2,c3 at (g+8, 2t..2t+1).
+template <class Epi>
+__device__ __forceinline__ void int8_gemm_epilogue(int M, int N, int m0, int n0,
+                                                   const GemmAcc& acc, const Epi& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -248,6 +265,17 @@ __device__ __forceinline__ void int8_gemm_tile_ops(const Ops& ops, int m0, int n
           if (c + 1 < N) epi(r, c + 1, acc[mi][ni][half * 2 + 1]);
         }
       }
+}
+
+// The output tile at (m0, n0), by the block's kGemmThreads threads: the K
+// loop, then the epilogue on the registers.  The last use of `sm` is
+// followed by a __syncthreads(), so the caller may reuse `sm` at once.
+template <class Ops, class Epi>
+__device__ __forceinline__ void int8_gemm_tile_ops(const Ops& ops, int m0, int n0,
+                                                   const Epi& epi, GemmSmem& sm) {
+  GemmAcc acc;
+  int8_gemm_mainloop(ops, m0, n0, acc, sm);
+  int8_gemm_epilogue(ops.M, ops.N, m0, n0, acc, epi);
 }
 
 // The tile of row-major A and B (K2, K6).

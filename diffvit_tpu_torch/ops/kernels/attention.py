@@ -136,7 +136,7 @@ def lis_weights_plain(qkv, scalars, *, num_heads, head_dim, n_real,
     return lis_body_plain(a_int, scalars[0], bits, col_ok, fast=lis_fast)
 
 
-def _weighted_values(weights, v):
+def weighted_values(weights, v):
     """Exact int32 ``weights @ v`` (|sum| <= 2^30): int32 on the CPU, float64
     (exact below 2^53) on CUDA, which has no integer matmul."""
     if weights.device.type == "cpu":
@@ -171,7 +171,7 @@ def attention_core_plain(q, k, v, c1, s_a, s1_over_s2, *, n_real, bits=4,
     col_ok = torch.arange(k.shape[-2], device=k.device) < n_real
     if lis:
         weights = lis_body_plain(a_int, s_a, bits, col_ok, fast=lis_fast)
-        acc = _weighted_values(weights, v).to(torch.float32) * 2.0**-15
+        acc = weighted_values(weights, v).to(torch.float32) * 2.0**-15
     else:
         weights = _softmax_weights_plain(a_int, s_a, col_ok)
         acc = torch.matmul(weights, v.to(torch.float64)).to(torch.float32)

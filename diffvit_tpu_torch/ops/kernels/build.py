@@ -1,10 +1,15 @@
 """Build and load the hand-written CUDA kernels of ``diffvit_tpu_torch/csrc``.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
-(Hopper), one process per source, all started together, and links the
-objects into one shared library with a plain C interface in
-``csrc/build/``, under a name keyed by a hash of the sources and flags;
-later calls and later processes reuse it.  The library is loaded with ``ctypes``: each C
+Two libraries: the served kernels (``csrc/*.cu``, entries ``ENTRIES``) and
+the probes (``csrc/probes/*.cu``, built with ``-I csrc`` so that they
+include the served kernels' ``.cuh``; entries ``PROBE_ENTRIES``).  At first
+use ``nvcc`` compiles every source of a library for ``sm_90a`` (Hopper),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface in ``csrc/build/``, under a
+name keyed by a hash of its sources, the headers they may include and the
+flags; later calls and later processes reuse it.  The library is written
+under a temporary name and renamed into place, so a process never loads a
+half-written one.  The library is loaded with ``ctypes``: each C
 entry takes device pointers, ints and the CUDA stream, launches on that
 stream, and returns ``cudaGetLastError()``, which :func:`check` turns into
 an exception.
@@ -16,6 +21,7 @@ separately, and the kernels' int8 codes must match theirs.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -44,6 +50,35 @@ ENTRIES = {
     "dvt_swin_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 7 + (_P,),
     "dvt_resident_codes": (_P,) * 13 + (_I,) * 10 + (_P,),
 }
+# the probes of ``diffvit_tpu_torch/probes`` (csrc/probes/*.cu)
+PROBE_ENTRIES = {
+    "dvt_probe_producer": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "dvt_probe_consumer": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "dvt_probe_paired": (_P,) * 8 + (_I,) * 6 + (_P,),
+    "dvt_probe_overlap": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "dvt_probe_overlap_mlp": (_P,) * 10 + (_I,) * 4 + (_P,),
+    "dvt_probe_overlap_mlp_fc1_occupancy": (_I, _P, _P, _P),
+    "dvt_probe_pingpong_occupancy": (_I, _P, _P, _P),
+    "dvt_probe_tile_sum": (_P,) * 3 + (_L,) + (_P,),
+    "dvt_probe_qkv_attention_nv": (_P,) * 6 + (_I,) * 5 + (_P,),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """One shared library: its sources (``src_dir/*.cu``, which may include
+    the shared ``csrc/*.cuh``), extra nvcc flags and its C entries."""
+    stem: str
+    src_dir: Path
+    flags: tuple
+    entries: dict
+
+
+LIBRARIES = {
+    "kernels": Library("libdvt_kernels", CSRC, (), ENTRIES),
+    "probes": Library("libdvt_probes", CSRC / "probes", ("-I", str(CSRC)),
+                      PROBE_ENTRIES),
+}
 
 
 def find_nvcc() -> str:
@@ -59,20 +94,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
-    """Where the build for the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+def library_path(kind: str = "kernels") -> Path:
+    """Where the build of library ``kind`` ("kernels" or "probes") for the
+    current sources lives."""
+    lib = LIBRARIES[kind]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + (lib.stem,)).encode())
+    for p in sorted(lib.src_dir.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libdvt_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{lib.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
-    """Compile the kernels unless the build for these sources exists.
+def build(kind: str = "kernels") -> tuple[Path, float]:
+    """Compile library ``kind`` unless the build for these sources exists.
     Returns the library path and the seconds spent compiling (0.0 when the
     build was already there)."""
-    out = library_path()
+    lib = LIBRARIES[kind]
+    out = library_path(kind)
     if out.exists():
         return out, 0.0
     nvcc = find_nvcc()
@@ -80,10 +118,11 @@ def build() -> tuple[Path, float]:
     tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
+    flags = NVCC_FLAGS + lib.flags
     objs, jobs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(lib.src_dir.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
         objs.append(obj)
         jobs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -93,7 +132,7 @@ def build() -> tuple[Path, float]:
             for cmd, proc in jobs]
     for cmd, output, returncode in done:
         _check_run(cmd, returncode, output)
-    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    cmd = [nvcc, *flags, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     _check_run(cmd, proc.returncode, proc.stdout + proc.stderr)
     for obj in objs:
@@ -109,11 +148,12 @@ def _check_run(cmd, returncode, output):
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare every entry."""
-    path, _ = build()
+def load_library(kind: str = "kernels") -> ctypes.CDLL:
+    """Build library ``kind`` if needed, load it once per process, and
+    declare every entry."""
+    path, _ = build(kind)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in ENTRIES.items():
+    for name, argtypes in LIBRARIES[kind].entries.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -122,8 +162,9 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a C entry."""
+def check(err: int, what: str, kind: str = "kernels") -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry of library
+    ``kind``."""
     if err != 0:
-        msg = load_library().dvt_error_string(err).decode()
+        msg = load_library(kind).dvt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")

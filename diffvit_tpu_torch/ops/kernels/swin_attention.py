@@ -40,7 +40,7 @@ import torch
 
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
-from .attention import (_softmax_weights_plain, _weighted_values,
+from .attention import (_softmax_weights_plain, weighted_values,
                         lis_body_plain)
 from .build import check, load_library
 
@@ -67,7 +67,7 @@ def swin_attention_plain(q, k, v, bias_q, mask_div, scalars, *, n_real,
     col_ok = torch.arange(npad, device=q.device) < n_real
     if lis:
         weights = lis_body_plain(am, scalars[3], bits, col_ok, fast=False)
-        acc = _weighted_values(weights, v).to(torch.float32) * 2.0**-15
+        acc = weighted_values(weights, v).to(torch.float32) * 2.0**-15
     else:
         weights = _softmax_weights_plain(am, scalars[3], col_ok)
         weights = torch.where(weights < WEIGHT_FLOOR, 0.0, weights)

@@ -520,3 +520,164 @@ def test_int_linear_kernel_matches_plain(cuda, rows, k, n, mode):
     if mode == "raw":
         fwd = int_matmul(x, w).to(torch.float32) * mult + bias
         np.testing.assert_array_equal(got.cpu().numpy(), fwd.cpu().numpy())
+
+
+# ---- the probes (diffvit_tpu_torch/probes, csrc/probes) ----
+
+def _launched_once(fn, before):
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("batch,npad", [(2, 24), (3, 200), (256, 200)])
+def test_probe_linear_attention_matches_plain(cuda, batch, npad):
+    """P5 (K1 with w = a * 2^-7) at the script's width, bit for bit, up to
+    its B=256."""
+    from diffvit_tpu_torch.probes import attn_overlap as p5
+    x, *ops = p5.inputs(cuda, batch)
+    x = x[:, :npad].contiguous()
+    kw = dict(num_heads=p5.H, head_dim=p5.D)
+    before = p5.qkv_attention_nv.launches
+    got = p5.qkv_attention_nv(x, *ops, **kw)
+    _launched_once(p5.qkv_attention_nv, before)
+    want = p5.qkv_attention_nv_plain(x, *ops, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch,npad,heads,d,n_real", [
+    (2, 24, 2, 16, 21), (3, 45, 6, 64, 33), (128, 200, 6, 64, 197)])
+def test_probe_pingpong_matches_plain(cuda, batch, npad, heads, d, n_real):
+    """P1's producer and consumer against their plain versions bit for bit
+    (the last case is the script's B=128 half-stream), and paired equal to
+    the two halves."""
+    from diffvit_tpu_torch.probes import pingpong as p1
+    rng = np.random.default_rng(batch)
+    dev = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
+    c = heads * d
+    x = dev(rng.integers(-128, 128, (batch, npad, c)), torch.int8)
+    w = dev(rng.integers(-8, 8, (c, 3 * c)), torch.int8)
+    mb = dev(np.stack([np.full(3 * c, 2.0**-9 * 24),
+                       rng.standard_normal(3 * c) * 0.24]), torch.float32)
+    scores = dev(rng.integers(-128, 128, (batch, heads, npad, npad)),
+                 torch.int8)
+    v = dev(rng.integers(-128, 128, (batch, heads, npad, d)), torch.int8)
+    scal = dev([2.0**-4, 0.05, 24.0, 1.3], torch.float32)
+    hk = dict(num_heads=heads, head_dim=d)
+    got_p = p1.producer(x, w, mb, scal, **hk)
+    got_c = p1.consumer(scores, v, scal, n_real=n_real)
+    before = p1.paired.launches
+    pair = p1.paired(x, w, mb, scores, v, scal, n_real=n_real, **hk)
+    _launched_once(p1.paired, before)
+    assert torch.equal(got_p, p1.producer_plain(x, w, mb, scal, **hk))
+    assert torch.equal(got_c, p1.consumer_plain(scores, v, scal,
+                                                n_real=n_real))
+    assert torch.equal(pair[0], got_p) and torch.equal(pair[1], got_c)
+
+
+@pytest.mark.parametrize("rows,iters", [(128, 8), (64 * 512, 220)])
+@pytest.mark.parametrize("mode", ["dot_only", "vpu_only", "dot_vpu_consume",
+                                  "dot_vpu_in_join", "dot_vpu_in_split"])
+def test_probe_overlap_matches_plain(cuda, rows, iters, mode):
+    """P2's five modes within overlap.compare's tolerances (the dot's
+    summation order; the tanh chain's roundings), at the script's 32768 x
+    512 too."""
+    from diffvit_tpu_torch.probes import overlap as p2
+    a, b, v = p2.inputs(cuda, rows)
+    fn = p2.KERNELS[mode]
+    before = fn.launches
+    got = fn(a, b, v, iters=iters)
+    _launched_once(fn, before)
+    want = p2.overlap_plain(a, b, v, mode, iters)
+    share, max_err, ok = p2.compare(mode, a, b, got, want, iters)
+    assert ok, (share, max_err)
+
+
+@pytest.mark.parametrize("rows", [200, 99 * 512])
+@pytest.mark.parametrize("mode", ["dot", "input", "nogelu", "pipelined",
+                                  "staged"])
+def test_probe_overlap_mlp_matches_plain(cuda, rows, mode):
+    """P3's four modes bit for bit against their plain versions (the
+    script's 50,688 rows too); pipelined and staged equal dot."""
+    from diffvit_tpu_torch.probes import overlap_mlp as p3
+    args = p3.inputs(cuda, rows)
+    fn = p3.KERNELS[f"mlp_{mode}"]
+    before = fn.launches
+    got = fn(*args)
+    _launched_once(fn, before)
+    assert torch.equal(got, p3.overlap_mlp_plain(*args, mode))
+    if mode in ("pipelined", "staged"):
+        assert torch.equal(got, p3.mlp_dot(*args))
+
+
+@pytest.mark.parametrize("rows,cin,hid", [(130, 32, 96), (257, 64, 64),
+                                          (200, 128, 256)])
+def test_probe_overlap_mlp_pipelined_short_and_ragged(cuda, rows, cin, hid):
+    """P3's pipelined and staged modes (the double-buffered K loop) with
+    one, two and four K steps a sub-block, and rows that leave the last
+    block partly or wholly empty: equal to dot and to the plain version."""
+    from diffvit_tpu_torch.probes import overlap_mlp as p3
+    rng = np.random.default_rng(rows)
+    dev = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
+    args = (dev(rng.integers(-30, 31, (rows, cin)), torch.int8),
+            dev(rng.integers(-127, 128, (cin, hid)), torch.int8),
+            dev(rng.integers(-127, 128, (hid, cin)), torch.int8),
+            dev(np.outer([1e-3, 0.0], np.ones(hid)), torch.float32),
+            dev(np.outer([1e-3, 0.0, 0.05, 20.0], np.ones(cin)),
+                torch.float32),
+            dev(rng.standard_normal((rows, hid)), torch.float32),
+            dev([16.0], torch.float32))
+    want = p3.overlap_mlp_plain(*args, "dot")
+    assert torch.equal(p3.mlp_dot(*args), want)
+    assert torch.equal(p3.mlp_pipelined(*args), want)
+    assert torch.equal(p3.mlp_staged(*args), want)
+
+
+def test_probe_footprints(cuda):
+    """P3's fc1 kernels and P1's three kernels report their registers,
+    shared memory and blocks an SM: pipelined, which holds two sub-blocks'
+    accumulators, fits no more blocks than dot; paired carries at least the
+    larger role's shared memory."""
+    from diffvit_tpu_torch.probes import overlap_mlp as p3
+    from diffvit_tpu_torch.probes import pingpong as p1
+    fc1 = {m: p3.fc1_occupancy(m) for m in p3.MODES}
+    roles = {r: p1.footprint(r) for r in ("producer", "consumer", "paired")}
+    for f in (*fc1.values(), *roles.values()):
+        assert f["registers"] > 0 and f["blocks_per_sm"] >= 1
+    assert fc1["pipelined"]["blocks_per_sm"] <= fc1["dot"]["blocks_per_sm"]
+    assert roles["paired"]["smem_bytes"] >= max(
+        roles["producer"]["smem_bytes"], roles["consumer"]["smem_bytes"])
+
+
+@pytest.mark.parametrize("shape", [(4,), (64, 3, 224, 224), (1176, 1024)])
+def test_probe_tile_sum_matches_plain(cuda, shape):
+    """P4 on a uint8 batch cast to float32 and on halves: exact."""
+    from diffvit_tpu_torch.probes import ingest as p4
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.integers(0, 255, shape), dtype=torch.float32,
+                     device=cuda)
+    if shape == (1176, 1024):
+        x = torch.full(shape, 0.5, device=cuda)
+    before = p4.tile_sum.launches
+    got = p4.tile_sum(x)
+    _launched_once(p4.tile_sum, before)
+    assert torch.equal(got, p4.tile_sum_plain(x))
+    assert float(got[3, 7]) == float(np.float32(x.to(torch.float64).sum()
+                                                .item()))
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from diffvit_tpu_torch.probes import ingest as p4
+    from diffvit_tpu_torch.probes import overlap as p2
+    a, b, v = p2.inputs(cuda, 128)
+    with pytest.raises(ValueError):
+        p2.dot_only(a[:100], b, v[:100])  # M not a multiple of 64
+    with pytest.raises(ValueError):
+        p4.tile_sum(torch.zeros(6, device=cuda))  # not a multiple of 4
+    with pytest.raises(ValueError):
+        p2.dot_only(a, b.cpu(), v)  # devices mixed
+    from diffvit_tpu_torch.probes import overlap_mlp as p3
+    x, w1, w2, v1, v2, g_src, scal = p3.inputs(cuda, 64)
+    with pytest.raises(ValueError):  # Hid < Cin: no keep-alive columns
+        p3.mlp_dot(x[:, :64].contiguous(), w1[:64, :32].contiguous(),
+                   w2[:32, :64].contiguous(), v1[:, :32].contiguous(),
+                   v2[:, :64].contiguous(), g_src[:, :32].contiguous(), scal)

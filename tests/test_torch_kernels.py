@@ -122,9 +122,12 @@ def test_wrapper_contract_raises(block0):
 def test_build_names_nvcc_when_missing(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    monkeypatch.setattr(build, "library_path", lambda: tmp_path / "lib.so")
+    monkeypatch.setattr(build, "library_path",
+                        lambda kind="kernels": tmp_path / f"{kind}.so")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build("probes")
 
 
 def test_random_model_spec_shapes():
