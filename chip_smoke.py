@@ -105,12 +105,13 @@ from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               int_attn_scalars,
                                               int_model_from_numpy,
                                               mlp_block_operands,
-                                              swin_block_constants)
+                                              swin_block_constants,
+                                              swin_int_model_from_numpy)
 from diffvit_tpu_torch.models.swin import SWIN_SPECS, num_bit_slots
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec, patchify
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
-from diffvit_tpu_torch.ops.kernels import (attention, build, linear, mlp,
-                                           swin_attention)
+from diffvit_tpu_torch.ops.kernels import (attention, build, gemm, linear,
+                                           mlp, swin_attention)
 from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
                                                  resident_codes,
                                                  resident_codes_plain)
@@ -267,6 +268,24 @@ def cuda_ms(fn, iters=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=10):
+    """Device milliseconds per call: the summed time of every kernel a call
+    of ``fn`` launches, from torch.profiler, after a warm-up.  Unlike
+    :func:`cuda_ms` it leaves out the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages())
+    if total <= 0:
+        raise RuntimeError("torch.profiler saw no device time")
+    return total / 1e3 / iters
 
 
 def codes(shape, seed, dev, std=30):
@@ -973,13 +992,18 @@ def phase_swin_branches(dev):
     return launches
 
 
+def int_mm_takes(x, w):
+    """Whether ``torch._int_mm`` takes the shape: M > 16, K and N multiples
+    of 8."""
+    return x.shape[0] > 16 and x.shape[1] % 8 == 0 and w.shape[1] % 8 == 0
+
+
 def int_mm_ms(x, w):
     """The time of ``torch._int_mm(x, w)``, the GEMM alone with int32 out
     (K3's yardstick; the port never calls it), or None where it takes no
-    such shape (it needs M > 16 and K and N multiples of 8)."""
-    if x.shape[0] <= 16 or x.shape[1] % 8 or w.shape[1] % 8:
-        return None
-    return cuda_ms(lambda: torch._int_mm(x, w))
+    such shape."""
+    return cuda_ms(lambda: torch._int_mm(x, w)) if int_mm_takes(x, w) \
+        else None
 
 
 def linear_modes(out_scale):
@@ -1050,6 +1074,76 @@ def phase_alternatives_kernels(dev, summary):
                     best = max(best, b_ms)
                     note(summary, "fused_int_linear", result, heaviest,
                          lib_ms)
+
+
+def phase_gemm(dev, summary):
+    """The wgmma mainloop of K2 and K3 (``csrc/wgmma_gemm.cuh``): each
+    kernel's footprint (registers, shared memory, blocks an SM) at the
+    plans of the main shapes; the one-time cost of the K-major weight
+    copies (``gemm.kmajor``) for every K2 weight of DeiT-S and Swin-T;
+    and device times from torch.profiler, which leave out the host's time
+    between launches: K2 at DeiT-S b=64 and K3 at each b=64 site beside
+    ``torch._int_mm`` (the GEMM alone, int32 out; the port never calls
+    it)."""
+    rows = 64 * SPEC.seq_len
+    c, hid = SPEC.embed_dim, 4 * SPEC.embed_dim
+    mlp64 = mlp.footprint(rows, c, hid, c, dev)
+    for name, at, (m, n, k), f in (
+            ("fused_int_mlp fc1", "b=64", (rows, hid, c), mlp64["fc1"]),
+            ("fused_int_mlp fc2", "b=64", (rows, c, hid), mlp64["fc2"]),
+            ("fused_int_mlp fc2 float32 out", "b=64", (rows, c, hid),
+             mlp64["fc2_f32"]),
+            ("fused_int_mlp fc2", "b=1", (SPEC.seq_len, c, hid),
+             mlp.footprint(SPEC.seq_len, c, hid, c, dev)["fc2"]),
+            ("fused_int_linear", "qkv b=64", (rows, 3 * c, c),
+             linear.footprint(rows, 3 * c, c, dev))):
+        plan = gemm.device_plan(m, n, k, dev)
+        emit(phase="footprint", kernel=name, at=f"{SPEC.name} {at}",
+             bm=plan.bm, bn=plan.bn, stages=plan.stages, grid=plan.grid,
+             tiles=plan.tiles, **f)
+    for spec, model in ((SPEC, int_model_from_numpy(
+            random_int_model(SPEC, CFG, seed=0), SPEC, dev, CFG)),
+            (SWIN, swin_int_model_from_numpy(
+                random_swin_int_model(SWIN, CFG, seed=0), SWIN, dev))):
+        blocks = model["blocks"] if spec is SPEC else \
+            [b for layer in model["layers"] for b in layer["blocks"]]
+        weights = [b[f]["w_int"] for b in blocks for f in ("fc1", "fc2")]
+        before = gemm.kmajor.copies
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in weights:
+            gemm.kmajor(w)
+        torch.cuda.synchronize()
+        emit(phase="kmajor", model=spec.name, weights=len(weights),
+             copies=gemm.kmajor.copies - before,
+             bytes=sum(nbytes(w) for w in weights),
+             ms=1e3 * (time.perf_counter() - t0))
+    ib = random_int_model(SPEC, CFG, seed=0)["blocks"][0]
+    args, kw = kernel_case("fused_int_mlp", ib, SPEC, 64, dev,
+                           emit_codes=True)
+    ms = device_ms(lambda: mlp.fused_int_mlp(*args, **kw))
+    summary["fused_int_mlp"]["device_ms"] = ms
+    emit(phase="gemm", kernel="fused_int_mlp", at=f"{SPEC.name} b=64",
+         device_ms=ms, bound_ms=bound("fused_int_mlp", args, kw)[0])
+    slower = []
+    k3 = summary["fused_int_linear"]
+    for spec, model in ((SPEC, random_int_model(SPEC, CFG, seed=0)),
+                        (SWIN, random_swin_int_model(SWIN, CFG, seed=0))):
+        for site, (args, out_scale) in linear_site_cases(
+                spec, model, 64, dev, seed=64).items():
+            lib = device_ms(lambda: torch._int_mm(args[0], args[1])) \
+                if int_mm_takes(args[0], args[1]) else None
+            for mode, kw, _ in linear_modes(out_scale):
+                at = f"{spec.name} {site} b=64 {mode}"
+                ms = device_ms(lambda: linear.fused_int_linear(*args, **kw))
+                emit(phase="gemm", kernel="fused_int_linear", at=at,
+                     device_ms=ms, int_mm_device_ms=lib)
+                if lib is not None and ms > lib:
+                    slower.append(at)
+                if at == k3.get("at"):
+                    k3.update(device_ms=ms, library_device_ms=lib)
+    emit(phase="gemm", kernel="fused_int_linear",
+         slower_than_int_mm_on_the_device=slower)
 
 
 def alternatives_path(model, x):
@@ -1306,6 +1400,7 @@ def main():
     phase_kernels(dev, summary)
     t.append(time.perf_counter())
     phase_alternatives_kernels(dev, summary)
+    phase_gemm(dev, summary)
     t.append(time.perf_counter())
     paths = {SPEC.name: phase_serving(dev)}
     t.append(time.perf_counter())
@@ -1333,10 +1428,12 @@ def main():
     kernels = []
     for name, k in KERNELS.items():
         by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        s = summary[name]
         kernels.append(dict(
             name=name, route="cuda", source=k["source"],
             replaces=k["replaces"], launches=sum(by_path.values()),
-            launches_by_path=by_path, **summary[name]))
+            launches_by_path=by_path, **s,
+            share=s["bound_ms"] / s["ms"] if s.get("ms") else None))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-// Shared int8 GEMM tile core with a fused epilogue, for the kernels in this
-// directory (qkv_attention.cu, int_mlp.cu, int_linear.cu, int_mlp_block.cu,
-// and resident.cu, whose persistent blocks call the tile function for one
-// output tile after another) and the probes (probes/pingpong.cu, which runs
-// the tile inside its own kernel, and probes/overlap_mlp.cu, whose staged and
-// pipelined modes run their own double-buffered K loop on
-// int8_gemm_mma_step).
+// Shared int8 GEMM tile core with a fused epilogue (mma.sync), for the
+// kernels in this directory that have not moved to wgmma_gemm.cuh:
+// qkv_attention.cu (the qkv GEMM of K1 and K8, K7a's proj), int_mlp_block.cu
+// (K7b), and resident.cu (K6), whose persistent blocks call the tile
+// function for one output tile after another; and the probes
+// (probes/pingpong.cu, which runs the tile inside its own kernel,
+// probes/attn_nv.cu, and probes/overlap_mlp.cu, whose dot mode is the
+// same-run yardstick of this tile and whose staged and pipelined modes run
+// their own double-buffered K loop on int8_gemm_mma_step).  K2 and K3 run
+// on wgmma_gemm.cuh; the others move there in their own changes.
 //
 // Computes C[M, N] = A[M, K] @ B[K, N] for int8 A and B (B is a weight in
 // the JAX package's (Cin, Cout) layout), accumulating exactly in int32 with
@@ -20,21 +23,22 @@
 // bytes so that the fragment loads are free of bank conflicts.  Two operand
 // loaders fill the tiles:
 //  * DenseOperands: row-major A and B; the caller guarantees K % 32 == 0,
-//    N % 16 == 0 and 16-byte aligned A and B (K2, K6, K7b);
+//    N % 16 == 0 and 16-byte aligned A and B (K6, K7b);
 //  * ViewOperands: row-major A with any K, and B read through a BView
 //    (pointers and element strides, see below) with any N, so that K1's
-//    and K8's weights are read in place and K3 takes the ragged shapes of
-//    its sites; the ragged K and N edges are zero-filled, and a 16-byte
-//    chunk is one vector load where it is in range and aligned, else
-//    loaded byte by byte (K1, K3, K7a, K8).  Its checks cost K2 about 19%
-//    at DeiT-S b=64 on an H100 80GB HBM3 at 700 W (PERF.md), so the dense
-//    callers keep the first.
-// The ragged M edge is zero-filled and masked in both.  wgmma/TMA
-// pipelining is later work.
+//    and K8's weights are read in place; the ragged K and N edges are
+//    zero-filled, and a 16-byte chunk is one vector load where it is in
+//    range and aligned, else loaded byte by byte (K1, K7a, K8).  Its
+//    checks cost a dense caller about 19% (K2 on this tile at DeiT-S
+//    b=64, H100 80GB HBM3 at 700 W; PERF.md), so the dense callers keep
+//    the first.
+// The ragged M edge is zero-filled and masked in both.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "codes.cuh"
 
 namespace dvt {
 
@@ -278,7 +282,7 @@ __device__ __forceinline__ void int8_gemm_tile_ops(const Ops& ops, int m0, int n
   int8_gemm_epilogue(ops.M, ops.N, m0, n0, acc, epi);
 }
 
-// The tile of row-major A and B (K2, K6).
+// The tile of row-major A and B (K6).
 template <class Epi>
 __device__ __forceinline__ void int8_gemm_tile(const int8_t* A, const int8_t* B, int M,
                                                int N, int K, int m0, int n0,
@@ -298,16 +302,11 @@ inline void launch_int8_gemm_ops(const Ops& ops, Epi epi, cudaStream_t stream) {
   int8_gemm_kernel<Ops, Epi><<<grid, kGemmThreads, 0, stream>>>(ops, epi);
 }
 
-// The dense GEMM launch of K2 and K7b.
+// The dense GEMM launch of K7b and the probes.
 template <class Epi>
 inline void launch_int8_gemm(const int8_t* A, const int8_t* B, int M, int N,
                              int K, Epi epi, cudaStream_t stream) {
   launch_int8_gemm_ops(DenseOperands{A, B, M, N, K}, epi, stream);
-}
-
-// clip(v, -128, 127) of an integer-valued float, as int8
-__device__ __forceinline__ int8_t clip_i8(float v) {
-  return static_cast<int8_t>(fminf(fmaxf(v, -128.f), 127.f));
 }
 
 }  // namespace dvt

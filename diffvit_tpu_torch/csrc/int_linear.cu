@@ -14,11 +14,15 @@
 // operations (7.5 us of tensor-core peak), so the raw and fq modes are
 // bound by bytes and the codes mode (19 MB out) about evenly.
 //
-// Design: the shared int8 GEMM tile (int8_gemm.cuh, ViewOperands) with the
-// epilogue on the accumulator registers, so the int32 product never
-// reaches device memory.  It takes any K and N: the real sites include K =
-// 48 (Swin's 4x4x3 patch) and N = 1000 (the ViT head), so the ragged K and
-// N edges are zero-filled in the tile loads.
+// Design: the Hopper GEMM mainloop (wgmma_gemm.cuh: TMA into an mbarrier
+// ring, wgmma, persistent blocks) with LinearOut on the accumulator
+// registers, so the int32 product never reaches device memory.  The
+// weight is read K-major, as the Python wrapper's cached (N, Kp) copy
+// (gemm.kmajor); where K % 16 != 0 the wrapper pads x's K with zeros,
+// which add nothing to the integer sum.  The ragged N edge (N = 1000 at
+// the ViT head) is TMA's zero fill and the epilogue's mask, so no byte is
+// gathered one at a time.  The output is staged in shared memory and
+// stored in whole rows of 16-byte vectors (wgmma_gemm.cuh's epilogue).
 //
 // Exactness against the plain PyTorch version (ops/kernels/linear.py):
 // built with -fmad=false, so acc * mult + bias rounds twice as torch's
@@ -26,44 +30,64 @@
 // mult + b); rintf rounds half to even.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
-#include "int8_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kRaw = 0, kCodes = 2;  // the modes; 1 is fq
+constexpr int kRaw = 0;  // the modes; 1 is fq, 2 codes
 
-struct LinearEpilogue {
+// The output element of one accumulator (wgmma_gemm.cuh's contract): Out
+// float for the raw and fq modes, int8_t for codes.
+template <class OutT>
+struct LinearOut {
+  using Out = OutT;
   const float* v;  // (4, N): [mult, bias, out_scale, 1/out_scale]
-  void* out;       // (R, N) f32 (raw, fq) or int8 (codes)
-  int n;
+  Out* out;        // (R, N)
+  int ld;          // N
   int mode;
-  __device__ void operator()(int r, int c, int acc) const {
+  __device__ Out operator()(int, int c, int acc) const {
+    const int n = ld;
     const float y = static_cast<float>(acc) * v[c] + v[n + c];
-    const size_t at = (size_t)r * n + c;
-    if (mode == kRaw) {
-      static_cast<float*>(out)[at] = y;
-      return;
+    if constexpr (std::is_same<Out, float>::value) {
+      if (mode == kRaw) return y;
     }
     const float code = fminf(fmaxf(rintf(y * v[3 * n + c]), -128.f), 127.f);
-    if (mode == kCodes)
-      static_cast<int8_t*>(out)[at] = static_cast<int8_t>(code);
+    if constexpr (std::is_same<Out, float>::value)
+      return code * v[2 * n + c];
     else
-      static_cast<float*>(out)[at] = code * v[2 * n + c];
+      return static_cast<int8_t>(code);
   }
 };
 
 }  // namespace
 
-// x: (R, K) int8 row-major; w: (K, N) int8 row-major; v: (4, N) f32
-// [mult, bias, out_scale, 1/out_scale]; out: (R, N) f32 (mode 0 raw, 1 fq)
-// or int8 (mode 2 codes).  Any R, K, N.
-extern "C" int dvt_int_linear(const void* x, const void* w, const void* v, void* out,
-                              int rows, int k, int n, int mode, void* stream) {
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const dvt::BView wv{{wp, wp, wp}, 0, n, 1, n, n};
-  LinearEpilogue epi{static_cast<const float*>(v), out, n, mode};
-  dvt::launch_int8_gemm_ops(dvt::ViewOperands{static_cast<const int8_t*>(x), k, rows, n, k, wv},
-                            epi, static_cast<cudaStream_t>(stream));
-  return cudaGetLastError();
+// x: (R, Kp) int8 row-major; wk: (N, Kp) int8, the weight K-major; v:
+// (4, N) f32 [mult, bias, out_scale, 1/out_scale]; out: (R, N) f32 (mode 0
+// raw, 1 fq) or int8 (mode 2 codes).  Kp % 16 == 0, 16-byte aligned x and
+// wk; bm, bn, blocks, stages, smem and grid are gemm_plan's
+// (ops/kernels/gemm.py).
+extern "C" int dvt_int_linear(const void* x, const void* wk, const void* v, void* out,
+                              int rows, int kp, int n, int mode, int bm, int bn, int blocks,
+                              int stages, int smem, int grid, void* stream) {
+  const dvt::wg::GemmArgs g{x, wk, rows, n, kp, bm, bn, blocks, stages, smem, grid};
+  const float* vf = static_cast<const float*>(v);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 2)
+    return dvt::wg::gemm(g, LinearOut<int8_t>{vf, static_cast<int8_t*>(out), n, mode}, s);
+  return dvt::wg::gemm(g, LinearOut<float>{vf, static_cast<float*>(out), n, mode}, s);
+}
+
+// The footprint of the kernel of `mode` (2: codes, int8 out; else float
+// out) for tile (bm, bn) at `blocks` blocks an SM and `smem` bytes of
+// dynamic shared memory: registers a thread, shared memory a block,
+// blocks an SM.
+extern "C" int dvt_int_linear_footprint(int mode, int bm, int bn, int blocks, int smem,
+                                        int* registers, int* smem_bytes, int* blocks_per_sm) {
+  if (mode == 2)
+    return dvt::wg::footprint<LinearOut<int8_t>>(bm, bn, blocks, smem, registers, smem_bytes,
+                                                 blocks_per_sm);
+  return dvt::wg::footprint<LinearOut<float>>(bm, bn, blocks, smem, registers, smem_bytes,
+                                              blocks_per_sm);
 }

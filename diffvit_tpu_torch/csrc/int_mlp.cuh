@@ -1,5 +1,6 @@
 // The polynomial GELU and the fc1 epilogue of the integer MLP, shared by K2
-// (int_mlp.cu) and the resident encoder (resident.cu).  The GELU constants
+// (int_mlp.cu), K7b (int_mlp_block.cu) and the resident encoder
+// (resident.cu).  The GELU constants
 // are the float32 roundings of mlp.py's GELU_P (the same double -> float
 // rounding as the Python side); with -fmad=false every multiply and add
 // rounds on its own, as torch's separate elementwise ops do.
@@ -8,7 +9,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "int8_gemm.cuh"
+#include "codes.cuh"
 
 namespace dvt {
 
@@ -32,7 +33,15 @@ __device__ __forceinline__ float gelu_poly(float x) {
   return x * phi;
 }
 
-// fc1: rint(gelu_poly(acc * mult1 + bias1) * (1/s_q1)) clipped to int8.
+// fc1's hidden code of one accumulator: rint(gelu_poly(acc * mult1 +
+// bias1) * (1/s_q1)) clipped to int8.
+__device__ __forceinline__ int8_t fc1_code(int acc, float mult1, float bias1,
+                                          float s_q1_inv) {
+  const float mid = static_cast<float>(acc) * mult1 + bias1;
+  return clip_i8(rintf(gelu_poly(mid) * s_q1_inv));
+}
+
+// fc1 as int8_gemm.cuh's epilogue functor (K6, K7b): stores the code.
 struct Fc1Epilogue {
   const float* mult1;
   const float* bias1;
@@ -40,8 +49,7 @@ struct Fc1Epilogue {
   int8_t* hidden;         // (R, Hid)
   int n;
   __device__ void operator()(int r, int c, int acc) const {
-    const float mid = static_cast<float>(acc) * mult1[c] + bias1[c];
-    hidden[(size_t)r * n + c] = clip_i8(rintf(gelu_poly(mid) * s_q1_inv[0]));
+    hidden[(size_t)r * n + c] = fc1_code(acc, mult1[c], bias1[c], s_q1_inv[0]);
   }
 };
 

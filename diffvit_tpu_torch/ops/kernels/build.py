@@ -44,8 +44,10 @@ ENTRIES = {
     "dvt_attention_block": (_P,) * 5 + (_L,) * 3 + (_P,) * 7 + (_I,) * 8
     + (_P,),
     "dvt_int_attention": (_P,) * 3 + (_I,) * 6 + (_L,) * 7 + (_P,),
-    "dvt_int_linear": (_P,) * 4 + (_I,) * 4 + (_P,),
-    "dvt_int_mlp": (_P,) * 12 + (_I,) * 5 + (_P,),
+    "dvt_int_linear": (_P,) * 4 + (_I,) * 10 + (_P,),
+    "dvt_int_linear_footprint": (_I,) * 5 + (_P,) * 3,
+    "dvt_int_mlp": (_P,) * 12 + (_I,) * 18 + (_P,),
+    "dvt_int_mlp_footprint": (_I,) * 5 + (_P,) * 3,
     "dvt_int_mlp_block": (_P,) * 12 + (_I,) * 3 + (_P,),
     "dvt_swin_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 7 + (_P,),
     "dvt_resident_codes": (_P,) * 13 + (_I,) * 10 + (_P,),

@@ -7,7 +7,10 @@
 
 The reciprocal ``1/out_scale`` is taken once in float32 and multiplied, as
 the Pallas wrapper folds it (``linear.py:91``).  The CUDA kernel is
-``csrc/int_linear.cu``; the plain version below is its exact
+``csrc/int_linear.cu``, on the Hopper GEMM mainloop (``wgmma_gemm.cuh``)
+with the weight's cached K-major copy (``gemm.kmajor``) and, where K % 16
+!= 0, x's K padded with zeros (``gemm.pad_k``); the plain version below is
+its exact
 specification: every product and sum rounds on its own, as the kernel
 (built with ``-fmad=false``) and as the forward's ``int_matmul(x, w) *
 mult + b`` do, so the raw mode equals that expression bit for bit.
@@ -22,6 +25,8 @@ import torch
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
 from .build import check, load_library
+from .gemm import (device_plan, gemm_footprint, kmajor, pad_k, per_weight,
+                   require_tma_operand)
 
 MODES = {"raw": 0, "fq": 1, "codes": 2}
 
@@ -70,7 +75,8 @@ def fused_int_linear(x_i8, w_int, mult, bias, *, out_scale=None,
     max|w| < 2^24), and the product here is an exact int32 one.
 
     A CUDA tensor runs ``csrc/int_linear.cu``; a CPU tensor runs
-    :func:`fused_int_linear_plain`."""
+    :func:`fused_int_linear_plain`.  On the card ``x_i8`` must be
+    16-byte aligned (TMA reads it; ``ValueError`` otherwise)."""
     tensors = [t for t in (x_i8, w_int, mult, bias, out_scale)
                if isinstance(t, torch.Tensor)]
     if route(*tensors) == "cpu":
@@ -88,12 +94,19 @@ def fused_int_linear(x_i8, w_int, mult, bias, *, out_scale=None,
             f"fused_int_linear: empty product {tuple(x_i8.shape)} @ "
             f"{tuple(w_int.shape)}")
     mode = _mode(out_scale, emit_codes)
-    v = linear_vectors(mult, bias, out_scale, n).contiguous()
+    v = per_weight(
+        lambda: linear_vectors(mult, bias, out_scale, n).contiguous(),
+        mult, bias, out_scale, n)
+    wk = kmajor(w_int)
+    kp = wk.shape[1]
+    x_p = pad_k(x_i8, kp)
+    require_tma_operand(x_p, "x_i8")
+    plan = device_plan(rows, n, kp, x_i8.device)
     out = torch.empty((rows, n), device=x_i8.device,
                       dtype=torch.int8 if mode == "codes" else torch.float32)
     err = load_library().dvt_int_linear(
-        x_i8.data_ptr(), w_int.data_ptr(), v.data_ptr(), out.data_ptr(),
-        rows, k, n, MODES[mode],
+        x_p.data_ptr(), wk.data_ptr(), v.data_ptr(), out.data_ptr(),
+        rows, kp, n, MODES[mode], *plan.launch_args(),
         torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, "fused_int_linear")
     fused_int_linear.launches += 1
@@ -101,3 +114,13 @@ def fused_int_linear(x_i8, w_int, mult, bias, *, out_scale=None,
 
 
 fused_int_linear.launches = 0
+
+
+def footprint(rows: int, n: int, k: int, device, mode: str = "raw") -> dict:
+    """{"registers", "smem_bytes", "blocks_per_sm"} of the kernel that
+    :func:`fused_int_linear` launches in ``mode`` for an (rows, k) @ (k, n)
+    product on ``device``, with the plan's tile and shared memory.  Needs
+    a card."""
+    plan = device_plan(rows, n, -(-k // 16) * 16, device)
+    return gemm_footprint(load_library().dvt_int_linear_footprint, plan,
+                          MODES[mode])

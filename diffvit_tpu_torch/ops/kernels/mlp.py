@@ -3,8 +3,10 @@
 the whole MLP half-block with its fences and integer LN
 (``::fused_int_mlp_block``, K7b).
 
-The CUDA kernels are ``csrc/int_mlp.cu`` and ``csrc/int_mlp_block.cu``;
-the plain versions below are their exact specifications.  Every product
+The CUDA kernels are ``csrc/int_mlp.cu`` (on the Hopper GEMM mainloop,
+``wgmma_gemm.cuh``, with the weights' cached K-major copies,
+``gemm.kmajor``) and ``csrc/int_mlp_block.cu``; the plain versions below
+are their exact specifications.  Every product
 and sum rounds on its own (the kernels are built with ``-fmad=false``).  A
 jitted XLA computation contracts ``a*b + c`` into one fused multiply-add,
 so where the reference runs fused its codes can differ on rare
@@ -21,6 +23,8 @@ from ..int_layernorm import mlp_block_ln_codes
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
 from .build import check, load_library
+from .gemm import (device_plan, gemm_footprint, kmajor, pad_k, per_weight,
+                   require_tma_operand, round_up)
 
 # Chebyshev fit of (Phi(sqrt(u)) - 0.5)/sqrt(u) on u in [0, 4.8^2], monomial
 # form in s = 2u/4.8^2 - 1 (diffvit_tpu/ops/pallas/mlp.py:40-46)
@@ -64,6 +68,18 @@ def fused_int_mlp_plain(x_i8, w1, w2, mult1, bias1, mult2, bias2, out_scale,
     return codes.to(torch.int8) if emit_codes else codes * out_b
 
 
+def _mlp_vectors(mult1, bias1, mult2, bias2, out_scale, s_q1, hid, cout):
+    """The float32 vectors the kernel reads, in its argument order: mult1,
+    bias1 (Hid,), mult2, bias2, 1/out_scale, out_scale (Cout,), 1/s_q1
+    (1,), each a new contiguous tensor."""
+    f32 = torch.float32
+    vec = [t.expand(n).to(f32).clone(memory_format=torch.contiguous_format)
+           for t, n in ((mult1, hid), (bias1, hid), (mult2, cout),
+                        (bias2, cout), (out_scale, cout))]
+    return (*vec[:4], 1.0 / vec[4], vec[4],
+            (1.0 / s_q1).to(f32).reshape(1))
+
+
 def fused_int_mlp(x_i8, w1, w2, mult1, bias1, mult2, bias2, out_scale, s_q1,
                   *, emit_codes=False):
     """x_i8: (R, Cin) int8 tokens; w1: (Cin, Hid) int8; w2: (Hid, Cout) int8;
@@ -72,10 +88,11 @@ def fused_int_mlp(x_i8, w1, w2, mult1, bias1, mult2, bias2, out_scale, s_q1,
     Returns (R, Cout) float32 on the mlp.qact2 grid — or, with
     ``emit_codes=True``, the (R, Cout) int8 mlp.qact2 codes.  Unlike the
     Pallas kernel, R needs no padding (the TPU's block_rows/sub/interpret
-    knobs have no counterpart).
+    knobs have no counterpart), and any Cin, Hid and Cout are taken.
 
     A CUDA tensor runs ``csrc/int_mlp.cu``; a CPU tensor runs
-    :func:`fused_int_mlp_plain`."""
+    :func:`fused_int_mlp_plain`.  On the card ``x_i8`` must be 16-byte
+    aligned (TMA reads it; ``ValueError`` otherwise)."""
     args = (x_i8, w1, w2, mult1, bias1, mult2, bias2, out_scale, s_q1)
     if route(*args) == "cpu":
         return fused_int_mlp_plain(*args, emit_codes=emit_codes)
@@ -87,30 +104,49 @@ def fused_int_mlp(x_i8, w1, w2, mult1, bias1, mult2, bias2, out_scale, s_q1,
     require(w1.shape[0] == cin and w2.shape[0] == hid,
             f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} do not chain from "
             f"x {tuple(x_i8.shape)}")
-    require(cin % 32 == 0 and hid % 32 == 0 and cout % 16 == 0,
-            f"Cin={cin} and Hid={hid} must be multiples of 32, Cout={cout} "
-            "of 16")
+    require(rows > 0, "fused_int_mlp: no rows")
     f32 = torch.float32
-    vec = [t.expand(n).to(f32).contiguous()
-           for t, n in ((mult1, hid), (bias1, hid), (mult2, cout),
-                        (bias2, cout), (out_scale, cout))]
-    inv_out = 1.0 / vec[4]
-    s_q1_inv = (1.0 / s_q1).to(f32).reshape(1)
-    hidden = torch.empty((rows, hid), dtype=torch.int8, device=x_i8.device)
+    vec = per_weight(lambda: _mlp_vectors(mult1, bias1, mult2, bias2,
+                                          out_scale, s_q1, hid, cout),
+                     mult1, bias1, mult2, bias2, out_scale, s_q1, hid, cout)
+    w1k, w2k = kmajor(w1), kmajor(w2)
+    cin_p, hid_p = w1k.shape[1], w2k.shape[1]
+    x_p = pad_k(x_i8, cin_p)
+    require_tma_operand(x_p, "x_i8")
+    dev = x_i8.device
+    plan1 = device_plan(rows, hid, cin_p, dev)
+    plan2 = device_plan(rows, cout, hid_p, dev)
+    # the row stride rounds Hid up to 16 bytes for TMA; fc2's weight has
+    # zero K columns there, so the unwritten pad bytes add nothing
+    hidden = torch.empty((rows, hid_p), dtype=torch.int8, device=dev)
     out = torch.empty((rows, cout), dtype=torch.int8 if emit_codes else f32,
-                      device=x_i8.device)
+                      device=dev)
     err = load_library().dvt_int_mlp(
-        x_i8.data_ptr(), w1.data_ptr(), w2.data_ptr(), vec[0].data_ptr(),
-        vec[1].data_ptr(), vec[2].data_ptr(), vec[3].data_ptr(),
-        inv_out.data_ptr(), vec[4].data_ptr(), s_q1_inv.data_ptr(),
-        hidden.data_ptr(), out.data_ptr(), rows, cin, hid, cout,
-        int(emit_codes), torch.cuda.current_stream(x_i8.device).cuda_stream)
+        x_p.data_ptr(), w1k.data_ptr(), w2k.data_ptr(),
+        *(t.data_ptr() for t in vec),
+        hidden.data_ptr(), out.data_ptr(), rows, cin_p, hid, hid_p, cout,
+        int(emit_codes), *plan1.launch_args(), *plan2.launch_args(),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "fused_int_mlp")
     fused_int_mlp.launches += 1
     return out
 
 
 fused_int_mlp.launches = 0
+
+
+def footprint(rows: int, cin: int, hid: int, cout: int, device) -> dict:
+    """{"fc1": {...}, "fc2": {...}, "fc2_f32": {...}}: the registers,
+    shared memory and blocks an SM of the kernels that
+    :func:`fused_int_mlp` launches for ``rows`` rows on ``device`` (fc2
+    with codes out, and with float32 out), each with its plan's tile.
+    Needs a card."""
+    entry = load_library().dvt_int_mlp_footprint
+    fc1 = device_plan(rows, hid, round_up(cin, 16), device)
+    fc2 = device_plan(rows, cout, round_up(hid, 16), device)
+    return {"fc1": gemm_footprint(entry, fc1, 1),
+            "fc2": gemm_footprint(entry, fc2, 2),
+            "fc2_f32": gemm_footprint(entry, fc2, 3)}
 
 
 # ---- K7b: the whole MLP half-block on the float32 residual stream ----

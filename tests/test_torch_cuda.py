@@ -6,7 +6,9 @@ card is: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 without a card each skips.  K1, K2 and K5 share their device code with
 the resident kernel K6 (``csrc/attention_core.cuh``, ``int8_gemm.cuh``,
 ``int_mlp.cuh``), and K3, K7a, K7b and K8 with them; their tests here hold
-each exact against its plain version."""
+each exact against its plain version.  K2 and K3 run on the wgmma
+mainloop (``csrc/wgmma_gemm.cuh``), the others on ``int8_gemm.cuh``'s
+tile."""
 import dataclasses
 
 import numpy as np
@@ -164,16 +166,42 @@ def test_resident_forward_on_card_equals_per_kernel(cuda):
     _assert_paths_agree(got.cpu().numpy(), cpu.numpy())
 
 
-@pytest.mark.parametrize("spec,rows", [(TINY, 391), (SMALL, 197 * 2)])
-@pytest.mark.parametrize("emit_codes", [True, False])
-def test_int_mlp_kernel_matches_plain(cuda, spec, rows, emit_codes):
-    ib, _ = _block(spec)
+def _mlp_case(model, rows, cuda):
+    """K2's arguments for ``rows`` LN-like codes: a ViT spec's block 0, or
+    Swin-T stage ``model`` ("swin0".."swin3": C = 96, 192, 384, 768),
+    block 0, with the per-channel mults that the Swin forward folds."""
     dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    if isinstance(model, str):
+        stage = int(model[-1])
+        ip = random_swin_int_model(SWIN_SPECS["swin_tiny"], seed=0)
+        ib, qp = ip["layers"][stage]["blocks"][0], ip["qp"]
+        p = f"layers.{stage}.blocks.0"
+        f1, f2 = ib["fc1"], ib["fc2"]
+        c = f1["w_int"].shape[0]
+        return (dev(_codes((rows, c), 2)), dev(f1["w_int"]),
+                dev(f2["w_int"]), dev(qp[f"{p}.qact3.scale"] * f1["sw"]),
+                dev(f1["b"]), dev(qp[f"{p}.mlp.qact1.scale"] * f2["sw"]),
+                dev(f2["b"]), dev(qp[f"{p}.mlp.qact2.scale"]),
+                dev(qp[f"{p}.mlp.qact1.scale"]))
+    ib, _ = _block(model)
     f1, f2 = ib["fc1"], ib["fc2"]
-    args = (dev(_codes((rows, spec.embed_dim), 2)), dev(f1["w_int"]),
+    return (dev(_codes((rows, model.embed_dim), 2)), dev(f1["w_int"]),
             dev(f2["w_int"]), dev(f1["mult"]), dev(f1["b"]),
             dev(f2["mult"]), dev(f2["b"]), dev(ib["mlp.qact2"]["scale"]),
             dev(ib["mlp.qact1"]["scale"]))
+
+
+@pytest.mark.parametrize("model,rows", [
+    (TINY, 391), (SMALL, 197 * 2), (SMALL, 1), (SMALL, 197),
+    (SMALL, 197 * 64), ("swin0", 3136), ("swin1", 784 * 2),
+    ("swin2", 196 * 8), ("swin3", 49 * 64)],
+    ids=["tiny", "deit_s_394", "deit_s_1", "deit_s_197", "deit_s_12608",
+         "swin_c96", "swin_c192", "swin_c384", "swin_c768"])
+@pytest.mark.parametrize("emit_codes", [True, False])
+def test_int_mlp_kernel_matches_plain(cuda, model, rows, emit_codes):
+    """K2 on the wgmma mainloop at DeiT-S rows 1, 197 and 12,608 and at
+    every Swin-T width, codes and float32 out: one launch, bit for bit."""
+    args = _mlp_case(model, rows, cuda)
     before = fused_int_mlp.launches
     got = fused_int_mlp(*args, emit_codes=emit_codes)
     torch.cuda.synchronize()
@@ -493,12 +521,15 @@ def test_qkv_attention_v1_reads_strided_weights(cuda):
 
 @pytest.mark.parametrize("rows,k,n", [(200, 48, 1000), (3136, 48, 96),
                                       (3136, 96, 288), (197, 384, 1152),
-                                      (1, 384, 1000), (77, 100, 37)])
+                                      (1, 384, 1000), (77, 100, 37),
+                                      (12608, 384, 1536), (64, 384, 1000)])
 @pytest.mark.parametrize("mode", ["raw", "fq", "codes"])
 def test_int_linear_kernel_matches_plain(cuda, rows, k, n, mode):
     """K3 at the tail shapes (K = 48, N = 1000, the 96/288-wide Swin
-    outputs, a ragged K and N) and a DeiT-S qkv site, every mode, bit for
-    bit; the raw mode equals the forward's int_matmul(x, w) * mult + b."""
+    outputs, a ragged K and N, which the wrapper pads to K = 112), a DeiT-S
+    qkv site, DeiT-S fc1 at b = 64 and the head at b = 64, every mode, bit
+    for bit; the raw mode equals the forward's int_matmul(x, w) * mult +
+    b."""
     from diffvit_tpu_torch.ops.kernels.linear import (fused_int_linear,
                                                       fused_int_linear_plain)
     from diffvit_tpu_torch.ops.quant import int_matmul
@@ -520,6 +551,44 @@ def test_int_linear_kernel_matches_plain(cuda, rows, k, n, mode):
     if mode == "raw":
         fwd = int_matmul(x, w).to(torch.float32) * mult + bias
         np.testing.assert_array_equal(got.cpu().numpy(), fwd.cpu().numpy())
+
+
+def test_gemm_wrappers_refuse_an_operand_off_a_16_byte_boundary(cuda):
+    """TMA reads x from its base: K2 and K3 raise ValueError for a
+    contiguous x one byte off a 16-byte boundary, and launch nothing."""
+    from diffvit_tpu_torch.ops.kernels.linear import fused_int_linear
+    args = _mlp_case(SMALL, 197, cuda)
+    buf = torch.zeros(197 * 384 + 16, dtype=torch.int8, device=cuda)
+    x = buf[1:1 + 197 * 384].view(197, 384)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 1
+    before = (fused_int_mlp.launches, fused_int_linear.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_int_mlp(x, *args[1:], emit_codes=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_int_linear(x, args[1], args[3], args[4])
+    assert (fused_int_mlp.launches, fused_int_linear.launches) == before
+
+
+def test_gemm_kernels_report_their_footprint(cuda):
+    """K2's two kernels and K3's report registers, shared memory and
+    blocks an SM (cudaFuncGetAttributes and the occupancy API): the plan's
+    blocks an SM and shared memory, and the register count that
+    setmaxnreg's budget needs (168 a thread at one block an SM for 40 + 2 x
+    232, 80 at two for 24 + 2 x 104)."""
+    from diffvit_tpu_torch.ops.kernels import gemm, linear, mlp
+    sites = {"fc1": mlp.footprint(12608, 384, 1536, 384, cuda)["fc1"],
+             "fc2": mlp.footprint(12608, 384, 1536, 384, cuda)["fc2"],
+             "fc2_b1": mlp.footprint(197, 384, 1536, 384, cuda)["fc2"],
+             "head": linear.footprint(64, 1000, 384, cuda),
+             "qkv": linear.footprint(12608, 1152, 384, cuda)}
+    plans = {"fc1": (12608, 1536, 384), "fc2": (12608, 384, 1536),
+             "fc2_b1": (197, 384, 1536), "head": (64, 1000, 384),
+             "qkv": (12608, 1152, 384)}
+    for name, f in sites.items():
+        plan = gemm.device_plan(*plans[name], cuda)
+        assert f["registers"] == {1: 168, 2: 80}[plan.blocks], (name, f)
+        assert f["smem_bytes"] >= plan.smem, (name, f)
+        assert f["blocks_per_sm"] == plan.blocks, (name, f)
 
 
 # ---- the probes (diffvit_tpu_torch/probes, csrc/probes) ----
