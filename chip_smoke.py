@@ -57,7 +57,14 @@
             against K1 + proj + code fences, K7b against the fences + LN2
             + K2 + qact4; K3's raw mode bit for bit against the forward's
             int_matmul(x, w) * mult + b at the patch, proj and head).
-8. probes:  the H100 counterparts of the inline Pallas kernels of scripts/
+8. attention: the tensor-core attention core (csrc/attention_mma.cuh) and
+            K1's qkv GEMM on the wgmma mainloop: device time per launch
+            from torch.profiler (qkv GEMM against core) for K1 at DeiT-S
+            b = 1, 8, 64 (LIS and float softmax), K5 at the same batches,
+            and K4/K4b at Swin-T stages 0-3, b = 1 and 64, both softmaxes;
+            the core's and the GEMM's footprints (registers, local memory,
+            shared memory, blocks an SM), failing on a spill;
+9. probes:  the H100 counterparts of the inline Pallas kernels of scripts/
             (diffvit_tpu_torch/probes, their own library built from
             csrc/probes): each probe kernel against its plain version at
             the script's full geometry (P1 producer, consumer and paired
@@ -247,6 +254,10 @@ for _m in overlap_mlp.MODES:
             lambda *a, mode: overlap_mlp.overlap_mlp_plain(*a, mode),
             mode=_m),
         "overlap_mlp.cu", "scripts/overlap_probe_mlp.py:36")
+# the attention launches by kernel name (torch.profiler's): the qkv GEMM on
+# the wgmma mainloop, the tensor-core cores
+LAUNCH_KINDS = (("wgmma_gemm_kernel", "gemm"), ("qkv_core_kernel", "core"),
+                ("swin_core_kernel", "core"))
 for _name, (_fn, _plain, _src, _at) in PROBES.items():
     KERNELS[_name] = dict(fn=_fn, plain=_plain, source=_PROBE_SRC + _src,
                           replaces=_at)
@@ -270,22 +281,33 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+PROFILE_TRIES = 3  # torch.profiler now and then records no device activity
+
+
+def profiled(fn, iters):
+    """``prof.key_averages()`` of ``iters`` calls of ``fn`` under
+    torch.profiler, after a warm-up; profiled again, up to PROFILE_TRIES
+    times, while the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(getattr(e, "self_device_time_total", 0) > 0 for e in events):
+            return events
+    raise RuntimeError("torch.profiler saw no device time")
+
+
 def device_ms(fn, iters=10):
     """Device milliseconds per call: the summed time of every kernel a call
     of ``fn`` launches, from torch.profiler, after a warm-up.  Unlike
     :func:`cuda_ms` it leaves out the host's time between launches."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages())
-    if total <= 0:
-        raise RuntimeError("torch.profiler saw no device time")
-    return total / 1e3 / iters
+    return sum(getattr(e, "self_device_time_total", 0)
+               for e in profiled(fn, iters)) / 1e3 / iters
 
 
 def codes(shape, seed, dev, std=30):
@@ -1146,6 +1168,92 @@ def phase_gemm(dev, summary):
          slower_than_int_mm_on_the_device=slower)
 
 
+def device_by_launch(fn, iters=10):
+    """Device milliseconds per call of ``fn`` by launch kind (LAUNCH_KINDS:
+    "gemm", "core"; anything else "other"), from torch.profiler after a
+    warm-up."""
+    out = defaultdict(float)
+    for e in profiled(fn, iters):
+        t = getattr(e, "self_device_time_total", 0)
+        if t > 0:
+            kind = next((k for pat, k in LAUNCH_KINDS if pat in e.key),
+                        "other")
+            out[kind] += t / 1e3 / iters
+    return dict(out)
+
+
+def phase_attention(dev, summary):
+    """The redesigned attention kernels: device time per launch (qkv GEMM,
+    core) for K1 at DeiT-S b = 1, 8, 64 with the LIS and the float softmax,
+    K5 at the same batches, K4 and K4b at Swin-T stages 0-3 (b = 1 and 64,
+    both softmaxes); the footprints of the cores and of the qkv GEMM at
+    the main shapes.  The b=64 / stage-0 b=64 device times go into the
+    kernels line.  Fails on a spill in any core launched here."""
+    ib = random_int_model(SPEC, CFG, seed=0)["blocks"][0]
+    ib_fq = random_int_model(SPEC, FQVIT, seed=0)["blocks"][0]
+    for name, blk, opts in (
+            ("fused_qkv_attention_v2", ib, {}),
+            ("fused_qkv_attention_v2", ib, dict(lis=False, bits=8)),
+            ("fused_int_attention", ib_fq, {}),
+            ("fused_int_attention", ib_fq, dict(lis=False))):
+        for b in (1, 8, 64):
+            args, kw = kernel_case(name, blk, SPEC, b, dev, **opts)
+            fn = KERNELS[name]["fn"]
+            t = device_by_launch(lambda: fn(*args, **kw))
+            lis = opts.get("lis", True)
+            emit(phase="attention", kernel=name, at=f"{SPEC.name} b={b}",
+                 lis=lis, device_ms=sum(t.values()), **{
+                     f"{k}_device_ms": v for k, v in t.items()},
+                 bound_ms=bound(name, args, kw)[0])
+            if b == 64 and lis:
+                summary[name].update(device_ms=sum(t.values()), **{
+                    f"{k}_device_ms": v for k, v in t.items()})
+    for cfg in (CFG, QuantConfig(lis=False)):
+        ip = random_swin_int_model(SWIN, cfg, seed=0)
+        for stage in range(SWIN.num_layers):
+            for b in (1, 64):
+                cases = swin_cases(ip, stage, b, dev, cfg=cfg)
+                for name in ("fused_swin_attention", "fused_swin_attention_v2"):
+                    args, kw = cases[name]
+                    fn = KERNELS[name]["fn"]
+                    t = device_by_launch(lambda: fn(*args, **kw))
+                    emit(phase="attention", kernel=name,
+                         at=f"{SWIN.name} stage {stage} b={b}", lis=cfg.lis,
+                         device_ms=sum(t.values()),
+                         bound_ms=bound(name, args, kw)[0])
+                    if stage == 0 and b == 64 and cfg.lis:
+                        summary[name]["device_ms"] = sum(t.values())
+    rows = 64 * SPEC.seq_len
+    prints = []
+    for b in (1, 8, 64):
+        for lis in (True, False):
+            f = attention.core_footprint(b, SPEC.num_heads, SPEC.seq_len,
+                                         SPEC.head_dim, SPEC.seq_len, dev,
+                                         lis=lis)
+            prints.append(("qkv core", f"{SPEC.name} b={b}", lis, f))
+    for stage in range(SWIN.num_layers):
+        res = SWIN.stage_resolution(stage)[0]
+        for lis in (True, False):
+            f = swin_attention.footprint(
+                64 * (res // 7) ** 2, SWIN.num_heads[stage], 56,
+                SWIN.stage_dim(stage) // SWIN.num_heads[stage], 49, dev,
+                lis=lis)
+            prints.append(("swin core", f"{SWIN.name} stage {stage} b=64",
+                           lis, f))
+    for label, r in (("b=1", SPEC.seq_len), ("b=64", rows)):
+        f = attention.qkv_gemm_footprint(r, 3 * SPEC.embed_dim,
+                                         SPEC.embed_dim, dev)
+        prints.append(("qkv gemm", f"{SPEC.name} {label}", True, f))
+    spills = []
+    for kernel, at, lis, f in prints:
+        emit(phase="footprint", kernel=kernel, at=at, lis=lis, **f)
+        if f.get("local_bytes", 0) > 0:
+            spills.append((kernel, at, lis))
+    if spills:
+        raise RuntimeError(f"attention kernels spill to local memory: "
+                           f"{spills}")
+
+
 def alternatives_path(model, x):
     """The model-fed run of K3, K7a, K7b and K8: block 0 of ``model`` (an
     IntModel of DeiT-S int4) on the int8 input codes ``x``.  The embed and
@@ -1401,6 +1509,7 @@ def main():
     t.append(time.perf_counter())
     phase_alternatives_kernels(dev, summary)
     phase_gemm(dev, summary)
+    phase_attention(dev, summary)
     t.append(time.perf_counter())
     paths = {SPEC.name: phase_serving(dev)}
     t.append(time.perf_counter())

@@ -1,13 +1,22 @@
-// The attention core shared by K1, K5, K7a and K8 (qkv_attention.cu) and
-// by the resident encoder (resident.cu): for one (image, head, tile of 32 query
-// rows), integer scores, the Log-Int-Softmax or the float softmax, attn@v
-// and the requant onto the qact2 grid.  Also the qkv GEMM's requant
-// epilogue.  Kept in one place so that the kernels cannot drift apart.
+// The SIMT attention item of the resident encoder K6 (resident.cu) and of
+// the probes P1 and P5 (probes/pingpong.cu, probes/attn_nv.cu): for one
+// (image, head, tile of 32 query rows), integer scores, the Log-Int-Softmax
+// or the float softmax, attn@v and the requant onto the qact2 grid.  Also
+// what the tensor-core core (attention_mma.cuh: K1, K5, K7a, K8, K4/K4b)
+// shares with it: the float softmax of one row (softmax_row_bf16) and the
+// qkv GEMM's requant epilogue in its two forms (QkvEpilogue for
+// int8_gemm.cuh's storing contract, QkvOut for wgmma_gemm.cuh's returning
+// one), so that the kernels cannot drift apart.
 //
-// The head's K and V rows (N <= 256) sit in shared memory; each warp takes
-// one query row at a time and holds its whole score row in registers,
-// because LIS quantizes every weight against the final row sum (online
-// rescaling as in flash attention would change the codes).
+// The item's design is the first port's, kept because K6 runs it inside
+// its persistent launch and the probes measure it: the head's K and V rows
+// (N <= 256) sit in shared memory; each warp takes one query row at a time
+// and holds its whole score row in registers, because LIS quantizes every
+// weight against the final row sum (online rescaling as in flash attention
+// would change the codes); scores by __dp4a, attn@v a per-lane loop over
+// the keys.  On the H100 that loop sets its pace (two shared-memory loads
+// for every 32 multiply-adds), which is why K1 and K4 moved to
+// attention_mma.cuh.
 //
 // Exactness against the plain PyTorch versions (ops/kernels/attention.py):
 //  * built with -fmad=false: every a*b+c rounds twice, as torch does;
@@ -35,19 +44,37 @@ constexpr int kAttnWarps = 4;
 constexpr int kQueryTile = 32;
 constexpr int kKeysPerLane = kMaxKeys / 32;
 
-// The qkv GEMM's epilogue, in one of two requant orders: K1's
+// The qkv GEMM's requant, in one of two orders: K1's
 // rint(acc * mult/s1 + bias/s1) (mb folded by the wrapper, s1_inv null),
 // or K8's (the Pallas v1, v3-v5) rint((acc * mult + bias) * (1/s1)),
-// clipped to int8.
+// clipped to int8.  mb: (2, n) [mult/s1, bias/s1], or [mult, bias].
+__device__ __forceinline__ int8_t qkv_code(const float* mb, int n, const float* s1_inv,
+                                           int c, int acc) {
+  float y = static_cast<float>(acc) * mb[c] + mb[n + c];
+  if (s1_inv != nullptr) y = y * *s1_inv;
+  return clip_i8(rintf(y));
+}
+
+// The requant as int8_gemm.cuh's epilogue (K6, the probes): stores the code.
 struct QkvEpilogue {
-  const float* mb;      // (2, 3C): [mult/s1, bias/s1], or [mult, bias]
+  const float* mb;      // (2, 3C)
   int8_t* out;          // (rows, 3C)
   int n;                // 3C
   const float* s1_inv = nullptr;  // device scalar 1/s1 for K8's order
   __device__ void operator()(int r, int c, int acc) const {
-    float y = static_cast<float>(acc) * mb[c] + mb[n + c];
-    if (s1_inv != nullptr) y = y * *s1_inv;
-    out[(size_t)r * n + c] = clip_i8(rintf(y));
+    out[(size_t)r * n + c] = qkv_code(mb, n, s1_inv, c, acc);
+  }
+};
+
+// The requant as wgmma_gemm.cuh's epilogue (K1, K7a, K8): returns the code.
+struct QkvOut {
+  using Out = int8_t;
+  const float* mb;      // (2, 3C)
+  int8_t* out;          // (rows, 3C)
+  int ld;               // 3C
+  const float* s1_inv;  // device scalar 1/s1 for K8's order, or null
+  __device__ int8_t operator()(int, int c, int acc) const {
+    return qkv_code(mb, ld, s1_inv, c, acc);
   }
 };
 
@@ -101,12 +128,10 @@ __device__ __forceinline__ void softmax_row_bf16(const float (&a)[KeysPerLane],
 }
 
 // One score row's weights per warp, by softmax branch.
-template <int Warps, int Keys>
-union RowWeightsT {
-  int lis[Warps][Keys];     // 2^(15 - code)
-  float soft[Warps][Keys];  // bfloat16-rounded float softmax
+union RowWeights {
+  int lis[kAttnWarps][kMaxKeys];     // 2^(15 - code)
+  float soft[kAttnWarps][kMaxKeys];  // bfloat16-rounded float softmax
 };
-using RowWeights = RowWeightsT<kAttnWarps, kMaxKeys>;
 
 struct AttnSmem {
   int k_words[kMaxKeys][kMaxHeadDim / 4 + 1];  // +1: no bank conflicts

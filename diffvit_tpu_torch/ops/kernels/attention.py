@@ -16,7 +16,10 @@ K5 runs the last three lines, with the slow LIS.  For ``lis=False`` all
 run a float softmax rounded to bfloat16 instead of the LIS, taken in
 float64 with attn@v, each rounded once (:func:`attention_core_plain`, the
 core that the resident encoder K6 runs too).  All kernels are
-``csrc/qkv_attention.cu``; the plain versions below are their
+``csrc/qkv_attention.cu``: the qkv GEMM on the wgmma mainloop
+(``wgmma_gemm.cuh``, the weight's cached K-major copy from ``gemm``), the
+attention core on the tensor cores (``attention_mma.cuh``, its blocks
+from ``attn_plan.attention_plan``).  The plain versions below are their
 specification, exact for the LIS, and they differ from the JAX reference
 only where the reference's own arithmetic is order- or
 approximation-dependent:
@@ -41,7 +44,10 @@ import torch
 
 from ..quant import int_matmul, pow2
 from . import check_for_kernel, require, route
+from .attn_plan import attention_plan
 from .build import check, load_library
+from .gemm import (device_plan, gemm_footprint, kmajor, pad_k, per_weight,
+                   require_tma_operand, sm_count)
 
 # float32 roundings of _lis_body's weakly typed Python constants
 _X0 = float(np.float32(-0.6931))
@@ -207,20 +213,17 @@ def fused_qkv_attention_v2_plain(x_i8, w_all, mult, bias, scalars, *,
                              lis=lis, lis_fast=lis_fast)
 
 
-def _all_view(w_all, num_heads, head_dim):
-    """K1's (Cin, 3C) weight, columns [slot, head, d], as the kernel's
-    weight view: three slot pointers and the (head, k, d) element
-    strides."""
-    s_k, s_n = w_all.stride()
-    c = num_heads * head_dim
-    ptrs = tuple(w_all.data_ptr() + slot * c * s_n for slot in range(3))
-    return ptrs, (head_dim * s_n, s_k, s_n)
+def _attention_plan(batch, heads, npad, d, n_real, lis, device):
+    """:func:`attn_plan.attention_plan` for the SM count of ``device``."""
+    return attention_plan(batch, heads, npad, d, n_real, bool(lis),
+                          sm_count(device))
 
 
-def _launch_qkv(x_i8, ptrs, strides, mb, scalars, *, num_heads, head_dim,
-                n_real, lis, lis_fast, requant_v1, what):
+def _launch_qkv(x_i8, wk, mb, scalars, *, num_heads, head_dim, n_real, lis,
+                lis_fast, requant_v1, what):
     """One launch pair of ``csrc/qkv_attention.cu`` (the qkv GEMM, then the
-    attention core) after the checks every entry shares."""
+    attention core) after the checks every entry shares; ``wk`` is the
+    (3C, Kp) K-major weight."""
     b, npad, cin = x_i8.shape
     check_for_kernel(x_i8, "x_i8", torch.int8, 3)
     check_for_kernel(scalars, "scalars", torch.float32, 1)
@@ -231,13 +234,20 @@ def _launch_qkv(x_i8, ptrs, strides, mb, scalars, *, num_heads, head_dim,
     require(head_dim <= 64 and head_dim % 4 == 0,
             f"head_dim={head_dim}: the kernel takes multiples of 4 up to 64")
     c3 = 3 * num_heads * head_dim
+    kp = wk.shape[1]
+    x2 = pad_k(x_i8.view(b * npad, cin), kp)
+    require_tma_operand(x2, "x_i8")
+    gp = device_plan(b * npad, c3, kp, x_i8.device)
+    ap = _attention_plan(b, num_heads, npad, head_dim, n_real, lis,
+                         x_i8.device)
     qkv = torch.empty((b, npad, c3), dtype=torch.int8, device=x_i8.device)
     out = torch.empty((b, num_heads, npad, head_dim), dtype=torch.int8,
                       device=x_i8.device)
     err = load_library().dvt_qkv_attention(
-        x_i8.data_ptr(), *ptrs, *strides, mb.data_ptr(), scalars.data_ptr(),
-        qkv.data_ptr(), out.data_ptr(), b, npad, cin, num_heads, head_dim,
-        n_real, int(lis), int(lis_fast), int(requant_v1),
+        x2.data_ptr(), wk.data_ptr(), mb.data_ptr(), scalars.data_ptr(),
+        qkv.data_ptr(), out.data_ptr(), b, npad, kp, num_heads, head_dim,
+        n_real, int(lis), int(lis_fast), int(requant_v1), *gp.launch_args(),
+        *ap.launch_args(),
         torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, what)
     return out
@@ -274,11 +284,14 @@ def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
             head_dim=head_dim, n_real=n_real, bits=bits, lis=lis,
             lis_fast=lis_fast)
     _check_w_all(x_i8, w_all, num_heads, head_dim)
-    mb = fold_requant(mult, bias, scalars[2], w_all.shape[1]).contiguous()
-    out = _launch_qkv(x_i8, *_all_view(w_all, num_heads, head_dim), mb,
-                      scalars, num_heads=num_heads, head_dim=head_dim,
-                      n_real=n_real, lis=lis, lis_fast=lis_fast,
-                      requant_v1=False, what="fused_qkv_attention_v2")
+    c3 = w_all.shape[1]
+    mb = per_weight(
+        lambda: fold_requant(mult, bias, scalars[2], c3).contiguous(),
+        mult, bias, scalars, c3, "k1_mb")
+    out = _launch_qkv(x_i8, kmajor(w_all), mb, scalars, num_heads=num_heads,
+                      head_dim=head_dim, n_real=n_real, lis=lis,
+                      lis_fast=lis_fast, requant_v1=False,
+                      what="fused_qkv_attention_v2")
     fused_qkv_attention_v2.launches += 1
     return out
 
@@ -331,8 +344,9 @@ def fused_qkv_attention(x_i8, wq, wk, wv, mult, bias, scalars, *, n_real,
     attention core with the slow LIS (or the float softmax).
 
     x_i8: (B, Npad, Cin) int8 LN codes; wq/wk/wv: (H, Cin, D) int8, any
-    strides as long as the three share them (read in place, e.g. the
-    per-head views of K1's (Cin, 3C) weight); mult/bias: (3, H, D) float32;
+    strides as long as the three share them (e.g. the per-head views of
+    K1's (Cin, 3C) weight; the kernel reads one K-major copy of the three,
+    made once per weight triple and kept); mult/bias: (3, H, D) float32;
     scalars: (4,) float32 [s_a, c1, 1/s1, s1/s2].
     Returns (B, H, Npad, D) int8 on the qact2 grid.
 
@@ -343,7 +357,7 @@ def fused_qkv_attention(x_i8, wq, wk, wv, mult, bias, scalars, *, n_real,
         return fused_qkv_attention_plain(x_i8, wq, wk, wv, mult, bias,
                                          scalars, n_real=n_real, bits=bits,
                                          lis=lis)
-    out = _launch_qkv(x_i8, *_heads_view(x_i8, wq, wk, wv),
+    out = _launch_qkv(x_i8, _heads_kmajor(x_i8, wq, wk, wv),
                       _v1_mb(mult, bias, wq), scalars,
                       num_heads=wq.shape[0], head_dim=wq.shape[2],
                       n_real=n_real, lis=lis, lis_fast=False,
@@ -355,8 +369,10 @@ def fused_qkv_attention(x_i8, wq, wk, wv, mult, bias, scalars, *, n_real,
 fused_qkv_attention.launches = 0
 
 
-def _heads_view(x_i8, wq, wk, wv):
-    """The kernel's weight view of v1's three (H, Cin, D) tensors."""
+def _heads_kmajor(x_i8, wq, wk, wv):
+    """The (3C, Kp) K-major copy of v1's three (H, Cin, D) weights laid out
+    as K1's (Cin, 3C) (:func:`heads_to_all`), made once per weight triple
+    and kept (``gemm.per_weight``)."""
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
         require(w.dtype == torch.int8 and w.dim() == 3,
                 f"{name}: expected a 3-dim int8 tensor, got {w.dtype} "
@@ -366,15 +382,18 @@ def _heads_view(x_i8, wq, wk, wv):
             "wq, wk and wv must share their shape and strides")
     require(wq.shape[1] == x_i8.shape[-1],
             f"weights {tuple(wq.shape)} do not match x {tuple(x_i8.shape)}")
-    return (wq.data_ptr(), wk.data_ptr(), wv.data_ptr()), wq.stride()
+    return per_weight(lambda: kmajor(heads_to_all(wq, wk, wv)), wq, wk, wv,
+                      "heads_kmajor")
 
 
 def _v1_mb(mult, bias, wq):
-    """[mult, bias] as the (2, 3C) float32 rows the kernel reads."""
+    """[mult, bias] as the (2, 3C) float32 rows the kernel reads, kept per
+    (mult, bias)."""
     h, _, d = wq.shape
-    return torch.stack([mult.expand(3, h, d).reshape(-1),
-                        bias.expand(3, h, d).reshape(-1)]) \
-        .to(torch.float32).contiguous()
+    return per_weight(
+        lambda: torch.stack([mult.expand(3, h, d).reshape(-1),
+                             bias.expand(3, h, d).reshape(-1)])
+        .to(torch.float32).contiguous(), mult, bias, h, d, "v1_mb")
 
 
 def fused_qkv_attention_v3_plain(x_i8, w_all, mult, bias, scalars, *,
@@ -397,12 +416,12 @@ def _fused_v345(fn, x_i8, w_all, mult, bias, scalars, *, num_heads,
             head_dim=head_dim, n_real=n_real, bits=bits, lis=lis)
     _check_w_all(x_i8, w_all, num_heads, head_dim)
     c3 = w_all.shape[1]
-    mb = torch.stack([mult.expand(c3), bias.expand(c3)]) \
-        .to(torch.float32).contiguous()
-    out = _launch_qkv(x_i8, *_all_view(w_all, num_heads, head_dim), mb,
-                      scalars, num_heads=num_heads, head_dim=head_dim,
-                      n_real=n_real, lis=lis, lis_fast=False,
-                      requant_v1=True, what=fn.__name__)
+    mb = per_weight(
+        lambda: torch.stack([mult.expand(c3), bias.expand(c3)])
+        .to(torch.float32).contiguous(), mult, bias, c3, "v3_mb")
+    out = _launch_qkv(x_i8, kmajor(w_all), mb, scalars, num_heads=num_heads,
+                      head_dim=head_dim, n_real=n_real, lis=lis,
+                      lis_fast=False, requant_v1=True, what=fn.__name__)
     fn.launches += 1
     return out
 
@@ -473,7 +492,7 @@ def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
     Returns (B, H, N, D) int8 on the qact2 grid.
 
     A CUDA tensor runs ``csrc/qkv_attention.cu``'s attention core (the one
-    K1 runs after its qkv GEMM); a CPU tensor runs
+    K1 runs after its qkv GEMM, ``attention_mma.cuh``); a CPU tensor runs
     :func:`fused_int_attention_plain`."""
     if lis and bits > 4:
         raise NotImplementedError(
@@ -499,9 +518,10 @@ def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
             "multiples of 4 (4-byte loads)")
     out = torch.empty((b, h, npad, d), dtype=torch.int8, device=qkv_i8.device)
     so = out.stride()
+    ap = _attention_plan(b, h, npad, d, n_real, lis, qkv_i8.device)
     err = load_library().dvt_int_attention(
         qkv_i8.data_ptr(), scalars.data_ptr(), out.data_ptr(), b, h, npad, d,
-        n_real, int(lis), *st[:4], *so[:3],
+        n_real, int(lis), *st[:4], *so[:3], *ap.launch_args(),
         torch.cuda.current_stream(qkv_i8.device).cuda_stream)
     check(err, "fused_int_attention")
     fused_int_attention.launches += 1
@@ -547,7 +567,8 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
     float32 (rows at or past ``n_real`` are computed from the padding).
 
     A CUDA tensor runs ``csrc/qkv_attention.cu`` (K8's launches, then the
-    proj GEMM with the fences in its epilogue); a CPU tensor runs
+    proj GEMM, on ``int8_gemm.cuh``'s tile, with the fences in its
+    epilogue); a CPU tensor runs
     :func:`fused_attention_block_plain`."""
     _check_contract(bits, lis, "fused_attention_block")
     args = (x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars)
@@ -557,7 +578,7 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
     b, npad, cin = x_i8.shape
     heads, _, d = wq.shape
     c = wp.shape[-1]
-    ptrs, strides = _heads_view(x_i8, wq, wk, wv)
+    wkm = _heads_kmajor(x_i8, wq, wk, wv)
     check_for_kernel(x_i8, "x_i8", torch.int8, 3)
     check_for_kernel(h, "h", torch.float32, 3)
     check_for_kernel(wp, "wp", torch.int8, 3)
@@ -575,15 +596,21 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
             f"n_real={n_real}: the kernel takes 1..min(Npad, {MAX_KEYS}) keys")
     require(d <= 64 and d % 4 == 0,
             f"head_dim={d}: the kernel takes multiples of 4 up to 64")
+    kp = wkm.shape[1]
+    x2 = pad_k(x_i8.view(b * npad, cin), kp)
+    require_tma_operand(x2, "x_i8")
+    gp = device_plan(b * npad, 3 * heads * d, kp, x_i8.device)
+    ap = _attention_plan(b, heads, npad, d, n_real, lis, x_i8.device)
     i8 = dict(dtype=torch.int8, device=x_i8.device)
     qkv = torch.empty((b, npad, 3 * heads * d), **i8)
     attn = torch.empty((b, npad, heads * d), **i8)
     out = torch.empty((b, npad, c), dtype=torch.float32, device=x_i8.device)
     err = load_library().dvt_attention_block(
-        x_i8.data_ptr(), h.data_ptr(), *ptrs, *strides, wp.data_ptr(),
+        x2.data_ptr(), h.data_ptr(), wkm.data_ptr(), wp.data_ptr(),
         _v1_mb(mult, bias, wq).data_ptr(), pvec.data_ptr(),
         scalars.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, npad, cin, heads, d, c, n_real, int(lis),
+        b, npad, kp, heads, d, c, n_real, int(lis), *gp.launch_args(),
+        *ap.launch_args(),
         torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, "fused_attention_block")
     fused_attention_block.launches += 1
@@ -591,3 +618,29 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
 
 
 fused_attention_block.launches = 0
+
+
+def core_footprint(batch, heads, npad, d, n_real, device, lis=True) -> dict:
+    """{"registers", "local_bytes", "smem_bytes", "blocks_per_sm"} of the
+    attention core that the wrappers launch for these shapes on
+    ``device``, at its plan's warps and shared memory
+    (``cudaFuncGetAttributes`` and the occupancy API; ``local_bytes`` > 0
+    means spills).  Needs a card."""
+    import ctypes
+    plan = _attention_plan(batch, heads, npad, d, n_real, lis, device)
+    out = [ctypes.c_int() for _ in range(4)]
+    check(load_library().dvt_attention_core_footprint(
+        n_real, d, int(lis), plan.warps, plan.smem,
+        *map(ctypes.byref, out)),
+        "dvt_attention_core_footprint")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), (o.value for o in out)),
+                warps=plan.warps, grid=plan.grid)
+
+
+def qkv_gemm_footprint(rows, c3, k, device) -> dict:
+    """{"registers", "smem_bytes", "blocks_per_sm"} of the qkv GEMM (the
+    wgmma mainloop with the requant epilogue) for a (rows, k) @ (k, c3)
+    product on ``device``, at its plan's tile.  Needs a card."""
+    plan = device_plan(rows, c3, -(-k // 16) * 16, device)
+    return gemm_footprint(load_library().dvt_qkv_gemm_footprint, plan)

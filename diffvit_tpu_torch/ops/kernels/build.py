@@ -39,17 +39,20 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int,
 # element strides as c_longlong)
 ENTRIES = {
-    "dvt_qkv_attention": (_P,) * 4 + (_L,) * 3 + (_P,) * 4 + (_I,) * 9
+    "dvt_qkv_attention": (_P,) * 6 + (_I,) * 19 + (_P,),
+    "dvt_attention_block": (_P,) * 10 + (_I,) * 18 + (_P,),
+    "dvt_int_attention": (_P,) * 3 + (_I,) * 6 + (_L,) * 7 + (_I,) * 4
     + (_P,),
-    "dvt_attention_block": (_P,) * 5 + (_L,) * 3 + (_P,) * 7 + (_I,) * 8
-    + (_P,),
-    "dvt_int_attention": (_P,) * 3 + (_I,) * 6 + (_L,) * 7 + (_P,),
+    "dvt_qkv_gemm_footprint": (_I,) * 4 + (_P,) * 3,
+    "dvt_attention_core_footprint": (_I,) * 5 + (_P,) * 4,
     "dvt_int_linear": (_P,) * 4 + (_I,) * 10 + (_P,),
     "dvt_int_linear_footprint": (_I,) * 5 + (_P,) * 3,
     "dvt_int_mlp": (_P,) * 12 + (_I,) * 18 + (_P,),
     "dvt_int_mlp_footprint": (_I,) * 5 + (_P,) * 3,
     "dvt_int_mlp_block": (_P,) * 12 + (_I,) * 3 + (_P,),
-    "dvt_swin_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 7 + (_P,),
+    "dvt_swin_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 7 + (_I,) * 3
+    + (_P,),
+    "dvt_swin_attention_footprint": (_I,) * 4 + (_P,) * 4,
     "dvt_resident_codes": (_P,) * 13 + (_I,) * 10 + (_P,),
 }
 # the probes of ``diffvit_tpu_torch/probes`` (csrc/probes/*.cu)

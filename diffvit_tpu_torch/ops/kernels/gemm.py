@@ -109,11 +109,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def device_plan(m: int, n: int, k: int, device: torch.device) -> GemmPlan:
-    """:func:`gemm_plan` for the SM count of the card ``device``."""
+def sm_count(device: torch.device) -> int:
+    """The SM count of the card ``device``."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    return gemm_plan(m, n, k, _sm_count(index))
+    return _sm_count(index)
+
+
+def device_plan(m: int, n: int, k: int, device: torch.device) -> GemmPlan:
+    """:func:`gemm_plan` for the SM count of the card ``device``."""
+    return gemm_plan(m, n, k, sm_count(device))
 
 
 def gemm_footprint(entry, plan: GemmPlan, *lead: int) -> dict:

@@ -29,10 +29,12 @@ sum is exact in any order and no device's handling of subnormals matters.
 A dropped weight moves ``o`` by less than 2^-19, far below the float32
 rounding of the reference's own sum.
 
-One CUDA kernel (``csrc/swin_attention.cu``) serves both contracts: the
-wrapper passes the element strides of qkv's (window, slot, head, row) axes
-and of the output's (window, head, row) axes, so v1 may be a strided view
-of the natural qkv layout, taken without a copy.
+One CUDA kernel (``csrc/swin_attention.cu``, on the tensor-core core of
+``attention_mma.cuh``; its blocks from ``attn_plan.swin_attention_plan``)
+serves both contracts: the wrapper passes the element strides of qkv's
+(window, slot, head, row) axes and of the output's (window, head, row)
+axes, so v1 may be a strided view of the natural qkv layout, taken
+without a copy.
 """
 from __future__ import annotations
 
@@ -42,9 +44,11 @@ from ..quant import int_matmul
 from . import check_for_kernel, require, route
 from .attention import (_softmax_weights_plain, weighted_values,
                         lis_body_plain)
+from .attn_plan import swin_attention_plan
 from .build import check, load_library
+from .gemm import sm_count
 
-MAX_KEYS = 64  # keys per window the kernel holds: two per lane of a warp
+MAX_KEYS = 64  # keys per window the kernel holds: two blocks of 32
 MAX_HEAD_DIM = 64
 WEIGHT_FLOOR = 2.0**-32  # float-softmax weights below it count as 0
 
@@ -110,11 +114,13 @@ def _launch(qkv5, out4, bias_q, mask_div, scalars, n_real, n_windows, lis):
     require(d % 4 == 0 and d <= MAX_HEAD_DIM,
             f"head_dim={d}: the kernel takes multiples of 4 up to "
             f"{MAX_HEAD_DIM}")
+    plan = swin_attention_plan(bw, heads, npad, d, n_real, bool(lis),
+                               sm_count(qkv5.device))
     err = load_library().dvt_swin_attention(
         qkv5.data_ptr(), bias_q.data_ptr(),
         None if mask_div is None else mask_div.data_ptr(),
         scalars.data_ptr(), out4.data_ptr(), bw, heads, npad, d, n_real,
-        n_windows, int(lis), *strides,
+        n_windows, int(lis), *strides, *plan.launch_args(),
         torch.cuda.current_stream(qkv5.device).cuda_stream)
     check(err, "fused_swin_attention")
 
@@ -181,3 +187,21 @@ def fused_swin_attention_v2(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
 
 fused_swin_attention.launches = 0
 fused_swin_attention_v2.launches = 0
+
+
+def footprint(windows, heads, npad, d, n_real, device, lis=True) -> dict:
+    """{"registers", "local_bytes", "smem_bytes", "blocks_per_sm"} of the
+    kernel that the wrappers launch for these shapes on ``device``, at its
+    plan's warps and shared memory (``local_bytes`` > 0 means spills).
+    Needs a card."""
+    import ctypes
+    plan = swin_attention_plan(windows, heads, npad, d, n_real, bool(lis),
+                               sm_count(device))
+    out = [ctypes.c_int() for _ in range(4)]
+    check(load_library().dvt_swin_attention_footprint(
+        d, int(lis), plan.warps, plan.smem, *map(ctypes.byref, out)),
+        "dvt_swin_attention_footprint")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), (o.value for o in out)),
+                warps=plan.warps, windows_per_block=plan.windows,
+                grid=plan.grid)

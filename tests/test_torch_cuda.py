@@ -4,11 +4,12 @@ This file imports neither JAX nor the JAX package, so it runs where the
 card is: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (tests/conftest.py imports JAX).  Every test carries the ``cuda`` marker;
 without a card each skips.  K1, K2 and K5 share their device code with
-the resident kernel K6 (``csrc/attention_core.cuh``, ``int8_gemm.cuh``,
-``int_mlp.cuh``), and K3, K7a, K7b and K8 with them; their tests here hold
-each exact against its plain version.  K2 and K3 run on the wgmma
-mainloop (``csrc/wgmma_gemm.cuh``), the others on ``int8_gemm.cuh``'s
-tile."""
+the resident kernel K6 (``csrc/attention_core.cuh``, ``lis.cuh``, ``int_mlp.cuh``), and K3,
+K7a, K7b and K8 with them; their tests here hold each exact against its
+plain version.  K2, K3 and the qkv GEMM of K1, K7a and K8 run on the wgmma
+mainloop (``csrc/wgmma_gemm.cuh``); the attention of K1, K5, K7a, K8 and
+K4/K4b on the tensor-core core (``csrc/attention_mma.cuh``); K6, K7a's
+proj and K7b on ``int8_gemm.cuh``'s tile."""
 import dataclasses
 
 import numpy as np
@@ -495,8 +496,8 @@ def test_alt_kernels_match_plain(cuda, batch, lis):
 
 def test_qkv_attention_v1_reads_strided_weights(cuda):
     """K8 v1 on per-head weights that are strided views of K1's (Cin, 3C)
-    weight (no copy) gives the codes of the contiguous copies, and of the
-    plain version."""
+    weight (the kernel reads one cached K-major copy of the three) gives
+    the codes of the contiguous copies, and of the plain version."""
     from diffvit_tpu_torch.models.convert import qkv_head_blocks
     from diffvit_tpu_torch.ops.kernels.attention import (
         fused_qkv_attention, fused_qkv_attention_plain)
@@ -750,3 +751,135 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         p3.mlp_dot(x[:, :64].contiguous(), w1[:64, :32].contiguous(),
                    w2[:32, :64].contiguous(), v1[:, :32].contiguous(),
                    v2[:, :64].contiguous(), g_src[:, :32].contiguous(), scal)
+
+
+# ---- the tensor-core attention core (csrc/attention_mma.cuh) ----
+
+D16 = ViTSpec("test_d16", embed_dim=32, depth=1, num_heads=2, num_classes=10)
+D64 = ViTSpec("test_d64", embed_dim=128, depth=1, num_heads=2,
+              num_classes=10)
+
+
+@pytest.mark.parametrize("lis", [True, False], ids=["lis", "softmax"])
+@pytest.mark.parametrize("spec", [D16, TINY, D64], ids=["d16", "d32", "d64"])
+@pytest.mark.parametrize("batch", [1, 3, 64])
+@pytest.mark.parametrize("npad,n_real", [(256, 256), (150, 131)])
+@pytest.mark.parametrize("kernel", ["k1", "k5"])
+def test_attention_core_matches_plain_at_every_shape(cuda, kernel, npad,
+                                                     n_real, batch, spec,
+                                                     lis):
+    """K1 and K5 against their plain versions at 256 keys and at an odd
+    n_real below npad (a ragged last key block, query rows past n_real),
+    b = 1, 3 and 64, D = 16, 32 and 64, both softmaxes: the LIS exact,
+    the float softmax by its rule."""
+    ib, scalars = _block(spec)
+    dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    h, d = spec.num_heads, spec.head_dim
+    opts = {} if lis else dict(bits=8, lis=False)
+    if kernel == "k1":
+        q = ib["qkv"]
+        args = (dev(_codes((batch, npad, spec.embed_dim), 11)),
+                dev(q["w_int"]), dev(q["mult"]), dev(q["b"]), dev(scalars))
+        kw = dict(num_heads=h, head_dim=d, n_real=n_real, **opts)
+        fn, plain = fused_qkv_attention_v2, fused_qkv_attention_v2_plain
+    else:
+        qkv = dev(_codes((batch, npad, 3 * h * d), 12) // 3)
+        args = (qkv.view(batch, npad, 3, h, d).permute(0, 2, 3, 1, 4),
+                dev(int_attn_scalars(ib, spec)))
+        kw = dict(num_heads=h, n_real=n_real, **opts)
+        fn, plain = fused_int_attention, fused_int_attention_plain
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    got, want = got.cpu().numpy(), plain(*args, **kw).cpu().numpy()
+    if lis:
+        np.testing.assert_array_equal(got, want)
+    else:
+        _assert_softmax_codes_close(got, want)
+
+
+@pytest.mark.parametrize("lis", [True, False], ids=["lis", "softmax"])
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no_mask"])
+@pytest.mark.parametrize("spec_name,stage", [
+    ("tiny", 0), ("swin_tiny", 0), ("swin_tiny", 1), ("swin_tiny", 2),
+    ("swin_tiny", 3)])
+def test_swin_attention_core_matches_plain(cuda, spec_name, stage, masked,
+                                           lis):
+    """K4 and K4b against the plain version at the tiny Swin's D = 16
+    stage and at Swin-T's four stages (D = 32), with the shift mask and
+    without it (stage 3 has none), both softmaxes: the LIS exact, the
+    float softmax >= 99.9% equal and within 1 code."""
+    spec = SWIN_SPECS["swin_tiny"] if spec_name == "swin_tiny" else SwinSpec(
+        "swin_test2", embed_dim=32, depths=(2, 1), num_heads=(2, 4),
+        img_size=56, num_classes=10)
+    cfg = QuantConfig(lis=lis)
+    ip = random_swin_int_model(spec, cfg, seed=0)
+    k = swin_block_constants(ip["layers"][stage]["blocks"][1], ip["qp"],
+                             f"layers.{stage}.blocks.1", spec, stage, 1, cfg)
+    res = spec.stage_resolution(stage)[0]
+    nw, heads = (res // 7) ** 2, spec.num_heads[stage]
+    c = spec.stage_dim(stage)
+    hd = c // heads
+    dev = lambda a: None if a is None else torch.tensor(  # noqa: E731
+        np.asarray(a), device=cuda)
+    mask = k["mask_div"] if masked else None
+    qkv = dev(_codes((3 * nw, 49, 3 * c), stage + 20))
+    consts = (dev(k["bias_q"]), dev(mask), dev(k["attn_scalars"]))
+    kw = dict(num_heads=heads, n_real=49,
+              n_windows=nw if mask is not None else 1,
+              **({} if lis else dict(bits=8, lis=False)))
+    view = qkv.view(3 * nw, 49, 3, heads, hd).permute(0, 2, 3, 1, 4)
+    want = swin_attention_plain(view[:, 0], view[:, 1], view[:, 2], *consts,
+                                n_real=49, n_windows=kw["n_windows"],
+                                lis=lis).cpu().numpy()
+    got = fused_swin_attention(view, *consts, **kw).cpu().numpy()
+    got2 = fused_swin_attention_v2(qkv, *consts, head_dim=hd, **kw)
+    got2 = got2.view(3 * nw, 49, heads, hd).permute(0, 2, 1, 3).cpu().numpy()
+    for g in (got, got2):
+        if lis:
+            np.testing.assert_array_equal(g, want)
+        else:
+            diff = np.abs(g.astype(np.int32) - want)
+            assert diff.max() <= 1 and np.mean(diff == 0) >= 0.999
+
+
+def test_attention_cores_report_their_footprint(cuda):
+    """The tensor-core cores at the main paths' shapes (DeiT-S b = 1, 8,
+    64; Swin-T's four stages at b = 64), both softmaxes: no local memory
+    (no spills), the plan's shared memory, at least one block an SM at the
+    plan's warps; the LIS instances at three blocks an SM (qkv, the
+    plan's 7 warps at b = 64) or two or more (Swin).  The qkv
+    GEMM on the wgmma mainloop at setmaxnreg's register budget.  Printed
+    with -s."""
+    from diffvit_tpu_torch.ops.kernels import attention, gemm, swin_attention
+    from diffvit_tpu_torch.ops.kernels.attn_plan import (attention_plan,
+                                                         swin_attention_plan)
+    spec, swin = VIT_SPECS["deit_small"], SWIN_SPECS["swin_tiny"]
+    for lis in (True, False):
+        for b in (1, 8, 64):
+            f = attention.core_footprint(b, 6, 197, 64, 197, cuda, lis=lis)
+            plan = attention_plan(b, 6, 197, 64, 197, lis)
+            print("qkv core", b, lis, f)
+            assert f["local_bytes"] == 0, f
+            assert f["smem_bytes"] >= plan.smem and f["blocks_per_sm"] >= 1
+            if lis:
+                assert f["registers"] <= 96, f
+                assert f["blocks_per_sm"] >= min(3, 21 // plan.warps), f
+        for stage in range(4):
+            res = swin.stage_resolution(stage)[0]
+            windows, heads = 64 * (res // 7) ** 2, swin.num_heads[stage]
+            f = swin_attention.footprint(windows, heads, 56, 32, 49, cuda,
+                                         lis=lis)
+            plan = swin_attention_plan(windows, heads, 56, 32, 49, lis)
+            print("swin core", stage, lis, f)
+            assert f["local_bytes"] == 0, f
+            assert f["smem_bytes"] >= plan.smem and f["blocks_per_sm"] >= 1
+            if lis:
+                assert f["blocks_per_sm"] >= 2, f
+    for rows in (197, 64 * 197):
+        f = attention.qkv_gemm_footprint(rows, 1152, 384, cuda)
+        plan = gemm.device_plan(rows, 1152, 384, cuda)
+        print("qkv gemm", rows, f)
+        assert f["registers"] == {1: 168, 2: 80}[plan.blocks], f
+        assert f["blocks_per_sm"] == plan.blocks, f
