@@ -8,7 +8,8 @@
 3. kernels: holds each kernel against its plain PyTorch version on the card
             and times both: K1 (LIS and float softmax), K2 (int8 codes out
             and float32 out), K5 (LIS and float softmax) and K6 (the whole
-            12-block encoder in one launch; LIS, and the float softmax at
+            12-block encoder in one launch, on the wgmma GEMM mainloop and
+            the tensor-core attention core; LIS, and the float softmax at
             b = 8) at DeiT-S shapes (B = 1, 8, 64) and a tiny shape; K4 and
             K4b at Swin-T's four stage geometries and K2 at its four widths
             (B = 1, 8, 64); K4 and K4b with the float softmax (lis=False)
@@ -27,7 +28,10 @@
             with the plain path on the CPU and runs validate().  DeiT-S
             int4 also prints how far its codes use the int8 range; Swin-T
             also runs one forward through the natural-layout attention
-            contract (K4b) and checks that its logits equal K4's;
+            contract (K4b) and checks that its logits equal K4's; the
+            resident phase also prints K6's device time at b = 1, 8, 64 and
+            block 0's ms by step kind from the kernel's barrier stamps
+            (LN, qkv, attention, proj, fc1, fc2, barrier wait);
 5. branches: the other branches of the ViT forward at DeiT-S width, b = 8:
             float (-1) sites, float LayerNorm (PTF off), asymmetric
             activations, the float softmax (K1 with lis=False); launches
@@ -63,7 +67,10 @@
             b = 1, 8, 64 (LIS and float softmax), K5 at the same batches,
             and K4/K4b at Swin-T stages 0-3, b = 1 and 64, both softmaxes;
             the core's and the GEMM's footprints (registers, local memory,
-            shared memory, blocks an SM), failing on a spill;
+            shared memory, blocks an SM), and K6's at DeiT-S b = 1, 8, 64
+            (both softmaxes), failing on a spill; K7b's two GEMM kernels'
+            footprints and its device time at b = 64 come with K2's and
+            K3's (phase gemm);
 9. probes:  the H100 counterparts of the inline Pallas kernels of scripts/
             (diffvit_tpu_torch/probes, their own library built from
             csrc/probes): each probe kernel against its plain version at
@@ -121,7 +128,9 @@ from diffvit_tpu_torch.ops.kernels import (attention, build, gemm, linear,
                                            mlp, swin_attention)
 from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
                                                  resident_codes,
-                                                 resident_codes_plain)
+                                                 resident_codes_plain,
+                                                 resident_footprint,
+                                                 resident_step_ms)
 from diffvit_tpu_torch.probes import (attn_overlap, ingest, overlap,
                                       overlap_mlp, pingpong, timing)
 from diffvit_tpu_torch.testing import (alt_kernel_cases, linear_site_cases,
@@ -825,12 +834,15 @@ def phase_serving_fqvit(dev):
     return launches
 
 
-def phase_serving_resident(dev):
+def phase_serving_resident(dev, summary):
     """DeiT-S int4 served resident: K6 once per chunk of MICROBATCH images
     and no K1 or K2 (checked by serve); every request's logits equal the
     per-kernel IntModel's on the card; b=64 in one launch
     (``microbatch=None``) gives the same logits, and its forward is
-    timed."""
+    timed.  Then K6 alone at b = 1, 8, 64 on the model's packed weights:
+    its device time (torch.profiler) and block 0's ms by step kind from
+    one launch with its barrier stamps on (``resident_step_ms``); the
+    b=64 device time and stamped total go into the kernels line."""
     label = f"{SPEC.name} resident"
     ip_np = random_int_model(SPEC, CFG, seed=0)
     model, requests, outputs, launches = serve(SPEC, ip_np, (), dev,
@@ -856,6 +868,16 @@ def phase_serving_resident(dev):
     if not (equal and equal_whole):
         raise RuntimeError("the resident forward's logits differ from the "
                            "per-kernel forward's, or microbatch=None differs")
+    for b in (1, 8, 64):
+        x = codes((b * SPEC.seq_len, SPEC.embed_dim), b + 11, dev)
+        kw = dict(n_real=SPEC.seq_len, lis=True, nelems=b)
+        ms = device_ms(lambda: resident_codes(model.packed, x, **kw))
+        steps = resident_step_ms(model.packed, x, **kw)
+        emit(phase="resident", model=label, batch=b, device_ms=ms,
+             step_ms=steps)
+        if b == 64:
+            summary["resident_codes"].update(device_ms=ms,
+                                             stamped_ms=steps["total"])
     return launches
 
 
@@ -1099,18 +1121,26 @@ def phase_alternatives_kernels(dev, summary):
 
 
 def phase_gemm(dev, summary):
-    """The wgmma mainloop of K2 and K3 (``csrc/wgmma_gemm.cuh``): each
+    """The wgmma mainloop of K2, K3 and K7b (``csrc/wgmma_gemm.cuh``): each
     kernel's footprint (registers, shared memory, blocks an SM) at the
     plans of the main shapes; the one-time cost of the K-major weight
     copies (``gemm.kmajor``) for every K2 weight of DeiT-S and Swin-T;
     and device times from torch.profiler, which leave out the host's time
-    between launches: K2 at DeiT-S b=64 and K3 at each b=64 site beside
-    ``torch._int_mm`` (the GEMM alone, int32 out; the port never calls
-    it)."""
+    between launches: K2 and K7b at DeiT-S b=64 and K3 at each b=64 site
+    beside ``torch._int_mm`` (the GEMM alone, int32 out; the port never
+    calls it)."""
     rows = 64 * SPEC.seq_len
     c, hid = SPEC.embed_dim, 4 * SPEC.embed_dim
     mlp64 = mlp.footprint(rows, c, hid, c, dev)
+    k7b = {b: mlp.mlp_block_footprint(b * SPEC.seq_len, c, hid, dev)
+           for b in (1, 64)}
     for name, at, (m, n, k), f in (
+            ("fused_int_mlp_block fc1", "b=64", (rows, hid, c), k7b[64]["fc1"]),
+            ("fused_int_mlp_block fc2", "b=64", (rows, c, hid), k7b[64]["fc2"]),
+            ("fused_int_mlp_block fc1", "b=1", (SPEC.seq_len, hid, c),
+             k7b[1]["fc1"]),
+            ("fused_int_mlp_block fc2", "b=1", (SPEC.seq_len, c, hid),
+             k7b[1]["fc2"]),
             ("fused_int_mlp fc1", "b=64", (rows, hid, c), mlp64["fc1"]),
             ("fused_int_mlp fc2", "b=64", (rows, c, hid), mlp64["fc2"]),
             ("fused_int_mlp fc2 float32 out", "b=64", (rows, c, hid),
@@ -1147,6 +1177,12 @@ def phase_gemm(dev, summary):
     summary["fused_int_mlp"]["device_ms"] = ms
     emit(phase="gemm", kernel="fused_int_mlp", at=f"{SPEC.name} b=64",
          device_ms=ms, bound_ms=bound("fused_int_mlp", args, kw)[0])
+    args, kw = alt_kernel_cases(SPEC, random_int_model(SPEC, CFG, seed=0), 64,
+                                dev, npad=200, seed=64)["fused_int_mlp_block"]
+    ms = device_ms(lambda: mlp.fused_int_mlp_block(*args, **kw))
+    summary["fused_int_mlp_block"]["device_ms"] = ms
+    emit(phase="gemm", kernel="fused_int_mlp_block", at=f"{SPEC.name} b=64",
+         device_ms=ms, bound_ms=bound("fused_int_mlp_block", args, kw)[0])
     slower = []
     k3 = summary["fused_int_linear"]
     for spec, model in ((SPEC, random_int_model(SPEC, CFG, seed=0)),
@@ -1187,8 +1223,9 @@ def phase_attention(dev, summary):
     core) for K1 at DeiT-S b = 1, 8, 64 with the LIS and the float softmax,
     K5 at the same batches, K4 and K4b at Swin-T stages 0-3 (b = 1 and 64,
     both softmaxes); the footprints of the cores and of the qkv GEMM at
-    the main shapes.  The b=64 / stage-0 b=64 device times go into the
-    kernels line.  Fails on a spill in any core launched here."""
+    the main shapes, and K6's (DeiT-S b = 1, 8, 64, both softmaxes).  The
+    b=64 / stage-0 b=64 device times go into the kernels line.  Fails on a
+    spill in any core or in K6."""
     ib = random_int_model(SPEC, CFG, seed=0)["blocks"][0]
     ib_fq = random_int_model(SPEC, FQVIT, seed=0)["blocks"][0]
     for name, blk, opts in (
@@ -1244,13 +1281,18 @@ def phase_attention(dev, summary):
         f = attention.qkv_gemm_footprint(r, 3 * SPEC.embed_dim,
                                          SPEC.embed_dim, dev)
         prints.append(("qkv gemm", f"{SPEC.name} {label}", True, f))
+    for b in (1, 8, 64):
+        for lis in (True, False):
+            prints.append(("resident_codes", f"{SPEC.name} b={b}", lis,
+                           resident_footprint(b, SPEC.seq_len, SPEC, dev,
+                                              lis=lis)))
     spills = []
     for kernel, at, lis, f in prints:
         emit(phase="footprint", kernel=kernel, at=at, lis=lis, **f)
         if f.get("local_bytes", 0) > 0:
             spills.append((kernel, at, lis))
     if spills:
-        raise RuntimeError(f"attention kernels spill to local memory: "
+        raise RuntimeError(f"attention kernels or K6 spill to local memory: "
                            f"{spills}")
 
 
@@ -1515,7 +1557,7 @@ def main():
     t.append(time.perf_counter())
     paths[f"{SPEC.name} fqvit_int8"] = phase_serving_fqvit(dev)
     t.append(time.perf_counter())
-    paths[f"{SPEC.name} resident"] = phase_serving_resident(dev)
+    paths[f"{SPEC.name} resident"] = phase_serving_resident(dev, summary)
     t.append(time.perf_counter())
     paths.update(phase_branches(dev))
     t.append(time.perf_counter())

@@ -1,22 +1,21 @@
-// The SIMT attention item of the resident encoder K6 (resident.cu) and of
-// the probes P1 and P5 (probes/pingpong.cu, probes/attn_nv.cu): for one
-// (image, head, tile of 32 query rows), integer scores, the Log-Int-Softmax
-// or the float softmax, attn@v and the requant onto the qact2 grid.  Also
-// what the tensor-core core (attention_mma.cuh: K1, K5, K7a, K8, K4/K4b)
-// shares with it: the float softmax of one row (softmax_row_bf16) and the
-// qkv GEMM's requant epilogue in its two forms (QkvEpilogue for
-// int8_gemm.cuh's storing contract, QkvOut for wgmma_gemm.cuh's returning
-// one), so that the kernels cannot drift apart.
+// The SIMT attention item of the probes P1 and P5 (probes/pingpong.cu,
+// probes/attn_nv.cu): for one (image, head, tile of 32 query rows),
+// integer scores, the Log-Int-Softmax or the float softmax, attn@v and the
+// requant onto the qact2 grid.  Also what the tensor-core core
+// (attention_mma.cuh: K1, K5, K6, K7a, K8, K4/K4b) shares with it: the
+// float softmax of one row (softmax_row_bf16) and the qkv GEMM's requant
+// epilogue in its two forms (QkvEpilogue for int8_gemm.cuh's storing
+// contract, the probes'; QkvOut for wgmma_gemm.cuh's returning one, K1's,
+// K6's, K7a's and K8's), so that the kernels cannot drift apart.
 //
-// The item's design is the first port's, kept because K6 runs it inside
-// its persistent launch and the probes measure it: the head's K and V rows
-// (N <= 256) sit in shared memory; each warp takes one query row at a time
-// and holds its whole score row in registers, because LIS quantizes every
-// weight against the final row sum (online rescaling as in flash attention
-// would change the codes); scores by __dp4a, attn@v a per-lane loop over
-// the keys.  On the H100 that loop sets its pace (two shared-memory loads
-// for every 32 multiply-adds), which is why K1 and K4 moved to
-// attention_mma.cuh.
+// The item's design is the first port's, kept because the probes measure
+// it: the head's K and V rows (N <= 256) sit in shared memory; each warp
+// takes one query row at a time and holds its whole score row in
+// registers, because LIS quantizes every weight against the final row sum
+// (online rescaling as in flash attention would change the codes); scores
+// by __dp4a, attn@v a per-lane loop over the keys.  On the H100 that loop
+// sets its pace (two shared-memory loads for every 32 multiply-adds),
+// which is why the served kernels moved to attention_mma.cuh.
 //
 // Exactness against the plain PyTorch versions (ops/kernels/attention.py):
 //  * built with -fmad=false: every a*b+c rounds twice, as torch does;
@@ -33,7 +32,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "int8_gemm.cuh"
+#include "codes.cuh"
 #include "lis.cuh"
 
 namespace dvt {
@@ -55,7 +54,7 @@ __device__ __forceinline__ int8_t qkv_code(const float* mb, int n, const float* 
   return clip_i8(rintf(y));
 }
 
-// The requant as int8_gemm.cuh's epilogue (K6, the probes): stores the code.
+// The requant as int8_gemm.cuh's epilogue (the probes): stores the code.
 struct QkvEpilogue {
   const float* mb;      // (2, 3C)
   int8_t* out;          // (rows, 3C)
@@ -66,7 +65,7 @@ struct QkvEpilogue {
   }
 };
 
-// The requant as wgmma_gemm.cuh's epilogue (K1, K7a, K8): returns the code.
+// The requant as wgmma_gemm.cuh's epilogue (K1, K6, K7a, K8): returns the code.
 struct QkvOut {
   using Out = int8_t;
   const float* mb;      // (2, 3C)
@@ -140,14 +139,14 @@ struct AttnSmem {
   int q_words[kAttnWarps][kMaxHeadDim / 4];
 };
 
-// The weight rules of the attention core: the LIS (lis = 1) or the float
-// softmax (lis = 0), which K1, K5, K6, K7a and K8 run; or the probe rule
+// The weight rules of the attention item: the LIS (lis = 1) or the float
+// softmax (lis = 0), as the served kernels compute them; or the probe rule
 // w = a * 2^-7 (probes/attn_nv.cu), kept as the integer a.
 enum WeightRule { kRuleLisOrSoftmax = 0, kRuleLinear = 1 };
 
 // The query rows q0 .. q0+31 (below npad) of head h of image b, by the
-// block's kAttnWarps warps.  qkv is read with plain loads (resident.cu
-// passes a buffer that the same launch wrote); keys at or past n_real are
+// block's kAttnWarps warps.  qkv is read with plain loads (a caller may
+// pass a buffer that the same launch wrote); keys at or past n_real are
 // masked.  Ends with a __syncthreads(), so the caller may reuse `sm`.
 template <int Rule = kRuleLisOrSoftmax>
 __device__ __forceinline__ void attention_item(const int8_t* qkv, const CoreScalars& sc,

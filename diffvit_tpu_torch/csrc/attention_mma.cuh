@@ -1,11 +1,12 @@
-// The tensor-core attention core of K1, K5, K7a and K8 (qkv_attention.cu)
-// and of K4/K4b (swin_attention.cu): for 16 query rows a warp, integer
+// The tensor-core attention core of K1, K5, K7a and K8 (qkv_attention.cu),
+// of K4/K4b (swin_attention.cu) and of the resident encoder K6
+// (resident.cu, inside its persistent launch): for 16 query rows a warp, integer
 // scores on mma.sync, a per-score chain onto the softmax's grid (K1's c1
 // requant, or Swin's bias / requant / mask), the Log-Int-Softmax (or the
 // float softmax) and attn@v, requantized onto the output grid.
 //
 // Replaces the SIMT core (attention_core.cuh's attention_item, which the
-// resident encoder K6 and the probes keep): one warp a query row, scores
+// probes P1 and P5 keep): one warp a query row, scores
 // by __dp4a over shared-memory words, attn@v a per-lane loop over the keys
 // with two shared-memory loads for every 32 multiply-adds.  At DeiT-S b=64
 // that loop alone issued ~60 M warp-level loads (~0.27 ms at one a clock
@@ -383,6 +384,20 @@ struct SoftArgs {
   ExpTable exp;      // the LIS exponentials (exp.k: the LIS constants)
   float soft_scale;  // the float softmax's logit scale
   float out_scale;   // attn@v -> output grid
+};
+
+// K1's chain (K1, K5, K7a, K8 and the resident encoder K6): a score's
+// qact_attn1 code, clip(rint(s * c1)), as int8.
+struct QkvChain {
+  template <int N>
+  using Scores = PackedScores<N>;
+  using Value = int8_t;
+  static constexpr bool kIntegral = true;  // int8 codes: every x is in ExpTable
+  float c1;
+  float weight_floor;  // 0: every float-softmax weight is kept
+  __device__ float operator()(int s, int, int) const {
+    return fminf(fmaxf(rintf(static_cast<float>(s) * c1), -128.f), 127.f);
+  }
 };
 
 // One warp's 16 query rows against the staged keys and values `kv`

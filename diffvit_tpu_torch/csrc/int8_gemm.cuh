@@ -1,13 +1,11 @@
 // Shared int8 GEMM tile core with a fused epilogue (mma.sync), for the
-// kernels in this directory that have not moved to wgmma_gemm.cuh:
-// qkv_attention.cu (the qkv GEMM of K1 and K8, K7a's proj), int_mlp_block.cu
-// (K7b), and resident.cu (K6), whose persistent blocks call the tile
-// function for one output tile after another; and the probes
-// (probes/pingpong.cu, which runs the tile inside its own kernel,
-// probes/attn_nv.cu, and probes/overlap_mlp.cu, whose dot mode is the
-// same-run yardstick of this tile and whose staged and pipelined modes run
-// their own double-buffered K loop on int8_gemm_mma_step).  K2 and K3 run
-// on wgmma_gemm.cuh; the others move there in their own changes.
+// kernels in this directory that have not moved to wgmma_gemm.cuh: K7a's
+// proj (qkv_attention.cu), and the probes (probes/pingpong.cu, which runs
+// the tile inside its own kernel, probes/attn_nv.cu, and
+// probes/overlap_mlp.cu, whose dot mode is the same-run yardstick of this
+// tile and whose staged and pipelined modes run their own double-buffered
+// K loop on int8_gemm_mma_step).  K1's qkv GEMM, K2, K3, K6 and K7b run on
+// wgmma_gemm.cuh.
 //
 // Computes C[M, N] = A[M, K] @ B[K, N] for int8 A and B (B is a weight in
 // the JAX package's (Cin, Cout) layout), accumulating exactly in int32 with
@@ -23,12 +21,12 @@
 // bytes so that the fragment loads are free of bank conflicts.  Two operand
 // loaders fill the tiles:
 //  * DenseOperands: row-major A and B; the caller guarantees K % 32 == 0,
-//    N % 16 == 0 and 16-byte aligned A and B (K6, K7b);
+//    N % 16 == 0 and 16-byte aligned A and B (the probes);
 //  * ViewOperands: row-major A with any K, and B read through a BView
 //    (pointers and element strides, see below) with any N, so that K1's
 //    and K8's weights are read in place; the ragged K and N edges are
 //    zero-filled, and a 16-byte chunk is one vector load where it is in
-//    range and aligned, else loaded byte by byte (K1, K7a, K8).  Its
+//    range and aligned, else loaded byte by byte (K7a's proj, P1, P5).  Its
 //    checks cost a dense caller about 19% (K2 on this tile at DeiT-S
 //    b=64, H100 80GB HBM3 at 700 W; PERF.md), so the dense callers keep
 //    the first.
@@ -65,9 +63,7 @@ struct GemmSmem {
 
 // Each loader's thread fills one 16-byte chunk of the A tile (row tid/2,
 // bytes (tid%2)*16..) and one of the B tile (k-row tid/4, columns
-// (tid%4)*16..).  A and B are read with plain loads (no __restrict__):
-// resident.cu passes buffers that the same launch wrote before a grid
-// barrier.
+// (tid%4)*16..).  A and B are read with plain loads (no __restrict__).
 __device__ __forceinline__ void store_b_chunk(GemmSmem& sm, int c, int kr, int4 v) {
   const int8_t* bytes = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll

@@ -28,8 +28,8 @@
 // Exactness against the plain PyTorch version (ops/kernels/mlp.py): built
 // with -fmad=false, so every multiply and add rounds on its own as torch's
 // separate elementwise ops do; rintf rounds half to even; the GELU and the
-// fc1 epilogue (int_mlp.cuh, shared with resident.cu) use the float32
-// roundings of mlp.py's GELU_P.
+// fc1 epilogue (int_mlp.cuh's Fc1Hidden, shared with K6 and K7b) use the
+// float32 roundings of mlp.py's GELU_P.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -39,19 +39,7 @@
 
 namespace {
 
-// fc1's hidden codes (wgmma_gemm.cuh's contract; the arithmetic of
-// int_mlp.cuh's fc1_code, as K6 and K7b run it).
-struct Fc1Hidden {
-  using Out = int8_t;
-  const float* mult1;
-  const float* bias1;
-  const float* s_q1_inv;  // (1,) on the device
-  int8_t* out;            // (R, ld) hidden
-  int ld;
-  __device__ int8_t operator()(int, int c, int acc) const {
-    return dvt::fc1_code(acc, mult1[c], bias1[c], s_q1_inv[0]);
-  }
-};
+using dvt::Fc1Hidden;
 
 // fc2's output: the mlp.qact2 codes (Out int8_t) or their values (float).
 template <class OutT>

@@ -1,6 +1,6 @@
 // The polynomial GELU and the fc1 epilogue of the integer MLP, shared by K2
-// (int_mlp.cu), K7b (int_mlp_block.cu) and the resident encoder
-// (resident.cu).  The GELU constants
+// (int_mlp.cu), K7b (int_mlp_block.cu), the resident encoder K6
+// (resident.cu) and the probe P3 (probes/overlap_mlp.cu).  The GELU constants
 // are the float32 roundings of mlp.py's GELU_P (the same double -> float
 // rounding as the Python side); with -fmad=false every multiply and add
 // rounds on its own, as torch's separate elementwise ops do.
@@ -41,16 +41,21 @@ __device__ __forceinline__ int8_t fc1_code(int acc, float mult1, float bias1,
   return clip_i8(rintf(gelu_poly(mid) * s_q1_inv));
 }
 
-// fc1 as int8_gemm.cuh's epilogue functor (K6, K7b): stores the code.
-struct Fc1Epilogue {
+// fc1's hidden codes as wgmma_gemm.cuh's epilogue functor (K2, K6, K7b).
+// In an unnamed namespace: each kernel source that launches
+// wgmma_gemm_kernel<..., Fc1Hidden> instantiates its own copy.
+namespace {
+struct Fc1Hidden {
+  using Out = int8_t;
   const float* mult1;
   const float* bias1;
   const float* s_q1_inv;  // (1,) on the device
-  int8_t* hidden;         // (R, Hid)
-  int n;
-  __device__ void operator()(int r, int c, int acc) const {
-    hidden[(size_t)r * n + c] = fc1_code(acc, mult1[c], bias1[c], s_q1_inv[0]);
+  int8_t* out;            // (R, ld) hidden
+  int ld;
+  __device__ int8_t operator()(int, int c, int acc) const {
+    return fc1_code(acc, mult1[c], bias1[c], s_q1_inv[0]);
   }
 };
+}  // namespace
 
 }  // namespace dvt

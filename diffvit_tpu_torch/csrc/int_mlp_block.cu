@@ -22,10 +22,13 @@
 //     rint((lnb/out - (mean/std) * lnw/out) * 2^n); rint(rint((sign(a) * m
 //     * x_q + b) / 2^n) * rescale), clipped) -> int8 codes, and the fenced
 //     residual h2 in float32;
-//  2. fc1 on the shared int8 GEMM tile with K2's GELU epilogue
-//     (int_mlp.cuh) -> the int8 hidden stream;
-//  3. fc2 on the tile, whose epilogue runs the mlp.qact2 fence, + h2 and
-//     the qact4 fence -> float32 out.
+//  2. fc1 on wgmma_gemm.cuh's mainloop, as K2's fc1 launches it (TMA into
+//     an mbarrier ring, wgmma, persistent blocks; gemm_plan's tile; the
+//     weight's cached K-major copy, gemm.kmajor) with K2's GELU epilogue
+//     (int_mlp.cuh's Fc1Hidden) -> the int8 hidden stream (row stride Hid
+//     rounded up to 16 bytes for TMA);
+//  3. fc2 on the same mainloop, whose returning epilogue Fc2BlockOut runs
+//     the mlp.qact2 fence, + h2 and the qact4 fence -> float32 out.
 // The codes, h2 and the hidden stream go through device memory between the
 // launches; fusing them is later work.
 //
@@ -37,10 +40,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "int8_gemm.cuh"
 #include "int_ln.cuh"
 #include "int_mlp.cuh"
 #include "lis.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -91,35 +94,42 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   }
 }
 
-// fc2: the mlp.qact2 fence, + h2, the qact4 fence; float32 out.
-struct Fc2BlockEpilogue {
-  const float* v2;  // (4, n): [mult2, bias2, out_scale, 1/out_scale]
-  const float* v;   // (10, n): the row pass's vectors
-  const float* h2;  // (rows, n)
-  float* out;       // (rows, n)
-  int n;
-  __device__ void operator()(int r, int c, int acc) const {
+// fc2 (wgmma_gemm.cuh's returning contract): the mlp.qact2 fence, + h2 at
+// (r, c), the qact4 fence; float32 out.
+struct Fc2BlockOut {
+  using Out = float;
+  const float* v2;  // (4, ld): [mult2, bias2, out_scale, 1/out_scale]
+  const float* v;   // (10, ld): the row pass's vectors
+  const float* h2;  // (rows, ld)
+  float* out;       // (rows, ld)
+  int ld;
+  __device__ float operator()(int r, int c, int acc) const {
+    const int n = ld;
     float ym = static_cast<float>(acc) * v2[c] + v2[n + c];
     ym = fminf(fmaxf(rintf(ym * v2[3 * n + c]), -128.f), 127.f) * v2[2 * n + c];
-    const size_t at = (size_t)r * n + c;
-    const float hn = h2[at] + ym;
-    out[at] = fminf(fmaxf(rintf(hn * v[kInvS4 * n + c]), -128.f), 127.f) * v[kS4 * n + c];
+    const float hn = h2[(size_t)r * n + c] + ym;
+    return fminf(fmaxf(rintf(hn * v[kInvS4 * n + c]), -128.f), 127.f) * v[kS4 * n + c];
   }
 };
 
 }  // namespace
 
 // y, h: (R, C) f32; v: (10, C) f32 [1/s3, s3, 1/s2, s2, 1/s4, s4, r,
-// lnw/out, lnb/out, rescale]; w1: (C, Hid), w2: (Hid, C) int8; v1: (2,
-// Hid) f32 [mult1, bias1]; v2: (4, C) f32 [mult2, bias2, out_scale,
+// lnw/out, lnb/out, rescale]; w1k: (Hid, C) and w2k: (C, Hid_p) int8, the
+// weights K-major (gemm.kmajor: K zero-padded to a multiple of 16); v1:
+// (2, Hid) f32 [mult1, bias1]; v2: (4, C) f32 [mult2, bias2, out_scale,
 // 1/out_scale]; scal: (3,) f32 [s2min, 1/s_q1, C]; scratch x_codes (R, C)
-// int8, h2 (R, C) f32, hidden (R, Hid) int8; out: (R, C) f32.  Requires
-// R >= 1, C % 32 == 0 and Hid % 32 == 0 (checked by the Python wrapper).
+// int8, h2 (R, C) f32, hidden (R, Hid_p) int8; out: (R, C) f32.  plan1
+// and plan2 are gemm_plan's (bm, bn, blocks, stages, smem, grid) of fc1
+// and fc2.  Requires R >= 1, C % 32 == 0 and Hid % 32 == 0 (checked by
+// the Python wrapper).
 extern "C" int dvt_int_mlp_block(const void* y, const void* h, const void* v,
-                                 const void* w1, const void* w2, const void* v1,
+                                 const void* w1k, const void* w2k, const void* v1,
                                  const void* v2, const void* scal, void* x_codes, void* h2,
-                                 void* hidden, void* out, int rows, int c, int hid,
-                                 void* stream) {
+                                 void* hidden, void* out, int rows, int c, int hid, int hid_p,
+                                 int bm1, int bn1, int blocks1, int stages1, int smem1,
+                                 int grid1, int bm2, int bn2, int blocks2, int stages2,
+                                 int smem2, int grid2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* vv = static_cast<const float*>(v);
   const float* sc = static_cast<const float*>(scal);
@@ -129,14 +139,27 @@ extern "C" int dvt_int_mlp_block(const void* y, const void* h, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float* vh = static_cast<const float*>(v1);
-  dvt::Fc1Epilogue e1{vh, vh + hid, sc + 1, static_cast<int8_t*>(hidden), hid};
-  dvt::launch_int8_gemm(static_cast<const int8_t*>(x_codes), static_cast<const int8_t*>(w1),
-                        rows, hid, c, e1, s);
-  err = cudaGetLastError();
+  const dvt::wg::GemmArgs g1{x_codes, w1k, rows, hid, c, bm1, bn1, blocks1, stages1, smem1,
+                             grid1};
+  err = dvt::wg::gemm(g1, dvt::Fc1Hidden{vh, vh + hid, sc + 1, static_cast<int8_t*>(hidden), hid_p},
+                      s);
   if (err != cudaSuccess) return err;
-  Fc2BlockEpilogue e2{static_cast<const float*>(v2), vv, static_cast<const float*>(h2),
-                      static_cast<float*>(out), c};
-  dvt::launch_int8_gemm(static_cast<const int8_t*>(hidden), static_cast<const int8_t*>(w2),
-                        rows, c, hid, e2, s);
-  return cudaGetLastError();
+  const dvt::wg::GemmArgs g2{hidden, w2k, rows, c, hid_p, bm2, bn2, blocks2, stages2, smem2,
+                             grid2};
+  return dvt::wg::gemm(g2,
+                       Fc2BlockOut{static_cast<const float*>(v2), vv,
+                                   static_cast<const float*>(h2), static_cast<float*>(out), c},
+                       s);
+}
+
+// The footprint of fc1's kernel (layer 1) or fc2's (layer 2) for tile
+// (bm, bn) at `blocks` blocks an SM and `smem` bytes of dynamic shared
+// memory: registers a thread, shared memory a block, blocks an SM.
+extern "C" int dvt_int_mlp_block_footprint(int layer, int bm, int bn, int blocks, int smem,
+                                           int* registers, int* smem_bytes, int* blocks_per_sm) {
+  if (layer == 1)
+    return dvt::wg::footprint<dvt::Fc1Hidden>(bm, bn, blocks, smem, registers, smem_bytes,
+                                              blocks_per_sm);
+  return dvt::wg::footprint<Fc2BlockOut>(bm, bn, blocks, smem, registers, smem_bytes,
+                                         blocks_per_sm);
 }

@@ -1,11 +1,11 @@
 // Log-Int-Softmax over one score row, shared by the attention kernels so
 // that they cannot drift apart: lis_row over a row held by one warp (the
-// SIMT attention item of the resident encoder and the probes,
-// attention_core.cuh), lis_row_quad over two rows held by the four lanes
-// of a quad in the mma accumulator layout (attention_mma.cuh: K1, K5,
-// K7a, K8, K4/K4b).  Both are built from the same two steps, lis_exp (the
-// integer exponential of one score) and lis_shift (the log2 code of one
-// weight), so they compute the same function with the same arithmetic.
+// SIMT attention item of the probes, attention_core.cuh), lis_row_quad
+// over two rows held by the four lanes of a quad in the mma accumulator
+// layout (attention_mma.cuh: K1, K5, K6, K7a, K8, K4/K4b).  Both are built
+// from the same two steps, lis_exp (the integer exponential of one score)
+// and lis_shift (the log2 code of one weight), so they compute the same
+// function with the same arithmetic.
 // The device form of _lis_body (diffvit_tpu/ops/pallas/attention.py:51)
 // and of its plain PyTorch specification, lis_body_plain
 // (ops/kernels/attention.py).

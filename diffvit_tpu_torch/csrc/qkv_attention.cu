@@ -64,18 +64,7 @@ using dvt::CoreScalars;
 using dvt::Strides;
 namespace amma = dvt::amma;
 
-// K1's chain: a score's qact_attn1 code, clip(rint(s * c1)), as int8.
-struct QkvChain {
-  template <int N>
-  using Scores = amma::PackedScores<N>;
-  using Value = int8_t;
-  static constexpr bool kIntegral = true;  // int8 codes: every x is in ExpTable
-  float c1;
-  float weight_floor;  // 0: every float-softmax weight is kept
-  __device__ float operator()(int s, int, int) const {
-    return fminf(fmaxf(rintf(static_cast<float>(s) * c1), -128.f), 127.f);
-  }
-};
+using amma::QkvChain;
 
 constexpr int kMaxKB = 8;     // 256 keys (attention.py's MAX_KEYS)
 constexpr int kMidKB = 7;     // 224 keys (DeiT's 197): 7 blocks of attn@v, not 8

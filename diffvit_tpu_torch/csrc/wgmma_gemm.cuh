@@ -1,8 +1,12 @@
-// Hopper int8 GEMM mainloop with a fused epilogue, for K2 (int_mlp.cu) and
-// K3 (int_linear.cu).
+// Hopper int8 GEMM mainloop with a fused epilogue, for K2 (int_mlp.cu), K3
+// (int_linear.cu), the qkv GEMM of K1, K7a and K8 (qkv_attention.cu), K7b's
+// fc1 and fc2 (int_mlp_block.cu) and the four GEMM steps of the resident
+// encoder K6 (resident.cu, which calls the tile routine gemm_tiles inside
+// its persistent launch).
 //
 // Serves the Pallas kernels diffvit_tpu/ops/pallas/linear.py:69
-// fused_int_linear and diffvit_tpu/ops/pallas/mlp.py:290 fused_int_mlp:
+// fused_int_linear and diffvit_tpu/ops/pallas/mlp.py:290 fused_int_mlp (and
+// the GEMMs inside the others):
 // C[M, N] = A[M, K] @ W[K, N] for int8 A and W, summed exactly in int32,
 // every accumulator handed to an epilogue functor ``epi(row, col, acc)``
 // that requantizes it (LinearOut, Fc1Hidden, Fc2Out), so the int32 product
@@ -36,9 +40,15 @@
 //    s32.s8.s8 with both operands in shared memory, wait with
 //    wgmma.wait_group, and release each stage.  setmaxnreg moves
 //    registers from the producer warpgroup to the consumers (40 and 232
-//    at one block an SM, 24 and 104 at two).  BM = 128: each consumer
-//    takes 64 rows of the tile; BM = 64 (the b = 1 sites): each takes
-//    half its columns.
+//    at one block an SM, 24 and 104 at two) in the standalone kernel.  The
+//    tile loop is one device routine (gemm_tiles) over a ring whose
+//    position (RingPos) the caller carries, so that K6 runs its 4 x depth
+//    GEMMs on one ring, its barriers' phases continuing; K6 runs it on 288
+//    threads (the producer a ninth warp, after the two consumer
+//    warpgroups), which leave its other steps 112 registers a thread at
+//    two blocks an SM, and moves none.  BM = 128: each consumer takes 64
+//    rows of the tile; BM = 64 (the b = 1 sites): each takes half its
+//    columns.
 //  * Persistent blocks: a grid of at most `blocks` blocks an SM walks the
 //    output tiles (n fastest, so neighbouring blocks share A rows in L2),
 //    and the producer loads the next tile's stages while the consumers
@@ -84,9 +94,9 @@ constexpr int kConsumerRegs = B == 1 ? 232 : 104;
 constexpr long long kHangCycles = 20000000000LL;  // ~10 s at 1.98 GHz
 constexpr int kPitch = 128 + 16;  // bytes a row of the epilogue's staging tile
 
-// Dynamic shared memory of a plan: 1024 bytes of alignment slack, the
-// stages, the full and empty barriers and the two consumers' two 64-row
-// epilogue staging buffers each (gemm.py's smem_bytes).
+// Dynamic shared memory of a plan: the full and empty barriers, 1024
+// bytes of alignment slack, the stages and the two consumers' two 64-row
+// epilogue staging buffers each (gemm.py's smem_bytes; Ring's layout).
 inline int smem_bytes(int bm, int bn, int stages) {
   return 1024 + stages * (bm + bn) * kBK + 2 * kMaxStages * 8 + 4 * 64 * kPitch;
 }
@@ -287,70 +297,126 @@ __device__ __forceinline__ void store_tile(const Epi& epi, const int (&acc)[WN /
   }
 }
 
-// The persistent kernel: block-stride over the (M / BM) x (N / BN) output
-// tiles, n fastest.  A consumer warpgroup holds a 64 x WN accumulator
-// tile: rows 64 * c of the tile (BM = 128) or columns WN * c (BM = 64).
-template <int BM, int BN, int B, class Epi>
-__global__ void __launch_bounds__(kThreads, B)
-    wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
-                      const __grid_constant__ CUtensorMap tma_b, int M, int N, int K,
-                      int stages, Epi epi) {
-  constexpr int WN = BM == 128 ? BN : BN / 2;  // a consumer's columns: one wgmma's
-  static_assert(BM == 64 || BM == 128, "BM is 64 or 128");
-  static_assert(WN == 32 || WN == 64 || WN == 128, "BN is 64 or 128");
-  extern __shared__ uint8_t wgmma_smem[];
-  const uint32_t base = (smem_u32(wgmma_smem) + 1023) & ~1023u;
-  const uint32_t a_base = base, b_base = base + stages * BM * kBK;
-  const uint32_t full = b_base + stages * BN * kBK, empty = full + kMaxStages * 8;
-  uint8_t* const staging = wgmma_smem + (empty + kMaxStages * 8 - smem_u32(wgmma_smem));
-  const int tiles_n = (N + BN - 1) / BN;
-  const int tiles = (M + BM - 1) / BM * tiles_n;
-  const int k_tiles = (K + kBK - 1) / kBK;
+// The mainloop's shared memory: a full and an empty barrier a stage
+// (kBarrierBytes at the start, so that a caller that reuses the rest for
+// other work, as K6 does, leaves them be), then A and W stage slots
+// (`a_slot` and `b_slot` bytes apart, each a multiple of 1024 so that
+// every stage keeps the swizzle's alignment) from the first 1024-byte
+// boundary past the barriers, then the two consumers' two 64-row epilogue
+// staging buffers each.
+constexpr int kBarrierBytes = 2 * kMaxStages * 8;
 
+struct Ring {
+  uint32_t a, b;         // the first A and W stage
+  uint32_t full, empty;  // kMaxStages barriers each
+  uint8_t* staging;      // 4 x 64 x kPitch bytes
+  int a_slot, b_slot, stages;
+};
+
+// The ring in the dynamic shared memory `smem` (at least 16-byte aligned;
+// smem_bytes(bm, bn, stages) bytes for slots of bm and bn rows).
+__device__ __forceinline__ Ring ring_layout(uint8_t* smem, int a_slot, int b_slot,
+                                            int stages) {
+  Ring r;
+  r.full = smem_u32(smem);
+  r.empty = r.full + kMaxStages * 8;
+  r.a = (r.full + kBarrierBytes + 1023) & ~1023u;
+  r.b = r.a + stages * a_slot;
+  r.staging = smem + (r.b + stages * b_slot - r.full);
+  r.a_slot = a_slot;
+  r.b_slot = b_slot;
+  r.stages = stages;
+  return r;
+}
+
+// Initializes the ring's barriers (thread 0); the caller synchronizes the
+// block before the first tile.
+__device__ __forceinline__ void ring_init(const Ring& r) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2);  // one arrival a consumer warpgroup
+    for (int s = 0; s < r.stages; ++s) {
+      mbar_init(r.full + 8 * s, 1);
+      mbar_init(r.empty + 8 * s, 2);  // one arrival a consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+}
 
-  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues TMA
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs<B>));
-    if (threadIdx.x == 0) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+// Where a thread stands in the ring: the stage next in turn and the parity
+// of its phase.  The producer thread and every consumer thread each carry
+// their own, which stay in step because they walk the same stages; a
+// caller that runs several GEMMs on one ring (the resident encoder K6)
+// carries it from one call to the next, so the barriers' phases continue.
+struct RingPos {
+  int stage;
+  uint32_t phase;
+  __device__ void next(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Output tiles tile0, tile0 + step, ... of C[M, N] = A[M, K] @ W[K, N]
+// (BM x BN tiles, n fastest) on the ring, with epilogue `epi`, by every
+// thread of the block, in one of two layouts: a kThreads block whose
+// thread 0 issues the TMA loads, whose warpgroups 1 and 2 consume and
+// whose threads 1-127 pass through; or (ProducerLast, K6's 288 threads)
+// warpgroups 0 and 1 consume and thread 256, the first of a ninth warp,
+// issues.  A consumer c holds a 64 x WN accumulator: rows 64 * c of the
+// tile for BM = 128, columns WN * c for BM = 64.  W's rows are read from
+// row w_row0 of its map (a layer's offset in a stack of weights).
+// MoveRegs (1 or 2, the blocks an SM; first layout only) moves registers
+// from the producer warpgroup to the consumers with setmaxnreg; 0 leaves
+// every warp the launch's count.  Every stage this call loads it also
+// consumes and releases, so a caller may reuse the shared memory, or run
+// another GEMM on the ring, once the block has synchronized.
+template <int BM, int BN, int MoveRegs, bool ProducerLast, class Epi>
+__device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
+                                           int M, int N, int K, int w_row0, const Epi& epi,
+                                           const Ring& ring, RingPos& pos, int tile0,
+                                           int step) {
+  constexpr int WN = BM == 128 ? BN : BN / 2;  // a consumer's columns: one wgmma's
+  static_assert(BM == 64 || BM == 128, "BM is 64 or 128");
+  static_assert(WN == 32 || WN == 64 || WN == 128, "BN is 64 or 128");
+  static_assert(!ProducerLast || MoveRegs == 0, "setmaxnreg moves need the first layout");
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * tiles_n;
+  const int k_tiles = (K + kBK - 1) / kBK;
+  constexpr int kIssuer = ProducerLast ? 256 : 0;  // the thread that issues TMA
+
+  if (ProducerLast ? threadIdx.x >= 256 : threadIdx.x < 128) {  // the producer's warps
+    if constexpr (MoveRegs != 0)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs<MoveRegs>));
+    if (threadIdx.x == kIssuer) {
+      for (int tile = tile0; tile < tiles; tile += step) {
         const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
         for (int kt = 0; kt < k_tiles; ++kt) {
-          mbar_wait(empty + 8 * stage, phase ^ 1);
-          mbar_expect_tx(full + 8 * stage, (BM + BN) * kBK);
-          tma_load_2d(a_base + stage * BM * kBK, &tma_a, kt * kBK, m0, full + 8 * stage);
-          tma_load_2d(b_base + stage * BN * kBK, &tma_b, kt * kBK, n0, full + 8 * stage);
-          if (++stage == stages) {
-            stage = 0;
-            phase ^= 1;
-          }
+          const int s = pos.stage;
+          mbar_wait(ring.empty + 8 * s, pos.phase ^ 1);
+          mbar_expect_tx(ring.full + 8 * s, (BM + BN) * kBK);
+          tma_load_2d(ring.a + s * ring.a_slot, tma_a, kt * kBK, m0, ring.full + 8 * s);
+          tma_load_2d(ring.b + s * ring.b_slot, tma_b, kt * kBK, w_row0 + n0, ring.full + 8 * s);
+          pos.next(ring.stages);
         }
       }
     }
   } else {  // two consumer warpgroups
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs<B>));
-    const int c = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    if constexpr (MoveRegs != 0)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs<MoveRegs>));
+    const int c = threadIdx.x / 128 - (ProducerLast ? 0 : 1), t = threadIdx.x % 128;
     const int row_off = BM == 128 ? 64 * c : 0, col_off = BM == 128 ? 0 : WN * c;
     int acc[WN / 2];
     int buf = 0;  // the epilogue's staging buffer next in turn
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int tile = tile0; tile < tiles; tile += step) {
       const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
 #pragma unroll
       for (int i = 0; i < WN / 2; ++i) acc[i] = 0;
       for (int kt = 0; kt < k_tiles; ++kt) {
-        mbar_wait(full + 8 * stage, phase);
-        const uint32_t a = a_base + stage * BM * kBK + row_off * kBK;
-        const uint32_t b = b_base + stage * BN * kBK + col_off * kBK;
+        const int s = pos.stage;
+        mbar_wait(ring.full + 8 * s, pos.phase);
+        const uint32_t a = ring.a + s * ring.a_slot + row_off * kBK;
+        const uint32_t b = ring.b + s * ring.b_slot + col_off * kBK;
 #pragma unroll
         for (int i = 0; i < WN / 2; ++i) fence_reg(acc[i]);
         wgmma_fence();
@@ -361,16 +427,30 @@ __global__ void __launch_bounds__(kThreads, B)
         wgmma_wait_all();
 #pragma unroll
         for (int i = 0; i < WN / 2; ++i) fence_reg(acc[i]);
-        if (t == 0) mbar_arrive(empty + 8 * stage);
-        if (++stage == stages) {
-          stage = 0;
-          phase ^= 1;
-        }
+        if (t == 0) mbar_arrive(ring.empty + 8 * s);
+        pos.next(ring.stages);
       }
-      store_tile<WN>(epi, acc, staging + c * 2 * 64 * kPitch, buf, m0 + row_off,
+      store_tile<WN>(epi, acc, ring.staging + c * 2 * 64 * kPitch, buf, m0 + row_off,
                      n0 + col_off, M, N, t, c);
     }
   }
+}
+
+// The persistent kernel (K1's qkv GEMM, K2, K3, K7b): block-stride over
+// the (M / BM) x (N / BN) output tiles with the ring laid out for this
+// tile, setmaxnreg's moves on.
+template <int BM, int BN, int B, class Epi>
+__global__ void __launch_bounds__(kThreads, B)
+    wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                      const __grid_constant__ CUtensorMap tma_b, int M, int N, int K,
+                      int stages, Epi epi) {
+  extern __shared__ uint8_t wgmma_smem[];
+  const Ring ring = ring_layout(wgmma_smem, BM * kBK, BN * kBK, stages);
+  ring_init(ring);
+  __syncthreads();
+  RingPos pos{0, 0};
+  gemm_tiles<BM, BN, B, false>(&tma_a, &tma_b, M, N, K, 0, epi, ring, pos, blockIdx.x,
+                               gridDim.x);
 }
 
 // The operands and the plan of one GEMM: A (m, k) and W K-major (n, k),

@@ -49,11 +49,13 @@ ENTRIES = {
     "dvt_int_linear_footprint": (_I,) * 5 + (_P,) * 3,
     "dvt_int_mlp": (_P,) * 12 + (_I,) * 18 + (_P,),
     "dvt_int_mlp_footprint": (_I,) * 5 + (_P,) * 3,
-    "dvt_int_mlp_block": (_P,) * 12 + (_I,) * 3 + (_P,),
+    "dvt_int_mlp_block": (_P,) * 12 + (_I,) * 16 + (_P,),
+    "dvt_int_mlp_block_footprint": (_I,) * 5 + (_P,) * 3,
     "dvt_swin_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 7 + (_I,) * 3
     + (_P,),
     "dvt_swin_attention_footprint": (_I,) * 4 + (_P,) * 4,
-    "dvt_resident_codes": (_P,) * 13 + (_I,) * 10 + (_P,),
+    "dvt_resident_codes": (_P,) * 14 + (_I,) * 16 + (_P,),
+    "dvt_resident_footprint": (_I,) * 2 + (_P,) * 4,
 }
 # the probes of ``diffvit_tpu_torch/probes`` (csrc/probes/*.cu)
 PROBE_ENTRIES = {

@@ -3,9 +3,9 @@
 the whole MLP half-block with its fences and integer LN
 (``::fused_int_mlp_block``, K7b).
 
-The CUDA kernels are ``csrc/int_mlp.cu`` (on the Hopper GEMM mainloop,
-``wgmma_gemm.cuh``, with the weights' cached K-major copies,
-``gemm.kmajor``) and ``csrc/int_mlp_block.cu``; the plain versions below
+The CUDA kernels are ``csrc/int_mlp.cu`` and ``csrc/int_mlp_block.cu``,
+both on the Hopper GEMM mainloop (``wgmma_gemm.cuh``) with the weights'
+cached K-major copies (``gemm.kmajor``); the plain versions below
 are their exact specifications.  Every product
 and sum rounds on its own (the kernels are built with ``-fmad=false``).  A
 jitted XLA computation contracts ``a*b + c`` into one fused multiply-add,
@@ -253,23 +253,49 @@ def fused_int_mlp_block(y, h, w1, w2, mult1, bias1, mult2, bias2,
             f"and w2 {tuple(w2.shape)} do not chain")
     require(rows > 0 and c % 32 == 0 and hid % 32 == 0,
             f"R={rows} must be positive, C={c} and Hid={hid} multiples of 32")
-    packed = [t.contiguous() for t in mlp_block_vectors(
+    # the folded vectors depend on the block's constants alone (y gives
+    # only C): kept per weight, as fused_int_mlp keeps its own
+    packed = per_weight(lambda: [t.contiguous() for t in mlp_block_vectors(
         y, w1, w2, mult1, bias1, mult2, bias2, mlp_out_scale, s_q1, ln,
-        ln_in_scale, ln_out_scale, ln_rescale, s3, s4_vec)]
+        ln_in_scale, ln_out_scale, ln_rescale, s3, s4_vec)],
+        w1, w2, mult1, bias1, mult2, bias2, mlp_out_scale, s_q1, ln["w"],
+        ln["b"], ln_in_scale, ln_out_scale, ln_rescale, s3, s4_vec, c)
     dev = y.device
+    w1k, w2k = kmajor(w1), kmajor(w2)
+    hid_p = w2k.shape[1]
+    plan1, plan2 = _block_plans(rows, c, hid, dev)
     x_codes = torch.empty((rows, c), dtype=torch.int8, device=dev)
     h2 = torch.empty((rows, c), dtype=torch.float32, device=dev)
-    hidden = torch.empty((rows, hid), dtype=torch.int8, device=dev)
+    # the row stride rounds Hid up to 16 bytes for TMA; fc2's weight has
+    # zero K columns there, so the unwritten pad bytes add nothing
+    hidden = torch.empty((rows, hid_p), dtype=torch.int8, device=dev)
     out = torch.empty((rows, c), dtype=torch.float32, device=dev)
     v, v1, v2, scal = (t.data_ptr() for t in packed)
     err = load_library().dvt_int_mlp_block(
-        y.data_ptr(), h.data_ptr(), v, w1.data_ptr(), w2.data_ptr(), v1, v2,
-        scal, x_codes.data_ptr(), h2.data_ptr(), hidden.data_ptr(),
-        out.data_ptr(), rows, c, hid,
-        torch.cuda.current_stream(dev).cuda_stream)
+        y.data_ptr(), h.data_ptr(), v, w1k.data_ptr(), w2k.data_ptr(), v1,
+        v2, scal, x_codes.data_ptr(), h2.data_ptr(), hidden.data_ptr(),
+        out.data_ptr(), rows, c, hid, hid_p, *plan1.launch_args(),
+        *plan2.launch_args(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "fused_int_mlp_block")
     fused_int_mlp_block.launches += 1
     return out
 
 
+def _block_plans(rows, c, hid, device):
+    """K7b's fc1 and fc2 plans (``gemm_plan``) on ``device``."""
+    return (device_plan(rows, hid, round_up(c, 16), device),
+            device_plan(rows, c, round_up(hid, 16), device))
+
+
 fused_int_mlp_block.launches = 0
+
+
+def mlp_block_footprint(rows: int, c: int, hid: int, device) -> dict:
+    """{"fc1": {...}, "fc2": {...}}: the registers, shared memory and
+    blocks an SM of the two GEMM kernels that :func:`fused_int_mlp_block`
+    launches for ``rows`` rows on ``device``, each with its plan's tile.
+    Needs a card."""
+    entry = load_library().dvt_int_mlp_block_footprint
+    fc1, fc2 = _block_plans(rows, c, hid, device)
+    return {"fc1": gemm_footprint(entry, fc1, 1),
+            "fc2": gemm_footprint(entry, fc2, 2)}

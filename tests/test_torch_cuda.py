@@ -4,12 +4,13 @@ This file imports neither JAX nor the JAX package, so it runs where the
 card is: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (tests/conftest.py imports JAX).  Every test carries the ``cuda`` marker;
 without a card each skips.  K1, K2 and K5 share their device code with
-the resident kernel K6 (``csrc/attention_core.cuh``, ``lis.cuh``, ``int_mlp.cuh``), and K3,
-K7a, K7b and K8 with them; their tests here hold each exact against its
-plain version.  K2, K3 and the qkv GEMM of K1, K7a and K8 run on the wgmma
-mainloop (``csrc/wgmma_gemm.cuh``); the attention of K1, K5, K7a, K8 and
-K4/K4b on the tensor-core core (``csrc/attention_mma.cuh``); K6, K7a's
-proj and K7b on ``int8_gemm.cuh``'s tile."""
+the resident kernel K6 (``csrc/wgmma_gemm.cuh``, ``attention_mma.cuh``,
+``lis.cuh``, ``int_mlp.cuh``), and K3, K7a, K7b and K8 with them; their
+tests here hold each exact against its plain version.  K2, K3, K7b, the
+qkv GEMM of K1, K7a and K8 and K6's four GEMM steps run on the wgmma
+mainloop (``csrc/wgmma_gemm.cuh``); the attention of K1, K5, K6, K7a, K8
+and K4/K4b on the tensor-core core (``csrc/attention_mma.cuh``); K7a's
+proj on ``int8_gemm.cuh``'s tile."""
 import dataclasses
 
 import numpy as np
@@ -42,6 +43,7 @@ TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 SMALL = dataclasses.replace(VIT_SPECS["deit_small"], depth=1)
 SMALL2 = dataclasses.replace(VIT_SPECS["deit_small"], depth=2)
+DEIT_S = VIT_SPECS["deit_small"]  # full depth: 12 blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -116,10 +118,14 @@ def test_qkv_attention_float_softmax_kernel_matches_plain(cuda, spec, batch,
 @pytest.mark.parametrize("lis", [True, False], ids=["lis", "softmax"])
 @pytest.mark.parametrize("spec,batch,npad", [
     (TINY, 1, 197), (TINY, 3, 200), (SMALL2, 1, 197), (SMALL2, 3, 197),
-    (SMALL2, 8, 197)])
+    (SMALL2, 8, 197), (SMALL2, 64, 197), (DEIT_S, 1, 197)])
 def test_resident_kernel_matches_plain(cuda, spec, batch, npad, lis):
     """K6 (every block in one cooperative launch) vs its plain version;
-    rows past the 197 tokens of an image are zero padding."""
+    rows past the 197 tokens of an image are zero padding.  Three launches
+    on the same input, each held against the plain version: a step's TMA
+    read of a scratch row that another block's generic store had not
+    reached would show as a stray code now and then (DeiT-S width at b=64
+    with two blocks of distinct weights, and the full 12 blocks at b=1)."""
     cfg = QuantConfig()
     ip = int_model_from_numpy(random_int_model(spec, cfg, seed=2), spec,
                               cuda, cfg)
@@ -128,17 +134,80 @@ def test_resident_kernel_matches_plain(cuda, spec, batch, npad, lis):
     x[:, 197:] = 0
     x = torch.tensor(x.reshape(batch * npad, -1), device=cuda)
     kw = dict(n_real=197, bits=4, lis=lis, nelems=batch)
-    before = resident_codes.launches
-    got = resident_codes(packed, x, **kw)
-    torch.cuda.synchronize()
-    assert resident_codes.launches == before + 1
     want = resident_codes_plain(packed, x, **kw)
+
     def real(t):
         return t.reshape(batch, npad, -1)[:, :197].cpu().numpy()
-    if lis:
-        np.testing.assert_array_equal(real(got), real(want))
-    else:
-        _assert_softmax_codes_close(real(got), real(want))
+    for _ in range(3):
+        before = resident_codes.launches
+        got = resident_codes(packed, x, **kw)
+        torch.cuda.synchronize()
+        assert resident_codes.launches == before + 1
+        if lis:
+            np.testing.assert_array_equal(real(got), real(want))
+        else:
+            _assert_softmax_codes_close(real(got), real(want))
+
+
+def test_resident_step_times_leave_the_codes_alone(cuda):
+    """K6 with its barrier stamps on (scripts/port_resident.py) gives the
+    codes of the served launch, and block 0's step times: every kind
+    positive but the waits, which with the steps sum to the total."""
+    from diffvit_tpu_torch.ops.kernels.serve import (STEP_KINDS,
+                                                     resident_step_ms)
+    cfg = QuantConfig()
+    ip = int_model_from_numpy(random_int_model(SMALL2, cfg, seed=2), SMALL2,
+                              cuda, cfg)
+    packed = prepare_resident(ip, SMALL2, cfg)
+    x = torch.tensor(_codes((8 * 197, 384), 6), device=cuda)
+    kw = dict(n_real=197, lis=True, nelems=8)
+    want = resident_codes(packed, x, bits=4, **kw)
+    ms = resident_step_ms(packed, x, **kw)
+    assert set(ms) == set(STEP_KINDS) | {"total"}
+    assert all(ms[k] > 0 for k in STEP_KINDS if k != "barrier_wait"), ms
+    assert ms["barrier_wait"] >= 0
+    assert abs(sum(ms[k] for k in STEP_KINDS) - ms["total"]) < 1e-3, ms
+    np.testing.assert_array_equal(
+        resident_codes(packed, x, bits=4, **kw).cpu().numpy(),
+        want.cpu().numpy())
+
+
+def test_resident_footprint(cuda):
+    """K6 at DeiT-S b = 1, 8, 64, both softmaxes: no local memory (no
+    spills), the plan's shared memory, at least the plan's one block an SM
+    (the cooperative launch needs every block resident).  Printed with
+    -s."""
+    from diffvit_tpu_torch.ops.kernels.serve import (device_resident_plan,
+                                                     resident_footprint)
+    for lis in (True, False):
+        for b in (1, 8, 64):
+            f = resident_footprint(b, 197, DEIT_S, cuda, lis=lis)
+            plan = device_resident_plan(b, 197, DEIT_S, lis, cuda)
+            print("resident", b, lis, f)
+            assert f["local_bytes"] == 0, f
+            assert f["smem_bytes"] >= plan.smem, f
+            assert f["blocks_per_sm"] >= plan.blocks, f
+
+
+def test_resident_refuses_a_plan_the_card_cannot_hold(cuda):
+    """A grid larger than the card holds at once, or more shared memory
+    than a block may have, raises at launch instead of hanging or running
+    short; nothing falls back."""
+    from diffvit_tpu_torch.ops.kernels import serve
+    cfg = QuantConfig()
+    ip = int_model_from_numpy(random_int_model(TINY, cfg, seed=2), TINY,
+                              cuda, cfg)
+    packed = prepare_resident(ip, TINY, cfg)
+    x = torch.tensor(_codes((2 * 197, 64), 6), device=cuda)
+    plan = serve.device_resident_plan(
+        2, 197, serve.EncoderShape(64, 2, 256, 197), True, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for bad in (dataclasses.replace(plan, grid=plan.blocks * sms + 1),
+                dataclasses.replace(plan, smem=300_000),
+                dataclasses.replace(plan, smem=plan.attn_smem - 16)):
+        with pytest.raises(RuntimeError, match="resident_codes"):
+            serve._launch(packed, x, n_real=197, lis=True, nelems=2,
+                          plan=bad)
 
 
 def test_resident_forward_on_card_equals_per_kernel(cuda):
@@ -492,6 +561,34 @@ def test_alt_kernels_match_plain(cuda, batch, lis):
             np.testing.assert_array_equal(g, w, err_msg=name)
         else:
             _assert_softmax_codes_close(g, w)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_mlp_block_kernel_matches_plain(cuda, batch):
+    """K7b (its row pass, then fc1 and fc2 on the wgmma mainloop) at DeiT-S
+    width against its plain version, on the qact4 grid; the GEMM kernels'
+    footprint: setmaxnreg's register budget and the plan's blocks an
+    SM."""
+    from diffvit_tpu_torch.ops.kernels import gemm, mlp
+    from diffvit_tpu_torch.testing import alt_kernel_cases
+    args, kw = alt_kernel_cases(SMALL, random_int_model(SMALL, seed=0),
+                                batch, cuda, npad=200, lis=True,
+                                seed=batch)["fused_int_mlp_block"]
+    before = mlp.fused_int_mlp_block.launches
+    got = mlp.fused_int_mlp_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert mlp.fused_int_mlp_block.launches == before + 1
+    want = mlp.fused_int_mlp_block_plain(*args, **kw)
+    s4 = kw["s4_vec"]
+    np.testing.assert_array_equal(torch.round(got / s4).cpu().numpy(),
+                                  torch.round(want / s4).cpu().numpy())
+    rows, c = args[0].shape
+    hid = kw["w1"].shape[1]
+    f = mlp.mlp_block_footprint(rows, c, hid, cuda)
+    for name, (n, k) in (("fc1", (hid, c)), ("fc2", (c, hid))):
+        plan = gemm.device_plan(rows, n, k, cuda)
+        assert f[name]["registers"] == {1: 168, 2: 80}[plan.blocks], f
+        assert f[name]["blocks_per_sm"] == plan.blocks, f
 
 
 def test_qkv_attention_v1_reads_strided_weights(cuda):
