@@ -85,6 +85,20 @@
             every count set to 0 before and checked after against the
             legs' exact launch counts, and each probe's answer (medians
             with their min and max over five rounds) as one JSON line.
+10. calibrate: the port calibrates, bakes and serves its own DeiT-S
+            (params from vit.init_params at seed 0, through
+            engine.QuantizedViT): first on the Gaussian batch of 8 on the
+            card and, on the plain path, on the CPU, with the share of
+            equal qparam elements (at least 99.9%) and every element that
+            differs, and the card-baked model's logits held against the
+            CPU-baked one's; then the CLI's default Gaussian batch of 50
+            for P2-ViT int4 and FQ-ViT int8 (their wall times, every
+            block's softmax scale and whether the fast LIS takes it),
+            served at b = 1, 8, 64 through exactly K1 + K2 and K5 + K2, 12
+            of each a forward, and P2-ViT resident through K6 with logits
+            equal to the per-kernel forward's bit for bit; the share of
+            equal argmax between the fake-quant forward_q and the served
+            integer logits is printed, not gated.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -113,6 +127,7 @@ import torch
 
 from diffvit_tpu_torch import QuantConfig, engine
 from diffvit_tpu_torch.data.imagenet import device_normalize
+from diffvit_tpu_torch.data.synthetic import gaussian_calibration
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               attn_constants,
@@ -1058,6 +1073,135 @@ def linear_modes(out_scale):
             ("codes", dict(out_scale=out_scale, emit_codes=True), None))
 
 
+CALIB_SERVE = (1, 8, 64)  # images per request on the calibrated models
+
+
+def _qparam_diffs(got, want):
+    """(elements, equal elements, every differing element with its site)
+    between two qparam dicts of the same keys."""
+    total = equal = 0
+    diffs = []
+    for k in sorted(want):
+        a, b = got[k].cpu().numpy(), want[k].cpu().numpy()
+        if a.shape != b.shape:
+            raise RuntimeError(f"{k}: shape {a.shape} against {b.shape}")
+        ne = np.argwhere(a != b)
+        total += a.size
+        equal += a.size - len(ne)
+        diffs += [{"site": k, "index": [int(i) for i in idx],
+                   "card": float(a[tuple(idx)]), "cpu": float(b[tuple(idx)])}
+                  for idx in ne]
+    return total, equal, diffs
+
+
+def _calibrated(cfg, x, dev):
+    """engine.QuantizedViT of DeiT-S (params at seed 0) calibrated on
+    ``x`` on ``dev``, and the calibration's wall seconds."""
+    q = engine.QuantizedViT(SPEC.name, cfg, seed=0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q.calibrate(x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return q, time.perf_counter() - t0
+
+
+def phase_calibrate(dev):
+    """Calibrate -> bake -> serve on the card, the port's own DeiT-S: the
+    card against the CPU at b=8, then the b=50 P2-ViT int4 and FQ-ViT int8
+    bakes served through their kernels and P2-ViT through K6.  Returns the
+    launches by path."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on for float32 matmuls")
+    k1, k2, k5 = "fused_qkv_attention_v2", "fused_int_mlp", \
+        "fused_int_attention"
+    rng = np.random.default_rng(6)
+    requests = [rng.integers(0, 256, (b, 3, 224, 224), dtype=np.uint8)
+                for b in CALIB_SERVE]
+
+    # the card against the CPU, b = 8
+    x8 = gaussian_calibration(8, seed=0)
+    card, card_s = _calibrated(CFG, x8, dev)
+    cpu, cpu_s = _calibrated(CFG, x8, torch.device("cpu"))
+    total, equal, diffs = _qparam_diffs(card.qparams, cpu.qparams)
+    emit(phase="calibrate", part="card_vs_cpu", batch=8,
+         qparam_elements=total, equal_share=equal / total,
+         differing=len(diffs), card_seconds=card_s, cpu_seconds=cpu_s,
+         global_distance_equal=bool(np.array_equal(card.global_distance,
+                                                   cpu.global_distance)))
+    emit(phase="calibrate_diffs", elements=diffs)
+    if equal / total < 0.999:
+        raise RuntimeError(f"card vs CPU: {equal / total:.6f} of qparam "
+                           "elements equal, under 0.999")
+    x = requests[1]
+    got, launches_cvc = drive({k1: SPEC.depth, k2: SPEC.depth},
+                              lambda: card.prepare_int()(x))
+    agree(got.cpu().numpy(), cpu.prepare_int()(x).numpy(),
+          (8, SPEC.num_classes), phase="calibrate", part="card_vs_cpu_logits",
+          batch=8)
+
+    # the CLI's default calibration batch of 50, two configurations
+    x50 = gaussian_calibration(50, seed=0)
+    paths = {}
+    for label, cfg, per_forward in (
+            ("p2vit_int4", CFG, {k1: SPEC.depth, k2: SPEC.depth}),
+            ("fqvit_int8", FQVIT, {k5: SPEC.depth, k2: SPEC.depth})):
+        torch.cuda.reset_peak_memory_stats()
+        q, secs = _calibrated(cfg, x50, dev)
+        s_a = [float(q.qparams[f"blocks.{i}.attn.qact_attn1.scale"])
+               for i in range(SPEC.depth)]
+        emit(phase="calibrate", part="b50", config=label, batch=50,
+             seconds=secs, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             softmax_scale_log2=[float(np.log2(v)) for v in s_a],
+             lis_fast_ok=[attention.lis_fast_ok(v) for v in s_a],
+             lis_sum_fits=[attention.lis_sum_fits(v, SPEC.seq_len)
+                           for v in s_a])
+        model = q.prepare_int()
+        model(requests[0])  # warm-up: K-major weight copies
+        expected = {k: n * len(requests) for k, n in per_forward.items()}
+        outs, launches = drive(expected,
+                               lambda: [model(r) for r in requests])
+        if label == "p2vit_int4":
+            launches = {k: n + launches_cvc[k] for k, n in launches.items()}
+        paths[f"{SPEC.name} calibrated {label}"] = launches
+        for r, o in zip(requests, outs):
+            o = o.cpu().numpy()
+            if o.shape != (len(r), SPEC.num_classes) \
+                    or not np.isfinite(o).all():
+                raise RuntimeError(f"{label}: bad logits, shape {o.shape}")
+            fake = q(r).cpu().numpy()
+            xc = torch.tensor(model.encode(r), device=dev)
+            emit(phase="calibrate", part="serve", config=label,
+                 batch=len(r), forward_ms=cuda_ms(lambda: model(xc), 5),
+                 argmax_equal_forward_q=float(np.mean(
+                     fake.argmax(1) == o.argmax(1))),
+                 logits_distinct_across_images=bool(len(r) == 1 or (
+                     o != o[0]).any()))
+        if label != "p2vit_int4":
+            continue
+        resident = q.prepare_int(resident=True)
+        resident(requests[0])
+        res_outs, paths[f"{SPEC.name} calibrated resident"] = drive(
+            {"resident_codes": sum(-(-len(r) // MICROBATCH)
+                                   for r in requests)},
+            lambda: [resident(r) for r in requests])
+        equal_res = all(torch.equal(a, b) for a, b in zip(res_outs, outs))
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "p2vit_int4.npz")
+            q.save_int_model(path)
+            loaded = engine.load_int_model(path, dev)(requests[1])
+        equal_art = bool(torch.equal(loaded, outs[1]))
+        emit(phase="calibrate", part="resident", config=label,
+             logits_equal_per_kernel=equal_res,
+             artifact_logits_equal=equal_art)
+        if not (equal_res and equal_art):
+            raise RuntimeError("the calibrated resident forward, or the "
+                               "saved artifact, differs from the per-kernel "
+                               "forward")
+    return paths
+
+
 def phase_alternatives_kernels(dev, summary):
     """The kernels that no model path runs, each vs its plain version on the
     card: K8 (v1, v3, v4, v5) and K7a at DeiT-S b = 1, 8, 64 (200 rows,
@@ -1567,13 +1711,15 @@ def main():
     t.append(time.perf_counter())
     paths[f"{SPEC.name} alternatives"] = phase_alternatives_path(dev)
     t.append(time.perf_counter())
+    paths.update(phase_calibrate(dev))
+    t.append(time.perf_counter())
     phase_probes_kernels(dev, summary)
     paths["probes"] = phase_probes(dev)
     t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
-         "alternatives", "probes"),
+         "alternatives", "calibrate", "probes"),
         t, t[1:])})
 
     kernels = []

@@ -1,5 +1,7 @@
-"""Serving engine for the integer ViT and Swin (counterpart of the serving
-half of ``diffvit_tpu/engine.py``): ``IntModel``, ``load_int_model`` and
+"""The engine (counterpart of ``diffvit_tpu/engine.py``): ``QuantizedViT``
+(a float ViT/DeiT that calibrates, runs the fake-quant and float forwards
+and bakes itself into an int-model), and the serving half for the integer
+ViT and Swin: ``IntModel``, ``save_int_model``, ``load_int_model`` and
 ``validate`` with the reference's Prec@1/Prec@5 report."""
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ import torch
 from .config import QuantConfig
 from .data.imagenet import (IMAGENET_MEAN, IMAGENET_STD, device_normalize,
                             input_code_lut, normalize_lut)
-from .models import swin_int, vit_int
+from .models import swin_int, vit, vit_int
 from .models.convert import int_model_from_numpy, swin_int_model_from_numpy
+from .models.registry import build_params, get_spec
 from .models.swin import SwinSpec
 from .models.vit import ViTSpec
 from .utils.metrics import AverageMeter, accuracy, cross_entropy
@@ -112,6 +115,129 @@ class IntModel:
             raise ValueError(self._no_codes)
         with torch.inference_mode():
             return self._forward(self.ip, self.spec, self.cfg, x)
+
+
+class QuantizedViT:
+    """A calibratable ViT/DeiT on one device (the ViT family of
+    ``diffvit_tpu.engine.QuantizedViT``): its float params, the
+    calibration's qparams, the fake-quant and float forwards, and the bake
+    into an ``IntModel`` or an int-model artifact.
+
+    ``name_or_spec``: a model name (params drawn from ``seed`` unless
+    ``params`` is given) or a ``ViTSpec`` with ``params``.  ``params``: a
+    float pytree of tensors or numpy arrays in the reference's layout
+    (``vit.params_from_numpy``).  uint8 batches are normalized on the
+    device with ``input_norm`` (``data.imagenet.device_normalize``), as
+    the reference's ``_prep`` does; float32 batches pass through.  A Swin
+    spec raises ``NotImplementedError`` (ROADMAP Queue 1, item 4)."""
+
+    def __init__(self, name_or_spec, cfg: QuantConfig | None = None,
+                 params=None, seed: int = 0, device="cuda",
+                 input_norm=(IMAGENET_MEAN, IMAGENET_STD)):
+        self.device = torch.device(device)
+        spec = get_spec(name_or_spec) if isinstance(name_or_spec, str) \
+            else name_or_spec
+        if isinstance(spec, SwinSpec):
+            raise NotImplementedError(
+                f"{spec.name}: Swin calibration is not ported yet (ROADMAP "
+                "Queue 1, item 4)")
+        if params is None:
+            if not isinstance(name_or_spec, str):
+                raise ValueError("a ViTSpec needs its params")
+            spec, params = build_params(name_or_spec, seed=seed,
+                                        device=self.device)
+        self.spec, self.cfg = spec, cfg or QuantConfig()
+        self.params = vit.params_from_numpy(params, self.device)
+        self.qparams = None
+        self.global_distance = None
+        self.input_norm = tuple(input_norm)
+        self._norm_lut = torch.tensor(normalize_lut(*self.input_norm),
+                                      device=self.device)
+        self._int_models = {}
+
+    def _prep(self, x) -> torch.Tensor:
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.asarray(x))
+        x = device_normalize(x.to(self.device), lut=self._norm_lut)
+        if x.dtype != torch.float32:
+            raise TypeError(f"QuantizedViT takes uint8 or float32 pixels, "
+                            f"got {x.dtype}")
+        return x
+
+    def calibrate(self, batch):
+        """Calibration on one batch, or (a list of batches) the multi-batch
+        protocol: statistics observed on all but the last, the scales
+        finalized on the last.  Returns the qparams."""
+        with torch.inference_mode():
+            if isinstance(batch, (list, tuple)):
+                qp, dist = vit.calibrate_batches(
+                    self.params, self.spec, self.cfg,
+                    [self._prep(b) for b in batch])
+            else:
+                qp, dist = vit.calibrate(self.params, self.spec, self.cfg,
+                                         self._prep(batch))
+        self.qparams = qp
+        self.global_distance = dist.cpu().numpy()
+        self._int_models = {}
+        return qp
+
+    def _calibrated(self):
+        if self.qparams is None:
+            raise RuntimeError("model not calibrated; call .calibrate() "
+                               "first")
+        return self.qparams
+
+    def save_calibration(self, path):
+        """The qparams and the weight distances as the reference's .npz
+        (``qp::<path>`` arrays and ``__global_distance__``)."""
+        arrays = {f"qp::{k}": v.cpu().numpy()
+                  for k, v in self._calibrated().items()}
+        arrays["__global_distance__"] = np.asarray(self.global_distance)
+        np.savez(path, **arrays)
+
+    def load_calibration(self, path):
+        with np.load(path) as z:
+            self.qparams = {k[4:]: torch.tensor(z[k], device=self.device)
+                            for k in z.files if k.startswith("qp::")}
+            self.global_distance = np.asarray(z["__global_distance__"])
+        self._int_models = {}
+        return self.qparams
+
+    def _bake(self, bit_config):
+        return vit_int.prepare_int(self.params, self._calibrated(),
+                                   self.spec, self.cfg, bit_config)
+
+    def prepare_int(self, bit_config=None, resident=False) -> IntModel:
+        """The calibrated model baked for ``bit_config`` (default: every
+        slot ``cfg.bit_w``) as an ``IntModel`` on this device (``resident``:
+        served through K6); kept per configuration."""
+        if bit_config is not None:
+            bit_config = tuple(int(b) for b in bit_config)
+        key = (bit_config, bool(resident))
+        if key not in self._int_models:
+            self._int_models[key] = IntModel(
+                self._bake(bit_config), self.spec, self.cfg, self.device,
+                resident=resident, input_norm=self.input_norm)
+        return self._int_models[key]
+
+    def save_int_model(self, path, bit_config=None):
+        """Bake for ``bit_config`` and write the int-model artifact that
+        ``load_int_model`` of either package reads."""
+        save_int_model(path, self._bake(bit_config), self.spec, self.cfg)
+
+    def __call__(self, x, bit_config=None, quant=True):
+        """Logits of the fake-quant forward (``quant``) at ``bit_config``,
+        or of the float forward, on this device."""
+        x = self._prep(x)
+        with torch.inference_mode():
+            if quant:
+                return vit.forward_q(self.params, self._calibrated(),
+                                     self.spec, self.cfg, x, bit_config)
+            return vit.forward_fp(self.params, self.spec, x)
+
+    @property
+    def flops(self):
+        return vit.flops_list(self.spec)
 
 
 def save_int_model(path, ip, spec: ViTSpec | SwinSpec,

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import QuantConfig
+from ..ops.bit_types import BIT_TYPE_DICT
 from ..ops.int_layernorm import float_layernorm, int_ln_codes
 from ..ops.kernels.attention import (fused_int_attention,
                                      fused_qkv_attention_v2)
@@ -46,11 +47,11 @@ from ..ops.kernels.mlp import fused_int_mlp
 from ..ops.kernels.serve import prepare_resident, resident_codes
 from ..ops.lis import log_int_softmax_from_int
 from ..ops.quant import fake_quant, int_matmul
-from .vit import ViTSpec, patchify
+from .vit import (ViTSpec, _linear, _wq, gelu_exact, num_bit_slots,
+                  patchify)
 
 I8 = torch.int8
 F32, F64 = torch.float32, torch.float64
-_SQRT_HALF = float(np.float32(np.sqrt(0.5)))  # the reference's constant
 
 
 def _requant_i8(y, scale, lb=-128, ub=127):
@@ -72,12 +73,160 @@ def _fp_linear(x, site):
     """A float (-1) site: ``x @ w.T + b`` of float32 ``x``, summed in
     float64 and rounded once to float32 (the reference's float32 sum
     depends on its order)."""
-    y = torch.matmul(x.to(F64), site["w"].to(F64).T) + site["b"].to(F64)
-    return y.to(F32)
+    return _linear(x, site["w"], site["b"])
 
 
 def _fq_site(site, x, bt):
     return fake_quant(x, site["scale"], site["zp"], bt)
+
+
+# ---------------------------------------------------------------------------
+# Baking: (params, qparams, bit_config) -> the int-model pytree
+# ---------------------------------------------------------------------------
+
+def _host(tree):
+    """A pytree of tensors (any device) or arrays as float32/int numpy."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def _quant_w(w, scale, bit):
+    """A (Cout, K) float32 weight -> its integer codes held in int8."""
+    bt = BIT_TYPE_DICT[f"int{bit}"]
+    s = scale[:, None] if scale.ndim == 1 else scale
+    q = np.clip(np.round(w / s), bt.lower_bound, bt.upper_bound)
+    return q.astype(np.int8)
+
+
+def _t(a):
+    """A weight's codes as (K, Cout), the int-model's layout."""
+    return np.ascontiguousarray(a.T)
+
+
+def prepare_int(params, qp, spec: ViTSpec, cfg: QuantConfig,
+                bit_config=None) -> dict:
+    """Bake the float params, the calibration's qparams (tensors on any
+    device, or numpy) and ``bit_config`` into the int-model pytree of
+    ``diffvit_tpu.models.vit_int.prepare_int``: the same keys and values,
+    as host-side numpy (int8 weight codes as (K, Cout), float32 requant
+    multipliers, the per-head qkv layout, the norm2 ``ln_out_scale`` and
+    ``ln_rescale`` of SmoothQuant, ``sym_acts``).  -1 sites keep their
+    float weights.  ``engine.IntModel``, ``convert.int_model_from_numpy``
+    and ``engine.save_int_model`` take it as it is."""
+    bit_config = tuple(int(v) for v in bit_config) if bit_config is not None \
+        else (cfg.bit_w.bits,) * num_bit_slots(spec)
+    params, qp = _host(params), _host(qp)
+    ip = {"bit_config": bit_config, "blocks": []}
+
+    def site(k):
+        return {"scale": qp[f"{k}.scale"], "zp": qp[f"{k}.zp"]}
+
+    pb = bit_config[0]
+    pe = params["patch_embed"]
+    if pb == -1:
+        ip["patch"] = {"w": pe["w"], "b": pe["b"], "fp": True}
+    elif not spec.input_quant:
+        # no input QAct (vit_large): the patch input is unquantized float,
+        # so only the weight is quantized, and the product stays float
+        bt = BIT_TYPE_DICT[f"int{pb}"]
+        w = _wq(torch.from_numpy(pe["w"]),
+                torch.from_numpy(np.asarray(qp[f"patch.w.int{pb}.scale"])), bt)
+        ip["patch"] = {"w": w.numpy(), "b": pe["b"], "fp": True}
+    else:
+        sw = qp[f"patch.w.int{pb}.scale"]
+        ip["patch"] = {"w_int": _t(_quant_w(pe["w"], sw, pb)), "b": pe["b"],
+                       "fp": False, "mult": qp["qact_input.scale"] * sw}
+    for k in ("qact_input", "patch.qact", "qact_embed", "qact_pos", "qact1",
+              "qact2", "act_out"):
+        if k != "qact_input" or spec.input_quant:
+            ip[k] = site(k)
+    ip["cls_token"] = params["cls_token"]
+    ip["pos_embed"] = params["pos_embed"]
+    ip["norm"] = params["norm"]
+
+    h, d, c = spec.num_heads, spec.head_dim, spec.embed_dim
+    for i, blk in enumerate(params["blocks"]):
+        p = f"blocks.{i}"
+        b_qkv, b_proj, b_fc1, b_fc2 = bit_config[4 * i + 1: 4 * i + 5]
+        ib = {"norm1": blk["norm1"], "norm2": blk["norm2"]}
+
+        def smooth_site(path, lin, bit, ln_ch=None):
+            if bit == -1:
+                return {"w": lin["w"], "b": lin["b"], "fp": True}
+            if cfg.smoothquant:
+                idx = cfg.bit_pool.index(bit)
+                ch = qp[f"{path}.sq.channel_scale"][idx]
+                s_x = qp[f"{path}.qact0.scale"][idx]
+                sw = qp[f"{path}.w.int{bit}.scale"][idx]
+                w_s = lin["w"] * ch
+            else:
+                ch = np.float32(1.0)
+                s_x = qp[f"{path}.qact0.scale"]
+                sw = qp[f"{path}.w.int{bit}.scale"]
+                w_s = lin["w"]
+            out = {"w_int": _t(_quant_w(w_s, sw, bit)), "b": lin["b"],
+                   "fp": False, "in_scale": ch * s_x, "mult": s_x * sw}
+            if ln_ch is not None and cfg.smoothquant:
+                # norm2 emits on the attention's channel scale; its codes
+                # are rescaled by ch_attn / ch_mlp before this product
+                out["ln_out_scale"] = s_x * ln_ch
+                out["ln_rescale"] = ln_ch / ch
+            return out
+
+        def plain_site(path, lin, bit, in_scale):
+            if bit == -1:
+                return {"w": lin["w"], "b": lin["b"], "fp": True}
+            sw = qp[f"{path}.int{bit}.scale"]
+            return {"w_int": _t(_quant_w(lin["w"], sw, bit)), "b": lin["b"],
+                    "fp": False, "mult": in_scale * sw}
+
+        qkv = ib["qkv"] = smooth_site(f"{p}.attn.qkv", blk["qkv"], b_qkv)
+        if not qkv["fp"]:
+            # the per-head layout of the fully fused attention: (H, Cin, D)
+            # int8 blocks and (3, H, D) multipliers and biases
+            codes = qkv["w_int"].T.reshape(3, h, d, c).transpose(0, 1, 3, 2)
+            qkv["wq_h"], qkv["wk_h"], qkv["wv_h"] = (
+                np.ascontiguousarray(codes[j]) for j in range(3))
+            qkv["mult_h"] = np.broadcast_to(qkv["mult"], (3 * c,)) \
+                .reshape(3, h, d).astype(np.float32)
+            qkv["bias_h"] = qkv["b"].reshape(3, h, d).astype(np.float32)
+        ib["proj"] = plain_site(f"{p}.attn.proj.w", blk["proj"], b_proj,
+                                qp[f"{p}.attn.qact2.scale"])
+        a_idx = cfg.bit_pool.index(b_qkv) if b_qkv != -1 else -1
+        attn_ch = qp[f"{p}.attn.qkv.sq.channel_scale"][a_idx] \
+            if cfg.smoothquant else None
+        ib["fc1"] = smooth_site(f"{p}.mlp.fc1", blk["fc1"], b_fc1,
+                                ln_ch=attn_ch)
+        ib["fc2"] = plain_site(f"{p}.mlp.fc2.w", blk["fc2"], b_fc2,
+                               qp[f"{p}.mlp.qact1.scale"])
+        for k in ("attn.qact1", "attn.qact_attn1", "attn.qact2", "attn.qact3",
+                  "qact2", "mlp.qact1", "mlp.qact2", "qact4"):
+            ib[k] = site(f"{p}.{k}")
+        ip["blocks"].append(ib)
+
+    hb = bit_config[-1]
+    head = params["head"]
+    if hb == -1:
+        ip["head"] = {"w": head["w"], "b": head["b"], "fp": True}
+    else:
+        sw = qp[f"head.w.int{hb}.scale"]
+        ip["head"] = {"w_int": _t(_quant_w(head["w"], sw, hb)),
+                      "b": head["b"], "fp": False,
+                      "mult": qp["qact2.scale"] * sw}
+
+    # the codes-carrying residual path needs every activation zero-point on
+    # the stream to be 0
+    zps = [v["zp"] for v in ip.values() if isinstance(v, dict) and "zp" in v]
+    for ib in ip["blocks"]:
+        zps += [v["zp"] for v in ib.values()
+                if isinstance(v, dict) and "zp" in v]
+    ip["sym_acts"] = all(bool(np.all(np.asarray(z) == 0)) for z in zps)
+    return ip
 
 
 def _codes(h, scale, bt):
@@ -101,15 +250,6 @@ def _ln_int8(x, ln, in_scale, out_scale_vec, eps, a_bits=8, rescale=None,
         y = torch.round(y * rescale)
     lb, ub = -(2 ** (a_bits - 1)), 2 ** (a_bits - 1) - 1
     return torch.clamp(y, lb, ub).to(I8)
-
-
-def _gelu_exact(y):
-    """The exact-erf GELU in the reference's form, ``0.5 * y * erfc(-y *
-    sqrt(1/2))`` (``jax.nn.gelu(approximate=False)``), in float64 and
-    rounded once to float32: ``erfc`` differs by an ulp between XLA, CPU
-    torch and CUDA in float32."""
-    yd = y.to(F64)
-    return (0.5 * yd * torch.special.erfc(-yd * _SQRT_HALF)).to(F32)
 
 
 def _float_ln(h, ln, spec: ViTSpec):
@@ -293,7 +433,7 @@ def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
                 x_i8 = _requant_i8(_float_ln(h, ib["norm2"], spec),
                                    fc1_site["in_scale"])
             y = _int_linear(x_i8, fc1_site)
-        y = _gelu_exact(y)
+        y = gelu_exact(y)
         if fc2_site["fp"]:
             y = _fp_linear(_fq_site(ib["mlp.qact1"], y, bt_a), fc2_site)
         else:

@@ -41,3 +41,8 @@ BIT_TYPE_LIST = (
 )
 
 BIT_TYPE_DICT = {bt.name: bt for bt in BIT_TYPE_LIST}
+
+# Bit types swept during weight calibration: every type but uint8; int8 is
+# calibrated layer-wise, the rest channel-wise.
+CALIB_WEIGHT_BIT_TYPES = tuple(bt for bt in BIT_TYPE_LIST
+                               if bt.name != "uint8")

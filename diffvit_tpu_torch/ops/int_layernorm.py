@@ -17,23 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .quant import pow2
-
-
-def floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """Exact ``floor(log2 x)`` of a positive finite float32, from its
-    exponent bits (float32).  ``log2`` itself rounds differently on the CPU
-    and on CUDA just below powers of two; the exponent does not."""
-    return (torch.frexp(x).exponent - 1).to(torch.float32)
+from .quant import floor_log2, pow2
 
 
 def get_mn(x: torch.Tensor):
     """Fixed-point decomposition A ≈ M · 2^-N with a 7-bit mantissa.
     ``2^N`` is built exactly."""
     bit = 7
-    normal = torch.isfinite(x) & (x > 0)  # 0, inf and nan go through log2
-    log2x = torch.where(normal, floor_log2(x), torch.log2(x))
-    n = torch.clamp(bit - log2x, 0, 31)
+    n = torch.clamp(bit - floor_log2(x), 0, 31)
     m = torch.clamp(torch.floor(x * pow2(n)), 0, 2 ** (bit + 1) - 1)
     return m, n
 
@@ -99,13 +90,18 @@ def mlp_block_ln_codes(codes, r, s_min, lnw_out, lnb_out, rescale, c):
     return torch.clamp(torch.round(y * rescale), -128, 127)
 
 
-def int_layernorm(x, weight, bias, in_scale, out_scale):
+def int_layernorm(x, weight, bias, in_scale, out_scale, *,
+                  out_scale_channel=None):
     """Integer LayerNorm of the fake-quantized float32 ``x`` (values on the
     ``in_scale`` grid), returned as float32 values on the ``out_scale``
-    grid.  The reference's ``out_scale_channel`` and ``in_scale_expand``
-    are folded into ``out_scale`` and ``in_scale`` by the caller."""
+    grid.  ``out_scale_channel``: a per-channel factor multiplied into
+    ``out_scale`` (the SmoothQuant channel scale of the consuming linear,
+    as the reference's argument of that name).  The reference's
+    ``in_scale_expand`` is folded into ``in_scale`` by the caller."""
     c = x.shape[-1]
     in_scale = in_scale.expand(c)
+    if out_scale_channel is not None:
+        out_scale = out_scale * out_scale_channel
     out_scale = out_scale.expand(c)
     x_q = torch.round(x / in_scale)
     return int_ln_codes(x_q, weight, bias, in_scale, out_scale) * out_scale

@@ -37,55 +37,25 @@ every block (for ViT's 197 keys it admits ``s_a >= 2^-10``).
 """
 from __future__ import annotations
 
-import math
-
-import numpy as np
 import torch
 
-from ..quant import int_matmul, pow2
+# the LIS arithmetic every LIS of the port shares (re-exported here)
+from ..lis import (_B, _C, _X0, int_exp, lis_sum_fits,  # noqa: F401
+                   lis_tail_plain)
+from ..quant import int_matmul
 from . import check_for_kernel, require, route
 from .attn_plan import attention_plan
 from .build import check, load_library
 from .gemm import (device_plan, gemm_footprint, kmajor, pad_k, per_weight,
                    require_tma_operand, sm_count)
 
-# float32 roundings of _lis_body's weakly typed Python constants
-_X0 = float(np.float32(-0.6931))
-_B = float(np.float32(0.96963238 / 0.35815147))
-_C = float(np.float32(1.0 / 0.35815147))
-_NUDGE = float(np.float32(4.0 / 3.0 * (1.0 + 2.0**-17)))
 MAX_KEYS = 256  # keys per head the kernel keeps in shared memory
-
-
-def lis_sum_fits(scale_value: float, n_keys: int) -> bool:
-    """Whether the exact int64 row sum of ``n_keys`` integer exponentials
-    cannot overflow at the softmax scale ``scale_value``.  The largest term
-    is ``floor(C / s^2) * 2^32`` (the polynomial at r = 0, q = 0; it falls
-    for every other r of the clamped range), so the sum fits while
-    ``n_keys * floor(C / s^2) * 2^32 < 2^63``.  49 keys (a 7x7 Swin
-    window) admit s = 2^-11; 197 keys (ViT) need s >= 2^-10."""
-    s = np.float32(scale_value)
-    c_int = math.floor(np.float32(_C) / (s * s))
-    return n_keys * c_int < 2**31
 
 
 def lis_fast_ok(scale_value: float) -> bool:
     """Validity window of the fast LIS form (no floor/max on the integer
     exponential) — ``diffvit_tpu/ops/pallas/attention.py:43``."""
     return 2.0**-10 <= scale_value <= 0.6931
-
-
-def lis_tail_plain(exp_sum: torch.Tensor, exp_int: torch.Tensor):
-    """The folded log2 quantization of ``_lis_body``: m = rint(exp_sum /
-    exp_int), y = 4m/3 * (1 + 2^-17), code = floor(log2 y), taken exactly
-    from the exponent bits.  Returns the int32 weight 2^(15 - code), 0 where
-    y >= 2^16 saturates (and for masked columns, where exp_int = 0)."""
-    y = torch.round(exp_sum / exp_int) * _NUDGE
-    code = torch.frexp(y).exponent - 1
-    keep = y < 65536.0
-    shift = torch.where(keep, 15 - code, 0)
-    w = torch.ones_like(shift) << shift
-    return torch.where(keep, w, 0).to(torch.int32)
 
 
 def lis_body_plain(a_int: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -97,21 +67,7 @@ def lis_body_plain(a_int: torch.Tensor, scale: torch.Tensor, bits: int,
         raise NotImplementedError(
             "LIS tail supports bits <= 4 only (the reference's uint4)")
     row_max = torch.where(col_ok, a_int, -torch.inf).amax(-1, keepdim=True)
-    x_int = a_int - row_max
-    # a constant over a tensor: torch computes ``number / t`` as
-    # ``t.reciprocal() * number``, two roundings where the kernels and the
-    # reference take one IEEE quotient
-    const = lambda v: torch.full_like(scale, v)  # noqa: E731
-    x0_int = torch.floor(const(_X0) / scale)
-    x_int = torch.maximum(x_int, 32.0 * x0_int)
-    q = torch.floor(x_int / x0_int)
-    r = x_int - x0_int * q
-    b_int = torch.floor(const(_B) / scale)
-    c_int = torch.floor(const(_C) / (scale * scale))
-    poly = r * (r + b_int) + c_int
-    exp_int = poly * pow2(32.0 - q)
-    if not fast:
-        exp_int = torch.clamp(torch.floor(exp_int), min=0.0)
+    exp_int = int_exp(a_int - row_max, scale, fast)
     exp_int = torch.where(col_ok, exp_int, 0.0)
     exp_sum = exp_int.to(torch.int64).sum(-1, keepdim=True).to(torch.float32)
     return lis_tail_plain(exp_sum, exp_int)

@@ -1,7 +1,12 @@
 """Uniform quantize/dequantize primitives (counterpart of
 ``diffvit_tpu/ops/quant.py``).  Scales and zero-points are float32 tensors
 that broadcast over the trailing channel axis; ``torch.round`` rounds half
-to even, like ``jnp.round``."""
+to even, like ``jnp.round``.
+
+Powers of two and ``floor(log2 x)`` come from exponent bits (``pow2``,
+``floor_log2``), where the reference takes XLA's ``exp2``/``log2``: they
+are exact on every device, and the PoT scale a calibration picks is one of
+them."""
 from __future__ import annotations
 
 import torch
@@ -30,6 +35,68 @@ def pow2(n: torch.Tensor) -> torch.Tensor:
     from the exponent bits (``torch.pow``/``exp2`` are not guaranteed exact
     on every device)."""
     return ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def exp2(y: torch.Tensor) -> torch.Tensor:
+    """``2^y`` of a float32 tensor: exact (:func:`pow2`) where ``y`` is an
+    integer in [-126, 127], ``torch.exp2`` elsewhere (fractions, the
+    subnormal range, +-inf, nan)."""
+    ok = (y == torch.round(y)) & (y >= -126) & (y <= 127)
+    return torch.where(ok, pow2(torch.where(ok, y, 0.0)), torch.exp2(y))
+
+
+def floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """Exact ``floor(log2 x)`` (float32) of a positive finite float32 (the
+    subnormals too), from its exponent bits; ``floor(log2 x)`` of 0, inf
+    and nan.  ``log2`` itself rounds differently on the CPU and on CUDA
+    just below powers of two; the exponent does not."""
+    ok = torch.isfinite(x) & (x > 0)
+    e = (torch.frexp(torch.where(ok, x, 1.0)).exponent - 1).to(x.dtype)
+    return torch.where(ok, e, torch.floor(torch.log2(x)))
+
+
+def log2_quant(x, bit_type: BitType):
+    """Log2 quantization of softmax outputs: codes = clamp(round(-log2 x),
+    0, 2^bits - 1) and the mask of saturated entries (rounds >= 2^bits),
+    which dequantize to 0.  ``round(-log2 x)`` is taken exactly: with x =
+    m * 2^e (m in [1/2, 1)) it is -e + (m < sqrt(1/2)), which no float32
+    ties; 0, inf and nan go through ``log2``."""
+    ok = torch.isfinite(x) & (x > 0)
+    m, e = torch.frexp(torch.where(ok, x, 1.0))
+    rounds = torch.where(ok, (-e).to(x.dtype) + (m < 0.5 ** 0.5).to(x.dtype),
+                         torch.round(-torch.log2(x)))
+    mask = rounds >= 2**bit_type.bits
+    return torch.clamp(rounds, 0, 2**bit_type.bits - 1), mask
+
+
+def log2_dequant(codes, mask):
+    """``2^-code``, saturated entries zeroed."""
+    return torch.where(mask, 0.0, exp2(-codes))
+
+
+def round_ln(x, mode: str | None = None):
+    """PoT exponent of ``x``: floor or ceil of log2 x, or (``mode`` None)
+    the nearest power of two measured linearly, floor(log2 x) + 1 iff (x -
+    2^y) > (2^(y+1) - x) (the reference's ``round_ln``).  Exact: y from the
+    exponent bits, the two differences exact in float32."""
+    y = floor_log2(x)
+    if mode == "floor":
+        return y
+    if mode == "ceil":
+        ok = torch.isfinite(x) & (x > 0)
+        return torch.where(ok, y + (x != exp2(y)).to(y.dtype),
+                           torch.ceil(torch.log2(x)))
+    out = (x - exp2(y)) > (exp2(y + 1.0) - x)
+    return out.to(y.dtype) + y
+
+
+def lp_loss(pred, tgt, p: float = 2.0, reduction: str = "none"):
+    """L_p error metric: ``reduction`` "none" sums over axis 1 before the
+    mean, anything else is the mean of every element."""
+    err = torch.abs(pred - tgt) ** p
+    if reduction == "none":
+        return torch.mean(torch.sum(err, dim=1))
+    return torch.mean(err)
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

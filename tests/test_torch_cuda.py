@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from diffvit_tpu_torch import QuantConfig, engine
+from diffvit_tpu_torch.data.synthetic import gaussian_calibration
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_constants,
                                               int_attn_scalars,
@@ -25,7 +26,7 @@ from diffvit_tpu_torch.models.convert import (attn_constants,
                                               swin_block_constants,
                                               swin_int_model_from_numpy)
 from diffvit_tpu_torch.models.swin import SWIN_SPECS, SwinSpec
-from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
+from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec, init_params
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 from diffvit_tpu_torch.ops.kernels.attention import (
     fused_int_attention, fused_int_attention_plain, fused_qkv_attention_v2,
@@ -980,3 +981,31 @@ def test_attention_cores_report_their_footprint(cuda):
         print("qkv gemm", rows, f)
         assert f["registers"] == {1: 168, 2: 80}[plan.blocks], f
         assert f["blocks_per_sm"] == plan.blocks, f
+
+
+@pytest.mark.parametrize("spec,batch,fqvit", [
+    (TINY, 2, False), (TINY, 2, True), (DEIT_S, 8, False)],
+    ids=["tiny", "tiny_fqvit_int8", "deit_s"])
+def test_calibrate_bake_serve_on_card_matches_cpu(cuda, spec, batch, fqvit):
+    """QuantizedViT calibrates the same params on the same Gaussian batch
+    on the card and on the CPU: at least 99.9% of the qparam elements
+    equal; both bakes served through IntModel, the fake-quant forwards
+    too, agree by _assert_paths_agree."""
+    cfg = QuantConfig(smoothquant=False, bit_w=BIT_TYPE_DICT["int8"]) \
+        if fqvit else QuantConfig()
+    params = init_params(spec, torch.Generator().manual_seed(0), "cpu")
+    x = gaussian_calibration(batch, seed=0)
+    card = engine.QuantizedViT(spec, cfg, params=params, device=cuda)
+    cpu = engine.QuantizedViT(spec, cfg, params=params, device="cpu")
+    card.calibrate(x)
+    cpu.calibrate(x)
+    assert set(card.qparams) == set(cpu.qparams)
+    total = sum(v.numel() for v in cpu.qparams.values())
+    equal = sum(int((card.qparams[k].cpu() == v).sum())
+                for k, v in cpu.qparams.items())
+    assert equal / total >= 0.999, (equal, total)
+    pixels = np.random.default_rng(1).integers(
+        0, 256, (batch, 3, spec.img_size, spec.img_size), dtype=np.uint8)
+    _assert_paths_agree(card.prepare_int()(pixels).cpu().numpy(),
+                        cpu.prepare_int()(pixels).numpy())
+    _assert_paths_agree(card(pixels).cpu().numpy(), cpu(pixels).numpy())
