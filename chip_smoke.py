@@ -99,6 +99,24 @@
             equal to the per-kernel forward's bit for bit; the share of
             equal argmax between the fake-quant forward_q and the served
             integer logits is printed, not gated.
+11. lis_wide: the 128-bit LIS row sum, for a softmax scale whose int64
+            row sum could overflow: K1, K5, K8 (v1, _v3, _v4, _v5), K7a and
+            K6 at DeiT-S (s_a = 2^-12 over 197 keys; b = 1, 8, 64) and K4
+            and K4b at Swin-T's four stages (s_a2 = 2^-13 over a 49-key
+            window; b = 1, 64), each bit for bit against its plain version.
+12. cli:    the port's CLI (diffvit_tpu_torch/cli.py) end to end, through
+            cli.main on a fake ImageFolder of JPEGs (PIL), with
+            --device-prefetch 2: DeiT-S P2-ViT int4 calibrated on the CLI's
+            Gaussian batch of 50, baked, saved and validated through its
+            integer path (--quant --mode 1 --int-path --save-int, the u8
+            wire encoded into codes on the loader side), that artifact
+            served with --load-int on the u8 and the f32 wires and
+            resident (K6), and a Swin-T artifact served with --load-int;
+            each run's Prec@1 line, wall seconds and launch counts (exactly
+            12 K1 + 12 K2 a forward, 12 K4 + 12 K2 for Swin-T, K6 once per
+            chunk of 8); then the artifact's per-kernel and resident logits
+            bit for bit on a b = 64 batch, and IntModel(microbatch=8) at
+            b = 64 against microbatch=None, bit for bit.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -111,8 +129,10 @@ pretrained ones.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -125,9 +145,10 @@ from collections import Counter, defaultdict
 import numpy as np
 import torch
 
-from diffvit_tpu_torch import QuantConfig, engine
+from diffvit_tpu_torch import QuantConfig, cli, engine
 from diffvit_tpu_torch.data.imagenet import device_normalize
-from diffvit_tpu_torch.data.synthetic import gaussian_calibration
+from diffvit_tpu_torch.data.synthetic import (gaussian_calibration,
+                                              make_fake_imagefolder)
 from diffvit_tpu_torch.models import swin_int, vit_int
 from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               attn_constants,
@@ -164,7 +185,10 @@ MICROBATCH = 8  # forward_q_int_serve's default chunk
 # kernel vs plain: share of equal int8 codes, max |diff|; the float softmax
 # (lis=False) is held to the JAX suite's rule for it: |diff| <= 1 on
 # fewer than 2% of codes
-TOL = {"exact": (0.999, 1), "softmax": (0.98, 1)}
+TOL = {"exact": (0.999, 1), "softmax": (0.98, 1), "bitwise": (1.0, 0)}
+# softmax scales whose int64 LIS row sum could overflow: ViT's 197 keys,
+# a Swin window's 49 (lis_sum_fits fails; the 128-bit sum serves them)
+WIDE_VIT, WIDE_SWIN = 2.0**-12, 2.0**-13
 PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM: int8 op/s, HBM B/s
 # H100 SXM dense peaks by operand type (op/s); the probes' tanh chain,
 # which has no published rate, counts three float32 operations a step
@@ -172,18 +196,20 @@ PEAKS = {"int8": PEAK_OPS, "bf16": 989e12, "float32": 67e12}
 
 
 def _swin_plain(qkv5, bias_q, mask_div, scalars, *, num_heads, n_real,
-                n_windows, bits=4, lis=True):
+                n_windows, bits=4, lis=True, lis_wide=False):
     return swin_attention.swin_attention_plain(
         qkv5[:, 0], qkv5[:, 1], qkv5[:, 2], bias_q, mask_div, scalars,
-        n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
+        n_real=n_real, n_windows=n_windows, bits=bits, lis=lis,
+        lis_wide=lis_wide)
 
 
 def _swin_plain_v2(qkv, bias_q, mask_div, scalars, *, num_heads, head_dim,
-                   n_real, n_windows, bits=4, lis=True):
+                   n_real, n_windows, bits=4, lis=True, lis_wide=False):
     bw, npad, c3 = qkv.shape
     view = qkv.view(bw, npad, 3, num_heads, head_dim).permute(0, 2, 3, 1, 4)
     o = _swin_plain(view, bias_q, mask_div, scalars, num_heads=num_heads,
-                    n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
+                    n_real=n_real, n_windows=n_windows, bits=bits, lis=lis,
+                    lis_wide=lis_wide)
     return o.permute(0, 2, 1, 3).reshape(bw, npad, c3 // 3)
 
 
@@ -305,13 +331,15 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-PROFILE_TRIES = 3  # torch.profiler now and then records no device activity
+PROFILE_TRIES = 5  # torch.profiler now and then records no device activity
 
 
 def profiled(fn, iters):
     """``prof.key_averages()`` of ``iters`` calls of ``fn`` under
     torch.profiler, after a warm-up; profiled again, up to PROFILE_TRIES
-    times, while the trace holds no device time."""
+    times, while the trace holds no device time.  None (and a JSON line
+    naming what the trace held) when no try saw any: the callers then time
+    with CUDA events instead, and say so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -323,15 +351,21 @@ def profiled(fn, iters):
         events = prof.key_averages()
         if any(getattr(e, "self_device_time_total", 0) > 0 for e in events):
             return events
-    raise RuntimeError("torch.profiler saw no device time")
+    emit(phase="profiler", no_device_time_after=PROFILE_TRIES,
+         keys=sorted({e.key for e in events})[:8], fallback="cuda events")
+    return None
 
 
 def device_ms(fn, iters=10):
     """Device milliseconds per call: the summed time of every kernel a call
     of ``fn`` launches, from torch.profiler, after a warm-up.  Unlike
-    :func:`cuda_ms` it leaves out the host's time between launches."""
+    :func:`cuda_ms` it leaves out the host's time between launches (where
+    the profiler saw nothing, the CUDA events' time, which includes it)."""
+    events = profiled(fn, iters)
+    if events is None:
+        return cuda_ms(fn, iters)
     return sum(getattr(e, "self_device_time_total", 0)
-               for e in profiled(fn, iters)) / 1e3 / iters
+               for e in events) / 1e3 / iters
 
 
 def codes(shape, seed, dev, std=30):
@@ -513,6 +547,8 @@ def swin_cases(ip, stage, batch, dev, blk=1, cfg=CFG, emit_codes=True):
               n_windows=1 if k["mask_div"] is None else nw)
     if not cfg.lis:
         kw.update(bits=cfg.bit_s.bits, lis=False)
+    elif k["lis_wide"]:
+        kw.update(lis_wide=True)
     view = qkv.view(batch * nw, 49, 3, heads, c // heads) \
         .permute(0, 2, 3, 1, 4)
     f1, f2 = ib["fc1"], ib["fc2"]
@@ -556,7 +592,8 @@ def hold(name, args, kw, tol="exact", decode=None, compare=None, iters=20,
          for f in (k["plain"], k["fn"], k["fn"], k["plain"])]
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     opts = {key: v for key, v in kw.items()
-            if key in ("lis", "lis_fast", "group", "emit_codes", "iters")}
+            if key in ("lis", "lis_fast", "lis_wide", "group", "emit_codes",
+                       "iters")}
     shape = next(a for a in args if isinstance(a, torch.Tensor)).shape
     emit(phase="kernel", kernel=name, **where, **opts,
          shape=list(shape), equal=equal, max_abs_diff=max_diff,
@@ -1351,9 +1388,13 @@ def phase_gemm(dev, summary):
 def device_by_launch(fn, iters=10):
     """Device milliseconds per call of ``fn`` by launch kind (LAUNCH_KINDS:
     "gemm", "core"; anything else "other"), from torch.profiler after a
-    warm-up."""
+    warm-up ("events": the whole call by CUDA events, where the profiler
+    saw nothing)."""
+    events = profiled(fn, iters)
+    if events is None:  # no launch kinds: the whole call by CUDA events
+        return {"events": cuda_ms(fn, iters)}
     out = defaultdict(float)
-    for e in profiled(fn, iters):
+    for e in events:
         t = getattr(e, "self_device_time_total", 0)
         if t > 0:
             kind = next((k for pat, k in LAUNCH_KINDS if pat in e.key),
@@ -1667,6 +1708,157 @@ def phase_probes(dev):
     return launches
 
 
+def _wide_vit(cfg):
+    """DeiT-S random int-model with every block's softmax scale at
+    WIDE_VIT."""
+    ip = random_int_model(SPEC, cfg, seed=0)
+    for ib in ip["blocks"]:
+        ib["attn.qact_attn1"]["scale"] = np.float32(WIDE_VIT)
+    return ip
+
+
+def phase_lis_wide(dev, summary):
+    """Every kernel that includes csrc/lis.cuh with the 128-bit LIS row sum
+    (``lis_wide``), bit for bit against its plain version: K1, K5, K8 (v1,
+    v3, v4, v5), K7a and K6 at DeiT-S b = 1, 8, 64 with s_a = WIDE_VIT, and
+    K4 and K4b at Swin-T's four stages, b = 1 and 64, with s_a2 =
+    WIDE_SWIN on every block; the b = 64 (stage 0) row's times and bound go
+    into the kernels line as ``lis_wide_*``."""
+    if attention.lis_sum_fits(WIDE_VIT, SPEC.seq_len) \
+            or attention.lis_sum_fits(WIDE_SWIN, 49):
+        raise RuntimeError("the lis_wide scales fit the int64 row sum")
+    ip, ip_fq = _wide_vit(CFG), _wide_vit(FQVIT)
+    packed = prepare_resident(int_model_from_numpy(ip, SPEC, dev, CFG), SPEC,
+                              CFG)
+    for b in (1, 8, 64):
+        rows = {
+            "fused_qkv_attention_v2": kernel_case(
+                "fused_qkv_attention_v2", ip["blocks"][0], SPEC, b, dev,
+                lis_wide=True),
+            "fused_int_attention": kernel_case(
+                "fused_int_attention", ip_fq["blocks"][0], SPEC, b, dev,
+                lis=True, lis_wide=True),
+            "resident_codes": (
+                (packed, codes((b * SPEC.seq_len, SPEC.embed_dim), b + 11,
+                               dev)),
+                dict(n_real=SPEC.seq_len, bits=4, lis=True, nelems=b,
+                     lis_wide=True))}
+        alt = alt_kernel_cases(SPEC, ip, b, dev, npad=200, seed=b)
+        for name in K8 + ("fused_attention_block",):
+            if name != "fused_qkv_attention_v5" or b % 2 == 0:
+                rows[name] = (alt[name][0], dict(alt[name][1], lis_wide=True))
+        for name, (args, kw) in rows.items():
+            decode = None
+            if name == "fused_attention_block":
+                def decode(y, s=args[8][3]):  # the qact2 grid
+                    return torch.round(y / s)
+            heaviest = b == 64 and (f"{SPEC.name} b=64", args, kw)
+            note(summary, name, hold(name, args, kw, "bitwise", decode,
+                                     iters=5, spec=SPEC.name, batch=b,
+                                     s_a=WIDE_VIT),
+                 heaviest, variant="lis_wide")
+    ips = random_swin_int_model(SWIN, CFG, seed=0)
+    for key in ips["qp"]:
+        if key.endswith(".attn.qact2.scale"):
+            ips["qp"][key] = np.float32(WIDE_SWIN)
+    for stage in range(SWIN.num_layers):
+        for b in (1, 64):
+            cases = swin_cases(ips, stage, b, dev)
+            for name in ("fused_swin_attention", "fused_swin_attention_v2"):
+                args, kw = cases[name]
+                if not kw.get("lis_wide"):
+                    raise RuntimeError(f"{name}: stage {stage} not wide")
+                heaviest = stage == 0 and b == 64 and (
+                    f"{SWIN.name} stage 0 b=64", args, kw)
+                note(summary, name, hold(name, args, kw, "bitwise", iters=5,
+                                         spec=SWIN.name, stage=stage,
+                                         batch=b, s_a2=WIDE_SWIN),
+                     heaviest, variant="lis_wide")
+
+
+CLI_FOLDER = dict(num_classes=8, per_class=8, size=(96, 80))  # 64 JPEGs
+CLI_BATCH = 16  # --val-batchsize
+K1, K2, K4, K6 = ("fused_qkv_attention_v2", "fused_int_mlp",
+                  "fused_swin_attention", "resident_codes")
+
+
+def phase_cli(dev):
+    """The port's CLI end to end (cli.main, as ``python3 -m
+    diffvit_tpu_torch.cli`` runs it) on a fake ImageFolder; each run's
+    launch counts held exactly (drive), its summary line, loss, Prec@1 and
+    Prec@5 and wall seconds printed; then the served artifact's per-kernel
+    and resident logits, and IntModel(microbatch=8) at b = 64, each bit
+    for bit against the unchunked per-kernel forward."""
+    launches = {}
+    images = CLI_FOLDER["num_classes"] * CLI_FOLDER["per_class"]
+    forwards = -(-images // CLI_BATCH)
+    per_kernel = {K1: SPEC.depth * forwards, K2: SPEC.depth * forwards}
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fake_imagefolder(os.path.join(tmp, "val"), **CLI_FOLDER)
+        deit = os.path.join(tmp, "deit_small_int4.npz")
+        swin = os.path.join(tmp, "swin_tiny_int4.npz")
+        engine.save_int_model(swin, random_swin_int_model(SWIN, CFG, seed=0),
+                              SWIN, CFG)
+        common = ["--device-prefetch", "2", "--val-batchsize",
+                  str(CLI_BATCH), "--num-workers", "8"]
+        runs = (
+            ("deit_small --quant --int-path --save-int",
+             [SPEC.name, tmp, "--quant", "--mode", "1", "--int-path",
+              "--save-int", deit, "--wire", "u8"], per_kernel),
+            ("deit_small --load-int u8",
+             [SPEC.name, tmp, "--load-int", deit, "--wire", "u8"],
+             per_kernel),
+            ("deit_small --load-int f32",
+             [SPEC.name, tmp, "--load-int", deit, "--wire", "f32"],
+             per_kernel),
+            ("deit_small --load-int --resident",
+             [SPEC.name, tmp, "--load-int", deit, "--resident", "--wire",
+              "u8"], {K6: forwards * -(-CLI_BATCH // MICROBATCH)}),
+            ("swin_tiny --load-int",
+             [SWIN.name, tmp, "--load-int", swin, "--wire", "u8"],
+             {K4: sum(SWIN.depths) * forwards,
+              K2: sum(SWIN.depths) * forwards}),
+        )
+        for label, argv, expected in runs:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                (loss, top1, top5), counts = drive(
+                    expected, lambda: cli.main(argv + common))
+            seconds = time.perf_counter() - t0
+            summary_line = [ln for ln in out.getvalue().splitlines()
+                            if ln.startswith(" * Prec@1")]
+            emit(phase="cli", run=label, images=images, seconds=seconds,
+                 line=summary_line, loss=loss, prec1=top1, prec5=top5,
+                 launches={k: v for k, v in counts.items() if v})
+            if len(summary_line) != 1 or not np.isfinite(loss):
+                raise RuntimeError(f"cli {label}: no report, or loss {loss}")
+            launches[f"cli {label}"] = counts
+        x = np.random.default_rng(5).integers(0, 256, (64, 3, 224, 224),
+                                              dtype=np.uint8)
+        models = {
+            "per_kernel": engine.load_int_model(deit, dev),
+            "resident": engine.load_int_model(deit, dev, resident=True),
+            "microbatch_8": engine.load_int_model(deit, dev, microbatch=8),
+        }
+    expected = {"per_kernel": {K1: SPEC.depth, K2: SPEC.depth},
+                "resident": {K6: -(-64 // MICROBATCH)},
+                "microbatch_8": {K1: SPEC.depth * 8, K2: SPEC.depth * 8}}
+    logits = {}
+    for name, model in models.items():
+        got, launches[f"cli logits {name}"] = drive(expected[name],
+                                                    lambda: model(x))
+        logits[name] = got.cpu().numpy()
+    equal = {name: bool(np.array_equal(v, logits["per_kernel"]))
+             for name, v in logits.items() if name != "per_kernel"}
+    emit(phase="cli", run="logits", batch=64,
+         equal_to_per_kernel=equal,
+         finite=bool(np.isfinite(logits["per_kernel"]).all()))
+    if not all(equal.values()) or not np.isfinite(logits["per_kernel"]).all():
+        raise RuntimeError(f"the artifact's logits differ by route: {equal}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1716,10 +1908,14 @@ def main():
     phase_probes_kernels(dev, summary)
     paths["probes"] = phase_probes(dev)
     t.append(time.perf_counter())
+    phase_lis_wide(dev, summary)
+    t.append(time.perf_counter())
+    paths.update(phase_cli(dev))
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
-         "alternatives", "calibrate", "probes"),
+         "alternatives", "calibrate", "probes", "lis_wide", "cli"),
         t, t[1:])})
 
     kernels = []

@@ -10,9 +10,14 @@ the framework-neutral modules it needs (``config``, ``ops.bit_types``,
 
 Ported so far: the served integer ViT forward, every branch of the
 reference's ``forward_q_int`` (``models.vit_int``), the served integer Swin
-forward on the int8-codes path (``models.swin_int``), their hand-written
-CUDA kernels (``ops.kernels``, sources in ``csrc/``) and the serving engine
-(``engine.IntModel`` / ``load_int_model`` / ``validate``).
+forward (``models.swin_int``), their hand-written CUDA kernels
+(``ops.kernels``, sources in ``csrc/``), ViT calibration
+(``calib.observers``, ``models.vit``), checkpoint loading
+(``models.load``, ``models.registry``), the data pipeline
+(``data.imagenet``: transform, ImageFolder, DataLoader, the codes wire,
+DevicePrefetcher), the engine (``engine.QuantizedViT``, ``IntModel``,
+``load_int_model``, ``validate``) and the command line
+(``python3 -m diffvit_tpu_torch.cli``, the port's ``test_quant.py``).
 """
 from .config import QuantConfig
 

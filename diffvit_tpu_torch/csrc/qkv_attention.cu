@@ -92,13 +92,13 @@ template <int MaxKB, int DP, bool Lis>
 __global__ void __launch_bounds__(kQkvWarps * 32, Lis ? 3 : 1)
     qkv_core_kernel(const int8_t* __restrict__ qkv, CoreScalars sc,
                     int8_t* __restrict__ out, int npad, int d, int n_real, int lis_fast,
-                    Strides st, int tiles) {
+                    int lis_wide, Strides st, int tiles) {
   extern __shared__ __align__(16) uint8_t attn_smem[];
   const int bx = blockIdx.x, b = blockIdx.z, h = blockIdx.y;
   const amma::KvGeom g = amma::kv_geom(n_real, d, Lis);
   const float s_a = *sc.s_a;
   const amma::ExpTable et =
-      amma::fill_exp_table(attn_smem, dvt::lis_consts(s_a), lis_fast != 0);
+      amma::fill_exp_table(attn_smem, dvt::lis_consts(s_a, lis_wide != 0), lis_fast != 0);
   uint8_t* const kv = attn_smem + amma::kExpBytes;
   const int8_t* base = qkv + b * st.q_image + h * st.q_head;
   amma::stage_kv(base + st.q_slot, base + 2 * st.q_slot, st.q_row, n_real, d, g, kv);
@@ -124,8 +124,8 @@ int core_smem(int n_real, int d, int lis, int warps) {
   return amma::kExpBytes + amma::kv_geom(n_real, d, lis != 0).bytes() + warps * warp_scratch(lis);
 }
 
-using CoreKernel = void (*)(const int8_t*, CoreScalars, int8_t*, int, int, int, int, Strides,
-                           int);
+using CoreKernel = void (*)(const int8_t*, CoreScalars, int8_t*, int, int, int, int, int,
+                           Strides, int);
 
 // The core's instance for n_real keys (224 or 256 at most), head width d
 // (32 or 64 at most) and softmax.
@@ -150,7 +150,8 @@ cudaError_t launch_core(const int8_t* qkv, CoreScalars sc, int8_t* out, int batc
   cudaError_t err = amma::allow_smem(reinterpret_cast<const void*>(kernel), p.smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(p.split, heads, batch), 32 * p.warps, p.smem, s>>>(qkv, sc, out, npad, d, n_real,
-                                                                   lis_fast, st, p.tiles);
+                                                                   lis_fast, lis == dvt::kLisWide,
+                                                                   st, p.tiles);
   return cudaGetLastError();
 }
 
@@ -202,8 +203,8 @@ extern "C" const char* dvt_error_string(int err) {
 // with rows ordered [slot, head, d]; mb: (2, 3C) f32, [mult/s1, bias/s1]
 // (requant_v1 0, K1) or [mult, bias] (requant_v1 1, K8); scalars: (4,) f32
 // [s_a, c1, 1/s1, s1/s2] on the device; qkv: (B, Npad, 3C) int8 scratch;
-// out: (B, H, Npad, D) int8.  lis: 1 for the LIS, 0 for the bfloat16 float
-// softmax.  bm .. grid: gemm_plan's; a_*: attention_plan's.  Requires
+// out: (B, H, Npad, D) int8.  lis: 1 for the LIS, 2 for the LIS with the
+// 128-bit row sum (lis.cuh's kLisWide), 0 for the bfloat16 float softmax.  bm .. grid: gemm_plan's; a_*: attention_plan's.  Requires
 // n_real <= min(npad, 256), D <= 64, D % 4 == 0 (checked by the Python
 // wrapper).
 extern "C" int dvt_qkv_attention(const void* x, const void* wk, const void* mb,
@@ -225,7 +226,7 @@ extern "C" int dvt_qkv_attention(const void* x, const void* wk, const void* mb,
 // f32 residual; wp: (H * D, Cout) int8 (the (H, D, Cout) proj weight);
 // pvec: (4, Cout) f32 [mult_p, bias_p, s_qact3, s_qact2]; qkv: (B, Npad,
 // 3C) and attn: (B, Npad, C) int8 scratch; out: (B, Npad, Cout) f32.
-// Requires what K8 requires.
+// lis as K8's.  Requires what K8 requires.
 extern "C" int dvt_attention_block(const void* x, const void* h, const void* wk,
                                    const void* wp, const void* mb, const void* pvec,
                                    const void* scalars, void* qkv, void* attn, void* out,
@@ -254,8 +255,8 @@ extern "C" int dvt_attention_block(const void* x, const void* h, const void* wk,
 // K5.  qkv: int8, element (image, slot, head, row, d) at
 // image*sq_i + slot*sq_s + head*sq_h + row*sq_r + d; scalars: (3,) f32
 // [c1, s1/s2, s_a] on the device; out: int8, element (image, head, row, d)
-// at image*so_i + head*so_h + row*so_r + d.  lis: 1 for the slow LIS, 0 for
-// the bfloat16 float softmax.  a_*: attention_plan's.  Requires n_real <=
+// at image*so_i + head*so_h + row*so_r + d.  lis: 1 for the slow LIS, 2 for
+// it with the 128-bit row sum, 0 for the bfloat16 float softmax.  a_*: attention_plan's.  Requires n_real <=
 // min(npad, 256), D <= 64, D % 4 == 0, every qkv stride a multiple of 4
 // (checked by the wrapper).
 extern "C" int dvt_int_attention(const void* qkv, const void* scalars, void* out, int batch,

@@ -344,7 +344,8 @@ __device__ __forceinline__ void attention_items(const Params& p, int l, uint8_t*
   const int warp = threadIdx.x >> 5;
   const amma::KvGeom g = kv_geom(p.n_real, Lis);
   const float s_a = s[kSSa];
-  const amma::ExpTable et = amma::fill_exp_table(attn, dvt::lis_consts(s_a), p.lis_fast != 0);
+  const amma::ExpTable et = amma::fill_exp_table(attn, dvt::lis_consts(s_a, p.lis == dvt::kLisWide),
+                                                 p.lis_fast != 0);
   uint8_t* const kv = attn + amma::kExpBytes;
   uint8_t* const scratch = kv + g.bytes() + warp * (Lis ? kLisScratch : kSoftScratch);
   const amma::SoftArgs a{p.n_real, p.d, et, s_a, s[kSS1OverS2]};
@@ -443,7 +444,8 @@ const void* kernel(int blocks) {
 // C), scal (depth, 6) f32 (slots as in ops/kernels/serve.py); scratch:
 // nelems * npad * (5C + hid) bytes, 16-byte aligned; barrier: one zeroed
 // unsigned; stamps: null, or 1 + 14 * depth zeroed uint64 (step times).
-// lis: 1 for the LIS, 0 for the bfloat16 float softmax.  stages .. a_split:
+// lis: 1 for the LIS, 2 for the LIS with the 128-bit row sum (lis.cuh's
+// kLisWide), 0 for the bfloat16 float softmax.  stages .. a_split:
 // serve.resident_plan's.  Requires n_real <= min(npad, 256), D <= 64,
 // D % 4 == 0, C and hid multiples of 64 (checked by the Python wrapper;
 // the plan's checks again here).

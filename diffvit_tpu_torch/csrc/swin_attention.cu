@@ -39,7 +39,7 @@
 // Exactness against the plain PyTorch version (swin_attention_plain):
 //  * built with -fmad=false: a1c * s_a1 + bias rounds twice, as torch does;
 //  * rintf rounds half to even, like torch.round;
-//  * the LIS row is lis.cuh's (exact powers, logs and int64 row sum);
+//  * the LIS row is lis.cuh's (exact powers, logs and row sum);
 //  * attn@v accumulates v * 2^(15-code) in int32, converted once to float;
 //  * the float softmax (lis = 0) is attention_core.cuh's softmax_row_bf16
 //    (double, rounded once to float, then to bfloat16) on the logits
@@ -115,14 +115,15 @@ __global__ void __launch_bounds__(kSwinWarps * 32, Lis ? 3 : 1)
     swin_core_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ bias,
                      const float* __restrict__ mask, const float* __restrict__ scalars,
                      int8_t* __restrict__ out, int windows, int npad, int d, int n_real,
-                     int n_windows, Strides st, int wpb) {
+                     int n_windows, int lis_wide, Strides st, int wpb) {
   extern __shared__ __align__(16) uint8_t attn_smem[];
   const int h = blockIdx.y, w0 = blockIdx.x * wpb;
   const int nw = min(wpb, windows - w0);
   const amma::KvGeom g = amma::kv_geom(n_real, d, Lis);
   // scalars = [c1, s_a1, 1/s_a2, s_a2, c2]
   const float s_a2 = scalars[3];
-  const amma::ExpTable et = amma::fill_exp_table(attn_smem, dvt::lis_consts(s_a2), false);
+  const amma::ExpTable et = amma::fill_exp_table(attn_smem, dvt::lis_consts(s_a2, lis_wide != 0),
+                                                 false);
   float* const bias_s = reinterpret_cast<float*>(attn_smem + amma::kExpBytes);
   uint8_t* const kv0 = attn_smem + amma::kExpBytes + bias_bytes(npad);
   const float* bias_h = bias + (size_t)h * npad * npad;
@@ -152,7 +153,7 @@ __global__ void __launch_bounds__(kSwinWarps * 32, Lis ? 3 : 1)
 }
 
 using SwinKernel = void (*)(const int8_t*, const float*, const float*, const float*, int8_t*,
-                           int, int, int, int, int, Strides, int);
+                           int, int, int, int, int, int, Strides, int);
 
 SwinKernel kernel_for(int d, int lis) {
   return lis ? (d <= 32 ? swin_core_kernel<32, true> : swin_core_kernel<64, true>)
@@ -165,8 +166,9 @@ SwinKernel kernel_for(int d, int lis) {
 // window*sq_w + slot*sq_s + head*sq_h + row*sq_r + d; bias: (H, npad, npad)
 // f32; mask: (nW, npad, npad) f32 or null; scalars: (5,) f32 on the device;
 // out: int8, element (window, head, row, d) at
-// window*so_w + head*so_h + row*so_r + d.  lis: 1 the Log-Int-Softmax, 0 the
-// float softmax.  warps, wpb (windows a block) and smem: the plan's
+// window*so_w + head*so_h + row*so_r + d.  lis: 1 the Log-Int-Softmax, 2 it
+// with the 128-bit row sum (lis.cuh's kLisWide), 0 the float softmax.
+// warps, wpb (windows a block) and smem: the plan's
 // (attn_plan.swin_attention_plan).  Requires n_real <= min(npad, 64), D <=
 // 64, D % 4 == 0, every stride a multiple of 4 (checked by the Python
 // wrapper).
@@ -187,7 +189,8 @@ extern "C" int dvt_swin_attention(const void* qkv, const void* bias, const void*
   kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const float*>(scalars),
-      static_cast<int8_t*>(out), windows, npad, d, n_real, n_windows, st, wpb);
+      static_cast<int8_t*>(out), windows, npad, d, n_real, n_windows, lis == dvt::kLisWide, st,
+      wpb);
   return cudaGetLastError();
 }
 

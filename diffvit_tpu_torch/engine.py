@@ -43,12 +43,20 @@ class IntModel:
 
     ``resident=True`` (ViT family): the encoder runs as one launch of the
     resident kernel K6 (``vit_int.forward_q_int_serve``), packed once here;
-    on a CUDA device it runs K6 or raises."""
+    on a CUDA device it runs K6 or raises.
+
+    ``microbatch=m``: the forward runs over chunks of m images, the last
+    one zero-padded, and the logits are sliced back to the batch
+    (``_microbatched``, ``diffvit_tpu/engine.py:524``); every row's logits
+    are the unchunked forward's, bit for bit."""
 
     def __init__(self, ip, spec: ViTSpec | SwinSpec, cfg: QuantConfig,
                  device="cuda", resident=False,
-                 input_norm=(IMAGENET_MEAN, IMAGENET_STD)):
+                 input_norm=(IMAGENET_MEAN, IMAGENET_STD), microbatch=None):
+        if microbatch is not None and int(microbatch) < 1:
+            raise ValueError(f"microbatch must be >= 1, got {microbatch}")
         self.spec, self.cfg = spec, cfg
+        self.microbatch = None if microbatch is None else int(microbatch)
         self.input_norm = tuple(input_norm)
         self.device = torch.device(device)
         self.is_swin = isinstance(spec, SwinSpec)
@@ -100,7 +108,22 @@ class IntModel:
             raise ValueError(self._no_codes)
         return np.stack([self.input_lut[c][x[:, c]] for c in range(3)], 1)
 
-    def __call__(self, x):
+    def _chunked(self, x):
+        """The forward over ``microbatch``-image chunks (zero-padded)."""
+        m, b = self.microbatch, x.shape[0]
+        pad = (-b) % m
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        out = torch.cat([self._forward(self.ip, self.spec, self.cfg, chunk)
+                         for chunk in x.split(m)])
+        return out[:b]
+
+    def __call__(self, x, bit_config=None, quant=True, use_int=True):
+        """Logits of the batch ``x``.  ``bit_config``, ``quant`` and
+        ``use_int`` are accepted and ignored (the bit configuration is
+        baked), so that ``validate`` drives an IntModel as it drives a
+        QuantizedViT."""
+        del bit_config, quant, use_int
         if self.input_lut is not None:  # uint8 -> codes on the host
             if isinstance(x, torch.Tensor) and x.dtype == torch.uint8:
                 x = x.cpu().numpy()
@@ -114,6 +137,8 @@ class IntModel:
         if x.dtype == torch.int8 and self.input_lut is None:
             raise ValueError(self._no_codes)
         with torch.inference_mode():
+            if self.microbatch is not None:
+                return self._chunked(x)
             return self._forward(self.ip, self.spec, self.cfg, x)
 
 
@@ -123,16 +148,18 @@ class QuantizedViT:
     calibration's qparams, the fake-quant and float forwards, and the bake
     into an ``IntModel`` or an int-model artifact.
 
-    ``name_or_spec``: a model name (params drawn from ``seed`` unless
-    ``params`` is given) or a ``ViTSpec`` with ``params``.  ``params``: a
-    float pytree of tensors or numpy arrays in the reference's layout
-    (``vit.params_from_numpy``).  uint8 batches are normalized on the
-    device with ``input_norm`` (``data.imagenet.device_normalize``), as
-    the reference's ``_prep`` does; float32 batches pass through.  A Swin
-    spec raises ``NotImplementedError`` (ROADMAP Queue 1, item 4)."""
+    ``name_or_spec``: a model name (params loaded from ``checkpoint``, a
+    ``.pth`` or ``.npz`` file, or drawn from ``seed``, unless ``params`` is
+    given: ``registry.build_params``) or a ``ViTSpec`` with ``params``.
+    ``params``: a float pytree of tensors or numpy arrays in the
+    reference's layout (``vit.params_from_numpy``).  uint8 batches are
+    normalized on the device with ``input_norm``
+    (``data.imagenet.device_normalize``), as the reference's ``_prep``
+    does; float32 batches pass through.  A Swin spec raises
+    ``NotImplementedError`` (ROADMAP Queue 1, item 4)."""
 
     def __init__(self, name_or_spec, cfg: QuantConfig | None = None,
-                 params=None, seed: int = 0, device="cuda",
+                 params=None, checkpoint=None, seed: int = 0, device="cuda",
                  input_norm=(IMAGENET_MEAN, IMAGENET_STD)):
         self.device = torch.device(device)
         spec = get_spec(name_or_spec) if isinstance(name_or_spec, str) \
@@ -144,9 +171,10 @@ class QuantizedViT:
         if params is None:
             if not isinstance(name_or_spec, str):
                 raise ValueError("a ViTSpec needs its params")
-            spec, params = build_params(name_or_spec, seed=seed,
+            spec, params = build_params(name_or_spec, checkpoint, seed=seed,
                                         device=self.device)
         self.spec, self.cfg = spec, cfg or QuantConfig()
+        self.is_swin = False
         self.params = vit.params_from_numpy(params, self.device)
         self.qparams = None
         self.global_distance = None
@@ -225,9 +253,13 @@ class QuantizedViT:
         ``load_int_model`` of either package reads."""
         save_int_model(path, self._bake(bit_config), self.spec, self.cfg)
 
-    def __call__(self, x, bit_config=None, quant=True):
+    def __call__(self, x, bit_config=None, quant=True, use_int=False):
         """Logits of the fake-quant forward (``quant``) at ``bit_config``,
-        or of the float forward, on this device."""
+        or of the float forward, on this device; ``use_int`` with ``quant``:
+        of the integer path, the model baked for ``bit_config``
+        (:meth:`prepare_int`)."""
+        if use_int and quant:
+            return self.prepare_int(bit_config)(x)
         x = self._prep(x)
         with torch.inference_mode():
             if quant:
@@ -252,10 +284,12 @@ def save_int_model(path, ip, spec: ViTSpec | SwinSpec,
 
 
 def load_int_model(path, device="cuda", resident=False,
-                   input_norm=(IMAGENET_MEAN, IMAGENET_STD)) -> IntModel:
+                   input_norm=(IMAGENET_MEAN, IMAGENET_STD),
+                   microbatch=None) -> IntModel:
     """Load a ``save_int_model`` artifact (a ``save_pytree`` .npz) onto
-    ``device``, served per kernel or (``resident``) through K6.  The spec
-    is rebuilt from the embedded dataclass fields."""
+    ``device``, served per kernel or (``resident``) through K6, over
+    ``microbatch``-image chunks where given.  The spec is rebuilt from the
+    embedded dataclass fields."""
     ip, meta = load_pytree(path)
     if not all(k in meta for k in ("model", "spec", "cfg", "is_swin")):
         raise ArtifactError(
@@ -269,12 +303,15 @@ def load_int_model(path, device="cuda", resident=False,
     else:
         spec = ViTSpec(**sd)
     return IntModel(ip, spec, QuantConfig.from_dict(meta["cfg"]), device,
-                    resident=resident, input_norm=input_norm)
+                    resident=resident, input_norm=input_norm,
+                    microbatch=microbatch)
 
 
-def validate(model, loader, print_freq=100, log=print):
+def validate(model, loader, bit_config=None, quant=True, print_freq=100,
+             log=print, use_int=False):
     """Full validation epoch with the reference's progress/report format
-    (``diffvit_tpu/engine.py:751-798``).  Returns (loss_avg, prec1_avg,
+    (``diffvit_tpu/engine.py:751-798``): ``model(data, bit_config=,
+    quant=, use_int=)`` for every batch.  Returns (loss_avg, prec1_avg,
     prec5_avg).  Batch i+1 is issued before batch i's logits are read, so
     the host work overlaps the device's."""
     batch_time, losses = AverageMeter(), AverageMeter()
@@ -305,7 +342,8 @@ def validate(model, loader, print_freq=100, log=print):
 
     pending = None  # (index, device output, target)
     for i, (data, target) in enumerate(loader):
-        output_dev = model(data)
+        output_dev = model(data, bit_config=bit_config, quant=quant,
+                           use_int=use_int)
         if pending is not None:
             score(*pending)
         pending = (i, output_dev, target)

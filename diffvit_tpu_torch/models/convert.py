@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..config import QuantConfig
-from ..ops.kernels.attention import lis_fast_ok, lis_sum_fits
+from ..ops.kernels.attention import LIS_MIN_SCALE, lis_fast_ok, lis_sum_fits
 from ..ops.quant import fake_quant
 from .swin import SwinSpec, block_geometry, relative_position_index
 from .vit import ViTSpec
@@ -38,11 +38,16 @@ def _scalar(a):
     return f32(np.asarray(a).reshape(()))
 
 
-def _check_lis_sum(s_a, n_keys, where):
-    if not lis_sum_fits(float(s_a), n_keys):
+def lis_wide(s_a, n_keys, where) -> bool:
+    """Whether a LIS softmax scale over ``n_keys`` keys needs the 128-bit
+    row sum (``lis_sum_fits`` fails).  A scale below ``LIS_MIN_SCALE``
+    (2^-17) raises ``ValueError``: it is outside the reference's own range
+    (its floor trick, ``diffvit_tpu/ops/pallas/attention.py:62-70``)."""
+    if not float(s_a) >= LIS_MIN_SCALE:
         raise ValueError(
-            f"{where}: softmax scale {float(s_a)} over {n_keys} keys; the "
-            "exact int64 row sum of the LIS exponentials would overflow")
+            f"{where}: softmax scale {float(s_a)} is below 2^-17, the "
+            "reference LIS's lower bound on its scale")
+    return not lis_sum_fits(float(s_a), n_keys)
 
 
 def _attn_scales(ib, spec: ViTSpec):
@@ -58,10 +63,10 @@ def attn_constants(ib, spec: ViTSpec, block: int, lis: bool = True):
     """The per-block host-side constants of the reference forward
     (``vit_int.py:407-419``): K1's scalars [s_a, c1, 1/s1, s1/s2] in
     float32, and the fast-LIS gate.  With ``lis`` the softmax scale must
-    keep the exact LIS row sum in int64 (:func:`lis_sum_fits`)."""
+    lie in the reference's range (:func:`lis_wide`)."""
     s1, s_a, s2, c1 = _attn_scales(ib, spec)
     if lis:
-        _check_lis_sum(s_a, spec.seq_len, f"block {block}")
+        lis_wide(s_a, spec.seq_len, f"block {block}")
     scalars = np.asarray([s_a, c1, f32(1.0) / s1, s1 / s2], np.float32)
     return scalars, lis_fast_ok(float(s_a))
 
@@ -78,8 +83,8 @@ def int_model_from_numpy(ip, spec: ViTSpec, device,
     """Copy every array of ``ip`` to ``device`` as a torch tensor (floats as
     float32, int8 codes as int8; a float site keeps its float32 ``w`` and
     ``b``) and add, per block, ``attn_scalars`` (K1's (4,) float32
-    scalars), ``int_attn_scalars`` (K5's (3,)) and ``lis_fast``.  The LIS
-    bound is checked where ``cfg.lis`` holds (default QuantConfig)."""
+    scalars), ``int_attn_scalars`` (K5's (3,)), ``lis_fast`` and
+    ``lis_wide``, set where ``cfg.lis`` holds (default QuantConfig)."""
     lis = (cfg or QuantConfig()).lis
     out = _to_torch(ip, device)
     for i, (ib_np, ib) in enumerate(zip(ip["blocks"], out["blocks"])):
@@ -88,6 +93,8 @@ def int_model_from_numpy(ip, spec: ViTSpec, device,
         ib["int_attn_scalars"] = torch.tensor(int_attn_scalars(ib_np, spec),
                                               device=device)
         ib["lis_fast"] = fast
+        ib["lis_wide"] = lis and lis_wide(_attn_scales(ib_np, spec)[1],
+                                          spec.seq_len, f"block {i}")
     return out
 
 
@@ -154,9 +161,9 @@ def swin_block_constants(ib, qp, p, spec: SwinSpec, stage: int, blk: int,
     (``swin_int.py:234-255``), in numpy: ``bias_q``, the fake-quantized
     relative-position table gathered to (H, n, n); ``mask_div``, the shift
     mask over s_a2 (or None); ``attn_scalars``, the kernel's
-    [c1, s_a1, 1/s_a2, s_a2, c2] in float32.  With ``cfg.lis`` the softmax
-    scale must keep the exact LIS row sum in int64 (:func:`lis_sum_fits`);
-    the float softmax takes any scale."""
+    [c1, s_a1, 1/s_a2, s_a2, c2] in float32; ``lis_wide``, the 128-bit
+    LIS row-sum flag (:func:`lis_wide`, with ``cfg.lis`` only: the float
+    softmax takes any scale)."""
     _, ws, _, mask = block_geometry(spec, stage, blk)
     n, nh = ws * ws, spec.num_heads[stage]
     hd = spec.stage_dim(stage) // nh
@@ -164,8 +171,6 @@ def swin_block_constants(ib, qp, p, spec: SwinSpec, stage: int, blk: int,
     s_a1 = _scalar(qp[f"{p}.attn.qact_attn1.scale"])
     s_a2 = _scalar(qp[f"{p}.attn.qact2.scale"])
     s_a3 = _scalar(qp[f"{p}.attn.qact3.scale"])
-    if cfg.lis:
-        _check_lis_sum(s_a2, n, p)
     table_q = _fq_np(ib["rel_bias_table"], qp, f"{p}.attn.qact_table",
                      cfg.bit_a)
     idx = relative_position_index(ws).reshape(-1)
@@ -176,6 +181,7 @@ def swin_block_constants(ib, qp, p, spec: SwinSpec, stage: int, blk: int,
         "attn_scalars": np.asarray(
             [s1 * s1 * f32(hd**-0.5) / s_a1, s_a1, f32(1.0) / s_a2, s_a2,
              s1 / s_a3], np.float32),
+        "lis_wide": bool(cfg.lis) and lis_wide(s_a2, n, p),
     }
 
 

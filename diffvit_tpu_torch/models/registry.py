@@ -1,25 +1,51 @@
 """Model registry (counterpart of ``diffvit_tpu/models/registry.py``):
-names to specs, and random float parameters from a seed.
+names to specs, the per-family preprocessing constants, and the float
+parameters of a ViT/DeiT from a checkpoint or from a seed.
 
-Loading a checkpoint is not ported yet (ROADMAP Queue 1, item 4: model
-loading), nor are Swin's float parameters (the same item): both raise
-``NotImplementedError``, so a checkpoint that was asked for is never
-replaced by random weights."""
+Swin's float parameters and its checkpoint converters are not ported yet
+(ROADMAP Queue 1, item 4): both raise ``NotImplementedError``, so a
+checkpoint that was asked for is never replaced by random weights."""
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
 
+from .load import load_vit_npz, load_vit_torch_checkpoint
 from .swin import SWIN_SPECS
-from .vit import VIT_SPECS, init_params
+from .vit import VIT_SPECS, init_params, params_from_numpy
 
 _NOT_YET = "ROADMAP Queue 1, item 4 (Swin float forward, calibration and " \
-           "baking; model loading)"
+           "baking; Swin model loading)"
+
+
+@dataclasses.dataclass(frozen=True)
+class Preprocessing:
+    mean: tuple
+    std: tuple
+    crop_pct: float
+    input_size: int = 224
+
+
+PREPROCESSING = {
+    "deit": Preprocessing((0.485, 0.456, 0.406), (0.229, 0.224, 0.225), 0.875),
+    "vit": Preprocessing((0.5, 0.5, 0.5), (0.5, 0.5, 0.5), 0.9),
+    "swin": Preprocessing((0.485, 0.456, 0.406), (0.229, 0.224, 0.225), 0.9),
+}
+
+MODEL_NAMES = (
+    "deit_tiny", "deit_small", "deit_base", "vit_base", "vit_large",
+    "swin_tiny", "swin_small", "swin_base",
+)
 
 
 def family(name: str) -> str:
     return name.split("_")[0]
+
+
+def preprocessing_for(name: str) -> Preprocessing:
+    return PREPROCESSING[family(name)]
 
 
 def get_spec(name: str):
@@ -43,18 +69,21 @@ def _env_checkpoint(name: str):
 
 def build_params(name: str, checkpoint: str | None = None, seed: int = 0,
                  device="cuda"):
-    """(spec, params) for ``name``: the float parameters drawn from
-    ``seed`` (``vit.init_params``) on ``device``.  A checkpoint (given, or
-    found where the reference looks for one) and the Swin family raise
-    ``NotImplementedError``: their loaders are not ported yet."""
+    """(spec, params) for ``name`` on ``device``: loaded from
+    ``checkpoint`` (a torch ``.pth`` or a Flax ``.npz``; else
+    ``DIFFVIT_CKPT_DIR``'s ``{name}.pth`` / ``{name}.npz``), or drawn from
+    ``seed`` (``vit.init_params``).  The Swin family raises
+    ``NotImplementedError`` either way."""
     spec = get_spec(name)
     checkpoint = checkpoint or _env_checkpoint(name)
-    if checkpoint is not None:
-        raise NotImplementedError(
-            f"{name}: loading the checkpoint {checkpoint!r} is not ported "
-            f"yet ({_NOT_YET})")
     if name in SWIN_SPECS:
+        what = f"the checkpoint {checkpoint!r}" if checkpoint else \
+            "random float parameters"
         raise NotImplementedError(
-            f"{name}: Swin float parameters are not ported yet ({_NOT_YET})")
+            f"{name}: Swin loading of {what} is not ported yet ({_NOT_YET})")
+    if checkpoint is not None:
+        load = load_vit_npz if str(checkpoint).endswith(".npz") \
+            else load_vit_torch_checkpoint
+        return spec, params_from_numpy(load(checkpoint, spec), device)
     return spec, init_params(spec, torch.Generator().manual_seed(seed),
                              device)

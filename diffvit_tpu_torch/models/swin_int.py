@@ -144,7 +144,8 @@ def forward_q_int(ip, spec: SwinSpec, cfg: QuantConfig, x, *,
             mask_div = ib["mask_div"]
             nw = 1 if mask_div is None else mask_div.shape[0]
             kw = dict(num_heads=nh, n_real=n, n_windows=nw,
-                      bits=cfg.bit_s.bits, lis=cfg.lis)
+                      bits=cfg.bit_s.bits, lis=cfg.lis,
+                      lis_wide=ib["lis_wide"])
             if attn_v2:
                 o_i8 = fused_swin_attention_v2(
                     qkv_i8, ib["bias_q"], mask_div, ib["attn_scalars"],

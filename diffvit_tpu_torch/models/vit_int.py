@@ -380,7 +380,8 @@ def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
         o_i8 = fused_qkv_attention_v2(
             x_i8, qkv_site["w_int"], qkv_site["mult"], qkv_site["b"],
             ib["attn_scalars"], num_heads=n_heads, head_dim=h_dim, n_real=N,
-            bits=cfg.bit_s.bits, lis=cfg.lis, lis_fast=ib["lis_fast"])
+            bits=cfg.bit_s.bits, lis=cfg.lis, lis_fast=ib["lis_fast"],
+            lis_wide=ib["lis_wide"])
         # proj contracts the (H, D) head layout jointly
         y = _int_linear(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
                         proj_site)
@@ -396,7 +397,7 @@ def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
             qkv5 = qkv_i8.view(B, N, 3, n_heads, h_dim).permute(0, 2, 3, 1, 4)
             o_i8 = fused_int_attention(
                 qkv5, ib["int_attn_scalars"], num_heads=n_heads, n_real=N,
-                bits=cfg.bit_s.bits, lis=cfg.lis)
+                bits=cfg.bit_s.bits, lis=cfg.lis, lis_wide=ib["lis_wide"])
             y = _int_linear(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
                             proj_site)
 
@@ -476,12 +477,13 @@ def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
     h = _embed_front(ip, spec, cfg, x)
     B, N, C = h.shape
     hc = _codes(h, ip["qact1"]["scale"], cfg.bit_a)
+    lis_wide = any(ib["lis_wide"] for ib in ip["blocks"])
 
     def run(chunk):  # (b, N, C) int8 codes -> the last block's codes
         b = chunk.shape[0]
         return resident_codes(packed, chunk.reshape(b * N, C), n_real=N,
                               bits=cfg.bit_s.bits, lis=cfg.lis,
-                              nelems=b).reshape(b, N, C)
+                              nelems=b, lis_wide=lis_wide).reshape(b, N, C)
 
     if microbatch is None or B <= microbatch:
         out = run(hc)

@@ -24,24 +24,27 @@ specification, exact for the LIS, and they differ from the JAX reference
 only where the reference's own arithmetic is order- or
 approximation-dependent:
 
-* the row sum of the integer exponentials is exact (an int64 sum, rounded
-  once to float32), where the reference sums float32 terms of up to 2^55;
+* the row sum of the integer exponentials is exact, rounded once to
+  float32, where the reference sums float32 terms of up to 2^68 in its own
+  order: an int64 sum, or where ``lis_sum_fits(s_a, n_keys)`` fails
+  (``lis_wide``), the 128-bit :func:`~..lis.wide_row_sum`;
 * ``2^(32-q)`` and ``floor(log2 y)`` are exact (exponent bits), where XLA's
   ``exp2``/``log2`` on the CPU are off by an ulp for some integers;
 * the LIS weights are carried as the integers ``2^(15-code)`` and attn@v is
   an exact integer sum, equal to the reference's float attn@v times 2^15.
 
-The int64 sum holds the row's terms only while they cannot overflow it:
-``lis_sum_fits(s_a, n_keys)``, which ``models/convert.py`` checks for
-every block (for ViT's 197 keys it admits ``s_a >= 2^-10``).
+``models/convert.py`` sets ``lis_wide`` for every block whose softmax
+scale fails ``lis_sum_fits`` (for ViT's 197 keys, ``s_a < 2^-10``), and
+refuses a scale below ``LIS_MIN_SCALE`` = 2^-17, the reference's own bound.
+The kernels take the flag in their ``lis`` argument (:func:`lis_code`).
 """
 from __future__ import annotations
 
 import torch
 
 # the LIS arithmetic every LIS of the port shares (re-exported here)
-from ..lis import (_B, _C, _X0, int_exp, lis_sum_fits,  # noqa: F401
-                   lis_tail_plain)
+from ..lis import (_B, _C, _X0, LIS_MIN_SCALE, int_exp,  # noqa: F401
+                   lis_sum_fits, lis_tail_plain, wide_row_sum)
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
 from .attn_plan import attention_plan
@@ -58,18 +61,34 @@ def lis_fast_ok(scale_value: float) -> bool:
     return 2.0**-10 <= scale_value <= 0.6931
 
 
+def lis_code(lis: bool, lis_wide: bool = False) -> int:
+    """The ``lis`` argument of the C entries: 0 the float softmax, 1 the
+    LIS, 2 the LIS with the 128-bit row sum (``csrc/lis.cuh``'s
+    ``kLisWide``)."""
+    return 0 if not lis else 2 if lis_wide else 1
+
+
 def lis_body_plain(a_int: torch.Tensor, scale: torch.Tensor, bits: int,
-                   col_ok: torch.Tensor, fast: bool = False) -> torch.Tensor:
+                   col_ok: torch.Tensor, fast: bool = False,
+                   wide: bool = False) -> torch.Tensor:
     """Log-Int-Softmax on integer scores (float32 carrier) over the columns
     ``col_ok`` (``_lis_body``, ``attention.py:51-137``).  Returns int32
-    weights scaled by 2^15: ``2^(15 - code)``, 0 where saturated or masked."""
+    weights scaled by 2^15: ``2^(15 - code)``, 0 where saturated or masked.
+    ``wide``: the row sum is :func:`wide_row_sum` (the slow form only),
+    else an int64 sum."""
     if bits > 4:
         raise NotImplementedError(
             "LIS tail supports bits <= 4 only (the reference's uint4)")
+    if fast and wide:
+        raise ValueError("the 128-bit LIS row sum takes the slow form only")
     row_max = torch.where(col_ok, a_int, -torch.inf).amax(-1, keepdim=True)
     exp_int = int_exp(a_int - row_max, scale, fast)
     exp_int = torch.where(col_ok, exp_int, 0.0)
-    exp_sum = exp_int.to(torch.int64).sum(-1, keepdim=True).to(torch.float32)
+    if wide:
+        exp_sum = wide_row_sum(exp_int)
+    else:
+        exp_sum = exp_int.to(torch.int64).sum(-1, keepdim=True).to(
+            torch.float32)
     return lis_tail_plain(exp_sum, exp_int)
 
 
@@ -86,7 +105,7 @@ def qkv_projection_plain(x_i8, w_all, mb):
 
 
 def lis_weights_plain(qkv, scalars, *, num_heads, head_dim, n_real,
-                      bits=4, lis_fast=False):
+                      bits=4, lis_fast=False, lis_wide=False):
     """Second stage up to the softmax: (B, Npad, 3C) int8 qkv codes ->
     (B, H, Npad, Npad) int32 LIS weights (x 2^15, pad keys 0)."""
     b, npad, _ = qkv.shape
@@ -95,7 +114,8 @@ def lis_weights_plain(qkv, scalars, *, num_heads, head_dim, n_real,
     a_int = torch.clamp(torch.round(scores.to(torch.float32) * scalars[1]),
                         -128, 127)
     col_ok = torch.arange(npad, device=qkv.device) < n_real
-    return lis_body_plain(a_int, scalars[0], bits, col_ok, fast=lis_fast)
+    return lis_body_plain(a_int, scalars[0], bits, col_ok, fast=lis_fast,
+                          wide=lis_wide)
 
 
 def weighted_values(weights, v):
@@ -120,19 +140,20 @@ def _softmax_weights_plain(a_int, s_a, col_ok):
 
 
 def attention_core_plain(q, k, v, c1, s_a, s1_over_s2, *, n_real, bits=4,
-                         lis=True, lis_fast=False):
+                         lis=True, lis_fast=False, lis_wide=False):
     """The attention core that K1, K5, K6, K7a and K8 run, on int8 codes
     q, k, v (..., Npad, D) of the qact1 grid: scores -> qact_attn1 codes -> the
     LIS (weights x 2^15, attn@v exact) or the bfloat16 float softmax
     (attn@v in float64, rounded once: products of bfloat16 weights and int8
     values are exact, and so is their float64 sum at these exponent
     spreads) -> x s1/s2 -> int8 on the qact2 grid.  Keys at or past
-    ``n_real`` are masked."""
+    ``n_real`` are masked; ``lis_wide``: the LIS row sum is 128-bit."""
     scores = int_matmul(q, k.transpose(-1, -2))
     a_int = torch.clamp(torch.round(scores.to(torch.float32) * c1), -128, 127)
     col_ok = torch.arange(k.shape[-2], device=k.device) < n_real
     if lis:
-        weights = lis_body_plain(a_int, s_a, bits, col_ok, fast=lis_fast)
+        weights = lis_body_plain(a_int, s_a, bits, col_ok, fast=lis_fast,
+                                 wide=lis_wide)
         acc = weighted_values(weights, v).to(torch.float32) * 2.0**-15
     else:
         weights = _softmax_weights_plain(a_int, s_a, col_ok)
@@ -147,26 +168,26 @@ def _check_contract(bits, lis, what="fused_qkv_attention_v2"):
 
 
 def _attention_of_qkv(qkv, scalars, *, num_heads, head_dim, n_real, bits,
-                      lis, lis_fast=False):
+                      lis, lis_fast=False, lis_wide=False):
     """The attention core on (B, Npad, 3C) qkv codes with columns ordered
     [slot, head, d]; scalars [s_a, c1, 1/s1, s1/s2]."""
     b, npad, _ = qkv.shape
     t = qkv.reshape(b, npad, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
     return attention_core_plain(t[0], t[1], t[2], scalars[1], scalars[0],
                                 scalars[3], n_real=n_real, bits=bits,
-                                lis=lis, lis_fast=lis_fast)
+                                lis=lis, lis_fast=lis_fast, lis_wide=lis_wide)
 
 
 def fused_qkv_attention_v2_plain(x_i8, w_all, mult, bias, scalars, *,
                                  num_heads, head_dim, n_real, bits=4,
-                                 lis=True, lis_fast=False):
+                                 lis=True, lis_fast=False, lis_wide=False):
     """Plain PyTorch version of :func:`fused_qkv_attention_v2`."""
     _check_contract(bits, lis)
     mb = fold_requant(mult, bias, scalars[2], w_all.shape[1])
     qkv = qkv_projection_plain(x_i8, w_all, mb)
     return _attention_of_qkv(qkv, scalars, num_heads=num_heads,
                              head_dim=head_dim, n_real=n_real, bits=bits,
-                             lis=lis, lis_fast=lis_fast)
+                             lis=lis, lis_fast=lis_fast, lis_wide=lis_wide)
 
 
 def _attention_plan(batch, heads, npad, d, n_real, lis, device):
@@ -176,7 +197,7 @@ def _attention_plan(batch, heads, npad, d, n_real, lis, device):
 
 
 def _launch_qkv(x_i8, wk, mb, scalars, *, num_heads, head_dim, n_real, lis,
-                lis_fast, requant_v1, what):
+                lis_fast, lis_wide, requant_v1, what):
     """One launch pair of ``csrc/qkv_attention.cu`` (the qkv GEMM, then the
     attention core) after the checks every entry shares; ``wk`` is the
     (3C, Kp) K-major weight."""
@@ -202,7 +223,8 @@ def _launch_qkv(x_i8, wk, mb, scalars, *, num_heads, head_dim, n_real, lis,
     err = load_library().dvt_qkv_attention(
         x2.data_ptr(), wk.data_ptr(), mb.data_ptr(), scalars.data_ptr(),
         qkv.data_ptr(), out.data_ptr(), b, npad, kp, num_heads, head_dim,
-        n_real, int(lis), int(lis_fast), int(requant_v1), *gp.launch_args(),
+        n_real, lis_code(lis, lis_wide), int(lis_fast), int(requant_v1),
+        *gp.launch_args(),
         *ap.launch_args(),
         torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, what)
@@ -220,7 +242,7 @@ def _check_w_all(x_i8, w_all, num_heads, head_dim):
 
 def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
                            head_dim, n_real, bits=4, lis=True,
-                           lis_fast=False):
+                           lis_fast=False, lis_wide=False):
     """Fused qkv projection + attention (the LIS, or for ``lis=False`` the
     float softmax rounded to bfloat16).
 
@@ -228,7 +250,8 @@ def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
     padding: they are computed, and never used as keys); w_all: (Cin, 3C)
     int8 with columns ordered [slot, head, d]; mult/bias: (3C,) float32 (or
     broadcastable); scalars: (4,) float32 [s_a, c1, 1/s1, s1/s2].
-    lis_fast: caller guarantees s_a in [2^-10, ln2].
+    lis_fast: caller guarantees s_a in [2^-10, ln2]; lis_wide: the LIS row
+    sum is 128-bit (for a scale that fails ``lis_sum_fits``; slow form).
     Returns (B, H, Npad, D) int8 on the qact2 grid.
 
     A CUDA tensor runs ``csrc/qkv_attention.cu``; a CPU tensor runs
@@ -238,7 +261,7 @@ def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
         return fused_qkv_attention_v2_plain(
             x_i8, w_all, mult, bias, scalars, num_heads=num_heads,
             head_dim=head_dim, n_real=n_real, bits=bits, lis=lis,
-            lis_fast=lis_fast)
+            lis_fast=lis_fast, lis_wide=lis_wide)
     _check_w_all(x_i8, w_all, num_heads, head_dim)
     c3 = w_all.shape[1]
     mb = per_weight(
@@ -246,7 +269,7 @@ def fused_qkv_attention_v2(x_i8, w_all, mult, bias, scalars, *, num_heads,
         mult, bias, scalars, c3, "k1_mb")
     out = _launch_qkv(x_i8, kmajor(w_all), mb, scalars, num_heads=num_heads,
                       head_dim=head_dim, n_real=n_real, lis=lis,
-                      lis_fast=lis_fast, requant_v1=False,
+                      lis_fast=lis_fast, lis_wide=lis_wide, requant_v1=False,
                       what="fused_qkv_attention_v2")
     fused_qkv_attention_v2.launches += 1
     return out
@@ -274,27 +297,27 @@ def heads_to_all(wq, wk, wv):
 
 
 def _v1_order_plain(x_i8, w_all, mult, bias, scalars, *, num_heads,
-                    head_dim, n_real, bits, lis):
+                    head_dim, n_real, bits, lis, lis_wide=False):
     c3 = 3 * num_heads * head_dim
     qkv = qkv_projection_v1_plain(x_i8, w_all, mult.reshape(-1).expand(c3),
                                   bias.reshape(-1).expand(c3), scalars[2])
     return _attention_of_qkv(qkv, scalars, num_heads=num_heads,
                              head_dim=head_dim, n_real=n_real, bits=bits,
-                             lis=lis)
+                             lis=lis, lis_wide=lis_wide)
 
 
 def fused_qkv_attention_plain(x_i8, wq, wk, wv, mult, bias, scalars, *,
-                              n_real, bits=4, lis=True):
+                              n_real, bits=4, lis=True, lis_wide=False):
     """Plain PyTorch version of :func:`fused_qkv_attention`."""
     _check_contract(bits, lis, "fused_qkv_attention")
     h, _, d = wq.shape
     return _v1_order_plain(x_i8, heads_to_all(wq, wk, wv), mult, bias,
                            scalars, num_heads=h, head_dim=d, n_real=n_real,
-                           bits=bits, lis=lis)
+                           bits=bits, lis=lis, lis_wide=lis_wide)
 
 
 def fused_qkv_attention(x_i8, wq, wk, wv, mult, bias, scalars, *, n_real,
-                        bits=4, lis=True):
+                        bits=4, lis=True, lis_wide=False):
     """Fused attention with per-head weights (the Pallas v1, K8): the qkv
     projection ``rint((acc * mult + bias) * (1/s1))`` per head, then K1's
     attention core with the slow LIS (or the float softmax).
@@ -303,7 +326,7 @@ def fused_qkv_attention(x_i8, wq, wk, wv, mult, bias, scalars, *, n_real,
     strides as long as the three share them (e.g. the per-head views of
     K1's (Cin, 3C) weight; the kernel reads one K-major copy of the three,
     made once per weight triple and kept); mult/bias: (3, H, D) float32;
-    scalars: (4,) float32 [s_a, c1, 1/s1, s1/s2].
+    scalars: (4,) float32 [s_a, c1, 1/s1, s1/s2]; lis_wide as K1's.
     Returns (B, H, Npad, D) int8 on the qact2 grid.
 
     A CUDA tensor runs ``csrc/qkv_attention.cu`` (K1's launches, with the
@@ -312,12 +335,13 @@ def fused_qkv_attention(x_i8, wq, wk, wv, mult, bias, scalars, *, n_real,
     if route(x_i8, wq, wk, wv, mult, bias, scalars) == "cpu":
         return fused_qkv_attention_plain(x_i8, wq, wk, wv, mult, bias,
                                          scalars, n_real=n_real, bits=bits,
-                                         lis=lis)
+                                         lis=lis, lis_wide=lis_wide)
     out = _launch_qkv(x_i8, _heads_kmajor(x_i8, wq, wk, wv),
                       _v1_mb(mult, bias, wq), scalars,
                       num_heads=wq.shape[0], head_dim=wq.shape[2],
                       n_real=n_real, lis=lis, lis_fast=False,
-                      requant_v1=True, what="fused_qkv_attention")
+                      lis_wide=lis_wide, requant_v1=True,
+                      what="fused_qkv_attention")
     fused_qkv_attention.launches += 1
     return out
 
@@ -354,22 +378,24 @@ def _v1_mb(mult, bias, wq):
 
 def fused_qkv_attention_v3_plain(x_i8, w_all, mult, bias, scalars, *,
                                  num_heads, head_dim, n_real, bits=4,
-                                 lis=True):
+                                 lis=True, lis_wide=False):
     """Plain PyTorch version of :func:`fused_qkv_attention_v3` (and of v4
     and v5, which compute the same function)."""
     _check_contract(bits, lis, "fused_qkv_attention_v3")
     return _v1_order_plain(x_i8, w_all, mult, bias, scalars,
                            num_heads=num_heads, head_dim=head_dim,
-                           n_real=n_real, bits=bits, lis=lis)
+                           n_real=n_real, bits=bits, lis=lis,
+                           lis_wide=lis_wide)
 
 
 def _fused_v345(fn, x_i8, w_all, mult, bias, scalars, *, num_heads,
-                head_dim, n_real, bits, lis):
+                head_dim, n_real, bits, lis, lis_wide):
     _check_contract(bits, lis, fn.__name__)
     if route(x_i8, w_all, mult, bias, scalars) == "cpu":
         return fused_qkv_attention_v3_plain(
             x_i8, w_all, mult, bias, scalars, num_heads=num_heads,
-            head_dim=head_dim, n_real=n_real, bits=bits, lis=lis)
+            head_dim=head_dim, n_real=n_real, bits=bits, lis=lis,
+            lis_wide=lis_wide)
     _check_w_all(x_i8, w_all, num_heads, head_dim)
     c3 = w_all.shape[1]
     mb = per_weight(
@@ -377,13 +403,14 @@ def _fused_v345(fn, x_i8, w_all, mult, bias, scalars, *, num_heads,
         .to(torch.float32).contiguous(), mult, bias, c3, "v3_mb")
     out = _launch_qkv(x_i8, kmajor(w_all), mb, scalars, num_heads=num_heads,
                       head_dim=head_dim, n_real=n_real, lis=lis,
-                      lis_fast=False, requant_v1=True, what=fn.__name__)
+                      lis_fast=False, lis_wide=lis_wide, requant_v1=True,
+                      what=fn.__name__)
     fn.launches += 1
     return out
 
 
 def fused_qkv_attention_v3(x_i8, w_all, mult, bias, scalars, *, num_heads,
-                           head_dim, n_real, bits=4, lis=True):
+                           head_dim, n_real, bits=4, lis=True, lis_wide=False):
     """The Pallas ``fused_qkv_attention_v3``: K1's contract (x_i8, w_all,
     mult/bias (3C,), scalars) with v1's requant order and the slow LIS.  On
     the TPU it pipelined one image's qkv matmul under the previous image's
@@ -392,22 +419,23 @@ def fused_qkv_attention_v3(x_i8, w_all, mult, bias, scalars, *, num_heads,
     :func:`fused_qkv_attention_v3_plain`."""
     return _fused_v345(fused_qkv_attention_v3, x_i8, w_all, mult, bias,
                        scalars, num_heads=num_heads, head_dim=head_dim,
-                       n_real=n_real, bits=bits, lis=lis)
+                       n_real=n_real, bits=bits, lis=lis, lis_wide=lis_wide)
 
 
 def fused_qkv_attention_v4(x_i8, w_all, mult, bias, scalars, *, num_heads,
-                           head_dim, n_real, bits=4, lis=True, group=2):
+                           head_dim, n_real, bits=4, lis=True, group=2,
+                           lis_wide=False):
     """The Pallas ``fused_qkv_attention_v4`` (``group`` images a program on
     the TPU, halved until it divides B): v3's function and kernel.
     ``group`` is accepted and changes nothing here."""
     del group  # a TPU scheduling knob: the function does not depend on it
     return _fused_v345(fused_qkv_attention_v4, x_i8, w_all, mult, bias,
                        scalars, num_heads=num_heads, head_dim=head_dim,
-                       n_real=n_real, bits=bits, lis=lis)
+                       n_real=n_real, bits=bits, lis=lis, lis_wide=lis_wide)
 
 
 def fused_qkv_attention_v5(x_i8, w_all, mult, bias, scalars, *, num_heads,
-                           head_dim, n_real, bits=4, lis=True):
+                           head_dim, n_real, bits=4, lis=True, lis_wide=False):
     """The Pallas ``fused_qkv_attention_v5`` (two images a program on the
     TPU): v3's function and kernel, for an even B only.  The Pallas kernel's
     grid is ``B // 2``, so for an odd B it leaves the last image unwritten;
@@ -417,7 +445,7 @@ def fused_qkv_attention_v5(x_i8, w_all, mult, bias, scalars, *, num_heads,
             f"program), got B={x_i8.shape[0]}")
     return _fused_v345(fused_qkv_attention_v5, x_i8, w_all, mult, bias,
                        scalars, num_heads=num_heads, head_dim=head_dim,
-                       n_real=n_real, bits=bits, lis=lis)
+                       n_real=n_real, bits=bits, lis=lis, lis_wide=lis_wide)
 
 
 for _fn in (fused_qkv_attention_v3, fused_qkv_attention_v4,
@@ -427,15 +455,16 @@ del _fn
 
 
 def fused_int_attention_plain(qkv_i8, scalars, *, num_heads, n_real, bits=4,
-                              lis=True):
+                              lis=True, lis_wide=False):
     """Plain PyTorch version of :func:`fused_int_attention` (the slow LIS)."""
     return attention_core_plain(qkv_i8[:, 0], qkv_i8[:, 1], qkv_i8[:, 2],
                                 scalars[0], scalars[2], scalars[1],
-                                n_real=n_real, bits=bits, lis=lis)
+                                n_real=n_real, bits=bits, lis=lis,
+                                lis_wide=lis_wide)
 
 
 def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
-                        lis=True):
+                        lis=True, lis_wide=False):
     """Attention core on projected qkv codes (SmoothQuant off).
 
     qkv_i8: (B, 3, H, N, D) int8 on the qact1 grid — any strides whose
@@ -444,8 +473,8 @@ def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
     Rows at or past ``n_real`` are never used as keys.  scalars: (3,)
     float32 [c1, s1/s2, s_a] (c1 = s1^2 * attn_scale / s_a).  ``lis``: the
     Log-Int-Softmax (slow form, as the Pallas kernel runs it), else the
-    float softmax rounded to bfloat16.
-    Returns (B, H, N, D) int8 on the qact2 grid.
+    float softmax rounded to bfloat16; ``lis_wide``: the LIS row sum is
+    128-bit.  Returns (B, H, N, D) int8 on the qact2 grid.
 
     A CUDA tensor runs ``csrc/qkv_attention.cu``'s attention core (the one
     K1 runs after its qkv GEMM, ``attention_mma.cuh``); a CPU tensor runs
@@ -456,7 +485,7 @@ def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
     if route(qkv_i8, scalars) == "cpu":
         return fused_int_attention_plain(qkv_i8, scalars,
                                          num_heads=num_heads, n_real=n_real,
-                                         bits=bits, lis=lis)
+                                         bits=bits, lis=lis, lis_wide=lis_wide)
     b, three, h, npad, d = qkv_i8.shape
     require(qkv_i8.dtype == torch.int8 and three == 3 and h == num_heads,
             f"qkv_i8 {tuple(qkv_i8.shape)} {qkv_i8.dtype}: expected int8 "
@@ -477,7 +506,7 @@ def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
     ap = _attention_plan(b, h, npad, d, n_real, lis, qkv_i8.device)
     err = load_library().dvt_int_attention(
         qkv_i8.data_ptr(), scalars.data_ptr(), out.data_ptr(), b, h, npad, d,
-        n_real, int(lis), *st[:4], *so[:3], *ap.launch_args(),
+        n_real, lis_code(lis, lis_wide), *st[:4], *so[:3], *ap.launch_args(),
         torch.cuda.current_stream(qkv_i8.device).cuda_stream)
     check(err, "fused_int_attention")
     fused_int_attention.launches += 1
@@ -490,14 +519,16 @@ fused_int_attention.launches = 0
 # ---- K7a: the whole attention half-block ----
 
 def fused_attention_block_plain(x_i8, h, wq, wk, wv, wp, mult, bias, pvec,
-                                scalars, *, n_real, bits=4, lis=True):
+                                scalars, *, n_real, bits=4, lis=True,
+                                lis_wide=False):
     """Plain PyTorch version of :func:`fused_attention_block`: K8 v1, the
     proj as one exact int32 (H, D) contraction (the per-head int32 sums of
     the Pallas kernel add up to it exactly), then the fences, dividing by
     the device tensors s_qact3 and s_qact2 as the Pallas kernel divides."""
     _check_contract(bits, lis, "fused_attention_block")
     o = fused_qkv_attention_plain(x_i8, wq, wk, wv, mult, bias, scalars,
-                                  n_real=n_real, bits=bits, lis=lis)
+                                  n_real=n_real, bits=bits, lis=lis,
+                                  lis_wide=lis_wide)
     b, heads, npad, d = o.shape
     o = o.permute(0, 2, 1, 3).reshape(b, npad, heads * d)
     y = int_matmul(o, wp.reshape(heads * d, -1)).to(torch.float32) \
@@ -508,7 +539,7 @@ def fused_attention_block_plain(x_i8, h, wq, wk, wv, wp, mult, bias, pvec,
 
 
 def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
-                          *, n_real, bits=4, lis=True):
+                          *, n_real, bits=4, lis=True, lis_wide=False):
     """The attention half of a block (the Pallas ``fused_attention_block``,
     K7a): per-head qkv projection in v1's requant order, the LIS (slow) or
     float-softmax attention, the proj accumulated over the heads in int32,
@@ -519,8 +550,9 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
     stream; wq/wk/wv: (H, Cin, D) int8 (as :func:`fused_qkv_attention`);
     wp: (H, D, C) int8; mult/bias: (3, H, D) float32; pvec: (4, C) float32
     [mult_p, bias_p, s_qact3, s_qact2]; scalars: (4,) float32 [s_a, c1,
-    1/s1, s1/s2].  Returns the updated residual stream (B, Npad, C)
-    float32 (rows at or past ``n_real`` are computed from the padding).
+    1/s1, s1/s2]; lis_wide as K1's.  Returns the updated residual stream
+    (B, Npad, C) float32 (rows at or past ``n_real`` are computed from the
+    padding).
 
     A CUDA tensor runs ``csrc/qkv_attention.cu`` (K8's launches, then the
     proj GEMM, on ``int8_gemm.cuh``'s tile, with the fences in its
@@ -530,7 +562,7 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
     args = (x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars)
     if route(*args) == "cpu":
         return fused_attention_block_plain(*args, n_real=n_real, bits=bits,
-                                           lis=lis)
+                                           lis=lis, lis_wide=lis_wide)
     b, npad, cin = x_i8.shape
     heads, _, d = wq.shape
     c = wp.shape[-1]
@@ -565,7 +597,8 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
         x2.data_ptr(), h.data_ptr(), wkm.data_ptr(), wp.data_ptr(),
         _v1_mb(mult, bias, wq).data_ptr(), pvec.data_ptr(),
         scalars.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, npad, kp, heads, d, c, n_real, int(lis), *gp.launch_args(),
+        b, npad, kp, heads, d, c, n_real, lis_code(lis, lis_wide),
+        *gp.launch_args(),
         *ap.launch_args(),
         torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, "fused_attention_block")

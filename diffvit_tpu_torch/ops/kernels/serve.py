@@ -47,7 +47,7 @@ import torch
 from ..int_layernorm import ln_codes
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
-from .attention import MAX_KEYS, attention_core_plain
+from .attention import MAX_KEYS, attention_core_plain, lis_code
 from .attn_plan import (CODE_BYTES, EXP_BYTES, attention_plan, kv_bytes,
                         soft_bytes)
 from .build import check, load_library
@@ -181,7 +181,7 @@ def _ln_emit(codes, mask, s_min, w, b, out_scale, rescale=None):
 
 
 def resident_codes_plain(packed, x_codes, *, n_real, bits=4, lis=True,
-                         nelems):
+                         nelems, lis_wide=False):
     """Plain PyTorch version of :func:`resident_codes` (``_serve_kernel``,
     ``serve.py:113``, op for op)."""
     if lis and bits > 4:
@@ -205,7 +205,8 @@ def resident_codes_plain(packed, x_codes, *, n_real, bits=4, lis=True,
         t = qkv.reshape(nelems, npad, 3, heads, hd).permute(2, 0, 3, 1, 4)
         o = attention_core_plain(t[0], t[1], t[2], s[S_C1], s[S_SA],
                                  s[S_S1_OVER_S2], n_real=n_real, bits=bits,
-                                 lis=lis, lis_fast=packed["lis_fast"])
+                                 lis=lis, lis_fast=packed["lis_fast"],
+                                 lis_wide=lis_wide)
         # the per-head proj sums are int32, exact: one (H, D) contraction
         o = o.permute(0, 2, 1, 3).reshape(rows, c)
         y = int_matmul(o, packed["wproj"][i].reshape(c, c)).to(F32) \
@@ -373,22 +374,27 @@ def _tma_checks(km, scratch, rows, c, hid):
         require(err is None, f"scratch {name}: {err}")
 
 
-def resident_codes(packed, x_codes, *, n_real, bits=4, lis=True, nelems):
+def resident_codes(packed, x_codes, *, n_real, bits=4, lis=True, nelems,
+                   lis_wide=False):
     """Every encoder block in one launch.  x_codes: (nelems * npad, C) int8
     on the qact1 grid, ``nelems`` images of ``npad`` rows each; rows at or
     past ``n_real`` of an image are padding (computed, never used as keys).
-    ``packed``: :func:`prepare_resident`'s tensors.  Returns (nelems * npad,
-    C) int8 codes on the last block's qact4 grid.
+    ``packed``: :func:`prepare_resident`'s tensors.  ``lis_wide``: every
+    layer's LIS row sum is 128-bit, as a layer whose scale fails
+    ``lis_sum_fits`` needs (it equals the int64 sum where that one fits).
+    Returns (nelems * npad, C) int8 codes on the last block's qact4 grid.
 
     A CUDA tensor runs ``csrc/resident.cu``; a CPU tensor runs
     :func:`resident_codes_plain`."""
     if route(x_codes, *(packed[k] for k in PACKED)) == "cpu":
         return resident_codes_plain(packed, x_codes, n_real=n_real,
-                                    bits=bits, lis=lis, nelems=nelems)
+                                    bits=bits, lis=lis, nelems=nelems,
+                                    lis_wide=lis_wide)
     if lis and bits > 4:
         raise NotImplementedError("resident_codes: LIS supports bits <= 4 "
                                   "only")
-    out = _launch(packed, x_codes, n_real=n_real, lis=lis, nelems=nelems)
+    out = _launch(packed, x_codes, n_real=n_real, lis=lis, nelems=nelems,
+                  lis_wide=lis_wide)
     resident_codes.launches += 1
     return out
 
@@ -397,7 +403,7 @@ resident_codes.launches = 0
 
 
 def _launch(packed, x_codes, *, n_real, lis, nelems, stamps=None,
-            plan=None):
+            plan=None, lis_wide=False):
     """One K6 launch on the card (``plan``: the device's resident_plan
     unless given); ``stamps``: None, or a zeroed (1 + 14 * depth,) int64
     card tensor for the barrier stamps."""
@@ -438,7 +444,8 @@ def _launch(packed, x_codes, *, n_real, lis, nelems, stamps=None,
         *(packed[k].data_ptr() for k in PACKED[4:]),
         scratch.data_ptr(), barrier.data_ptr(),
         None if stamps is None else stamps.data_ptr(), depth, nelems, npad,
-        n_real, c, hid, heads, hd, int(lis), int(packed["lis_fast"]),
+        n_real, c, hid, heads, hd, lis_code(lis, lis_wide),
+        int(packed["lis_fast"]),
         *plan.launch_args(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "resident_codes")
     return out

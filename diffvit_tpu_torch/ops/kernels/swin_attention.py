@@ -14,8 +14,9 @@ Per window w and head h, with scalars = [c1, s_a1, 1/s_a2, s_a2, c2]:
 
 ``1/s_a2`` is a multiply, as in the Pallas kernel (the reference's
 non-kernel path divides; the two agree for power-of-two scales).  The LIS
-is ``attention.lis_body_plain`` (exact int64 row sum, ``fast=False``) and
-attn@v the exact integer sum of K1's plain version.
+is ``attention.lis_body_plain`` (``fast=False``; its exact row sum int64,
+or 128-bit with ``lis_wide``) and attn@v the exact integer sum of K1's
+plain version.
 
 With ``lis=False`` the weights are the float softmax of ``am * s_a2`` over
 the real keys, rounded to bfloat16 (``attention._softmax_weights_plain``,
@@ -42,8 +43,8 @@ import torch
 
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
-from .attention import (_softmax_weights_plain, weighted_values,
-                        lis_body_plain)
+from .attention import (_softmax_weights_plain, lis_body_plain, lis_code,
+                        weighted_values)
 from .attn_plan import swin_attention_plan
 from .build import check, load_library
 from .gemm import sm_count
@@ -54,12 +55,13 @@ WEIGHT_FLOOR = 2.0**-32  # float-softmax weights below it count as 0
 
 
 def swin_attention_plain(q, k, v, bias_q, mask_div, scalars, *, n_real,
-                         n_windows, bits=4, lis=True):
+                         n_windows, bits=4, lis=True, lis_wide=False):
     """The specification.  q, k, v: (Bw, H, npad, D) int8 (views are
     fine); bias_q: (H, npad, npad) float32; mask_div: (nW, npad, npad)
     float32 or None; scalars: (5,) float32.  Returns (Bw, H, npad, D) int8
     on the qact3 grid; keys at or past ``n_real`` are masked out.  ``lis``:
-    the Log-Int-Softmax, else the float softmax (``bits`` unused)."""
+    the Log-Int-Softmax (``lis_wide``: with the 128-bit row sum), else the
+    float softmax (``bits`` unused)."""
     bw, heads, npad, _ = q.shape
     scores = int_matmul(q, k.transpose(-1, -2)).to(torch.float32)
     a1c = torch.clamp(torch.round(scores * scalars[0]), -128, 127)
@@ -70,7 +72,8 @@ def swin_attention_plain(q, k, v, bias_q, mask_div, scalars, *, n_real,
               + mask_div[None, :, None]).reshape(bw, heads, npad, npad)
     col_ok = torch.arange(npad, device=q.device) < n_real
     if lis:
-        weights = lis_body_plain(am, scalars[3], bits, col_ok, fast=False)
+        weights = lis_body_plain(am, scalars[3], bits, col_ok, fast=False,
+                                 wide=lis_wide)
         acc = weighted_values(weights, v).to(torch.float32) * 2.0**-15
     else:
         weights = _softmax_weights_plain(am, scalars[3], col_ok)
@@ -85,7 +88,8 @@ def _check_contract(name, bits, lis):
         raise NotImplementedError(f"{name}: LIS supports bits <= 4 only")
 
 
-def _launch(qkv5, out4, bias_q, mask_div, scalars, n_real, n_windows, lis):
+def _launch(qkv5, out4, bias_q, mask_div, scalars, n_real, n_windows, lis,
+            lis_wide):
     """Run ``csrc/swin_attention.cu`` on qkv5, a (Bw, 3, H, npad, D) int8
     view, into out4, a (Bw, H, npad, D) int8 view of the output."""
     bw, _, heads, npad, d = qkv5.shape
@@ -120,7 +124,7 @@ def _launch(qkv5, out4, bias_q, mask_div, scalars, n_real, n_windows, lis):
         qkv5.data_ptr(), bias_q.data_ptr(),
         None if mask_div is None else mask_div.data_ptr(),
         scalars.data_ptr(), out4.data_ptr(), bw, heads, npad, d, n_real,
-        n_windows, int(lis), *strides, *plan.launch_args(),
+        n_windows, lis_code(lis, lis_wide), *strides, *plan.launch_args(),
         torch.cuda.current_stream(qkv5.device).cuda_stream)
     check(err, "fused_swin_attention")
 
@@ -130,7 +134,7 @@ def _tensors(*ts):
 
 
 def fused_swin_attention(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
-                         n_real, n_windows, bits=4, lis=True):
+                         n_real, n_windows, bits=4, lis=True, lis_wide=False):
     """K4, the v1 contract.  qkv_i8: (Bw, 3, H, npad, D) int8 on the
     attn.qact1 grid, contiguous or a view with a contiguous last axis;
     bias_q: (H, npad, npad) float32 fake-quantized relative-position bias;
@@ -138,7 +142,8 @@ def fused_swin_attention(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
     (window w takes mask w mod nW); scalars: (5,) float32
     [c1, s_a1, 1/s_a2, s_a2, c2].  Returns (Bw, H, npad, D) int8 on the
     qact3 grid.  ``lis``: the Log-Int-Softmax (``bits`` <= 4), else the
-    float softmax rounded to bfloat16 (any ``bits``).
+    float softmax rounded to bfloat16 (any ``bits``).  ``lis_wide``: the
+    LIS row sum is 128-bit (for a scale that fails ``lis_sum_fits``).
 
     A CUDA tensor runs ``csrc/swin_attention.cu``; a CPU tensor runs
     :func:`swin_attention_plain`."""
@@ -150,16 +155,19 @@ def fused_swin_attention(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
     if route(*_tensors(qkv_i8, bias_q, mask_div, scalars)) == "cpu":
         return swin_attention_plain(
             qkv_i8[:, 0], qkv_i8[:, 1], qkv_i8[:, 2], bias_q, mask_div,
-            scalars, n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
+            scalars, n_real=n_real, n_windows=n_windows, bits=bits, lis=lis,
+            lis_wide=lis_wide)
     out = torch.empty((bw, heads, npad, d), dtype=torch.int8,
                       device=qkv_i8.device)
-    _launch(qkv_i8, out, bias_q, mask_div, scalars, n_real, n_windows, lis)
+    _launch(qkv_i8, out, bias_q, mask_div, scalars, n_real, n_windows, lis,
+            lis_wide)
     fused_swin_attention.launches += 1
     return out
 
 
 def fused_swin_attention_v2(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
-                            head_dim, n_real, n_windows, bits=4, lis=True):
+                            head_dim, n_real, n_windows, bits=4, lis=True,
+                            lis_wide=False):
     """K4b, the natural contract.  qkv_i8: (Bw, npad, 3C) int8 with columns
     [q|k|v] x head x head_dim, as the qkv linear emits it.  Returns
     (Bw, npad, C) int8 on the qact3 grid in the same head-major column
@@ -176,11 +184,12 @@ def fused_swin_attention_v2(qkv_i8, bias_q, mask_div, scalars, *, num_heads,
     if route(*_tensors(qkv_i8, bias_q, mask_div, scalars)) == "cpu":
         o = swin_attention_plain(
             view[:, 0], view[:, 1], view[:, 2], bias_q, mask_div, scalars,
-            n_real=n_real, n_windows=n_windows, bits=bits, lis=lis)
+            n_real=n_real, n_windows=n_windows, bits=bits, lis=lis,
+            lis_wide=lis_wide)
         return o.permute(0, 2, 1, 3).reshape(bw, npad, c)
     out = torch.empty((bw, npad, c), dtype=torch.int8, device=qkv_i8.device)
     _launch(view, out.view(bw, npad, num_heads, head_dim).permute(0, 2, 1, 3),
-            bias_q, mask_div, scalars, n_real, n_windows, lis)
+            bias_q, mask_div, scalars, n_real, n_windows, lis, lis_wide)
     fused_swin_attention_v2.launches += 1
     return out
 

@@ -12,10 +12,9 @@ differ from it on purpose:
 
 * ``2^(32-q)`` and ``floor(log2 y)`` are exact (exponent bits), where
   XLA's ``exp2``/``log2`` on the CPU are off by an ulp for some integers;
-* the row sum of the integer exponentials is exact (an int64 sum, rounded
-  once to float32) wherever the scale keeps it inside int64
-  (``lis_sum_fits``), a float64 sum rounded once elsewhere; the reference
-  sums float32 terms of up to 2^56 in its own order.
+* the row sum of the integer exponentials is exact, rounded once to
+  float32 (:func:`wide_row_sum`, an int64 sum wherever ``lis_sum_fits``
+  holds); the reference sums float32 terms of up to 2^68 in its own order.
 """
 from __future__ import annotations
 
@@ -33,6 +32,12 @@ _B = float(np.float32(0.96963238 / 0.35815147))
 _C = float(np.float32(1.0 / 0.35815147))
 _A = float(np.float32(0.35815147))
 _NUDGE = float(np.float32(4.0 / 3.0 * (1.0 + 2.0**-17)))
+
+
+# the reference's lower bound on the softmax scale: its floor trick for q
+# holds for |x0_int| < 1.2e5 (``diffvit_tpu/ops/pallas/attention.py:62-70``);
+# above it every integer exponential is below 2^68
+LIS_MIN_SCALE = 2.0**-17
 
 
 def lis_sum_fits(scale_value: float, n_keys: int) -> bool:
@@ -102,6 +107,27 @@ def log_round(x):
     return f + bump.to(f.dtype)
 
 
+def wide_row_sum(exp_int: torch.Tensor) -> torch.Tensor:
+    """The exact row sum (last axis, kept) of integer exponentials
+    (non-negative integer float32 below 2^68), rounded once to float32, as
+    ``csrc/lis.cuh``'s ``wide_add`` / ``wide_to_float`` take it: each term
+    split at 2^32 into two exact int64 limbs, each limb summed, the carry
+    of the low sum moved into the high one, and the total t = hi * 2^32 +
+    lo rounded to nearest even: as an int64 below 2^63, else with its bits
+    below 2^16 folded into one sticky bit (which lies below the rounding
+    position of such a t).  Where the int64 sum fits, it equals the int64
+    sum rounded once."""
+    h = torch.floor(exp_int * 2.0**-32)
+    hi = h.to(torch.int64).sum(-1, keepdim=True)
+    lo = (exp_int - h * 2.0**32).to(torch.int64).sum(-1, keepdim=True)
+    hi = hi + (lo >> 32)
+    lo = lo & 0xFFFFFFFF
+    small = hi < 2**31
+    narrow = ((torch.where(small, hi, 0) << 32) | lo).to(torch.float32)
+    v = (hi << 16) | (lo >> 16) | ((lo & 0xFFFF) != 0).to(torch.int64)
+    return torch.where(small, narrow, v.to(torch.float32) * 2.0**16)
+
+
 def _int_exp(x_int, scaling_factor, n: int = 32):
     """Integer exp via the range reduction x = q * (-ln2) + r:
     (exp_int, its scaling factor).  n = 32 only (the reference's)."""
@@ -111,24 +137,12 @@ def _int_exp(x_int, scaling_factor, n: int = 32):
     return int_exp(x_int, s), _A * (s * s) / 2.0**32
 
 
-def _row_sum(exp_int, scaling_factor):
-    """The row sum of the integer exponentials, rounded once to float32:
-    an exact int64 sum where ``lis_sum_fits`` keeps it inside int64, a
-    float64 sum elsewhere.  Chosen on the device, with no host read."""
-    s = scaling_factor
-    c_int = torch.floor(_const(s, _C) / (s * s)).to(torch.float64)
-    fits = exp_int.shape[-1] * c_int < 2.0**31
-    exact = exp_int.to(torch.int64).sum(-1, keepdim=True)
-    wide = exp_int.to(torch.float64).sum(-1, keepdim=True)
-    return torch.where(fits, exact.to(torch.float32), wide.to(torch.float32))
-
-
 def int_softmax_from_int(x_int, scaling_factor):
     """(exp_int, exp_sum) of integer scores ``x_int`` (float32 carrier) at
     ``scaling_factor`` (a float32 tensor), shifted by the row max."""
     x_int = x_int - torch.amax(x_int, -1, keepdim=True)
     exp_int = int_exp(x_int, scaling_factor)
-    return exp_int, _row_sum(exp_int, scaling_factor)
+    return exp_int, wide_row_sum(exp_int)
 
 
 def int_softmax(x, scaling_factor):

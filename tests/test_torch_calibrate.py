@@ -140,23 +140,38 @@ def test_forward_fp_matches_jax(tiny):
 
 
 def test_vit_lis_scale_below_the_int64_sum_is_refused():
-    """The ViT counterpart of the Swin refusal: a LIS softmax scale below
-    lis_sum_fits (2^-11 over 197 keys) is refused when the model is
-    converted; 2^-10 and the float softmax take it."""
+    """A LIS softmax scale below lis_sum_fits (2^-11 over 197 keys), where
+    the int64 row sum could overflow, is served with the 128-bit row sum
+    (its block's ``lis_wide``), and an IntModel built on it gives finite
+    logits equal to its resident forward's; 2^-10 keeps the int64 sum.
+    Only a scale below the reference's own bound, 2^-17, is refused; the
+    float softmax takes any scale."""
     ip = random_int_model(TINY, seed=1)
     ip["blocks"][1]["attn.qact_attn1"]["scale"] = np.float32(2.0**-11)
-    with pytest.raises(ValueError, match="block 1: softmax scale"):
+    assert [b["lis_wide"] for b in
+            int_model_from_numpy(ip, TINY, "cpu")["blocks"]] == [False, True]
+    x = np.random.default_rng(0).integers(0, 256, (2, 3, 224, 224),
+                                          dtype=np.uint8)
+    got = engine.IntModel(ip, TINY, QuantConfig(), "cpu")(x).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(
+        engine.IntModel(ip, TINY, QuantConfig(), "cpu",
+                        resident=True)(x).numpy(), got)
+    ip["blocks"][1]["attn.qact_attn1"]["scale"] = np.float32(2.0**-18)
+    with pytest.raises(ValueError, match=r"block 1: .*below 2\^-17"):
         int_model_from_numpy(ip, TINY, "cpu")
-    with pytest.raises(ValueError, match="int64"):
+    with pytest.raises(ValueError, match=r"2\^-17"):
         engine.IntModel(ip, TINY, QuantConfig(), "cpu")
     int_model_from_numpy(ip, TINY, "cpu", QuantConfig(lis=False))
     ip["blocks"][1]["attn.qact_attn1"]["scale"] = np.float32(2.0**-10)
-    int_model_from_numpy(ip, TINY, "cpu")
+    assert not int_model_from_numpy(ip, TINY, "cpu")["blocks"][1]["lis_wide"]
 
 
 def test_registry_and_params():
     """Seeded params, equal for equal seeds, in the reference's layout and
-    truncation; a checkpoint or a Swin name is refused, not replaced."""
+    truncation; a ViT checkpoint is loaded (a missing file raises, it is
+    never replaced by random weights: tests/test_torch_load.py holds the
+    loaders), and a Swin name or checkpoint is refused, not replaced."""
     spec, p = registry.build_params("deit_tiny", seed=3, device="cpu")
     assert spec is vit.VIT_SPECS["deit_tiny"] and registry.family(
         "deit_tiny") == "deit"
@@ -167,8 +182,10 @@ def test_registry_and_params():
     assert abs(float(w.std()) - 0.0176) < 0.001  # std 0.02 cut at 2 std
     assert torch.equal(p["norm"]["w"], torch.ones(192))
     assert p["patch_embed"]["w"].shape == (192, 768)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(FileNotFoundError):
         registry.build_params("deit_tiny", checkpoint="x.pth", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+        registry.build_params("swin_tiny", checkpoint="x.pth", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         registry.build_params("swin_tiny", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):

@@ -1009,3 +1009,149 @@ def test_calibrate_bake_serve_on_card_matches_cpu(cuda, spec, batch, fqvit):
     _assert_paths_agree(card.prepare_int()(pixels).cpu().numpy(),
                         cpu.prepare_int()(pixels).numpy())
     _assert_paths_agree(card(pixels).cpu().numpy(), cpu(pixels).numpy())
+
+
+# ---- the 128-bit LIS row sum (lis_wide) -----------------------------------
+
+def _wide_vit(spec, cfg, s_a=2.0**-12):
+    """A random int-model with every block's softmax scale at ``s_a``
+    (2^-12: the int64 row sum over 197 keys could overflow)."""
+    ip = random_int_model(spec, cfg, seed=0)
+    for ib in ip["blocks"]:
+        ib["attn.qact_attn1"]["scale"] = np.float32(s_a)
+    return ip
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_lis_wide_vit_kernels_match_plain(cuda, batch):
+    """K1, K5, K8 (v1, v3, v4, v5), K7a and K6 with the 128-bit row sum at
+    DeiT-S width, s_a = 2^-12: each bit for bit against its plain
+    version."""
+    from diffvit_tpu_torch.ops.kernels.attention import lis_sum_fits
+    from diffvit_tpu_torch.testing import alt_kernel_cases
+    assert not lis_sum_fits(2.0**-12, 197)
+    dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    ip = _wide_vit(SMALL2, QuantConfig())
+    ib = ip["blocks"][0]
+    q = ib["qkv"]
+    x = dev(_codes((batch, 197, SMALL2.embed_dim), batch))
+    k1 = ((x, dev(q["w_int"]), dev(q["mult"]), dev(q["b"]),
+           dev(attn_constants(ib, SMALL2, 0)[0])),
+          dict(num_heads=SMALL2.num_heads, head_dim=SMALL2.head_dim,
+               n_real=197, lis_wide=True))
+    qkv = dev(_codes((batch, 197, 3 * SMALL2.embed_dim), batch + 1) // 3)
+    k5 = ((qkv.view(batch, 197, 3, SMALL2.num_heads, -1)
+           .permute(0, 2, 3, 1, 4), dev(int_attn_scalars(ib, SMALL2))),
+          dict(num_heads=SMALL2.num_heads, n_real=197, lis_wide=True))
+    pairs = {"k1": ((fused_qkv_attention_v2, fused_qkv_attention_v2_plain),
+                    k1),
+             "k5": ((fused_int_attention, fused_int_attention_plain), k5)}
+    cases = alt_kernel_cases(SMALL2, ip, batch, cuda, npad=200, seed=batch)
+    for name, fns in _alt_pairs().items():
+        if name != "fused_int_mlp_block" and (
+                name != "fused_qkv_attention_v5" or batch % 2 == 0):
+            args, kw = cases[name]
+            pairs[name] = (fns, (args, dict(kw, lis_wide=True)))
+    ipc = int_model_from_numpy(ip, SMALL2, cuda)
+    assert all(b["lis_wide"] for b in ipc["blocks"])
+    xr = x.reshape(batch * 197, -1)
+    pairs["k6"] = ((resident_codes, resident_codes_plain),
+                   ((prepare_resident(ipc, SMALL2, QuantConfig()), xr),
+                    dict(n_real=197, bits=4, lis=True, nelems=batch,
+                         lis_wide=True)))
+    for name, ((fn, plain), (args, kw)) in pairs.items():
+        before = fn.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        want = plain(*args, **kw)
+        if name == "fused_attention_block":
+            s2 = args[8][3]
+            got, want = torch.round(got / s2), torch.round(want / s2)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_lis_wide_swin_kernels_match_plain(cuda, stage):
+    """K4 and K4b with the 128-bit row sum at each Swin-T stage, s_a2 =
+    2^-13 over the 49-key windows (shifted block), bit for bit against the
+    plain version."""
+    spec = SWIN_SPECS["swin_tiny"]
+    ip = random_swin_int_model(spec, seed=0)
+    p = f"layers.{stage}.blocks.1"
+    qp = dict(ip["qp"], **{f"{p}.attn.qact2.scale": np.float32(2.0**-13)})
+    k = swin_block_constants(ip["layers"][stage]["blocks"][1], qp, p, spec,
+                             stage, 1, QuantConfig())
+    assert k["lis_wide"]
+    res = spec.stage_resolution(stage)[0]
+    nw, heads, c = (res // 7) ** 2, spec.num_heads[stage], \
+        spec.stage_dim(stage)
+    dev = lambda a: None if a is None else torch.tensor(  # noqa: E731
+        np.asarray(a), device=cuda)
+    qkv = dev(_codes((2 * nw, 49, 3 * c), stage))
+    consts = (dev(k["bias_q"]), dev(k["mask_div"]), dev(k["attn_scalars"]))
+    kw = dict(num_heads=heads, n_real=49, n_windows=nw, lis_wide=True)
+    view = qkv.view(2 * nw, 49, 3, heads, 32).permute(0, 2, 3, 1, 4)
+    want = swin_attention_plain(view[:, 0], view[:, 1], view[:, 2], *consts,
+                                n_real=49, n_windows=nw, lis_wide=True)
+    got = fused_swin_attention(view, *consts, **kw)
+    got2 = fused_swin_attention_v2(qkv, *consts, head_dim=32, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(
+        got2.cpu().numpy(),
+        want.permute(0, 2, 1, 3).reshape(2 * nw, 49, c).cpu().numpy())
+
+
+# ---- the data pipeline and the CLI on the card ------------------------------
+
+def test_device_prefetcher_on_card(cuda):
+    """Pinned memory and a side stream: the batches arrive on the card in
+    order and equal to the host's, at most ``depth`` ahead; an early
+    break stops the feeder."""
+    from diffvit_tpu_torch.data.imagenet import DevicePrefetcher
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (8, 3, 224, 224), dtype=np.uint8),
+                np.arange(8, dtype=np.int32) + i) for i in range(6)]
+    pf = DevicePrefetcher(batches, depth=2, device=cuda)
+    for (x, y), (hx, hy) in zip(pf, batches):
+        assert x.device.type == "cuda" and x.dtype == torch.uint8
+        np.testing.assert_array_equal(x.cpu().numpy(), hx)
+        np.testing.assert_array_equal(y, hy)
+    for i, _ in enumerate(pf):
+        if i == 1:
+            break
+
+
+def test_cli_on_card(cuda, tmp_path, monkeypatch, capsys):
+    """A TINY DeiT through the CLI on the card: --quant --mode 1
+    --int-path --save-int, then --load-int per kernel and --resident on
+    the codes wire; the same report each time, K1 + K2 (or K6) launched;
+    and IntModel(microbatch=3) bit-equal to the unchunked forward."""
+    from diffvit_tpu_torch import cli
+    from diffvit_tpu_torch.data.synthetic import make_fake_imagefolder
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY)
+    make_fake_imagefolder(str(tmp_path / "val"), num_classes=3, per_class=3,
+                          size=(80, 60))
+    art = str(tmp_path / "tiny.npz")
+    common = ["--val-batchsize", "4", "--num-workers", "2", "--wire", "u8"]
+    before = fused_qkv_attention_v2.launches
+    res = cli.main(["deit_test", str(tmp_path), "--quant", "--mode", "1",
+                    "--calib-batchsize", "4", "--int-path", "--save-int",
+                    art, *common])
+    assert fused_qkv_attention_v2.launches == before + 3 * TINY.depth
+    served = cli.main(["deit_test", str(tmp_path), "--load-int", art,
+                       *common])
+    before = resident_codes.launches
+    resident = cli.main(["deit_test", str(tmp_path), "--load-int", art,
+                         "--resident", *common])
+    assert resident_codes.launches == before + 3
+    assert res == served == resident
+    assert "Saved int artifact" in capsys.readouterr().out
+    x = np.random.default_rng(2).integers(0, 256, (7, 3, 224, 224),
+                                          dtype=np.uint8)
+    want = engine.load_int_model(art, cuda)(x).cpu().numpy()
+    for resident_route in (False, True):
+        got = engine.load_int_model(art, cuda, resident=resident_route,
+                                    microbatch=3)(x).cpu().numpy()
+        np.testing.assert_array_equal(got, want)

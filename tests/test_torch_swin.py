@@ -145,13 +145,16 @@ def test_lis_sum_bound_follows_the_key_count():
     ip = random_swin_int_model(TINY, seed=0)
     p = "layers.0.blocks.1"
     ib = ip["layers"][0]["blocks"][1]
-    for s_a2, ok in ((2.0**-11, True), (2.0**-12, False)):
+    # below the int64 bound the block takes the 128-bit row sum; only a
+    # scale below the reference's own bound, 2^-17, is refused
+    for s_a2, wide in ((2.0**-11, False), (2.0**-12, True),
+                       (2.0**-17, True)):
         qp = dict(ip["qp"], **{f"{p}.attn.qact2.scale": np.float32(s_a2)})
-        if ok:
-            swin_block_constants(ib, qp, p, TINY, 0, 1, CFG)
-        else:
-            with pytest.raises(ValueError, match="overflow"):
-                swin_block_constants(ib, qp, p, TINY, 0, 1, CFG)
+        assert swin_block_constants(ib, qp, p, TINY, 0, 1,
+                                    CFG)["lis_wide"] == wide
+    qp = dict(ip["qp"], **{f"{p}.attn.qact2.scale": np.float32(2.0**-18)})
+    with pytest.raises(ValueError, match=r"below 2\^-17"):
+        swin_block_constants(ib, qp, p, TINY, 0, 1, CFG)
 
 
 # ---- K4 / K4b ---------------------------------------------------------------
@@ -427,7 +430,7 @@ def test_random_forward_differs_from_jax_only_inside_the_kernels(seed):
     plain_k4, plain_k2 = swin_int.fused_swin_attention, swin_int.fused_int_mlp
     equal = {"k4": [], "k2": []}
 
-    def pallas_k4(qkv, bias_q, mask_div, scalars, **kw):
+    def pallas_k4(qkv, bias_q, mask_div, scalars, *, lis_wide, **kw):
         n, npad = qkv.shape[3], -(-qkv.shape[3] // 8) * 8
         square = ((0, 0), (0, npad - n), (0, npad - n))
         y = jax_attention.fused_swin_attention(
@@ -437,7 +440,8 @@ def test_random_forward_differs_from_jax_only_inside_the_kernels(seed):
             None if mask_div is None else jnp.pad(_to_jnp(mask_div), square),
             _to_jnp(scalars), interpret=True, **kw)
         y = _t(y[:, :, :n])
-        ref = plain_k4(qkv, bias_q, mask_div, scalars, **kw)
+        ref = plain_k4(qkv, bias_q, mask_div, scalars, lis_wide=lis_wide,
+                       **kw)
         equal["k4"].append(float((y == ref).float().mean()))
         return y
 
@@ -640,15 +644,20 @@ def test_branch_models_take_their_branches(branch_models):
     # PTF off: layer-wise (scalar) LN grids
     assert np.ndim(branch_models("float_ln", "calibrated")["qp"][
         "layers.0.blocks.0.qact2.scale"]) == 0
-    # a lis=False model's softmax scale needs no LIS bound
+    # a lis=False model's softmax scale needs no LIS bound; the LIS takes
+    # 2^-14 with the 128-bit row sum and refuses 2^-18
     ip = random_swin_int_model(TINY, LIS_OFF, seed=0)
     p = "layers.0.blocks.1"
-    qp = dict(ip["qp"], **{f"{p}.attn.qact2.scale": np.float32(2.0**-14)})
-    swin_block_constants(ip["layers"][0]["blocks"][1], qp, p, TINY, 0, 1,
-                         LIS_OFF)
-    with pytest.raises(ValueError, match="overflow"):
-        swin_block_constants(ip["layers"][0]["blocks"][1], qp, p, TINY, 0,
-                             1, CFG)
+    ib = ip["layers"][0]["blocks"][1]
+    for s_a2 in (2.0**-14, 2.0**-18):
+        qp = dict(ip["qp"], **{f"{p}.attn.qact2.scale": np.float32(s_a2)})
+        assert not swin_block_constants(ib, qp, p, TINY, 0, 1,
+                                        LIS_OFF)["lis_wide"]
+    assert swin_block_constants(ib, dict(qp, **{
+        f"{p}.attn.qact2.scale": np.float32(2.0**-14)}), p, TINY, 0, 1,
+        CFG)["lis_wide"]
+    with pytest.raises(ValueError, match=r"below 2\^-17"):
+        swin_block_constants(ib, qp, p, TINY, 0, 1, CFG)
 
 
 def test_no_input_quant_refuses_codes(branch_models):
