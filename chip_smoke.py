@@ -99,12 +99,22 @@
             equal to the per-kernel forward's bit for bit; the share of
             equal argmax between the fake-quant forward_q and the served
             integer logits is printed, not gated.
-11. lis_wide: the 128-bit LIS row sum, for a softmax scale whose int64
+11. calibrate_swin: the same for the port's own Swin-T (params from
+            swin.init_swin_params at seed 0): the card against the CPU at
+            b = 8 (at least 99.9% of qparam elements equal, every one that
+            differs printed, global_distance equal, and the fake-quant and
+            served logits held by the _assert_paths_agree rule); the CLI's
+            Gaussian batch of 50 (wall seconds, peak memory, every block's
+            softmax scale); that bake served at b = 1, 8, 64 through
+            exactly 12 K4 + 12 K2 a forward, and at b = 8 through K4b with
+            logits equal to K4's; K4, K4b and K2 bit for bit against their
+            plain versions on every operand the bake gave them at b = 8.
+12. lis_wide: the 128-bit LIS row sum, for a softmax scale whose int64
             row sum could overflow: K1, K5, K8 (v1, _v3, _v4, _v5), K7a and
             K6 at DeiT-S (s_a = 2^-12 over 197 keys; b = 1, 8, 64) and K4
             and K4b at Swin-T's four stages (s_a2 = 2^-13 over a 49-key
             window; b = 1, 64), each bit for bit against its plain version.
-12. cli:    the port's CLI (diffvit_tpu_torch/cli.py) end to end, through
+13. cli:    the port's CLI (diffvit_tpu_torch/cli.py) end to end, through
             cli.main on a fake ImageFolder of JPEGs (PIL), with
             --device-prefetch 2: DeiT-S P2-ViT int4 calibrated on the CLI's
             Gaussian batch of 50, baked, saved and validated through its
@@ -1131,10 +1141,11 @@ def _qparam_diffs(got, want):
     return total, equal, diffs
 
 
-def _calibrated(cfg, x, dev):
-    """engine.QuantizedViT of DeiT-S (params at seed 0) calibrated on
-    ``x`` on ``dev``, and the calibration's wall seconds."""
-    q = engine.QuantizedViT(SPEC.name, cfg, seed=0, device=dev)
+def _calibrated(cfg, x, dev, name=SPEC.name):
+    """engine.QuantizedViT of the model ``name`` (DeiT-S by default; params
+    at seed 0) calibrated on ``x`` on ``dev``, and the calibration's wall
+    seconds."""
+    q = engine.QuantizedViT(name, cfg, seed=0, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1236,6 +1247,135 @@ def phase_calibrate(dev):
             raise RuntimeError("the calibrated resident forward, or the "
                                "saved artifact, differs from the per-kernel "
                                "forward")
+    return paths
+
+
+SWIN_KERNELS = ("fused_swin_attention", "fused_swin_attention_v2",
+                "fused_int_mlp")
+
+
+def swin_calls(run):
+    """Every call ``run()`` makes to the Swin forward's kernels, in order,
+    as (kernel name, args, kwargs)."""
+    calls = []
+    orig = {name: getattr(swin_int, name) for name in SWIN_KERNELS}
+
+    def recording(name):
+        def call(*args, **kw):
+            calls.append((name, args, kw))
+            return orig[name](*args, **kw)
+        return call
+
+    for name in SWIN_KERNELS:
+        setattr(swin_int, name, recording(name))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(swin_int, name, fn)
+    return calls
+
+
+def phase_calibrate_swin(dev, summary):
+    """Calibrate -> bake -> serve on the card, the port's own Swin-T
+    (params from swin.init_swin_params at seed 0, through
+    engine.QuantizedViT): the card against the CPU at b=8 (the qparams,
+    global_distance, the fake-quant forward's and the served logits); the
+    CLI's default Gaussian batch of 50 (seconds, peak memory, every
+    block's softmax scale); that bake served at b = 1, 8, 64 through
+    exactly 12 K4 + 12 K2 a forward, and at b = 8 through K4b with logits
+    equal to K4's; then K4, K4b and K2 bit for bit against their plain
+    versions on every operand that bake gave them at b = 8.  Returns the
+    launches by path."""
+    k4, k4b, k2 = SWIN_KERNELS
+    depth = sum(SWIN.depths)
+    rng = np.random.default_rng(7)
+    requests = [rng.integers(0, 256, (b, 3, 224, 224), dtype=np.uint8)
+                for b in CALIB_SERVE]
+    classes = SWIN.num_classes
+    paths = {}
+
+    # the card against the CPU, b = 8
+    x8 = gaussian_calibration(8, seed=0)
+    card, card_s = _calibrated(CFG, x8, dev, SWIN.name)
+    cpu, cpu_s = _calibrated(CFG, x8, torch.device("cpu"), SWIN.name)
+    total, equal, diffs = _qparam_diffs(card.qparams, cpu.qparams)
+    gd_equal = bool(np.array_equal(card.global_distance,
+                                   cpu.global_distance))
+    emit(phase="calibrate_swin", part="card_vs_cpu", batch=8,
+         qparam_elements=total, equal_share=equal / total,
+         differing=len(diffs), card_seconds=card_s, cpu_seconds=cpu_s,
+         global_distance_rows=len(card.global_distance),
+         global_distance_equal=gd_equal)
+    emit(phase="calibrate_swin_diffs", elements=diffs)
+    if equal / total < 0.999 or not gd_equal:
+        raise RuntimeError(f"Swin card vs CPU: {equal / total:.6f} of "
+                           f"qparam elements equal (at least 0.999 needed), "
+                           f"global_distance equal: {gd_equal}")
+    x = requests[1]
+    agree(card(x).cpu().numpy(), cpu(x).numpy(), (len(x), classes),
+          phase="calibrate_swin", part="card_vs_cpu_forward_q", batch=8)
+    got, launches_cvc = drive({k4: depth, k2: depth},
+                              lambda: card.prepare_int()(x))
+    agree(got.cpu().numpy(), cpu.prepare_int()(x).numpy(),
+          (len(x), classes), phase="calibrate_swin",
+          part="card_vs_cpu_served", batch=8)
+
+    # the CLI's default calibration batch of 50
+    x50 = gaussian_calibration(50, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    q, secs = _calibrated(CFG, x50, dev, SWIN.name)
+    s_a2 = [float(q.qparams[f"layers.{si}.blocks.{bi}.attn.qact2.scale"])
+            for si, d in enumerate(SWIN.depths) for bi in range(d)]
+    emit(phase="calibrate_swin", part="b50", config="p2vit_int4", batch=50,
+         seconds=secs, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         softmax_scale_log2=[float(np.log2(v)) for v in s_a2],
+         lis_sum_fits=[attention.lis_sum_fits(v, 49) for v in s_a2])
+    model = q.prepare_int()
+    model(requests[0])  # warm-up: K-major weight copies
+    outs, launches = drive({k4: depth * len(requests),
+                            k2: depth * len(requests)},
+                           lambda: [model(r) for r in requests])
+    paths[f"{SWIN.name} calibrated"] = {
+        k: n + launches_cvc[k] for k, n in launches.items()}
+    for r, o in zip(requests, outs):
+        o = o.cpu().numpy()
+        if o.shape != (len(r), classes) or not np.isfinite(o).all():
+            raise RuntimeError(f"calibrated Swin-T: bad logits, shape "
+                               f"{o.shape}")
+        fake = q(r).cpu().numpy()
+        xc = torch.tensor(model.encode(r), device=dev)
+        emit(phase="calibrate_swin", part="serve", config="p2vit_int4",
+             batch=len(r), forward_ms=cuda_ms(lambda: model(xc), 5),
+             argmax_equal_forward_q=float(np.mean(
+                 fake.argmax(1) == o.argmax(1))),
+             logits_distinct_across_images=bool(len(r) == 1 or (
+                 o != o[0]).any()))
+
+    # the natural-layout contract (K4b) on the same bake, b = 8
+    xc = torch.tensor(model.encode(requests[1]), device=dev)
+
+    def forward_v2():
+        with torch.inference_mode():
+            return swin_int.forward_q_int(model.ip, SWIN, CFG, xc,
+                                          attn_v2=True)
+    got_v2, paths[f"{SWIN.name} calibrated attn_v2"] = drive(
+        {k4b: depth, k2: depth}, forward_v2)
+    equal_v2 = bool(torch.equal(got_v2, outs[1]))
+    emit(phase="calibrate_swin", part="attn_v2", batch=8,
+         logits_equal_k4=equal_v2)
+    if not equal_v2:
+        raise RuntimeError("the calibrated Swin-T's K4b logits differ from "
+                           "its K4 logits")
+
+    # the kernels on the operands this bake gives them: per block the
+    # attention, then the MLP
+    for route, run in (("K4", lambda: model(xc)), ("K4b", forward_v2)):
+        for i, (name, args, kw) in enumerate(swin_calls(run)):
+            note(summary, name, hold(name, args, kw, "bitwise", iters=5,
+                                     model=f"{SWIN.name} calibrated",
+                                     route=route, batch=8, block=i // 2))
     return paths
 
 
@@ -1905,6 +2045,8 @@ def main():
     t.append(time.perf_counter())
     paths.update(phase_calibrate(dev))
     t.append(time.perf_counter())
+    paths.update(phase_calibrate_swin(dev, summary))
+    t.append(time.perf_counter())
     phase_probes_kernels(dev, summary)
     paths["probes"] = phase_probes(dev)
     t.append(time.perf_counter())
@@ -1915,7 +2057,8 @@ def main():
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
-         "alternatives", "calibrate", "probes", "lis_wide", "cli"),
+         "alternatives", "calibrate", "calibrate_swin", "probes",
+         "lis_wide", "cli"),
         t, t[1:])})
 
     kernels = []

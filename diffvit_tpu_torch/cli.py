@@ -6,6 +6,8 @@ same prints and the same Prec@1/Prec@5 report).
         --int-path --save-int deit_s.npz
     python3 -m diffvit_tpu_torch.cli deit_small <data> --load-int deit_s.npz \\
         --resident --wire u8
+    python3 -m diffvit_tpu_torch.cli swin_tiny <data> --quant --mode 1 \\
+        --int-path
 
 ``<data>`` holds ImageFolder trees ``val/`` (validation) and ``train/``
 (real calibration data, ``--mode 0``).  ``--device`` is ``cuda`` (the
@@ -16,8 +18,7 @@ loader encodes it into int8 input codes (``CodesLoader``) before the
 prefetcher moves it to the card.
 
 A flag whose machinery is not ported yet exits with ``SystemExit`` and
-names its ROADMAP item (:data:`NOT_PORTED`); so does a Swin model that is
-not served from an artifact (its calibration is ROADMAP Queue 1, item 4).
+names its ROADMAP item (:data:`NOT_PORTED`).
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ def build_parser():
     p.add_argument("--print-freq", default=100, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--checkpoint", default=None,
-                   help="local .pth/.npz weights (ViT/DeiT)")
+                   help="local weights: a .pth, or for ViT/DeiT a .npz")
     p.add_argument("--prior-checkpoint", default=None,
                    help="mode-2 prior weights (not ported)")
     p.add_argument("--dp", default=None, type=int, help="(not ported)")
@@ -196,7 +197,6 @@ def main(argv=None):
     from .engine import QuantizedViT, load_int_model, validate
     from .models import vit as vit_mod
     from .models.registry import preprocessing_for
-    from .models.swin import SWIN_SPECS
 
     cfg = QuantConfig(ptf=args.ptf, lis=args.lis,
                       quant_method=args.quant_method)
@@ -215,11 +215,6 @@ def main(argv=None):
               f"({model.spec.name})"
               + (" [resident kernel]" if args.resident else ""))
     else:
-        if args.model in SWIN_SPECS:
-            raise SystemExit(
-                f"{args.model}: Swin calibration and its float forward are "
-                "not ported to diffvit_tpu_torch yet (ROADMAP Queue 1, item "
-                "4); serve a Swin artifact with --load-int")
         model = QuantizedViT(args.model, cfg, checkpoint=args.checkpoint,
                              seed=args.seed, device=args.device,
                              input_norm=(pp.mean, pp.std))

@@ -1,8 +1,9 @@
 """The engine (counterpart of ``diffvit_tpu/engine.py``): ``QuantizedViT``
-(a float ViT/DeiT that calibrates, runs the fake-quant and float forwards
-and bakes itself into an int-model), and the serving half for the integer
-ViT and Swin: ``IntModel``, ``save_int_model``, ``load_int_model`` and
-``validate`` with the reference's Prec@1/Prec@5 report."""
+(a float ViT/DeiT or Swin that calibrates, runs the fake-quant and float
+forwards and bakes itself into an int-model), and the serving half for
+the integer ViT and Swin: ``IntModel``, ``save_int_model``,
+``load_int_model`` and ``validate`` with the reference's Prec@1/Prec@5
+report."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,7 @@ import torch
 from .config import QuantConfig
 from .data.imagenet import (IMAGENET_MEAN, IMAGENET_STD, device_normalize,
                             input_code_lut, normalize_lut)
-from .models import swin_int, vit, vit_int
+from .models import swin, swin_int, vit, vit_int
 from .models.convert import int_model_from_numpy, swin_int_model_from_numpy
 from .models.registry import build_params, get_spec
 from .models.swin import SwinSpec
@@ -143,20 +144,21 @@ class IntModel:
 
 
 class QuantizedViT:
-    """A calibratable ViT/DeiT on one device (the ViT family of
+    """A calibratable ViT/DeiT or Swin on one device (the counterpart of
     ``diffvit_tpu.engine.QuantizedViT``): its float params, the
     calibration's qparams, the fake-quant and float forwards, and the bake
     into an ``IntModel`` or an int-model artifact.
 
     ``name_or_spec``: a model name (params loaded from ``checkpoint``, a
     ``.pth`` or ``.npz`` file, or drawn from ``seed``, unless ``params`` is
-    given: ``registry.build_params``) or a ``ViTSpec`` with ``params``.
-    ``params``: a float pytree of tensors or numpy arrays in the
-    reference's layout (``vit.params_from_numpy``).  uint8 batches are
+    given: ``registry.build_params``) or a ``ViTSpec``/``SwinSpec`` with
+    ``params``.  ``params``: a float pytree of tensors or numpy arrays in
+    the reference's layout (``vit.params_from_numpy``).  uint8 batches are
     normalized on the device with ``input_norm``
     (``data.imagenet.device_normalize``), as the reference's ``_prep``
-    does; float32 batches pass through.  A Swin spec raises
-    ``NotImplementedError`` (ROADMAP Queue 1, item 4)."""
+    does; float32 batches pass through.  A Swin's bit configuration is its
+    uniform weight bit or a per-slot sequence
+    (``swin.normalize_bit_config``)."""
 
     def __init__(self, name_or_spec, cfg: QuantConfig | None = None,
                  params=None, checkpoint=None, seed: int = 0, device="cuda",
@@ -164,17 +166,14 @@ class QuantizedViT:
         self.device = torch.device(device)
         spec = get_spec(name_or_spec) if isinstance(name_or_spec, str) \
             else name_or_spec
-        if isinstance(spec, SwinSpec):
-            raise NotImplementedError(
-                f"{spec.name}: Swin calibration is not ported yet (ROADMAP "
-                "Queue 1, item 4)")
         if params is None:
             if not isinstance(name_or_spec, str):
-                raise ValueError("a ViTSpec needs its params")
+                raise ValueError("a spec needs its params")
             spec, params = build_params(name_or_spec, checkpoint, seed=seed,
                                         device=self.device)
         self.spec, self.cfg = spec, cfg or QuantConfig()
-        self.is_swin = False
+        self.is_swin = isinstance(spec, SwinSpec)
+        self._mod = swin if self.is_swin else vit
         self.params = vit.params_from_numpy(params, self.device)
         self.qparams = None
         self.global_distance = None
@@ -198,12 +197,12 @@ class QuantizedViT:
         finalized on the last.  Returns the qparams."""
         with torch.inference_mode():
             if isinstance(batch, (list, tuple)):
-                qp, dist = vit.calibrate_batches(
+                qp, dist = self._mod.calibrate_batches(
                     self.params, self.spec, self.cfg,
                     [self._prep(b) for b in batch])
             else:
-                qp, dist = vit.calibrate(self.params, self.spec, self.cfg,
-                                         self._prep(batch))
+                qp, dist = self._mod.calibrate(self.params, self.spec,
+                                               self.cfg, self._prep(batch))
         self.qparams = qp
         self.global_distance = dist.cpu().numpy()
         self._int_models = {}
@@ -231,16 +230,36 @@ class QuantizedViT:
         self._int_models = {}
         return self.qparams
 
+    def _bit_config(self, bit_config):
+        """``bit_config`` as the bake and the forwards take it: a ViT's as
+        a tuple (None: every slot ``cfg.bit_w``); a Swin's as the
+        reference's engine gives it (None: ``cfg.bit_w``'s bit; an int, or
+        a one-entry sequence, the uniform bit; else a per-slot tuple)."""
+        if not self.is_swin:
+            return None if bit_config is None else \
+                tuple(int(b) for b in bit_config)
+        if bit_config is None:
+            return self.cfg.bit_w.bits
+        if isinstance(bit_config, (int, np.integer)):
+            return int(bit_config)
+        bit_config = tuple(int(b) for b in bit_config)
+        return bit_config[0] if len(bit_config) == 1 else bit_config
+
     def _bake(self, bit_config):
-        return vit_int.prepare_int(self.params, self._calibrated(),
-                                   self.spec, self.cfg, bit_config)
+        int_mod = swin_int if self.is_swin else vit_int
+        return int_mod.prepare_int(self.params, self._calibrated(),
+                                   self.spec, self.cfg,
+                                   self._bit_config(bit_config))
 
     def prepare_int(self, bit_config=None, resident=False) -> IntModel:
         """The calibrated model baked for ``bit_config`` (default: every
         slot ``cfg.bit_w``) as an ``IntModel`` on this device (``resident``:
-        served through K6); kept per configuration."""
-        if bit_config is not None:
-            bit_config = tuple(int(b) for b in bit_config)
+        served through K6, the ViT family only: a Swin raises
+        ``ValueError``); kept per configuration."""
+        if resident and self.is_swin:
+            raise ValueError("resident serving kernel supports the ViT "
+                             "family only")
+        bit_config = self._bit_config(bit_config)
         key = (bit_config, bool(resident))
         if key not in self._int_models:
             self._int_models[key] = IntModel(
@@ -263,13 +282,14 @@ class QuantizedViT:
         x = self._prep(x)
         with torch.inference_mode():
             if quant:
-                return vit.forward_q(self.params, self._calibrated(),
-                                     self.spec, self.cfg, x, bit_config)
-            return vit.forward_fp(self.params, self.spec, x)
+                return self._mod.forward_q(self.params, self._calibrated(),
+                                           self.spec, self.cfg, x,
+                                           self._bit_config(bit_config))
+            return self._mod.forward_fp(self.params, self.spec, x)
 
     @property
     def flops(self):
-        return vit.flops_list(self.spec)
+        return self._mod.flops_list(self.spec)
 
 
 def save_int_model(path, ip, spec: ViTSpec | SwinSpec,

@@ -1,10 +1,14 @@
-"""Checkpoint conversion (counterpart of ``diffvit_tpu/models/load.py``):
-torch state dicts and AugReg Flax ``.npz`` files into the port's ViT/DeiT
-float parameter pytree, as float32 CPU tensors in the reference's layout
-(``vit.params_from_numpy`` moves them to a device).
+"""Checkpoint conversion (counterpart of ``diffvit_tpu/models/load.py`` and
+of ``diffvit_tpu/models/swin.py``'s converters): torch state dicts and
+AugReg Flax ``.npz`` files into the port's ViT/DeiT float parameter
+pytree, and Swin torch state dicts into the Swin one, as float32 CPU
+tensors in the reference's layout (``vit.params_from_numpy`` moves them to
+a device).
 
-The key mapping is the reference's: the DeiT hub checkpoints loaded with
-``strict=False`` and the Google-Brain Flax mapping for vit_base/large.
+The key mapping is the reference's: the DeiT and Swin hub checkpoints
+(a Swin dict's ``relative_position_index`` and ``attn_mask`` buffers are
+recomputed, not read) and the Google-Brain Flax mapping for
+vit_base/large.
 Loaders take local paths; nothing is downloaded.  The bicubic resize of
 the position embeddings runs in float64 numpy, the JAX package's own
 arithmetic, so both give the same values."""
@@ -13,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .swin import SwinSpec
 from .vit import ViTSpec
 
 
@@ -57,9 +62,65 @@ def load_vit_torch_checkpoint(path, spec: ViTSpec) -> dict:
     """A torch ``.pth`` file (a state dict, or a dict holding one under
     ``model``) -> the float parameter pytree.  ``weights_only=False``, as the
     reference loads it: load only files you trust."""
+    return convert_vit_torch_state_dict(_torch_state_dict(path), spec)
+
+
+def _torch_state_dict(path):
+    """The state dict of a torch ``.pth`` file (a state dict, or a dict
+    holding one under ``model``).  ``weights_only=False``, as the reference
+    loads it: load only files you trust."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
-    return convert_vit_torch_state_dict(sd, spec)
+    return ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+
+
+def convert_swin_torch_state_dict(sd, spec: SwinSpec) -> dict:
+    """A Swin torch state dict (the reference's module tree) -> the float
+    parameter pytree of ``swin.init_swin_params``.  The patch conv
+    (C, 3, ps, ps) is flattened to (C, 3 * ps * ps), ``swin_patchify``'s
+    order; the reductions have no bias."""
+    def g(k):
+        return _t(sd[k])
+
+    def lin(prefix, bias=True):
+        return {"w": g(prefix + ".weight"),
+                "b": g(prefix + ".bias") if bias else None}
+
+    params = {
+        "patch_embed": {
+            "proj": {"w": g("patch_embed.proj.weight").reshape(
+                spec.embed_dim, -1), "b": g("patch_embed.proj.bias")},
+            "norm": lin("patch_embed.norm") if spec.patch_norm else None,
+        },
+        "layers": [],
+        "norm": lin("norm"),
+        "head": lin("head"),
+    }
+    for s in range(spec.num_layers):
+        stage = {"blocks": [], "downsample": None}
+        for bi in range(spec.depths[s]):
+            p = f"layers.{s}.blocks.{bi}"
+            stage["blocks"].append({
+                "norm1": lin(p + ".norm1"),
+                "qkv": lin(p + ".attn.qkv"),
+                "proj": lin(p + ".attn.proj"),
+                "rel_bias_table": g(p + ".attn.relative_position_bias_table"),
+                "norm2": lin(p + ".norm2"),
+                "fc1": lin(p + ".mlp.fc1"),
+                "fc2": lin(p + ".mlp.fc2"),
+            })
+        if s < spec.num_layers - 1:
+            stage["downsample"] = {
+                "norm": lin(f"layers.{s}.downsample.norm"),
+                "reduction": lin(f"layers.{s}.downsample.reduction",
+                                 bias=False),
+            }
+        params["layers"].append(stage)
+    return params
+
+
+def load_swin_torch_checkpoint(path, spec: SwinSpec) -> dict:
+    """A Swin torch ``.pth`` file -> the float parameter pytree."""
+    return convert_swin_torch_state_dict(_torch_state_dict(path), spec)
 
 
 def _cubic_weights(frac, a=-0.75):

@@ -1,10 +1,6 @@
 """Model registry (counterpart of ``diffvit_tpu/models/registry.py``):
 names to specs, the per-family preprocessing constants, and the float
-parameters of a ViT/DeiT from a checkpoint or from a seed.
-
-Swin's float parameters and its checkpoint converters are not ported yet
-(ROADMAP Queue 1, item 4): both raise ``NotImplementedError``, so a
-checkpoint that was asked for is never replaced by random weights."""
+parameters of a ViT/DeiT or a Swin from a checkpoint or from a seed."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,12 +8,10 @@ import os
 
 import torch
 
-from .load import load_vit_npz, load_vit_torch_checkpoint
-from .swin import SWIN_SPECS
+from .load import (load_swin_torch_checkpoint, load_vit_npz,
+                   load_vit_torch_checkpoint)
+from .swin import SWIN_SPECS, init_swin_params
 from .vit import VIT_SPECS, init_params, params_from_numpy
-
-_NOT_YET = "ROADMAP Queue 1, item 4 (Swin float forward, calibration and " \
-           "baking; Swin model loading)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,20 +64,20 @@ def _env_checkpoint(name: str):
 def build_params(name: str, checkpoint: str | None = None, seed: int = 0,
                  device="cuda"):
     """(spec, params) for ``name`` on ``device``: loaded from
-    ``checkpoint`` (a torch ``.pth`` or a Flax ``.npz``; else
+    ``checkpoint`` (a torch ``.pth``, or for a ViT a Flax ``.npz``; else
     ``DIFFVIT_CKPT_DIR``'s ``{name}.pth`` / ``{name}.npz``), or drawn from
-    ``seed`` (``vit.init_params``).  The Swin family raises
-    ``NotImplementedError`` either way."""
+    ``seed`` (``vit.init_params``, ``swin.init_swin_params``).  A missing
+    checkpoint raises; it is never replaced by random weights."""
     spec = get_spec(name)
     checkpoint = checkpoint or _env_checkpoint(name)
+    generator = torch.Generator().manual_seed(seed)
     if name in SWIN_SPECS:
-        what = f"the checkpoint {checkpoint!r}" if checkpoint else \
-            "random float parameters"
-        raise NotImplementedError(
-            f"{name}: Swin loading of {what} is not ported yet ({_NOT_YET})")
+        if checkpoint is not None:
+            return spec, params_from_numpy(
+                load_swin_torch_checkpoint(checkpoint, spec), device)
+        return spec, init_swin_params(spec, generator, device)
     if checkpoint is not None:
         load = load_vit_npz if str(checkpoint).endswith(".npz") \
             else load_vit_torch_checkpoint
         return spec, params_from_numpy(load(checkpoint, spec), device)
-    return spec, init_params(spec, torch.Generator().manual_seed(seed),
-                             device)
+    return spec, init_params(spec, generator, device)

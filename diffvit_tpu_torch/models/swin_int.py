@@ -1,15 +1,16 @@
-"""Integer Swin forward (counterpart of ``diffvit_tpu/models/swin_int.py::
-forward_q_int`` with ``use_pallas`` on).
+"""Integer Swin (counterpart of ``diffvit_tpu/models/swin_int.py``): the
+bake, ``prepare_int``, and the forward, ``forward_q_int`` with
+``use_pallas`` on.
 
-The model is the int-model pytree of ``diffvit_tpu.models.swin_int.
-prepare_int`` on one device, from ``models/convert.
-swin_int_model_from_numpy``.  Per block: the LN, the window shuffle, the
-qkv GEMM requantized onto attn.qact1, the fused window-attention kernel
-(K4, or K4b with ``attn_v2``; the LIS or, under ``lis=False``, the float
-softmax), the proj GEMM, the attn.qact4 / residual / qact2 fences, the LN,
-the integer MLP kernel (K2) and the residual / qact4 fence; per stage the
-patch merge, its LN and the reduction GEMM; then the final LN, the token
-mean and the head.  Every branch of the reference is here, chosen by the
+The forward's model is the int-model pytree of ``prepare_int`` (host-side
+numpy, the JAX package's keys and values) on one device, from
+``models/convert.swin_int_model_from_numpy``.  Per block: the LN, the
+window shuffle, the qkv GEMM requantized onto attn.qact1, the fused
+window-attention kernel (K4, or K4b with ``attn_v2``; the LIS or, under
+``lis=False``, the float softmax), the proj GEMM, the attn.qact4 /
+residual / qact2 fences, the LN, the integer MLP kernel (K2) and the
+residual / qact4 fence; per stage the patch merge, its LN and the
+reduction GEMM; then the final LN, the token mean and the head.  Every branch of the reference is here, chosen by the
 same rules:
 
 * the codes path (integer LN and symmetric activations): the residual
@@ -35,6 +36,7 @@ rows that it slices off.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import QuantConfig
@@ -44,8 +46,68 @@ from ..ops.kernels.swin_attention import (fused_swin_attention,
                                           fused_swin_attention_v2)
 from ..ops.quant import fake_quant
 from .swin import (SwinSpec, _merge_patches, _unwindows, _windows,
-                   block_geometry, swin_patchify)
-from .vit_int import F32, I8, _fp_linear, _int_dot, _ln_int8, _requant_i8
+                   block_geometry, normalize_bit_config, swin_patchify)
+from .vit_int import (F32, I8, _fp_linear, _host, _int_dot, _ln_int8,
+                      _quant_w, _requant_i8, _t)
+
+
+def prepare_int(params, qp, spec: SwinSpec, cfg: QuantConfig,
+                bit=None) -> dict:
+    """Bake the float params, the calibration's qparams (tensors on any
+    device, or numpy) and ``bit`` (the uniform weight bit, default
+    ``cfg.bit_w``'s, or a per-slot bit config in {4, 8}: a float -1 slot
+    exists only in ``swin.forward_q``) into the int-model pytree of
+    ``diffvit_tpu.models.swin_int.prepare_int``: the same keys and values,
+    as host-side numpy (int8 weight codes as (K, Cout), their scales and
+    bits, the float biases, LayerNorms and bias tables, every qparam, and
+    ``sym_acts``, whether every activation zero-point is 0).
+    ``convert.swin_int_model_from_numpy``, ``engine.IntModel`` and
+    ``engine.save_int_model`` take it as it is."""
+    bc = normalize_bit_config(spec, bit if bit is not None
+                              else cfg.bit_w.bits)
+    if not set(bc) <= {4, 8}:
+        raise ValueError(f"the integer path takes 4 or 8 bit slots, got "
+                         f"{sorted(set(bc))} (-1 runs in swin.forward_q)")
+    params, qp = _host(params), _host(qp)
+
+    def w_site(path, lin, slot):
+        b = bc[slot]
+        sw = qp[f"{path}.int{b}.scale"]
+        return {"w_int": _t(_quant_w(lin["w"], sw, b)), "sw": sw, "bit": b,
+                "b": lin.get("b")}
+
+    ip = {"bit_config": bc, "layers": [], "qp": qp}
+    pe = params["patch_embed"]
+    ip["patch"] = w_site("patch.w", pe["proj"], 0)
+    ip["patch_norm"] = pe["norm"]
+    slot = 1
+    for s, stage in enumerate(params["layers"]):
+        st = {"blocks": [], "downsample": None}
+        for bi, blk in enumerate(stage["blocks"]):
+            p = f"layers.{s}.blocks.{bi}"
+            st["blocks"].append({
+                "norm1": blk["norm1"], "norm2": blk["norm2"],
+                "qkv": w_site(f"{p}.attn.qkv.w", blk["qkv"], slot),
+                "proj": w_site(f"{p}.attn.proj.w", blk["proj"], slot + 1),
+                "fc1": w_site(f"{p}.mlp.fc1.w", blk["fc1"], slot + 2),
+                "fc2": w_site(f"{p}.mlp.fc2.w", blk["fc2"], slot + 3),
+                "rel_bias_table": blk["rel_bias_table"],
+            })
+            slot += 4
+        if stage["downsample"] is not None:
+            ds = stage["downsample"]
+            st["downsample"] = {
+                "norm": ds["norm"],
+                "reduction": w_site(f"layers.{s}.downsample.reduction.w",
+                                    ds["reduction"], slot),
+            }
+            slot += 1
+        ip["layers"].append(st)
+    ip["norm"] = params["norm"]
+    ip["head"] = w_site("head.w", params["head"], slot)
+    ip["sym_acts"] = all(bool(np.all(v == 0)) for k, v in qp.items()
+                         if k.endswith(".zp"))
+    return ip
 
 
 def int_linear(site, x_i8):

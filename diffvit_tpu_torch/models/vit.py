@@ -152,7 +152,10 @@ def init_params(spec: ViTSpec, generator: torch.Generator, device="cuda"):
 def params_from_numpy(tree, device="cuda"):
     """A float parameter pytree of numpy arrays (the JAX package's params
     through ``jax.device_get``, or loaded from disk), or of tensors on any
-    device, as float32 tensors on ``device``, dicts and lists kept."""
+    device, as float32 tensors on ``device``, dicts, lists and None (a
+    Swin reduction's bias, an absent patch norm) kept."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -85,7 +85,10 @@ def _fq_site(site, x, bt):
 # ---------------------------------------------------------------------------
 
 def _host(tree):
-    """A pytree of tensors (any device) or arrays as float32/int numpy."""
+    """A pytree of tensors (any device) or arrays as float32/int numpy,
+    None kept."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _host(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -33,6 +33,7 @@ from diffvit_tpu.ops.bit_types import BIT_TYPE_DICT as JAX_BITS
 from diffvit_tpu_torch import QuantConfig, engine
 from diffvit_tpu_torch.data.synthetic import gaussian_calibration
 from diffvit_tpu_torch.models import registry, vit
+from diffvit_tpu_torch.models.swin import SWIN_SPECS
 from diffvit_tpu_torch.models.convert import int_model_from_numpy
 from diffvit_tpu_torch.testing import random_int_model
 
@@ -169,9 +170,10 @@ def test_vit_lis_scale_below_the_int64_sum_is_refused():
 
 def test_registry_and_params():
     """Seeded params, equal for equal seeds, in the reference's layout and
-    truncation; a ViT checkpoint is loaded (a missing file raises, it is
-    never replaced by random weights: tests/test_torch_load.py holds the
-    loaders), and a Swin name or checkpoint is refused, not replaced."""
+    truncation; a ViT or Swin checkpoint is loaded (a missing file raises,
+    it is never replaced by random weights: tests/test_torch_load.py and
+    tests/test_torch_swin_calibrate.py hold the loaders); a Swin name gives
+    Swin params and a QuantizedViT."""
     spec, p = registry.build_params("deit_tiny", seed=3, device="cpu")
     assert spec is vit.VIT_SPECS["deit_tiny"] and registry.family(
         "deit_tiny") == "deit"
@@ -184,12 +186,13 @@ def test_registry_and_params():
     assert p["patch_embed"]["w"].shape == (192, 768)
     with pytest.raises(FileNotFoundError):
         registry.build_params("deit_tiny", checkpoint="x.pth", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(FileNotFoundError):
         registry.build_params("swin_tiny", checkpoint="x.pth", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        registry.build_params("swin_tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        engine.QuantizedViT("swin_tiny", device="cpu")
+    q = engine.QuantizedViT("swin_tiny", seed=3, device="cpu")
+    assert q.is_swin and q.spec is SWIN_SPECS["swin_tiny"]
+    assert registry.family("swin_tiny") == "swin" and q.qparams is None
+    assert q.params["layers"][2]["blocks"][5]["fc1"]["w"].shape == \
+        (1536, 384)
     assert vit.flops_list(TINY) == jax_vit.flops_list(J_TINY)
     np.testing.assert_array_equal(
         gaussian_calibration(2, seed=4),

@@ -26,11 +26,14 @@ from diffvit_tpu.models import vit
 from diffvit_tpu_torch import cli, engine
 from diffvit_tpu_torch.data.synthetic import make_fake_imagefolder
 from diffvit_tpu_torch.models.registry import preprocessing_for
+from diffvit_tpu_torch.models.swin import SWIN_SPECS, SwinSpec
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
 
 TINY_KW = dict(embed_dim=64, depth=2, num_heads=2, num_classes=10)
 TINY = vit.ViTSpec("test_tiny", **TINY_KW)
 TINY_T = ViTSpec("test_tiny", **TINY_KW)
+SWIN_TEST = SwinSpec("swin_test", embed_dim=32, depths=(2, 1),
+                     num_heads=(2, 4), num_classes=10)  # 224 px
 
 
 def _assert_paths_agree(got, ref):
@@ -139,6 +142,35 @@ def test_cli_calibrates_bakes_and_saves(artifact, tmp_path, capsys,
                         np.asarray(jax_load_int_model(out_path)(x)))
 
 
+@pytest.mark.parametrize("flags", [[], ["--int-path", "--save-int"]],
+                         ids=["fake_quant", "int_path"])
+def test_cli_calibrates_a_swin(artifact, tmp_path, capsys, monkeypatch,
+                               flags):
+    """--quant --mode 1 on a registered TINY Swin (224 px, a shifted
+    block): Gaussian calibration, the uniform bit printed as the reference
+    prints a Swin's, validation through the fake-quant forward or the
+    baked integer model, and (--save-int) an artifact served as a Swin."""
+    _, root = artifact
+    monkeypatch.setitem(SWIN_SPECS, "swin_test", SWIN_TEST)
+    out_path = str(tmp_path / "swin.npz")
+    if flags:
+        flags = flags + [out_path]
+    loss, top1, top5 = cli.main([
+        "swin_test", str(root), "--quant", "--mode", "1",
+        "--calib-batchsize", "2", "--device", "cpu", "--val-batchsize", "6",
+        "--num-workers", "2", "--wire", "u8", *flags])
+    out = capsys.readouterr().out.splitlines()
+    saved = [f"Saved int artifact: {out_path}"] if flags else []
+    assert out[:3 + len(saved)] == ["Model: swin_test",
+                                    "Calibrating with Gaussian noise...",
+                                    *saved, "4"]
+    assert out[-1].startswith(" * Prec@1") and np.isfinite(loss)
+    assert 0 <= top1 <= 100 and 0 <= top5 <= 100
+    if flags:
+        served = engine.load_int_model(out_path, "cpu")
+        assert served.is_swin and served.spec.name == "swin_test"
+
+
 def _given(dest):
     """The flag of ``dest`` on a command line, at its default value (or
     its first choice; 1 where the default is None)."""
@@ -162,9 +194,15 @@ def test_unported_flags_exit_naming_their_roadmap_item(flags, item):
         cli.main(["deit_tiny", "/nonexistent", "--quant", *flags])
 
 
-def test_swin_and_flag_combinations_are_refused():
-    with pytest.raises(SystemExit, match="Queue 1, item 4"):
-        cli.main(["swin_tiny", "/nonexistent", "--quant", "--device", "cpu"])
+def test_swin_and_flag_combinations_are_refused(monkeypatch):
+    """The flag combinations that make no sense exit; a Swin model with
+    --quant is no longer refused: it reaches the data (here a missing
+    folder) after building its float params (a small registered Swin, to
+    keep the CPU's work small)."""
+    monkeypatch.setitem(SWIN_SPECS, "swin_test", SWIN_TEST)
+    with pytest.raises(FileNotFoundError, match="nonexistent"):
+        cli.main(["swin_test", "/nonexistent", "--quant", "--device", "cpu",
+                  "--mode", "1"])
     with pytest.raises(SystemExit, match="requires --quant"):
         cli.main(["deit_tiny", "/x", "--save-int", "a.npz"])
     with pytest.raises(SystemExit, match="mutually exclusive"):

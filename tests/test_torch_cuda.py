@@ -25,7 +25,8 @@ from diffvit_tpu_torch.models.convert import (attn_constants,
                                               int_model_from_numpy,
                                               swin_block_constants,
                                               swin_int_model_from_numpy)
-from diffvit_tpu_torch.models.swin import SWIN_SPECS, SwinSpec
+from diffvit_tpu_torch.models.swin import (SWIN_SPECS, SwinSpec,
+                                           init_swin_params)
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec, init_params
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 from diffvit_tpu_torch.ops.kernels.attention import (
@@ -1009,6 +1010,44 @@ def test_calibrate_bake_serve_on_card_matches_cpu(cuda, spec, batch, fqvit):
     _assert_paths_agree(card.prepare_int()(pixels).cpu().numpy(),
                         cpu.prepare_int()(pixels).numpy())
     _assert_paths_agree(card(pixels).cpu().numpy(), cpu(pixels).numpy())
+
+
+@pytest.mark.parametrize("spec,batch", [
+    (SwinSpec("swin_test", embed_dim=32, depths=(2, 1), num_heads=(2, 4),
+              num_classes=10), 2),
+    (SWIN_SPECS["swin_tiny"], 4)], ids=["tiny", "swin_t"])
+def test_swin_calibrate_bake_serve_on_card_matches_cpu(cuda, spec, batch):
+    """The same for a Swin: QuantizedViT calibrates the same params on the
+    same Gaussian batch on the card and on the CPU (at least 99.9% of the
+    qparam elements equal, global_distance equal); both bakes served
+    through IntModel (K4 and K2 on the card), the fake-quant forwards too,
+    agree by _assert_paths_agree, and the card's K4b route equals its K4
+    route."""
+    params = init_swin_params(spec, torch.Generator().manual_seed(0), "cpu")
+    x = gaussian_calibration(batch, seed=0)
+    card = engine.QuantizedViT(spec, QuantConfig(), params=params,
+                               device=cuda)
+    cpu = engine.QuantizedViT(spec, QuantConfig(), params=params,
+                              device="cpu")
+    card.calibrate(x)
+    cpu.calibrate(x)
+    assert set(card.qparams) == set(cpu.qparams)
+    total = sum(v.numel() for v in cpu.qparams.values())
+    equal = sum(int((card.qparams[k].cpu() == v).sum())
+                for k, v in cpu.qparams.items())
+    assert equal / total >= 0.999, (equal, total)
+    np.testing.assert_array_equal(card.global_distance, cpu.global_distance)
+    pixels = np.random.default_rng(1).integers(
+        0, 256, (batch, 3, spec.img_size, spec.img_size), dtype=np.uint8)
+    model = card.prepare_int()
+    got = model(pixels)
+    _assert_paths_agree(got.cpu().numpy(), cpu.prepare_int()(pixels).numpy())
+    _assert_paths_agree(card(pixels).cpu().numpy(), cpu(pixels).numpy())
+    xc = torch.tensor(model.encode(pixels), device=cuda)
+    with torch.inference_mode():
+        v2 = swin_int.forward_q_int(model.ip, spec, model.cfg, xc,
+                                    attn_v2=True)
+    assert torch.equal(v2, got)
 
 
 # ---- the 128-bit LIS row sum (lis_wide) -----------------------------------

@@ -137,7 +137,9 @@ def test_build_params_and_quantized_vit_take_a_checkpoint(tmp_path,
                                                           monkeypatch):
     """build_params loads a .pth by path or from DIFFVIT_CKPT_DIR onto the
     device, equal to the file; QuantizedViT(checkpoint=) carries it; a
-    Swin checkpoint is refused on ROADMAP Queue 1, item 4."""
+    DeiT checkpoint under a Swin name goes to the Swin converter, which
+    finds no Swin key and raises (tests/test_torch_swin_calibrate.py loads
+    a Swin one)."""
     monkeypatch.setitem(VIT_SPECS, "deit_test", TINY)
     sd = _state_dict(TINY, seed=5)
     torch.save({"model": sd}, tmp_path / "deit_test.pth")
@@ -155,6 +157,6 @@ def test_build_params_and_quantized_vit_take_a_checkpoint(tmp_path,
     q = engine.QuantizedViT("deit_test", device="cpu",
                             checkpoint=str(tmp_path / "deit_test.pth"))
     assert torch.equal(q.params["cls_token"], sd["cls_token"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(KeyError, match="patch_embed.norm.weight"):
         registry.build_params("swin_tiny", str(tmp_path / "deit_test.pth"),
                               device="cpu")
