@@ -127,6 +127,31 @@
             chunk of 8); then the artifact's per-kernel and resident logits
             bit for bit on a b = 64 batch, and IntModel(microbatch=8) at
             b = 64 against microbatch=None, bit for bit.
+14. mixed:  the mixed-precision search (--mixed) on the port's own DeiT-S
+            (params at seed 0, the CLI's Gaussian calibration of 50): the
+            Hessian sensitivity on one batch of 8 through both estimators
+            at --hessian-iter 3 (their seconds), one block HVP's and one
+            joint HVP's ms (all 49 target weights), and the card against
+            the CPU on the head and block 11's fc1, per leaf and jointly,
+            with the same probes (within 1e-4 of max|Hv|, and of
+            sum|v * Hv| for v . Hv); then sample_candidates -> omega_rank
+            -> evolutionary_search (pop 4, one iteration, 2 mutations, 2
+            crossovers, size factor 1.3) on 64 seeded images through
+            validate_bits (the fake-quant forward: no kernel) and
+            validate_bits_int (exactly 12 K1 + 12 K2 a candidate forward):
+            seconds per candidate on each, the device memory the integer
+            search holds (two bakes, not one per candidate) and its peak;
+            each integer candidate's logits bit for bit, and its top-1,
+            against its own bake's (prepare_int(bits), which
+            validate(use_int=True) serves; validate's Prec@1 printed
+            beside); forward_bits_int's launches; the best configuration
+            baked, saved, loaded and served (12 K1 + 12 K2) with
+            prepare_int's logits; Swin-T calibrated on the card at b = 8,
+            one mixed forward_q_bits at b = 8 against the CPU
+            (_assert_paths_agree) and its per-slot bake served through
+            exactly 12 K4 + 12 K2; then one CLI run (--mixed --search-path
+            int --save-int on a fake ImageFolder) with its launches counted
+            from its validate_bits_int lines, and its artifact served.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -142,9 +167,11 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import os
+import random
 import re
 import subprocess
 import sys
@@ -156,10 +183,12 @@ import numpy as np
 import torch
 
 from diffvit_tpu_torch import QuantConfig, cli, engine
-from diffvit_tpu_torch.data.imagenet import device_normalize
+from diffvit_tpu_torch.analysis import hessian
+from diffvit_tpu_torch.analysis import mixed_precision as mp
+from diffvit_tpu_torch.data.imagenet import device_normalize, normalize_lut
 from diffvit_tpu_torch.data.synthetic import (gaussian_calibration,
                                               make_fake_imagefolder)
-from diffvit_tpu_torch.models import swin_int, vit_int
+from diffvit_tpu_torch.models import swin, swin_int, vit, vit_int
 from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               attn_constants,
                                               int_attn_scalars,
@@ -167,7 +196,8 @@ from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               mlp_block_operands,
                                               swin_block_constants,
                                               swin_int_model_from_numpy)
-from diffvit_tpu_torch.models.swin import SWIN_SPECS, num_bit_slots
+from diffvit_tpu_torch.models.swin import (SWIN_SPECS, bit_slot_groups,
+                                           num_bit_slots)
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec, patchify
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 from diffvit_tpu_torch.ops.kernels import (attention, build, gemm, linear,
@@ -774,19 +804,28 @@ def code_stats(model, x):
         {k: float(np.max(v)) for k, v in rec.items()}
 
 
-def drive(expected, run):
-    """Set every kernel's count to 0, call ``run``, read the counts: fails
-    unless each kernel launched exactly ``expected[name]`` times (0 for the
-    kernels not named).  Returns run's result and the counts."""
+def _counted(run):
+    """Set every kernel's count to 0, call ``run``, read the counts."""
     for k in KERNELS.values():
         k["fn"].launches = 0
     out = run()
     torch.cuda.synchronize()
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
-    for name, n in launches.items():
+    return out, {name: k["fn"].launches for name, k in KERNELS.items()}
+
+
+def _exact(counts, expected, where):
+    for name, n in counts.items():
         if n != expected.get(name, 0):
-            raise RuntimeError(f"{name}: {n} launches, expected "
-                               f"{expected.get(name, 0)}")
+            raise RuntimeError(f"{where}: {name} launched {n} times, "
+                               f"expected {expected.get(name, 0)}")
+
+
+def drive(expected, run):
+    """Set every kernel's count to 0, call ``run``, read the counts: fails
+    unless each kernel launched exactly ``expected[name]`` times (0 for the
+    kernels not named).  Returns run's result and the counts."""
+    out, launches = _counted(run)
+    _exact(launches, expected, "drive")
     return out, launches
 
 
@@ -1999,6 +2038,316 @@ def phase_cli(dev):
     return launches
 
 
+MIXED_IMAGES, MIXED_BATCH = 64, 16  # the search's seeded validation set
+MIXED_FACTOR = 1.3  # at 1.1 a DeiT-S draw passes about once in 10^4
+MIXED_EVO = dict(pop_size=4, evo_iter=1, mutate_size=2, crossover_size=2,
+                 factor=MIXED_FACTOR)
+HVP_RTOL = 1e-4  # tests/test_torch_hessian.py's tolerance
+
+
+def _quiet(*_):
+    pass
+
+
+def _hvp_agree(card, cpu, v, where):
+    """The HVP on the card against the CPU's within HVP_RTOL of max|Hv|,
+    and v . Hv within HVP_RTOL of sum|v * Hv|."""
+    card, cpu, v = card.double().cpu(), cpu.double(), v.double().cpu()
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    vhv_rel = float(abs((card * v).sum() - (cpu * v).sum())
+                    / (cpu * v).abs().sum())
+    if not (rel <= HVP_RTOL and vhv_rel <= HVP_RTOL):
+        raise RuntimeError(f"{where}: the card's HVP differs from the CPU's "
+                           f"by {rel:.3g} (v.Hv {vhv_rel:.3g})")
+    return {"max_rel": rel, "vhv_rel": vhv_rel}
+
+
+def _tensor_bytes(tree, seen=None):
+    """Bytes of the distinct tensors of a pytree."""
+    seen = set() if seen is None else seen
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v, seen) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v, seen) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.data_ptr() not in seen:
+        seen.add(tree.data_ptr())
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def phase_mixed(dev):
+    """The mixed-precision search on the card (see the module docstring,
+    14).  Returns the launches by path."""
+    k1, k2, k4 = "fused_qkv_attention_v2", "fused_int_mlp", \
+        "fused_swin_attention"
+    paths = {}
+    q, calib_s = _calibrated(CFG, gaussian_calibration(50, seed=0), dev,
+                             SPEC.name)
+    names = hessian.hessian_target_names(SPEC)
+
+    # the Hessian: one batch of 8, both estimators, --hessian-iter 3
+    x8 = gaussian_calibration(8, seed=1)
+    y8 = np.random.default_rng(8).integers(0, SPEC.num_classes, 8)
+    sens, secs = {}, {}
+    for est in ("per-leaf", "joint"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sens[est] = hessian.hessian_sensitivity(
+            q.params, SPEC, [(x8, y8)], torch.Generator(dev).manual_seed(0),
+            max_iter=3, joint=est == "joint", log=_quiet)
+        torch.cuda.synchronize()
+        secs[est] = time.perf_counter() - t0
+        if len(sens[est]) != len(names) or not np.isfinite(sens[est]).all():
+            raise RuntimeError(f"hessian {est}: bad sensitivity")
+    fc1 = f"blocks.{SPEC.depth - 1}.mlp.fc1.weight"
+    torch.cuda.reset_peak_memory_stats()
+    g_all = hessian.BatchGrads(q.params, SPEC, x8, y8, names)
+    gen = torch.Generator(dev).manual_seed(1)
+    v_all = {n: hessian.rademacher(g_all.ws[n], gen) for n in names}
+    block_ms = cuda_ms(lambda: g_all.hvp(fc1, v_all[fc1]), iters=5)
+    head_ms = cuda_ms(lambda: g_all.hvp("head.weight", v_all["head.weight"]),
+                      iters=5)
+    joint_ms = cuda_ms(lambda: g_all.joint_hvp(v_all), iters=5)
+    hvp_gib = torch.cuda.max_memory_allocated() / 2**30
+    del g_all
+    two = ["head.weight", fc1]
+    g_card = hessian.BatchGrads(q.params, SPEC, x8, y8, two)
+    g_cpu = hessian.BatchGrads(vit.params_from_numpy(q.params, "cpu"), SPEC,
+                           x8, y8, two)
+    gen = torch.Generator().manual_seed(2)
+    v = {n: hessian.rademacher(g_cpu.ws[n], gen) for n in two}
+    v_dev = {n: t.to(dev) for n, t in v.items()}
+    held = {n: _hvp_agree(g_card.hvp(n, v_dev[n]), g_cpu.hvp(n, v[n]), v[n],
+                          f"block HVP {n}") for n in two}
+    joint_card, joint_cpu = g_card.joint_hvp(v_dev), g_cpu.joint_hvp(v)
+    held.update({f"joint {n}": _hvp_agree(joint_card[n], joint_cpu[n], v[n],
+                                          f"joint HVP {n}") for n in two})
+    del g_card, g_cpu
+    emit(phase="mixed", part="hessian", batch=8, hessian_iter=3,
+         targets=len(names), per_leaf_seconds=secs["per-leaf"],
+         joint_seconds=secs["joint"], block_hvp_ms=block_ms,
+         head_hvp_ms=head_ms, joint_hvp_ms=joint_ms, hvp_peak_gib=hvp_gib,
+         card_vs_cpu=held, calibration_seconds=calib_s)
+
+    # the search on 64 seeded images (the f32 wire), both substrates
+    lut = torch.tensor(normalize_lut(*q.input_norm))
+    rng = np.random.default_rng(9)
+    images = device_normalize(torch.tensor(rng.integers(
+        0, 256, (MIXED_IMAGES, 3, 224, 224), dtype=np.uint8)),
+        lut=lut).numpy()
+    flops = q.flops
+    t0 = time.perf_counter()
+    cands = mp.sample_candidates(flops, random.Random(0),
+                                 factor=MIXED_FACTOR)
+    omega = mp.omega_rank(cands, flops, sens["per-leaf"], q.global_distance)
+    sample_s = time.perf_counter() - t0
+    # labels that the candidates can get right: the all-8 forward's
+    # argmax, a third of them moved, so that top-1s spread
+    labels = np.concatenate([
+        q(images[i:i + MIXED_BATCH], (8,) * len(flops)).argmax(1).cpu()
+        .numpy() for i in range(0, MIXED_IMAGES, MIXED_BATCH)])
+    labels[::3] = (labels[::3] + 1) % SPEC.num_classes
+    loader = [(images[i:i + MIXED_BATCH], labels[i:i + MIXED_BATCH])
+              for i in range(0, MIXED_IMAGES, MIXED_BATCH)]
+    searches = {}
+    for substrate, scorer in (("fake", engine.validate_bits),
+                              ("int", engine.validate_bits_int)):
+        scored, seconds, held = [], [], []
+
+        def score(configs, scorer=scorer, scored=scored, seconds=seconds,
+                  held=held):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            top1 = scorer(q, loader, configs, log=_quiet)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            scored.extend(zip(configs, top1))
+            gc.collect()
+            held.append(torch.cuda.memory_allocated())
+            return top1
+
+        gc.collect()  # the HVP graphs hold reference cycles
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bake_s = None
+        if substrate == "int":  # the two bakes, once
+            t = time.perf_counter()
+            q._int_bits = vit_int.prepare_int_bits(q.params, q.qparams,
+                                                   SPEC, CFG, dev)
+            torch.cuda.synchronize()
+            bake_s = time.perf_counter() - t
+        result, counts = _counted(lambda: mp.evolutionary_search(
+            omega, flops, None, rng=random.Random(1), log=_quiet,
+            evaluate_batch=score, **MIXED_EVO))
+        forwards = len(scored) * len(loader)
+        per_forward = {k1: SPEC.depth, k2: SPEC.depth} \
+            if substrate == "int" else {}
+        _exact(counts, {k: n * forwards for k, n in per_forward.items()},
+               f"mixed search {substrate}")
+        paths[f"{SPEC.name} mixed search {substrate}"] = counts
+        held_gib = [(m - mem0) / 2**30 for m in held]
+        record = dict(phase="mixed", part="search", substrate=substrate,
+                      candidates=len(scored), images=MIXED_IMAGES,
+                      generations=len(seconds), seconds=sum(seconds),
+                      seconds_per_candidate=sum(seconds) / len(scored),
+                      bake_seconds=bake_s, best=result[0],
+                      top1=[t for _, t in scored],
+                      held_gib_by_generation=held_gib,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      launches={k: n for k, n in counts.items() if n})
+        if substrate == "int":
+            bake_gib = _tensor_bytes(q._int_bits["b8"]) / 2**30
+            record.update(one_bake_gib=bake_gib)
+            # two bakes and their K-major weight copies, not one a candidate
+            if max(held_gib) > 5 * bake_gib:
+                raise RuntimeError(f"the integer search holds "
+                                   f"{max(held_gib):.3f} GiB, one bake is "
+                                   f"{bake_gib:.3f}")
+        emit(**record)
+        searches[substrate] = (result, scored)
+    emit(phase="mixed", part="sample", candidates=len(cands),
+         omega_best=omega[0], seconds=sample_s,
+         fake_int_same_best=searches["fake"][0][0] == searches["int"][0][0])
+
+    # each integer candidate against its own bake (what validate(use_int=
+    # True) serves), batch by batch: the logits bit for bit, and the top-1
+    # by validate_bits' argmax.  validate's Prec@1 ranks by the reference's
+    # np.argsort, which orders tied maxima otherwise: printed beside, with
+    # the rows whose top logit ties
+    result, scored = searches["int"]
+    t0 = time.perf_counter()
+    logits_equal, per_config, prec1, tied = True, [], [], 0
+    for c, _ in scored:
+        bake = q.prepare_int(c)
+        correct = 0
+        for xb, yb in loader:
+            want = bake(xb)
+            logits_equal &= bool(torch.equal(q.forward_bits_int(xb, c),
+                                             want))
+            w = want.cpu().numpy()
+            correct += int((w.argmax(1) == yb).sum())
+            tied += int(((w == w.max(1, keepdims=True)).sum(1) > 1).sum())
+        per_config.append(100.0 * correct / MIXED_IMAGES)
+        prec1.append(engine.validate(q, loader, c, print_freq=0, log=_quiet,
+                                     use_int=True)[1])
+    top1_equal = [abs(a - b) < 1e-9 for (_, a), b in zip(scored, per_config)]
+    emit(phase="mixed", part="validate_bits_int_vs_own_bake",
+         candidates=len(scored), logits_equal=logits_equal,
+         top1_equal=all(top1_equal), top1=[s for _, s in scored],
+         validate_prec1=prec1, tied_top_rows=tied,
+         seconds=time.perf_counter() - t0,
+         cached_int_models=len(q._int_models))
+    if not (logits_equal and all(top1_equal)) or len(q._int_models) > 2:
+        raise RuntimeError(f"validate_bits_int differs from the candidates' "
+                           f"own bakes (logits equal: {logits_equal}, top-1 "
+                           f"{[s for _, s in scored]} against {per_config}) "
+                           f"or the int-model cache grew past two")
+    best = result[0][0]
+    xf = torch.tensor(images[:8], device=dev)
+    bits_equal = {}
+    for label, bits in (("best", best), ("omega_first", omega[0][0])):
+        got, counts = _counted(lambda: q.forward_bits_int(xf, bits))
+        _exact(counts, {k1: SPEC.depth, k2: SPEC.depth},
+               f"forward_bits_int {label}")
+        bits_equal[label] = bool(torch.equal(got, q.prepare_int(bits)(xf)))
+    forward_ms = cuda_ms(lambda: q.forward_bits_int(xf, best), iters=5)
+    emit(phase="mixed", part="forward_bits_int", batch=8,
+         logits_equal_prepare_int=bits_equal, forward_ms=forward_ms)
+    if not all(bits_equal.values()):
+        raise RuntimeError(f"forward_bits_int differs from prepare_int: "
+                           f"{bits_equal}")
+
+    # the best configuration baked, saved, loaded and served
+    x = np.random.default_rng(10).integers(0, 256, (8, 3, 224, 224),
+                                           dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "best.npz")
+        q.save_int_model(path, best)
+        served = engine.load_int_model(path, dev)
+    got, paths[f"{SPEC.name} mixed bake"] = drive(
+        {k1: SPEC.depth, k2: SPEC.depth}, lambda: served(x))
+    bake_equal = bool(torch.equal(got, q.prepare_int(best)(x)))
+    emit(phase="mixed", part="bake", bits=best, batch=8,
+         logits_equal_prepare_int=bake_equal,
+         finite=bool(torch.isfinite(got).all()))
+    if not bake_equal or not torch.isfinite(got).all():
+        raise RuntimeError("the searched bake's logits differ from "
+                           "prepare_int(best)'s")
+    del q, served
+
+    # Swin-T: one mixed forward_q_bits, card against the CPU; its bake
+    qs, _ = _calibrated(CFG, gaussian_calibration(8, seed=0), dev, SWIN.name)
+    bits = next(c for c in mp.sample_candidates(
+        swin.flops_list(SWIN), random.Random(0), factor=MIXED_FACTOR,
+        groups=bit_slot_groups(SWIN)) if len(set(c)) == 2)
+    xs = np.random.default_rng(11).integers(0, 256, (8, 3, 224, 224),
+                                            dtype=np.uint8)
+    xsf = device_normalize(torch.tensor(xs), lut=lut)
+    with torch.inference_mode():
+        card = swin.forward_q_bits(qs.params, qs.qparams, SWIN, CFG,
+                                   xsf.to(dev), bits).cpu().numpy()
+        cpu = swin.forward_q_bits(
+            vit.params_from_numpy(qs.params, "cpu"),
+            {k: t.cpu() for k, t in qs.qparams.items()}, SWIN, CFG, xsf,
+            bits).numpy()
+    agree(card, cpu, (8, SWIN.num_classes), phase="mixed",
+          part="swin_forward_q_bits_card_vs_cpu", batch=8, bits=list(bits))
+    model = qs.prepare_int(bits)
+    model(xs[:1])  # warm-up: K-major weight copies
+    got, paths[f"{SWIN.name} mixed bake"] = drive(
+        {k4: sum(SWIN.depths), k2: sum(SWIN.depths)}, lambda: model(xs))
+    emit(phase="mixed", part="swin_bake", batch=8,
+         finite=bool(torch.isfinite(got).all()),
+         argmax_equal_forward_q_bits=float(np.mean(
+             got.cpu().numpy().argmax(1) == card.argmax(1))))
+    if not torch.isfinite(got).all():
+        raise RuntimeError("the Swin-T mixed bake's logits are not finite")
+    del qs, model
+
+    # the CLI: --mixed --search-path int --save-int on a fake ImageFolder
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fake_imagefolder(os.path.join(tmp, "val"), **CLI_FOLDER)
+        make_fake_imagefolder(os.path.join(tmp, "train"), num_classes=2,
+                              per_class=4, size=(96, 80), seed=1)
+        art = os.path.join(tmp, "mixed_best.npz")
+        argv = [SPEC.name, tmp, "--quant", "--mode", "1", "--mixed",
+                "--search-path", "int", "--save-int", art,
+                "--calib-batchsize", "8", "--hessian-batches", "1",
+                "--hessian-iter", "3", "--evo-pop", "4", "--evo-iter", "1",
+                "--evo-mutate", "2", "--evo-crossover", "2",
+                "--pareto-top", "2", "--size-factor", str(MIXED_FACTOR),
+                "--val-batchsize", str(CLI_BATCH), "--num-workers", "8",
+                "--print-freq", "0", "--device", dev.type]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result, counts = _counted(lambda: cli.main(argv))
+        seconds = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        scored = [re.match(r"validate_bits_int: (\d+) configs x (\d+) "
+                           r"images", ln) for ln in lines]
+        forwards = sum(int(m[1]) * -(-int(m[2]) // CLI_BATCH)
+                       for m in scored if m)
+        _exact(counts, {k1: SPEC.depth * forwards, k2: SPEC.depth * forwards},
+               "cli --mixed")
+        paths["cli --mixed --search-path int"] = counts
+        best_line = [ln for ln in lines if ln.startswith("best:")]
+        served = engine.load_int_model(art, dev)
+        got, counts_art = drive({k1: SPEC.depth, k2: SPEC.depth},
+                                lambda: served(x))
+    emit(phase="mixed", part="cli", seconds=seconds, line=best_line,
+         candidate_forwards=forwards, launches={k: n for k, n in
+                                                counts.items() if n},
+         artifact_finite=bool(torch.isfinite(got).all()))
+    if len(best_line) != 1 or forwards == 0 \
+            or not torch.isfinite(got).all():
+        raise RuntimeError(f"cli --mixed: best line {best_line}, "
+                           f"{forwards} candidate forwards")
+    paths["cli --mixed artifact"] = counts_art
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2054,11 +2403,13 @@ def main():
     t.append(time.perf_counter())
     paths.update(phase_cli(dev))
     t.append(time.perf_counter())
+    paths.update(phase_mixed(dev))
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
          "alternatives", "calibrate", "calibrate_swin", "probes",
-         "lis_wide", "cli"),
+         "lis_wide", "cli", "mixed"),
         t, t[1:])})
 
     kernels = []

@@ -17,6 +17,20 @@ served model has a codes table (``--load-int``, or ``--int-path``), the
 loader encodes it into int8 input codes (``CodesLoader``) before the
 prefetcher moves it to the card.
 
+``--mixed`` runs the mixed-precision search as the reference does: the
+Hessian sensitivity on ``--hessian-batches`` train batches
+(``analysis.hessian``, probes from a ``torch.Generator`` seeded with
+``--seed``), calibration, the Pareto candidates ranked by omega, the
+``--pareto-top`` single validations, then the evolutionary search scored
+through the fake-quant forward (``--search-path fake``,
+``engine.validate_bits``) or the integer path (``--search-path int``,
+``engine.validate_bits_int``: K1 + K2 on the card), or per candidate
+through ``validate(use_int=True)`` with ``--int-path``.  It prints
+``best:`` and, with ``--save-int``, bakes the best configuration:
+
+    python3 -m diffvit_tpu_torch.cli deit_small <data> --quant --mode 1 \\
+        --mixed --search-path int --save-int best.npz
+
 A flag whose machinery is not ported yet exits with ``SystemExit`` and
 names its ROADMAP item (:data:`NOT_PORTED`).
 """
@@ -31,17 +45,12 @@ import torch
 
 # ROADMAP Queue 1 items of the flags whose machinery is not ported yet
 _ITEMS = {
-    6: "mixed precision",
     7: "the recovery passes",
     8: "the analysis toolkit",
     9: "parallelism",
     11: "the native JPEG decoder and preprocessing",
 }
 NOT_PORTED = {
-    **dict.fromkeys(
-        ("mixed", "hessian_batches", "hessian_iter", "hessian_estimator",
-         "evo_pop", "evo_iter", "evo_mutate", "evo_crossover", "pareto_top",
-         "size_factor", "omega_columns", "search_path"), 6),
     **dict.fromkeys(
         ("adaround", "adaround_steps", "qat_steps", "qat_remat", "qat_lr",
          "bias_corr"), 7),
@@ -119,19 +128,33 @@ def build_parser():
                         "(data/imagenet.DevicePrefetcher); 0 disables")
     p.add_argument("--native-preproc", default=False, action="store_true",
                    help="(not ported)")
-    p.add_argument("--hessian-batches", default=10, type=int)
-    p.add_argument("--hessian-iter", default=150, type=int)
+    p.add_argument("--hessian-batches", default=10, type=int,
+                   help="train batches of --calib-batchsize for the "
+                        "Hessian sensitivity (--mixed)")
+    p.add_argument("--hessian-iter", default=150, type=int,
+                   help="most Hutchinson probes a trace")
     p.add_argument("--hessian-estimator", default="per-leaf",
-                   choices=["per-leaf", "joint"])
+                   choices=["per-leaf", "joint"],
+                   help="'per-leaf': the reference's per-parameter HVP "
+                        "loop; 'joint': joint probes over every target "
+                        "weight (same estimand)")
     p.add_argument("--evo-pop", default=25, type=int)
     p.add_argument("--evo-iter", default=8, type=int)
     p.add_argument("--evo-mutate", default=10, type=int)
     p.add_argument("--evo-crossover", default=10, type=int)
     p.add_argument("--pareto-top", default=5, type=int)
-    p.add_argument("--size-factor", default=1.1, type=float)
+    p.add_argument("--size-factor", default=1.1, type=float,
+                   help="model-size limit against all-4-bit")
     p.add_argument("--omega-columns", default="committed",
-                   choices=["committed", "intended"])
-    p.add_argument("--search-path", default="fake", choices=["fake", "int"])
+                   choices=["committed", "intended"],
+                   help="global_distance columns the omega ranking reads: "
+                        "'committed' replicates the reference's search "
+                        "(an upstream indexing bug the published results "
+                        "ran through); 'intended' the int4/int8 columns")
+    p.add_argument("--search-path", default="fake", choices=["fake", "int"],
+                   help="the evolutionary search's scorer: 'fake', the "
+                        "fake-quant forward; 'int', the integer path "
+                        "(ViT family; a Swin takes 'fake')")
     p.add_argument("--val-limit", default=None, type=int,
                    help="cap validation images (debug)")
     p.add_argument("--save-int", default=None, metavar="PATH",
@@ -186,7 +209,8 @@ def seed_everything(seed):
 
 
 def main(argv=None):
-    """Run the CLI; returns validate's (loss, Prec@1, Prec@5)."""
+    """Run the CLI; returns validate's (loss, Prec@1, Prec@5), or under
+    ``--mixed`` the search's final population, best first."""
     args = parse_args(argv)
     seed_everything(args.seed)
 
@@ -208,6 +232,9 @@ def main(argv=None):
     if args.save_int and args.load_int:
         raise SystemExit("--save-int and --load-int are mutually exclusive")
     if args.load_int:
+        if args.mixed:
+            raise SystemExit("--load-int serves one baked bit_config; "
+                             "run --mixed with --save-int instead")
         model = load_int_model(args.load_int, args.device,
                                resident=args.resident,
                                input_norm=(pp.mean, pp.std))
@@ -249,6 +276,21 @@ def main(argv=None):
             out.append(b)
         return out
 
+    mean_hessian = None
+    if args.mixed:
+        from .analysis.hessian import hessian_sensitivity
+
+        print("Calculating the sensitivities via the averaged Hessian "
+              "trace...")
+        print(f"Hutchinson estimator: {args.hessian_estimator}")
+        batches = train_batches(args.hessian_batches, args.calib_batchsize)
+        mean_hessian = hessian_sensitivity(
+            model.params, model.spec, batches,
+            torch.Generator(model.device).manual_seed(args.seed),
+            max_iter=args.hessian_iter,
+            joint=args.hessian_estimator == "joint")
+        print("\n***Trace: ", mean_hessian)
+
     if args.quant and not args.load_int:
         if args.mode == 1:
             print("Calibrating with Gaussian noise...")
@@ -266,9 +308,15 @@ def main(argv=None):
             else:
                 calib = train_batches(1, args.calib_batchsize)[0][0]
         model.calibrate(calib)
-        if args.save_int:
+        if args.save_int and not args.mixed:
             model.save_int_model(args.save_int)
             print(f"Saved int artifact: {args.save_int}")
+    if args.mixed:
+        if args.device_prefetch > 0:
+            val_loader = DevicePrefetcher(val_loader,
+                                          depth=args.device_prefetch,
+                                          device=args.device)
+        return _mixed_search(args, model, val_loader, mean_hessian)
 
     if not args.quant:
         bit_config = None
@@ -291,6 +339,62 @@ def main(argv=None):
     print(bit_config)
     return validate(model, val_loader, bit_config, quant=args.quant,
                     print_freq=args.print_freq, use_int=use_int)
+
+
+def _mixed_search(args, model, val_loader, mean_hessian):
+    """The reference's Pareto + evolutionary search (``test_quant.py:
+    411-464``): returns the final population, best first."""
+    from .analysis import mixed_precision as mp
+    from .engine import validate, validate_bits, validate_bits_int
+    from .models.swin import bit_slot_groups
+
+    def evaluate(bit_config):
+        print(bit_config)
+        _, prec1, _ = validate(model, val_loader, tuple(bit_config),
+                               quant=args.quant, print_freq=args.print_freq,
+                               use_int=args.int_path)
+        print("")
+        return prec1
+
+    flops = model.flops
+    assert len(flops) - 1 == len(model.global_distance) == len(mean_hessian)
+    print("Pareto Frontier.......")
+    rng = random.Random(args.seed)
+    groups = bit_slot_groups(model.spec) if model.is_swin else None
+    bit_list = mp.sample_candidates(flops, rng, factor=args.size_factor,
+                                    groups=groups)
+    omega_list = mp.omega_rank(bit_list, flops, mean_hessian,
+                               model.global_distance,
+                               columns=args.omega_columns)
+    print("Hessien-Based Validating...")
+    for i in range(min(args.pareto_top, len(omega_list))):
+        evaluate(omega_list[i][0])
+    print("Start Evolutionary.......")
+    # a generation's candidates in one pass over the data: the fake-quant
+    # forward, or (--search-path int) the integer path; --int-path alone
+    # validates each candidate's own bake
+    evaluate_batch = None
+    if args.search_path == "int":
+        if model.is_swin:
+            print("--search-path int is ViT-family/single-chip; "
+                  "falling back to the fake-quant search substrate")
+        else:
+            evaluate_batch = lambda cands: validate_bits_int(  # noqa: E731
+                model, val_loader, cands)
+    if evaluate_batch is None and not args.int_path:
+        evaluate_batch = lambda cands: validate_bits(  # noqa: E731
+            model, val_loader, cands)
+    result = mp.evolutionary_search(
+        omega_list, flops, evaluate, rng=rng, pop_size=args.evo_pop,
+        evo_iter=args.evo_iter, mutate_size=args.evo_mutate,
+        crossover_size=args.evo_crossover, factor=args.size_factor,
+        evaluate_batch=evaluate_batch)
+    print("best:", result[0])
+    if args.save_int:
+        # bake the searched best configuration, not the uniform default
+        model.save_int_model(args.save_int, bit_config=result[0][0])
+        print(f"Saved int artifact (mixed best): {args.save_int}")
+    return result
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """The engine (counterpart of ``diffvit_tpu/engine.py``): ``QuantizedViT``
 (a float ViT/DeiT or Swin that calibrates, runs the fake-quant and float
-forwards and bakes itself into an int-model), and the serving half for
-the integer ViT and Swin: ``IntModel``, ``save_int_model``,
-``load_int_model`` and ``validate`` with the reference's Prec@1/Prec@5
-report."""
+forwards, scores mixed-precision candidates and bakes itself into an
+int-model), and the serving half for the integer ViT and Swin:
+``IntModel``, ``save_int_model``, ``load_int_model`` and ``validate`` with
+the reference's Prec@1/Prec@5 report; ``validate_bits`` and
+``validate_bits_int`` score many {4, 8} configurations in one pass over
+the data."""
 from __future__ import annotations
 
 import dataclasses
@@ -181,6 +183,7 @@ class QuantizedViT:
         self._norm_lut = torch.tensor(normalize_lut(*self.input_norm),
                                       device=self.device)
         self._int_models = {}
+        self._int_bits = None
 
     def _prep(self, x) -> torch.Tensor:
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
@@ -205,7 +208,7 @@ class QuantizedViT:
                                                self.cfg, self._prep(batch))
         self.qparams = qp
         self.global_distance = dist.cpu().numpy()
-        self._int_models = {}
+        self._int_models, self._int_bits = {}, None
         return qp
 
     def _calibrated(self):
@@ -227,7 +230,7 @@ class QuantizedViT:
             self.qparams = {k[4:]: torch.tensor(z[k], device=self.device)
                             for k in z.files if k.startswith("qp::")}
             self.global_distance = np.asarray(z["__global_distance__"])
-        self._int_models = {}
+        self._int_models, self._int_bits = {}, None
         return self.qparams
 
     def _bit_config(self, bit_config):
@@ -255,13 +258,20 @@ class QuantizedViT:
         """The calibrated model baked for ``bit_config`` (default: every
         slot ``cfg.bit_w``) as an ``IntModel`` on this device (``resident``:
         served through K6, the ViT family only: a Swin raises
-        ``ValueError``); kept per configuration."""
+        ``ValueError``).  Kept for the default configuration and for the
+        latest other one: a mixed-precision search that validates each
+        candidate on the integer path bakes one at a time, and the device
+        holds at most two configurations' models."""
         if resident and self.is_swin:
             raise ValueError("resident serving kernel supports the ViT "
                              "family only")
         bit_config = self._bit_config(bit_config)
         key = (bit_config, bool(resident))
         if key not in self._int_models:
+            default = self._bit_config(None)
+            for k in [k for k in self._int_models
+                      if k[0] not in (default, bit_config)]:
+                del self._int_models[k]
             self._int_models[key] = IntModel(
                 self._bake(bit_config), self.spec, self.cfg, self.device,
                 resident=resident, input_norm=self.input_norm)
@@ -286,6 +296,43 @@ class QuantizedViT:
                                            self.spec, self.cfg, x,
                                            self._bit_config(bit_config))
             return self._mod.forward_fp(self.params, self.spec, x)
+
+    # -- mixed-precision candidates -----------------------------------------
+    def forward_bits(self, x, bits_batch) -> torch.Tensor:
+        """(ncand, B, classes) logits of the fake-quant forward at each
+        {4, 8} configuration of ``bits_batch`` (ncand, slots), one
+        candidate after the other on one device-resident batch (the JAX
+        package vmaps them; ``diffvit_tpu/engine.py:372``)."""
+        qp = self._calibrated()
+        x = self._prep(x)
+        with torch.inference_mode():
+            return torch.stack([
+                self._mod.forward_q_bits(self.params, qp, self.spec,
+                                         self.cfg, x, bits)
+                for bits in np.asarray(bits_batch).tolist()])
+
+    def forward_bits_int(self, x, bits) -> torch.Tensor:
+        """(B, classes) logits of the {4, 8} configuration ``bits`` on the
+        integer path (``diffvit_tpu/engine.py:416``): the uniform 4- and
+        8-bit bakes are made and moved to the device once
+        (``vit_int.prepare_int_bits``), and each candidate selects its
+        sites from them (``select_int_bits``), so its logits equal
+        ``prepare_int(bits)``'s bit for bit and the kernels' K-major weight
+        copies are made once.  On a CUDA device it runs K1 + K2 (K5 + K2
+        with SmoothQuant off) or raises.  The ViT family only."""
+        qp = self._calibrated()
+        if self.is_swin:
+            raise NotImplementedError(
+                "int-path search eval is wired for the ViT family; Swin "
+                "searches use the fake-path forward_bits")
+        if self._int_bits is None:
+            self._int_bits = vit_int.prepare_int_bits(
+                self.params, qp, self.spec, self.cfg, self.device)
+        ip = vit_int.select_int_bits(self._int_bits, bits, self.spec,
+                                     self.cfg)
+        x = self._prep(x)
+        with torch.inference_mode():
+            return vit_int.forward_q_int(ip, self.spec, self.cfg, x)
 
     @property
     def flops(self):
@@ -372,3 +419,61 @@ def validate(model, loader, bit_config=None, quant=True, print_freq=100,
     log(" * Prec@1 {top1.avg:.3f} Prec@5 {top5.avg:.3f} Time {t:.3f}".format(
         top1=top1, top5=top5, t=time.time() - val_start))
     return losses.avg, top1.avg, top5.avg
+
+
+def _count_top1(correct, ci, logits_dev, target):
+    """Add candidate ``ci``'s correct top-1 predictions to ``correct``."""
+    pred = logits_dev.argmax(-1).cpu().numpy()  # waits for the device
+    correct[ci] += int((pred == np.asarray(target)).sum())
+
+
+def validate_bits(model: QuantizedViT, loader, configs, log=print):
+    """One pass over ``loader`` scoring every {4, 8} configuration of
+    ``configs`` through the fake-quant forward
+    (:meth:`QuantizedViT.forward_bits`; ``diffvit_tpu/engine.py:689``):
+    the top-1 precision of each, in the order given.  Batch i+1 is issued
+    before batch i's logits are read."""
+    configs = [list(c) for c in configs]
+    if not configs:
+        return []
+    correct = np.zeros(len(configs), np.int64)
+    total = 0
+    pending = None
+    for data, target in loader:
+        logits_dev = model.forward_bits(data, configs)
+        if pending is not None:
+            for ci in range(len(configs)):
+                _count_top1(correct, ci, pending[0][ci], pending[1])
+        pending = (logits_dev, target)
+        total += len(target)
+    if pending is not None:
+        for ci in range(len(configs)):
+            _count_top1(correct, ci, pending[0][ci], pending[1])
+    log(f"validate_bits: {len(configs)} configs x {total} images")
+    return [float(p) for p in 100.0 * correct / max(total, 1)]
+
+
+def validate_bits_int(model: QuantizedViT, loader, configs, log=print):
+    """:func:`validate_bits` on the integer path
+    (:meth:`QuantizedViT.forward_bits_int`; ``diffvit_tpu/engine.py:718``):
+    each batch is sent to the device once and serves every candidate in
+    order; a candidate's logits are read one forward behind.  The ViT
+    family only."""
+    configs = [list(c) for c in configs]
+    if not configs:
+        return []
+    correct = np.zeros(len(configs), np.int64)
+    total = 0
+    pending = None  # (candidate, device logits, target)
+    for data, target in loader:
+        xd = model._prep(data)
+        total += len(target)
+        for ci, bits in enumerate(configs):
+            logits_dev = model.forward_bits_int(xd, bits)
+            if pending is not None:
+                _count_top1(correct, *pending)
+            pending = (ci, logits_dev, target)
+    if pending is not None:
+        _count_top1(correct, *pending)
+    log(f"validate_bits_int: {len(configs)} configs x {total} images")
+    return [float(p) for p in 100.0 * correct / max(total, 1)]

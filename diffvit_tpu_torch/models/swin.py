@@ -34,7 +34,7 @@ from ..ops.int_layernorm import float_layernorm, int_layernorm
 from ..ops.lis import log_int_softmax
 from .vit import (F32, F64, _calib_act_site, _calib_weight_site, _fq,
                   _linear, _observe_act_site, _q_weight, _softmax,
-                  gelu_exact)
+                  check_search_bits, gelu_exact)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +101,26 @@ def flops_list(spec: SwinSpec):
             fl.append((n // 4) * 4 * dim * 2 * dim)
     fl.append(spec.num_features * spec.num_classes)
     return fl
+
+
+def bit_slot_groups(spec: SwinSpec):
+    """Slot-index groups for the mixed-precision candidate sampler
+    (``diffvit_tpu/models/swin.py:229``): within a block (qkv, proj) share
+    a bit and (fc1, fc2) share a bit (the reference's ViT pair doubling,
+    carried to Swin); each downsample reduction and the head draw their own
+    bit.  Slot 0 (the patch conv) stays pinned to 8 by the sampler."""
+    groups = []
+    slot = 1
+    for s in range(spec.num_layers):
+        for _ in range(spec.depths[s]):
+            groups.append([slot, slot + 1])
+            groups.append([slot + 2, slot + 3])
+            slot += 4
+        if s < spec.num_layers - 1:
+            groups.append([slot])
+            slot += 1
+    groups.append([slot])  # head
+    return groups
 
 
 def normalize_bit_config(spec: SwinSpec, bit):
@@ -605,3 +625,18 @@ def _forward_q_body(params, qp, spec: SwinSpec, cfg: QuantConfig, x, wfn,
     logits = _linear(h, wfn("head.w", params["head"]["w"], slot),
                      params["head"]["b"])
     return fq("act_out", logits)
+
+
+def forward_q_bits(params, qp, spec: SwinSpec, cfg: QuantConfig, x, bits):
+    """The mixed-precision search's Swin forward (``diffvit_tpu/models/
+    swin.py:712``): ``bits`` holds ``num_bit_slots`` entries in {4, 8};
+    each weight site takes its int4 or int8 fake-quant weight through
+    :func:`_forward_q_body`'s ``wfn``, no LayerNorm turns float.  Raises
+    ``ValueError`` outside the search space."""
+    bits = check_search_bits(cfg, bits, num_bit_slots(spec),
+                             smoothquant=False)
+
+    def wfn(path, w, slot):
+        return _q_weight(qp, path, w, bits[slot])
+
+    return _forward_q_body(params, qp, spec, cfg, x, wfn, lambda slot: False)

@@ -701,3 +701,36 @@ def forward_q(params, qp, spec: ViTSpec, cfg: QuantConfig, x,
     w = params["head"]["w"] if hb == -1 else _q_weight(
         qp, "head.w", params["head"]["w"], hb)
     return _fq(qp, "act_out", _linear(h, w, params["head"]["b"]), bt_a)
+
+
+def check_search_bits(cfg: QuantConfig, bits, n_slots: int, smoothquant=True):
+    """``bits`` as a tuple of ints after the checks of the JAX package's
+    bit-traced forwards: ``n_slots`` entries, each 4 or 8 (the search space
+    of the mixed-precision search), and with ``smoothquant`` (the ViT
+    family) ``cfg.smoothquant`` on and 4 and 8 in ``cfg.bit_pool``.
+    Raises ``ValueError``."""
+    bits = tuple(int(b) for b in bits)
+    if smoothquant and not cfg.smoothquant:
+        raise ValueError("the bit-traced forward mirrors the reference search: "
+                         "it needs cfg.smoothquant")
+    if smoothquant and not {4, 8} <= set(cfg.bit_pool):
+        raise ValueError(f"the search needs 4 and 8 in cfg.bit_pool, got "
+                         f"{cfg.bit_pool}")
+    if len(bits) != n_slots:
+        raise ValueError(f"bits needs {n_slots} entries, got {len(bits)}")
+    if not set(bits) <= {4, 8}:
+        raise ValueError(f"the search space is {{4, 8}} a slot, got "
+                         f"{sorted(set(bits))}")
+    return bits
+
+
+def forward_q_bits(params, qp, spec: ViTSpec, cfg: QuantConfig, x, bits):
+    """The mixed-precision search's forward (``diffvit_tpu/models/vit.py:
+    886``): ``bits`` holds 4 * depth + 2 entries in {4, 8}.  The JAX
+    function selects between the 4- and 8-bit variants with ``jnp.where``
+    so that one trace serves every candidate, and its numerics are
+    ``forward_q(bit_config)``'s; here there is no trace to share, so it
+    checks the search space (:func:`check_search_bits`) and runs
+    :func:`forward_q` at ``bits``."""
+    bits = check_search_bits(cfg, bits, num_bit_slots(spec))
+    return forward_q(params, qp, spec, cfg, x, bits)

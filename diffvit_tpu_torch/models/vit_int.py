@@ -47,8 +47,9 @@ from ..ops.kernels.mlp import fused_int_mlp
 from ..ops.kernels.serve import prepare_resident, resident_codes
 from ..ops.lis import log_int_softmax_from_int
 from ..ops.quant import fake_quant, int_matmul
-from .vit import (ViTSpec, _linear, _wq, gelu_exact, num_bit_slots,
-                  patchify)
+from .convert import int_model_from_numpy
+from .vit import (ViTSpec, _linear, _wq, check_search_bits, gelu_exact,
+                  num_bit_slots, patchify)
 
 I8 = torch.int8
 F32, F64 = torch.float32, torch.float64
@@ -229,6 +230,99 @@ def prepare_int(params, qp, spec: ViTSpec, cfg: QuantConfig,
         zps += [v["zp"] for v in ib.values()
                 if isinstance(v, dict) and "zp" in v]
     ip["sym_acts"] = all(bool(np.all(np.asarray(z) == 0)) for z in zps)
+    return ip
+
+
+# ---------------------------------------------------------------------------
+# The {4, 8} search space baked once (the integer search substrate)
+# ---------------------------------------------------------------------------
+# A candidate's int-model is the uniform 4- or 8-bit bake's site, slot by
+# slot, except for one coupling: norm2 emits on the ATTENTION's SmoothQuant
+# channel scale (the reference's quirk), so fc1's ln_out_scale and
+# ln_rescale depend on (b_qkv, b_fc1) jointly.  Their four combinations
+# are stacked per block; a consistency guard pins the stacked diagonal to
+# the uniform bakes bitwise, so a coupling that prepare_int grows and this
+# decomposition misses fails loudly.
+
+_SITES = ("qkv", "proj", "fc1", "fc2")
+_COMBOS = ((4, 4), (4, 8), (8, 4), (8, 8))  # (b_qkv, b_fc1) by joint index
+
+
+def norm2_cross_terms(qp_host, cfg: QuantConfig, block: int):
+    """fc1's ``ln_out_scale`` and ``ln_rescale`` for the four (b_qkv,
+    b_fc1) combinations of block ``block``, stacked by the joint index
+    ``2 * (b_qkv == 8) + (b_fc1 == 8)`` (``diffvit_tpu/models/vit_int.py:
+    750-760``), from the qparams as numpy (``_host``), with
+    ``prepare_int``'s float32 operations."""
+    qp = qp_host
+    p = f"blocks.{block}"
+    idx = {b: cfg.bit_pool.index(b) for b in (4, 8)}
+    ch_a = {b: qp[f"{p}.attn.qkv.sq.channel_scale"][i] for b, i in idx.items()}
+    ch_m = {b: qp[f"{p}.mlp.fc1.sq.channel_scale"][i] for b, i in idx.items()}
+    s_x = {b: qp[f"{p}.mlp.fc1.qact0.scale"][i] for b, i in idx.items()}
+    lo = np.stack([s_x[bf] * ch_a[bq] for bq, bf in _COMBOS])
+    lr = np.stack([ch_a[bq] / ch_m[bf] for bq, bf in _COMBOS])
+    return lo, lr
+
+
+def prepare_int_bits(params, qp, spec: ViTSpec, cfg: QuantConfig,
+                     device="cuda") -> dict:
+    """Bake the {4, 8} search space once (``diffvit_tpu/models/vit_int.py:
+    704``): the uniform 4- and 8-bit int-models, each converted onto
+    ``device`` once (``int_model_from_numpy``), and per block the norm2
+    cross terms (:func:`norm2_cross_terms`) as rows on ``device``.
+    :func:`select_int_bits` builds each candidate from these tensors
+    without a copy, so the kernels' K-major weight copies, cached per
+    tensor, are made once per bake, and the device holds two bakes.
+    Raises ``ValueError`` when the stacked diagonal does not reproduce the
+    uniform bakes bitwise (``vit_int.py:762-776``)."""
+    n = num_bit_slots(spec)
+    ip4 = prepare_int(params, qp, spec, cfg, (4,) * n)
+    ip8 = prepare_int(params, qp, spec, cfg, (8,) * n)
+    variants = {"b4": int_model_from_numpy(ip4, spec, device, cfg),
+                "b8": int_model_from_numpy(ip8, spec, device, cfg),
+                "fc1_lo": [], "fc1_lr": []}
+    if not cfg.smoothquant:
+        return variants
+    qp_host = _host(qp)
+    for i in range(spec.depth):
+        lo, lr = norm2_cross_terms(qp_host, cfg, i)
+        for row, ibu in ((0, ip4["blocks"][i]), (3, ip8["blocks"][i])):
+            if not (np.array_equal(lo[row], ibu["fc1"]["ln_out_scale"])
+                    and np.array_equal(lr[row], ibu["fc1"]["ln_rescale"])):
+                raise ValueError(
+                    "prepare_int_bits: norm2 cross terms diverge from "
+                    f"prepare_int at block {i} — prepare_int grew a "
+                    "coupling this decomposition does not model")
+        variants["fc1_lo"].append([torch.tensor(r, device=device)
+                                   for r in lo])
+        variants["fc1_lr"].append([torch.tensor(r, device=device)
+                                   for r in lr])
+    return variants
+
+
+def select_int_bits(variants, bits, spec: ViTSpec, cfg: QuantConfig) -> dict:
+    """The int-model of the {4, 8} configuration ``bits`` from
+    :func:`prepare_int_bits`'s bakes (``diffvit_tpu/models/vit_int.py:
+    780``): each slot's site dict of the uniform bake of its bit, fc1's
+    norm2 terms from the joint row, everything else shared with the 8-bit
+    bake; no tensor is copied.  Equal to ``int_model_from_numpy(
+    prepare_int(bits))`` on every entry, for :func:`forward_q_int`.
+    Raises ``ValueError`` outside {4, 8}."""
+    bits = check_search_bits(cfg, bits, num_bit_slots(spec),
+                             smoothquant=False)
+    bake = {4: variants["b4"], 8: variants["b8"]}
+    ip = dict(bake[8], bit_config=bits, patch=bake[bits[0]]["patch"],
+              head=bake[bits[-1]]["head"], blocks=[])
+    for i, ib8 in enumerate(bake[8]["blocks"]):
+        b = bits[4 * i + 1: 4 * i + 5]
+        ib = dict(ib8, **{s: bake[bb]["blocks"][i][s]
+                          for s, bb in zip(_SITES, b)})
+        if cfg.smoothquant:
+            k = 2 * (b[0] == 8) + (b[2] == 8)
+            ib["fc1"] = dict(ib["fc1"], ln_out_scale=variants["fc1_lo"][i][k],
+                             ln_rescale=variants["fc1_lr"][i][k])
+        ip["blocks"].append(ib)
     return ip
 
 

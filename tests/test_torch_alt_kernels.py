@@ -40,6 +40,8 @@ from diffvit_tpu_torch.testing import (alt_kernel_cases, int8_codes,
                                        random_int_model)
 from test_torch_linear import assert_raw
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 # 2 heads of 16, Npad 24 with 20 real rows (the small K8/K7a case)
 SMALL = ViTSpec("t16", embed_dim=32, depth=1, num_heads=2, num_classes=10)
 B, NPAD, N_REAL = 2, 24, 20

@@ -39,6 +39,8 @@ from diffvit_tpu_torch.ops.kernels.gemm import SMEM_LIMIT
 from diffvit_tpu_torch.ops.quant import pow2
 from diffvit_tpu_torch.testing import random_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 LIS_ZERO = 16  # lis.cuh's kLisZero: the shift of a zero weight

@@ -30,6 +30,8 @@ from diffvit_tpu_torch.ops import int_layernorm as iln
 from diffvit_tpu_torch.ops import lis, quant
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 
 def _t(a):
     return torch.tensor(np.asarray(a))

@@ -60,6 +60,20 @@ def _port_cfg(jcfg):
     return QuantConfig.from_dict(jcfg.to_dict())
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run torch on one thread (every test_torch_*
+    module takes this fixture).  Tier-1 runs six pytest workers on the
+    machine's cores, and torch's default of a thread a core in each of
+    them oversubscribes it: a TINY forward that takes 0.1 s alone took
+    ~27 s, and the whole run 2,077 s against 847 s on one thread.  The
+    count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_paths_agree(got, ref):
     """tests/test_pallas_attention.py::_assert_paths_agree."""
     got, ref = np.asarray(got), np.asarray(ref)

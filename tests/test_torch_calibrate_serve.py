@@ -31,7 +31,7 @@ from diffvit_tpu_torch.ops.kernels.attention import lis_sum_fits
 from test_torch_calibrate import (CASES, J_TINY, MIXED, N_SLOTS,  # noqa: F401
                                   TINY, _assert_paths_agree,
                                   _assert_qparams_match, _port_cfg,
-                                  _qp_torch, tiny)
+                                  _qp_torch, one_torch_thread, tiny)
 
 
 @pytest.mark.parametrize("quant_method", ["minmax", "ema"])

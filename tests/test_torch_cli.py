@@ -8,7 +8,9 @@ prints the report that JAX's ``engine.validate`` prints over JAX's
 ``DataLoader`` (the same loss, Prec@1 and Prec@5 lines, the times aside),
 on each wire and route; ``--quant --mode 1 --int-path --save-int`` writes
 an artifact JAX serves; every flag whose machinery is not ported exits
-naming its ROADMAP item."""
+naming its ROADMAP item; each ``--mixed`` flag's value reaches the search
+(the search's machinery replaced by recorders; the search itself:
+tests/test_torch_mixed.py)."""
 import re
 
 import jax
@@ -24,10 +26,14 @@ from diffvit_tpu.engine import validate as jax_validate
 from diffvit_tpu.models import vit
 
 from diffvit_tpu_torch import cli, engine
+from diffvit_tpu_torch.analysis import hessian
+from diffvit_tpu_torch.analysis import mixed_precision as mp
 from diffvit_tpu_torch.data.synthetic import make_fake_imagefolder
 from diffvit_tpu_torch.models.registry import preprocessing_for
 from diffvit_tpu_torch.models.swin import SWIN_SPECS, SwinSpec
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
+
+from test_torch_calibrate import one_torch_thread  # noqa: F401
 
 TINY_KW = dict(embed_dim=64, depth=2, num_heads=2, num_classes=10)
 TINY = vit.ViTSpec("test_tiny", **TINY_KW)
@@ -192,6 +198,116 @@ def test_unported_flags_exit_naming_their_roadmap_item(flags, item):
     whose machinery is not ported exits before any work, naming its item."""
     with pytest.raises(SystemExit, match=rf"ROADMAP Queue 1, item {item}:"):
         cli.main(["deit_tiny", "/nonexistent", "--quant", *flags])
+
+
+# what the search receives with no --mixed flag but --mixed given
+MIXED_DEFAULTS = dict(batches=1, max_iter=150, joint=False, sample_factor=1.1,
+                      columns="committed", pareto=3, pop_size=25, evo_iter=8,
+                      mutate_size=10, crossover_size=10, evo_factor=1.1,
+                      scorer="validate_bits")
+MIXED_FLAGS = {  # dest: (its flag and a value, what the search receives)
+    "mixed": ([], {}),
+    "hessian_batches": (["--hessian-batches", "2"], dict(batches=2)),
+    "hessian_iter": (["--hessian-iter", "7"], dict(max_iter=7)),
+    "hessian_estimator": (["--hessian-estimator", "joint"],
+                          dict(joint=True)),
+    "evo_pop": (["--evo-pop", "3"], dict(pop_size=3)),
+    "evo_iter": (["--evo-iter", "2"], dict(evo_iter=2)),
+    "evo_mutate": (["--evo-mutate", "4"], dict(mutate_size=4)),
+    "evo_crossover": (["--evo-crossover", "5"], dict(crossover_size=5)),
+    "pareto_top": (["--pareto-top", "1"], dict(pareto=1)),
+    "size_factor": (["--size-factor", "1.7"],
+                    dict(sample_factor=1.7, evo_factor=1.7)),
+    "omega_columns": (["--omega-columns", "intended"],
+                      dict(columns="intended")),
+    "search_path": (["--search-path", "int"],
+                    dict(scorer="validate_bits_int")),
+}
+
+
+@pytest.fixture(scope="module")
+def mixed_root(tmp_path_factory):
+    """A fake ImageFolder with train/ (4 images) and val/ (2)."""
+    root = tmp_path_factory.mktemp("mixed_flags")
+    make_fake_imagefolder(str(root / "train"), num_classes=2, per_class=2,
+                          size=(80, 60), seed=4)
+    make_fake_imagefolder(str(root / "val"), num_classes=2, per_class=1,
+                          size=(80, 60), seed=5)
+    return root
+
+
+@pytest.mark.parametrize("dest", list(MIXED_FLAGS))
+def test_mixed_flag_reaches_the_search(mixed_root, monkeypatch, capsys,
+                                       dest):
+    """Each --mixed flag's value reaches the Hessian, the sampler, the
+    omega ranking, the Pareto validations or the evolutionary search, and
+    every other one its default (the search's machinery and the
+    calibration replaced by recorders)."""
+    assert set(MIXED_FLAGS) == {
+        "mixed", "hessian_batches", "hessian_iter", "hessian_estimator",
+        "evo_pop", "evo_iter", "evo_mutate", "evo_crossover", "pareto_top",
+        "size_factor", "omega_columns", "search_path"}
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY_T)
+    n = vit.num_bit_slots(TINY)
+    got = {"pareto": 0}
+    cands = [[8] * n, [8] + [4] * (n - 1), [8, 4] * (n // 2)]
+
+    def sensitivity(params, spec, batches, generator, max_iter, joint):
+        got.update(batches=len(batches), max_iter=max_iter, joint=joint)
+        assert all(len(b[0]) == 2 for b in batches)  # --calib-batchsize
+        return [0.5] * (n - 1)
+
+    def sample(flops, rng, factor, groups):
+        got["sample_factor"] = factor
+        return cands
+
+    def omega(bit_list, flops, mean_hessian, gd, columns):
+        got["columns"] = columns
+        return [[c, 0.0] for c in bit_list]
+
+    def validate(*args, **kw):
+        got["pareto"] += 1
+        return 0.0, 0.0, 0.0
+
+    def search(omega_list, flops, evaluate, *, rng, pop_size, evo_iter,
+               mutate_size, crossover_size, factor, evaluate_batch):
+        got.update(pop_size=pop_size, evo_iter=evo_iter,
+                   mutate_size=mutate_size, crossover_size=crossover_size,
+                   evo_factor=factor)
+        return [[omega_list[0][0], evaluate_batch([omega_list[0][0]])[0]]]
+
+    def scorer(name):
+        def score(model, loader, configs):
+            got["scorer"] = name
+            return [1.0] * len(configs)
+        return score
+
+    monkeypatch.setattr(hessian, "hessian_sensitivity", sensitivity)
+    monkeypatch.setattr(mp, "sample_candidates", sample)
+    monkeypatch.setattr(mp, "omega_rank", omega)
+    monkeypatch.setattr(mp, "evolutionary_search", search)
+    monkeypatch.setattr(engine, "validate", validate)
+    for name in ("validate_bits", "validate_bits_int"):
+        monkeypatch.setattr(engine, name, scorer(name))
+    monkeypatch.setattr(engine.QuantizedViT, "calibrate",
+                        lambda self, batch: setattr(
+                            self, "global_distance", np.ones((n - 1, 4))))
+    result = cli.main(["deit_test", str(mixed_root), "--quant", "--mode", "1",
+                       "--mixed", "--calib-batchsize", "2", "--device",
+                       "cpu", "--num-workers", "2", "--hessian-batches", "1",
+                       *MIXED_FLAGS[dest][0]])
+    assert got == dict(MIXED_DEFAULTS, **MIXED_FLAGS[dest][1])
+    assert result == [[cands[0], 1.0]]
+    assert f"best: {result[0]}" in capsys.readouterr().out.splitlines()
+
+
+def test_load_int_with_mixed_is_refused():
+    """--load-int serves one baked configuration: with --mixed it exits
+    with the reference's message before any work."""
+    with pytest.raises(SystemExit, match="run --mixed with --save-int "
+                                         "instead"):
+        cli.main(["deit_tiny", "/nonexistent", "--load-int", "a.npz",
+                  "--mixed", "--device", "cpu"])
 
 
 def test_swin_and_flag_combinations_are_refused(monkeypatch):

@@ -22,6 +22,8 @@ from diffvit_tpu_torch.models import registry
 from diffvit_tpu_torch.models.vit import ViTSpec
 from diffvit_tpu_torch.testing import random_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def folder(tmp_path_factory):

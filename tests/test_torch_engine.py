@@ -32,6 +32,8 @@ from diffvit_tpu_torch.utils import metrics, serialize
 from diffvit_tpu_torch.models.vit import ViTSpec
 from diffvit_tpu_torch.testing import random_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = vit.ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                    num_classes=10)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

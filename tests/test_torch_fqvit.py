@@ -34,6 +34,8 @@ from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
 from diffvit_tpu_torch.ops.kernels.attention import fused_int_attention
 from diffvit_tpu_torch.testing import random_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = vit.ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                    num_classes=10)
 NO_INPUT_Q = vit.ViTSpec("test_niq", embed_dim=64, depth=1, num_heads=2,

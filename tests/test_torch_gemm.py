@@ -20,6 +20,8 @@ from diffvit_tpu_torch.ops.kernels.gemm import (gemm_plan, kmajor, pad_k,
 from diffvit_tpu_torch.ops.kernels.mlp import gelu_poly
 from diffvit_tpu_torch.ops.quant import int_matmul
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 # (M, N, K) of the model sites: DeiT-S and Swin-T at b = 1 and 64 (qkv,
 # proj, fc1, fc2, head, patch), P3's legs, and ragged test shapes
 SHAPES = [(197, 1152, 384), (197, 384, 384), (197, 1536, 384),

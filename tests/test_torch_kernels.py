@@ -23,6 +23,8 @@ from diffvit_tpu_torch.ops.kernels.attention import (
 from diffvit_tpu_torch.ops.kernels.mlp import fused_int_mlp
 from diffvit_tpu_torch.testing import random_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 N, NPAD = 197, 200

@@ -24,6 +24,8 @@ from diffvit_tpu_torch.testing import (alt_kernel_cases, linear_site_cases,
                                        random_int_model,
                                        random_swin_int_model)
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 
 def _case(rows, k, n, seed=0):
     """The JAX suite's inputs (tests/test_fused_linear.py) at (rows, k, n)."""

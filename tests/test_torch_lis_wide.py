@@ -29,6 +29,8 @@ from diffvit_tpu_torch.ops.kernels.attention import (lis_body_plain,
 from diffvit_tpu_torch.ops.lis import int_exp, wide_row_sum
 from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = vit.ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                    num_classes=10)
 TINY_T = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,

@@ -16,6 +16,8 @@ from diffvit_tpu_torch import engine
 from diffvit_tpu_torch.models import load, registry
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY_KW = dict(embed_dim=64, depth=2, num_heads=2, num_classes=10)
 TINY = ViTSpec("test_tiny", **TINY_KW)
 TINY_J = jvit.ViTSpec("test_tiny", **TINY_KW)

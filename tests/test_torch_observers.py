@@ -17,6 +17,8 @@ from diffvit_tpu.ops.bit_types import BIT_TYPE_DICT as JAX_BITS
 from diffvit_tpu_torch.calib import observers as obs
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 WEIGHT_BITS = ("uint3", "uint4", "int4", "int8")
 
 

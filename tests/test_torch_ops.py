@@ -19,6 +19,8 @@ from diffvit_tpu_torch.ops.kernels.attention import (lis_body_plain,
                                                      lis_tail_plain)
 from diffvit_tpu_torch.ops.kernels.mlp import gelu_poly
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 
 def _t(a):
     return torch.tensor(np.asarray(a))

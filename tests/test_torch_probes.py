@@ -26,6 +26,8 @@ from diffvit_tpu.ops.pallas.attention import _lis_body
 from diffvit_tpu_torch.probes import (attn_overlap, ingest, overlap,
                                       overlap_mlp, pingpong, timing)
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 # P1 and P5: B images of NP rows (N real), H heads of D; small, and one
 # image at the scripts' DeiT-S geometry

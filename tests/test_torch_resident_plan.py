@@ -27,6 +27,8 @@ from diffvit_tpu_torch.ops.kernels.gemm import (MAX_STAGES, SMEM_LIMIT,
 from diffvit_tpu_torch.ops.quant import int_matmul
 from diffvit_tpu_torch.testing import random_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 DEIT_S = VIT_SPECS["deit_small"]

@@ -38,6 +38,8 @@ from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
                                                  resident_codes)
 from diffvit_tpu_torch.testing import random_int_model, random_swin_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = vit.ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                    num_classes=10)
 PTINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,

@@ -44,6 +44,8 @@ from diffvit_tpu_torch.ops.kernels.swin_attention import (
     fused_swin_attention, fused_swin_attention_v2)
 from diffvit_tpu_torch.testing import random_swin_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY_KW = dict(embed_dim=32, depths=(2, 1), num_heads=(2, 4), img_size=56,
                num_classes=10)
 TINY_J = jswin.SwinSpec("swin_test2", **TINY_KW)

@@ -43,9 +43,9 @@ from diffvit_tpu_torch import engine
 from diffvit_tpu_torch.models import load, registry, swin, swin_int, vit
 from diffvit_tpu_torch.models.vit_int import _host
 
-from test_torch_calibrate import (CASES, _assert_paths_agree,
+from test_torch_calibrate import (CASES, _assert_paths_agree,  # noqa: F401
                                   _assert_qparams_match, _port_cfg,
-                                  _qp_torch)
+                                  _qp_torch, one_torch_thread)
 from test_torch_calibrate_serve import _assert_tree_equal
 
 TINY_KW = dict(embed_dim=32, depths=(2, 1), num_heads=(2, 4), img_size=56,

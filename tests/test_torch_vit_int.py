@@ -21,6 +21,8 @@ from diffvit_tpu_torch.models.convert import int_model_from_numpy
 from diffvit_tpu_torch.models.vit import ViTSpec
 from diffvit_tpu_torch.testing import random_int_model
 
+from test_torch_calibrate import one_torch_thread  # noqa: F401
+
 TINY = vit.ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                    num_classes=10)
 TINY_T = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
