@@ -152,6 +152,27 @@
             exactly 12 K4 + 12 K2; then one CLI run (--mixed --search-path
             int --save-int on a fake ImageFolder) with its launches counted
             from its validate_bits_int lines, and its artifact served.
+15. recovery: the recovery passes (calib/adaround.py, qat.py, biascorr.py)
+            on the port's own DeiT-S (params at seed 0, the CLI's Gaussian
+            calibration of 50): one AdaRound site (block 11's fc1, 2048
+            rows) at 1000 and at 100 steps; then AdaRound at 100 steps a
+            site, 3 QAT steps at b = 50, one more step of QAT without and
+            with remat from the same params (the losses bit-equal), and
+            bias correction, each with its seconds and peak memory; the AdaRound weights on their grid and
+            a bake of them holding exactly their codes; the final bake
+            served through exactly 12 K1 + 12 K2, its codes equal to the
+            params' at every site, and with equal logits through K6, from a
+            saved and loaded artifact and from a fresh bake; Swin-T
+            (calibrated on 8 images) through AdaRound at 50 steps and bias
+            correction, served through exactly 12 K4 + 12 K2 with its codes;
+            the card against the CPU at DeiT-S width, depth 2, on 4 images
+            (the share of equal AdaRound codes, the QAT losses from the
+            same params, the first one equal; bias correction from the
+            CPU's QAT params on both, the biases equal, and the served
+            logits by _assert_paths_agree); and the
+            CLI with --adaround --adaround-steps 20 --qat-steps 5
+            --bias-corr --int-path --save-int, its report lines, seconds and
+            launches, and its artifact served.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -185,6 +206,7 @@ import torch
 from diffvit_tpu_torch import QuantConfig, cli, engine
 from diffvit_tpu_torch.analysis import hessian
 from diffvit_tpu_torch.analysis import mixed_precision as mp
+from diffvit_tpu_torch.calib import adaround, qat
 from diffvit_tpu_torch.data.imagenet import device_normalize, normalize_lut
 from diffvit_tpu_torch.data.synthetic import (gaussian_calibration,
                                               make_fake_imagefolder)
@@ -200,6 +222,7 @@ from diffvit_tpu_torch.models.swin import (SWIN_SPECS, bit_slot_groups,
                                            num_bit_slots)
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec, patchify
 from diffvit_tpu_torch.ops.bit_types import BIT_TYPE_DICT
+from diffvit_tpu_torch.ops.quant import fake_quant
 from diffvit_tpu_torch.ops.kernels import (attention, build, gemm, linear,
                                            mlp, swin_attention)
 from diffvit_tpu_torch.ops.kernels.serve import (prepare_resident,
@@ -2348,6 +2371,291 @@ def phase_mixed(dev):
     return paths
 
 
+RECOVERY_STEPS = 100  # AdaRound steps a site in the phase (the CLI's: 1000)
+RECOVERY_QAT = 3  # QAT steps at b = 50 (the CLI's lr, 1e-5)
+
+
+def _site_codes(q, sites):
+    """For each weight site of ``q`` (``adaround._vit_sites`` /
+    ``_swin_sites`` order): the codes its fake-quant forward rounds the
+    weight to (clamp(round(w_s / s)), w_s the SmoothQuant-scaled weight),
+    and whether w_s / s is integral (the weight is on its grid)."""
+    qp, out = q.qparams, {}
+    for site in sites:
+        name, ppath, spre, bit = site[0], site[1], site[2], site[-1]
+        smooth = len(site) == 5 and site[3]  # qkv, fc1: a qact0 and .w.
+        bt = BIT_TYPE_DICT[f"int{bit}"]
+        w = adaround._get(q.params, ppath)
+        if smooth and q.cfg.smoothquant:
+            idx = q.cfg.bit_pool.index(bit)
+            ws = w * qp[f"{spre}.sq.channel_scale"][idx]
+            s = qp[f"{spre}.w.{bt.name}.scale"][idx]
+        else:
+            ws = w
+            s = qp[f"{spre}.w.{bt.name}.scale" if smooth
+                   else f"{spre}.{bt.name}.scale"]
+        r = ws / (s[:, None] if s.dim() == 1 else s)
+        out[name] = (torch.clamp(torch.round(r), bt.lower_bound,
+                                 bt.upper_bound), bool(
+            torch.equal(r, torch.round(r))))
+    return out
+
+
+def _served_codes(ip, sites):
+    """Each site's (Cout, K) int8 weight codes as the bake ``ip`` (numpy or
+    the served model's tensors) holds them (transposed (K, Cout))."""
+    out = {}
+    for site in sites:
+        path = site[1][:-1]
+        path = ("patch",) if path[0] == "patch_embed" else path
+        w = adaround._get(ip, path)["w_int"]
+        out[site[0]] = torch.as_tensor(np.asarray(w.cpu() if isinstance(
+            w, torch.Tensor) else w)).to(torch.float32).T
+    return out
+
+
+def _codes_held(q, ip, sites, where):
+    """Fails unless the bake ``ip`` holds, at every site, the codes of
+    ``q``'s params; returns (sites, weights)."""
+    want, got = _site_codes(q, sites), _served_codes(ip, sites)
+    bad = [n for n in want if not torch.equal(got[n], want[n][0].cpu())]
+    if bad:
+        raise RuntimeError(f"{where}: the bake's codes differ from the "
+                           f"params' at {bad}")
+    return len(want), sum(int(c.numel()) for c, _ in want.values())
+
+
+def phase_recovery(dev):
+    """The recovery passes on the card (see the module docstring, 15).
+    Returns the launches by path."""
+    paths = {}
+    rng = np.random.default_rng(12)
+    px = rng.integers(0, 256, (8, 3, 224, 224), dtype=np.uint8)
+    bits = (CFG.bit_w.bits,) * vit.num_bit_slots(SPEC)
+    vit_sites = adaround._vit_sites(SPEC, bits)
+
+    # DeiT-S at full width and depth, the CLI's Gaussian batch of 50
+    x50 = gaussian_calibration(50, seed=0)
+    q, calib_s = _calibrated(CFG, x50, dev)
+    # one site at the CLI's 1000 steps: block 11's fc1
+    name = f"blocks.{SPEC.depth - 1}.mlp.fc1"
+    site = next(s for s in vit_sites if s[0] == name)
+    xd = q._prep(x50)
+    qp = vit.autograd_safe(q.qparams)
+    y_q = adaround._site_input(lambda t: vit.forward_q(
+        q.params, qp, SPEC, CFG, xd, bits, w_in_taps=t), name)
+    y_f = adaround._site_input(lambda t: vit.forward_fp(
+        q.params, SPEC, xd, w_in_taps=t), name)
+    ch = qp[f"{name}.sq.channel_scale"][0]
+    xq = fake_quant(y_q / ch, qp[f"{name}.qact0.scale"][0],
+                    qp[f"{name}.qact0.zp"][0], CFG.bit_a)
+    w = adaround._get(q.params, site[1]) * ch
+    site_s = {}
+    for steps in (1000, 100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m0, m1 = adaround._reconstruct(
+            xq, y_f / ch, w, qp[f"{name}.w.int4.scale"][0],
+            BIT_TYPE_DICT["int4"], np.random.default_rng(0), 2048, steps,
+            1e-2, 0.01, (20.0, 2.0), int(round(steps * 0.2)))
+        torch.cuda.synchronize()
+        site_s[steps] = time.perf_counter() - t0
+    emit(phase="recovery", part="adaround_site", site=name, rows=2048,
+         seconds_1000_steps=site_s[1000], seconds_100_steps=site_s[100],
+         mse_nearest=float(m0), mse_learned=float(m1))
+    del y_q, y_f, xq, xd
+
+    secs, peaks, one_step = {}, {}, {}
+    for pass_, kw in (("adaround", dict(steps=RECOVERY_STEPS)),
+                      ("qat", dict(steps=RECOVERY_QAT)),
+                      ("qat_one_step", dict(steps=1)),
+                      ("qat_one_step_remat", dict(steps=1, remat=True)),
+                      ("bias_correct", {})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if pass_.startswith("qat_one"):  # one step, q.params kept
+            out = qat.qat_distill(q.params, q.qparams, SPEC, CFG,
+                                  [q._prep(x50)], bits, fp_params=q.fp_params,
+                                  **kw)[1]
+        else:
+            out = getattr(q, pass_)(x50, **kw)
+        torch.cuda.synchronize()
+        secs[pass_] = time.perf_counter() - t0
+        peaks[pass_] = torch.cuda.max_memory_allocated() / 2**30
+        if pass_ == "adaround":
+            report = out
+            on_grid = all(g for _, g in _site_codes(q, vit_sites).values())
+            n_sites, n_weights = _codes_held(
+                q, vit_int.prepare_int(q.params, q.qparams, SPEC, CFG),
+                vit_sites, "after AdaRound")
+        elif pass_.startswith("qat_one"):
+            one_step[pass_] = out[0]
+        elif pass_ == "qat":
+            losses = out
+        else:
+            bias_report = out
+    improved = sum(a <= b * 1.001 for b, a in report.values())
+    emit(phase="recovery", part="deit_small", batch=50,
+         calibration_seconds=calib_s, seconds=secs, peak_gib=peaks,
+         adaround_steps=RECOVERY_STEPS, sites=len(report),
+         sites_improved=improved, learned_on_grid=on_grid,
+         bake_codes_equal_learned=dict(sites=n_sites, weights=n_weights),
+         mse_reduction=float(np.mean([1 - a / b for b, a in report.values()
+                                      if b > 0])),
+         qat_losses=losses, qat_seconds_per_step=secs["qat"] / RECOVERY_QAT,
+         qat_remat_loss_equal=one_step["qat_one_step_remat"]
+         == one_step["qat_one_step"],
+         bias_shift=[float(np.mean([b for b, _ in bias_report.values()])),
+                     float(np.mean([a for _, a in bias_report.values()]))])
+    if improved != len(report) or not on_grid \
+            or not np.isfinite(losses).all() \
+            or one_step["qat_one_step_remat"] != one_step["qat_one_step"]:
+        raise RuntimeError(f"AdaRound: {improved} of {len(report)} sites "
+                           f"improved, on grid {on_grid}; QAT {losses}")
+
+    # the recovered bake: per kernel, resident, saved and loaded
+    model = q.prepare_int()
+    model(px[:1])  # warm-up: K-major weight copies
+    got, paths[f"{SPEC.name} recovery"] = drive(
+        {K1: SPEC.depth, K2: SPEC.depth}, lambda: model(px))
+    served = _codes_held(q, model.ip, vit_sites, "served")
+    resident = q.prepare_int(resident=True)
+    res, paths[f"{SPEC.name} recovery resident"] = drive(
+        {K6: 1}, lambda: resident(px))
+    with tempfile.TemporaryDirectory() as d:
+        art = os.path.join(d, "recovered.npz")
+        q.save_int_model(art)
+        loaded = engine.load_int_model(art, dev)
+    got_art, paths[f"{SPEC.name} recovery artifact"] = drive(
+        {K1: SPEC.depth, K2: SPEC.depth}, lambda: loaded(px))
+    fresh = engine.IntModel(vit_int.prepare_int(q.params, q.qparams, SPEC,
+                                                CFG), SPEC, CFG, dev)(px)
+    equal = dict(resident=bool(torch.equal(res, got)),
+                 artifact=bool(torch.equal(got_art, got)),
+                 fresh_bake=bool(torch.equal(fresh, got)))
+    emit(phase="recovery", part="deit_small_serve", batch=8,
+         served_codes_equal_learned=dict(zip(("sites", "weights"), served)),
+         logits_equal=equal, finite=bool(torch.isfinite(got).all()))
+    if not all(equal.values()) or not torch.isfinite(got).all():
+        raise RuntimeError(f"the recovered DeiT-S bake: {equal}")
+    del q, model, resident, loaded
+
+    # Swin-T at full width and depth, calibrated on 8 images
+    x8 = gaussian_calibration(8, seed=0)
+    qs, calib_s = _calibrated(CFG, x8, dev, SWIN.name)
+    swin_sites = adaround._swin_sites(SWIN, (CFG.bit_w.bits,) *
+                                      num_bit_slots(SWIN))
+    secs = {}
+    for pass_, kw in (("adaround", dict(steps=RECOVERY_STEPS // 2)),
+                      ("bias_correct", {})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = getattr(qs, pass_)(x8, **kw)
+        torch.cuda.synchronize()
+        secs[pass_] = (time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() / 2**30)
+        if pass_ == "adaround":
+            report = out
+    model = qs.prepare_int()
+    model(px[:1])
+    got, paths[f"{SWIN.name} recovery"] = drive(
+        {K4: sum(SWIN.depths), K2: sum(SWIN.depths)}, lambda: model(px))
+    served = _codes_held(qs, model.ip, swin_sites, "served Swin-T")
+    improved = sum(a <= b * 1.001 for b, a in report.values())
+    emit(phase="recovery", part="swin_tiny", batch=8,
+         calibration_seconds=calib_s,
+         seconds_and_peak_gib=secs, sites=len(report),
+         sites_improved=improved,
+         served_codes_equal_learned=dict(zip(("sites", "weights"), served)),
+         finite=bool(torch.isfinite(got).all()))
+    if improved != len(report) or not torch.isfinite(got).all():
+        raise RuntimeError(f"Swin-T AdaRound: {improved} of {len(report)} "
+                           "sites improved, or logits not finite")
+    del qs, model
+
+    # the card against the CPU at DeiT-S width, depth 2, 4 images: the
+    # passes from the same params on both (AdaRound's codes, QAT's losses;
+    # bias correction and the bake from the CPU's QAT params, because
+    # Adam moves a weight by about lr whatever its gradient's size, so a
+    # last-bit difference of a float64 backward can flip a code)
+    spec = dataclasses.replace(SPEC, depth=2)
+    sites = adaround._vit_sites(spec, (CFG.bit_w.bits,) *
+                                vit.num_bit_slots(spec))
+    params = vit.init_params(spec, torch.Generator().manual_seed(0), "cpu")
+    x4 = gaussian_calibration(4, seed=1)
+    runs = []
+    t0 = time.perf_counter()
+    for d in (dev, torch.device("cpu")):
+        qd = engine.QuantizedViT(spec, CFG, params=params, device=d)
+        qd.calibrate(x4)
+        qd.adaround(x4, steps=20, max_rows=512)
+        codes = {n: c.cpu() for n, (c, _) in _site_codes(qd, sites).items()}
+        runs.append((qd, codes, qd.qat(x4, steps=3)))
+    card, cpu = runs[0][0], runs[1][0]
+    card.params = vit.params_from_numpy(cpu.params, dev)
+    for qd in (card, cpu):
+        qd.bias_correct(x4)
+    cpu_s = time.perf_counter() - t0
+    (_, c_card, l_card), (_, c_cpu, l_cpu) = runs
+    equal = sum(int((c_card[n] == c_cpu[n]).sum()) for n in c_cpu)
+    total = sum(c.numel() for c in c_cpu.values())
+    bias_diff = max(float((adaround._get(card.params, p).cpu()
+                           - adaround._get(cpu.params, p)).abs().max())
+                    for p in [("head", "b")] + [
+                        ("blocks", i, k, "b") for i in range(spec.depth)
+                        for k in ("qkv", "proj", "fc1", "fc2")])
+    loss_rel = np.abs(np.array(l_card) / np.array(l_cpu) - 1)
+    emit(phase="recovery", part="card_vs_cpu", depth=spec.depth, images=4,
+         codes_equal_share=equal / total, weights=total,
+         qat_losses_card=l_card, qat_losses_cpu=l_cpu,
+         qat_loss_rel_diff=loss_rel.tolist(),
+         bias_max_abs_diff=bias_diff, seconds=cpu_s)
+    agree(card.prepare_int()(px).cpu().numpy(),
+          cpu.prepare_int()(px).numpy(), (8, spec.num_classes),
+          phase="recovery", part="card_vs_cpu_logits", batch=8)
+    if equal / total < 0.999 or loss_rel[0] > 1e-6 or bias_diff > 1e-6:
+        raise RuntimeError(f"card vs CPU: {equal / total} of codes equal, "
+                           f"first QAT loss {loss_rel[0]} apart, biases "
+                           f"{bias_diff} apart")
+    del card, cpu, runs
+
+    # the CLI: the three passes, the integer path and --save-int
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fake_imagefolder(os.path.join(tmp, "val"), **CLI_FOLDER)
+        art = os.path.join(tmp, "recovered.npz")
+        images = CLI_FOLDER["num_classes"] * CLI_FOLDER["per_class"]
+        forwards = -(-images // CLI_BATCH)
+        argv = [SPEC.name, tmp, "--quant", "--mode", "1", "--adaround",
+                "--adaround-steps", "20", "--qat-steps", "5", "--bias-corr",
+                "--int-path", "--save-int", art, "--calib-batchsize", "16",
+                "--val-batchsize", str(CLI_BATCH), "--num-workers", "8",
+                "--wire", "u8", "--device", dev.type]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            (loss, top1, _), counts = drive(
+                {K1: SPEC.depth * forwards, K2: SPEC.depth * forwards},
+                lambda: cli.main(argv))
+        seconds = time.perf_counter() - t0
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("AdaRound", "Distillation", "QAT",
+                                   "Bias correction", " * Prec@1",
+                                   "Saved"))]
+        served = engine.load_int_model(art, dev)
+        got_art, counts_art = drive({K1: SPEC.depth, K2: SPEC.depth},
+                                    lambda: served(px))
+    emit(phase="recovery", part="cli", seconds=seconds, lines=lines,
+         loss=loss, prec1=top1,
+         artifact_finite=bool(torch.isfinite(got_art).all()))
+    if len(lines) != 8 or not np.isfinite(loss):
+        raise RuntimeError(f"cli recovery: report {lines}")
+    paths["cli recovery"] = counts
+    paths["cli recovery artifact"] = counts_art
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2405,11 +2713,13 @@ def main():
     t.append(time.perf_counter())
     paths.update(phase_mixed(dev))
     t.append(time.perf_counter())
+    paths.update(phase_recovery(dev))
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
          "alternatives", "calibrate", "calibrate_swin", "probes",
-         "lis_wide", "cli", "mixed"),
+         "lis_wide", "cli", "mixed", "recovery"),
         t, t[1:])})
 
     kernels = []

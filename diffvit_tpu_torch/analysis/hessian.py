@@ -114,18 +114,6 @@ def _ce_loss(logits, targets):
     return -logp.gather(1, targets[:, None]).mean()
 
 
-def _autograd_safe(params):
-    """``params`` with every inference tensor (made under
-    ``torch.inference_mode``, which autograd cannot save) cloned."""
-    if isinstance(params, dict):
-        return {k: _autograd_safe(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [_autograd_safe(v) for v in params]
-    if isinstance(params, torch.Tensor) and params.is_inference():
-        return params.clone()
-    return params
-
-
 def _as_tensors(params, inputs, targets):
     """The batch (numpy or tensors) on the params' device."""
     dev = _get_leaf(params, "head.weight").device
@@ -144,7 +132,7 @@ class BatchGrads:
         self.names = list(names)
         x, t = _as_tensors(params, inputs, targets)
         with torch.inference_mode(False), torch.enable_grad():
-            params = _autograd_safe(params)
+            params = vit_mod.autograd_safe(params)
             self.ws = {n: _get_leaf(params, n).detach().clone()
                        .requires_grad_(True) for n in self.names}
             for n, w in self.ws.items():

@@ -31,6 +31,15 @@ through ``validate(use_int=True)`` with ``--int-path``.  It prints
     python3 -m diffvit_tpu_torch.cli deit_small <data> --quant --mode 1 \\
         --mixed --search-path int --save-int best.npz
 
+The recovery passes run after calibration and before the bake, in the
+reference's order: ``--adaround`` (``--adaround-steps`` a site), QAT
+(``--qat-steps``, ``--qat-lr``, ``--qat-remat``), ``--bias-corr``; under
+``--mixed`` they run after the search, at the best configuration, before
+``--save-int`` bakes it:
+
+    python3 -m diffvit_tpu_torch.cli deit_small <data> --quant --mode 1 \\
+        --adaround --qat-steps 100 --bias-corr --int-path --save-int r.npz
+
 A flag whose machinery is not ported yet exits with ``SystemExit`` and
 names its ROADMAP item (:data:`NOT_PORTED`).
 """
@@ -45,15 +54,11 @@ import torch
 
 # ROADMAP Queue 1 items of the flags whose machinery is not ported yet
 _ITEMS = {
-    7: "the recovery passes",
     8: "the analysis toolkit",
     9: "parallelism",
     11: "the native JPEG decoder and preprocessing",
 }
 NOT_PORTED = {
-    **dict.fromkeys(
-        ("adaround", "adaround_steps", "qat_steps", "qat_remat", "qat_lr",
-         "bias_corr"), 7),
     "prior_checkpoint": 8,
     **dict.fromkeys(("dp", "tp", "sp", "pp", "host_devices"), 9),
     "native_preproc": 11,
@@ -101,16 +106,23 @@ def build_parser():
     p.add_argument("--host-devices", default=0, type=int,
                    help="(not ported)")
     p.add_argument("--adaround", default=False, action="store_true",
-                   help="(not ported)")
+                   help="after calibration, learn each weight site's "
+                        "rounding (AdaRound, calib/adaround.py)")
     p.add_argument("--adaround-steps", default=1000, type=int,
-                   help="(not ported)")
-    p.add_argument("--qat-steps", default=0, type=int, help="(not ported)")
+                   help="Adam steps per weight site for --adaround")
+    p.add_argument("--qat-steps", default=0, type=int,
+                   help="after calibration (and --adaround), this many "
+                        "distillation QAT steps on the calibration data "
+                        "(calib/qat.py); 0 disables")
     p.add_argument("--qat-remat", default=False, action="store_true",
-                   help="(not ported)")
+                   help="recompute each block in QAT's backward pass "
+                        "(ViT family): less memory, the same losses")
     p.add_argument("--qat-lr", default=1e-5, type=float,
-                   help="(not ported)")
+                   help="Adam learning rate for --qat-steps")
     p.add_argument("--bias-corr", default=False, action="store_true",
-                   help="(not ported)")
+                   help="after calibration (and --adaround / QAT), fold "
+                        "each linear's output mean shift into its bias "
+                        "(calib/biascorr.py)")
     p.add_argument("--calib-multi-batch", default=False, action="store_true",
                    help="observe stats over --calib-iter batches and "
                         "finalize on the last")
@@ -308,15 +320,18 @@ def main(argv=None):
             else:
                 calib = train_batches(1, args.calib_batchsize)[0][0]
         model.calibrate(calib)
-        if args.save_int and not args.mixed:
-            model.save_int_model(args.save_int)
-            print(f"Saved int artifact: {args.save_int}")
+        if not args.mixed:
+            reconstruct(args, model, calib)
+            if args.save_int:
+                model.save_int_model(args.save_int)
+                print(f"Saved int artifact: {args.save_int}")
     if args.mixed:
         if args.device_prefetch > 0:
             val_loader = DevicePrefetcher(val_loader,
                                           depth=args.device_prefetch,
                                           device=args.device)
-        return _mixed_search(args, model, val_loader, mean_hessian)
+        return _mixed_search(args, model, val_loader, mean_hessian,
+                             calib if args.quant else None)
 
     if not args.quant:
         bit_config = None
@@ -341,9 +356,40 @@ def main(argv=None):
                     print_freq=args.print_freq, use_int=use_int)
 
 
-def _mixed_search(args, model, val_loader, mean_hessian):
+def reconstruct(args, model, calib, bit_config=None):
+    """The recovery passes the flags ask for (``test_quant.py:363-395``),
+    on the calibration data ``calib``, at ``bit_config`` (None: the uniform
+    default), with the reference's report lines."""
+    nb = len(calib) if isinstance(calib, (list, tuple)) else 1
+    if args.adaround:
+        print(f"AdaRound reconstruction ({args.adaround_steps} steps/site, "
+              f"{nb} calib batch{'es' if nb > 1 else ''})...")
+        report = model.adaround(calib, bit_config,
+                                steps=args.adaround_steps, seed=args.seed)
+        imps = [1.0 - after / before
+                for before, after in report.values() if before > 0]
+        print(f"AdaRound: {len(report)} sites, mean site-MSE reduction "
+              f"{100.0 * float(np.mean(imps)):.1f}%")
+    if args.qat_steps > 0:
+        print(f"Distillation QAT ({args.qat_steps} steps, "
+              f"lr {args.qat_lr:g})...")
+        losses = model.qat(calib, bit_config, steps=args.qat_steps,
+                           lr=args.qat_lr, remat=args.qat_remat)
+        print(f"QAT: distill MSE {losses[0]:.3e} -> {losses[-1]:.3e}")
+    if args.bias_corr:
+        print("Bias correction (DFQ-style mean-shift fold)...")
+        report = model.bias_correct(calib, bit_config)
+        before = [b for b, _ in report.values()]
+        after = [a for _, a in report.values()]
+        print(f"Bias correction: {len(report)} sites, mean |shift| "
+              f"{float(np.mean(before)):.3e} -> {float(np.mean(after)):.3e}")
+
+
+def _mixed_search(args, model, val_loader, mean_hessian, calib):
     """The reference's Pareto + evolutionary search (``test_quant.py:
-    411-464``): returns the final population, best first."""
+    411-464``): returns the final population, best first.  The recovery
+    passes then run at the best configuration on ``calib`` (None: not
+    calibrated here), before ``--save-int`` bakes it."""
     from .analysis import mixed_precision as mp
     from .engine import validate, validate_bits, validate_bits_int
     from .models.swin import bit_slot_groups
@@ -390,6 +436,10 @@ def _mixed_search(args, model, val_loader, mean_hessian):
         crossover_size=args.evo_crossover, factor=args.size_factor,
         evaluate_batch=evaluate_batch)
     print("best:", result[0])
+    if calib is not None:
+        # the search ranks nearest-rounded candidates; the passes fit the
+        # configuration that ships
+        reconstruct(args, model, calib, tuple(result[0][0]))
     if args.save_int:
         # bake the searched best configuration, not the uniform default
         model.save_int_model(args.save_int, bit_config=result[0][0])

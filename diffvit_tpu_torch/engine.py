@@ -1,6 +1,7 @@
 """The engine (counterpart of ``diffvit_tpu/engine.py``): ``QuantizedViT``
-(a float ViT/DeiT or Swin that calibrates, runs the fake-quant and float
-forwards, scores mixed-precision candidates and bakes itself into an
+(a float ViT/DeiT or Swin that calibrates, runs the recovery passes
+(AdaRound, distillation QAT, bias correction), runs the fake-quant and
+float forwards, scores mixed-precision candidates and bakes itself into an
 int-model), and the serving half for the integer ViT and Swin:
 ``IntModel``, ``save_int_model``, ``load_int_model`` and ``validate`` with
 the reference's Prec@1/Prec@5 report; ``validate_bits`` and
@@ -177,6 +178,9 @@ class QuantizedViT:
         self.is_swin = isinstance(spec, SwinSpec)
         self._mod = swin if self.is_swin else vit
         self.params = vit.params_from_numpy(params, self.device)
+        # the float params: the recovery passes anchor their float targets
+        # here after self.params has been replaced by reconstructed ones
+        self.fp_params = self.params
         self.qparams = None
         self.global_distance = None
         self.input_norm = tuple(input_norm)
@@ -232,6 +236,82 @@ class QuantizedViT:
             self.global_distance = np.asarray(z["__global_distance__"])
         self._int_models, self._int_bits = {}, None
         return self.qparams
+
+    def _recon_input(self, batch, max_images):
+        """The reconstruction input of ``adaround`` / ``bias_correct``: one
+        calibration batch as it is, or a list of them concatenated, capped
+        at ``max_images`` images taken evenly across the batches (the
+        passes hold every site's input of every image at once, and
+        AdaRound subsamples each site to ``max_rows`` rows anyway)."""
+        if not isinstance(batch, (list, tuple)):
+            return self._prep(batch)
+        bs = [self._prep(b) for b in batch]
+        if max_images is not None:
+            total = sum(b.shape[0] for b in bs)
+            if total > max_images:
+                quota = -(-max_images // len(bs))
+                bs = [b[:quota] for b in bs]
+        x = torch.cat(bs)
+        return x[:max_images] if max_images is not None else x
+
+    def _replace_params(self, params):
+        """The passes' result becomes ``self.params``; every bake of the
+        old params is dropped (``prepare_int`` and the search's two bakes
+        would serve the old weights)."""
+        self.params = params
+        self._int_models, self._int_bits = {}, None
+
+    def adaround(self, batch, bit_config=None, *, steps=1000, max_rows=2048,
+                 seed=0, max_images=256):
+        """AdaRound (``calib/adaround.py``) at ``bit_config``: every
+        quantized weight replaced by its learned codes times its scale, so
+        that every consumer (``forward_q``, ``prepare_int``, the artifact)
+        re-rounds it to them.  ``batch``: a calibration batch or a list of
+        them (capped at ``max_images``, :meth:`_recon_input`).  Returns the
+        report {site: (mse with nearest rounding, learned)}."""
+        from .calib.adaround import adaround_swin, adaround_vit
+
+        qp = self._calibrated()
+        fn = adaround_swin if self.is_swin else adaround_vit
+        params, report = fn(self.params, qp, self.spec, self.cfg,
+                            self._recon_input(batch, max_images),
+                            self._bit_config(bit_config), steps=steps,
+                            max_rows=max_rows, seed=seed,
+                            fp_params=self.fp_params)
+        self._replace_params(params)
+        return report
+
+    def qat(self, batch, bit_config=None, *, steps=200, lr=1e-5,
+            remat=False):
+        """Distillation QAT (``calib/qat.py``) of the latent weights toward
+        the float teacher (``fp_params``), on one batch or a list (cycled).
+        ``remat``: the ViT family's blocks recomputed in the backward pass.
+        Returns the per-step losses."""
+        from .calib.qat import qat_distill
+
+        qp = self._calibrated()
+        batches = batch if isinstance(batch, (list, tuple)) else [batch]
+        params, losses = qat_distill(
+            self.params, qp, self.spec, self.cfg,
+            [self._prep(b) for b in batches], self._bit_config(bit_config),
+            steps=steps, lr=lr, fp_params=self.fp_params, remat=remat)
+        self._replace_params(params)
+        return losses
+
+    def bias_correct(self, batch, bit_config=None, *, max_images=256):
+        """Bias correction (``calib/biascorr.py``) toward the float model
+        (``fp_params``); composes with ``adaround`` and ``qat`` (run
+        those first).  Returns the report {site: (mean |shift| before,
+        after)}."""
+        from .calib.biascorr import bias_correct
+
+        qp = self._calibrated()
+        params, report = bias_correct(
+            self.params, qp, self.spec, self.cfg,
+            self._recon_input(batch, max_images),
+            self._bit_config(bit_config), fp_params=self.fp_params)
+        self._replace_params(params)
+        return report
 
     def _bit_config(self, bit_config):
         """``bit_config`` as the bake and the forwards take it: a ViT's as

@@ -25,6 +25,7 @@ arithmetic of either."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -33,7 +34,7 @@ from ..config import QuantConfig
 from ..ops.int_layernorm import float_layernorm, int_layernorm
 from ..ops.lis import log_int_softmax
 from .vit import (F32, F64, _calib_act_site, _calib_weight_site, _fq,
-                  _linear, _observe_act_site, _q_weight, _softmax,
+                  _linear, _observe_act_site, _q_weight, _softmax, _tapper,
                   check_search_bits, gelu_exact)
 
 
@@ -356,39 +357,70 @@ def _identity(t):
 # Float forward
 # ---------------------------------------------------------------------------
 
-def forward_fp(params, spec: SwinSpec, x):
-    """The float forward: (B, 3, H, W) float32 -> (B, classes) logits."""
+def forward_fp(params, spec: SwinSpec, x, taps=None, w_in_taps=None):
+    """The float forward: (B, 3, H, W) float32 -> (B, classes) logits.
+    ``taps``: the outputs of the patch embedding, of each block's qkv, its
+    attention context (``attn.ctx``, at the qact3 fence), proj, fc1 and
+    fc2, of each reduction and of the head; ``w_in_taps``: each weight
+    site's input (the JAX package's names and order)."""
+    tap, wtap = _tapper(taps), _tapper(w_in_taps)
     eps = spec.ln_eps
     pe = params["patch_embed"]
-    h = _linear(swin_patchify(x, spec), pe["proj"]["w"], pe["proj"]["b"])
+    patches = swin_patchify(x, spec)
+    wtap("patch", patches)
+    h = _linear(patches, pe["proj"]["w"], pe["proj"]["b"])
+    tap("patch_embed.proj", h)
     if pe["norm"] is not None:
         h = float_layernorm(h, pe["norm"]["w"], pe["norm"]["b"], eps)
 
     for s, stage in enumerate(params["layers"]):
         for bi, blk in enumerate(stage["blocks"]):
+            p = f"layers.{s}.blocks.{bi}"
             geom = block_geometry(spec, s, bi)
             res, ws, shift, _ = geom
+
+            def linear_fn(name, t, blk=blk, p=p):
+                wtap(f"{p}.attn.{name}", t)
+                out = _linear(t, blk[name]["w"], blk[name]["b"])
+                tap(f"{p}.attn.{name}", out)
+                return out
+
+            def ctx_fn(t, p=p):
+                tap(f"{p}.attn.ctx", t)
+                return t
+
             y = float_layernorm(h, blk["norm1"]["w"], blk["norm1"]["b"], eps)
             aw = _attn_core(
                 _windows(y, res, ws, shift), blk, spec, s, geom, _softmax,
-                {"qkv": lambda t, blk=blk: _linear(t, blk["qkv"]["w"],
-                                                   blk["qkv"]["b"]),
-                 "proj": lambda t, blk=blk: _linear(t, blk["proj"]["w"],
-                                                    blk["proj"]["b"]),
-                 **dict.fromkeys(_ATTN_FENCES, _identity)})
+                {**dict.fromkeys(_ATTN_FENCES, _identity),
+                 "qkv": functools.partial(linear_fn, "qkv"),
+                 "proj": functools.partial(linear_fn, "proj"),
+                 "qact3": ctx_fn})
             h = h + _unwindows(aw, res, ws, shift, h.shape[0])
 
             y = float_layernorm(h, blk["norm2"]["w"], blk["norm2"]["b"], eps)
-            y = gelu_exact(_linear(y, blk["fc1"]["w"], blk["fc1"]["b"]))
-            h = h + _linear(y, blk["fc2"]["w"], blk["fc2"]["b"])
+            wtap(f"{p}.mlp.fc1", y)
+            y = _linear(y, blk["fc1"]["w"], blk["fc1"]["b"])
+            tap(f"{p}.mlp.fc1", y)
+            y = gelu_exact(y)
+            wtap(f"{p}.mlp.fc2", y)
+            y = _linear(y, blk["fc2"]["w"], blk["fc2"]["b"])
+            tap(f"{p}.mlp.fc2", y)
+            h = h + y
         if stage["downsample"] is not None:
             ds = stage["downsample"]
             h = _merge_patches(h, spec.stage_resolution(s))
             h = float_layernorm(h, ds["norm"]["w"], ds["norm"]["b"], eps)
+            wtap(f"layers.{s}.downsample.reduction", h)
             h = _linear(h, ds["reduction"]["w"])
+            tap(f"layers.{s}.downsample.reduction", h)
 
     h = float_layernorm(h, params["norm"]["w"], params["norm"]["b"], eps)
-    return _linear(_token_mean(h), params["head"]["w"], params["head"]["b"])
+    h = _token_mean(h)
+    wtap("head", h)
+    logits = _linear(h, params["head"]["w"], params["head"]["b"])
+    tap("head", logits)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -513,13 +545,16 @@ def calibrate_batches(params, spec: SwinSpec, cfg: QuantConfig, batches):
 # The fake-quant forward
 # ---------------------------------------------------------------------------
 
-def forward_q(params, qp, spec: SwinSpec, cfg: QuantConfig, x, bit=None):
+def forward_q(params, qp, spec: SwinSpec, cfg: QuantConfig, x, bit=None,
+              taps=None, w_in_taps=None, ste: bool = False):
     """The fake-quant forward.  ``bit``: the uniform weight bit, or a
     per-slot bit config (``normalize_bit_config``: the patch conv, [qkv,
     proj, fc1, fc2] a block, the reductions, the head; None: every slot
     ``cfg.bit_w``'s) in {4, 8, -1}: -1 runs the site in float and the
     LayerNorm that feeds it in float.  Returns (B, classes) float32 logits
-    on the act_out grid."""
+    on the act_out grid.  ``taps`` / ``w_in_taps``: the biased linears'
+    outputs and the weight sites' inputs, as in ``vit.forward_q``;
+    ``ste``: straight-through rounding, the same values."""
     bc = normalize_bit_config(spec, bit if bit is not None
                               else cfg.bit_w.bits)
     if not set(bc) <= {4, 8, -1}:
@@ -527,22 +562,24 @@ def forward_q(params, qp, spec: SwinSpec, cfg: QuantConfig, x, bit=None):
                          f"{sorted(set(bc))}")
 
     def wfn(path, w, slot):
-        return w if bc[slot] == -1 else _q_weight(qp, path, w, bc[slot])
+        return w if bc[slot] == -1 else _q_weight(qp, path, w, bc[slot], ste)
 
     return _forward_q_body(params, qp, spec, cfg, x, wfn,
-                           lambda slot: bc[slot] == -1)
+                           lambda slot: bc[slot] == -1, taps, w_in_taps,
+                           ste)
 
 
 def _forward_q_body(params, qp, spec: SwinSpec, cfg: QuantConfig, x, wfn,
-                    lnfloat):
+                    lnfloat, taps=None, w_in_taps=None, ste: bool = False):
     """The fake-quant forward's body: ``wfn(qp_path, w, slot)`` gives each
     slot's weight; ``lnfloat(slot)`` turns the LayerNorm that feeds the
     slot to float."""
     bt_a = cfg.bit_a
     eps = spec.ln_eps
+    tap, wtap = _tapper(taps), _tapper(w_in_taps)
 
     def fq(path, t):
-        return _fq(qp, path, t, bt_a)
+        return _fq(qp, path, t, bt_a, ste)
 
     def norm(ln, x_, in_path, out_path, consumer_slot, expand=1):
         if not cfg.int_norm or lnfloat(consumer_slot):
@@ -551,13 +588,21 @@ def _forward_q_body(params, qp, spec: SwinSpec, cfg: QuantConfig, x, wfn,
         # element by element)
         in_scale = torch.tile(qp[f"{in_path}.scale"], (expand,))
         return int_layernorm(x_, ln["w"], ln["b"], in_scale,
-                             qp[f"{out_path}.scale"])
+                             qp[f"{out_path}.scale"], ste=ste)
+
+    def linear(name, t, w, b=None):
+        wtap(name, t)
+        out = _linear(t, w, b)
+        tap(name, out)
+        return out
 
     if spec.input_quant:
         x = fq("qact_input", x)
     pe = params["patch_embed"]
-    h = _linear(swin_patchify(x, spec), wfn("patch.w", pe["proj"]["w"], 0),
-                pe["proj"]["b"])
+    patches = swin_patchify(x, spec)
+    wtap("patch", patches)
+    h = _linear(patches, wfn("patch.w", pe["proj"]["w"], 0), pe["proj"]["b"])
+    tap("patch_embed.proj", h)
     if pe["norm"] is not None:
         h = fq("patch.qact_bn", h)
         h = norm(pe["norm"], h, "patch.qact_bn", "patch.qact", 0)
@@ -578,16 +623,17 @@ def _forward_q_body(params, qp, spec: SwinSpec, cfg: QuantConfig, x, wfn,
 
             def qkv_fn(t, p=p, blk=blk, s_qkv=s_qkv):
                 w = wfn(f"{p}.attn.qkv.w", blk["qkv"]["w"], s_qkv)
-                return fq(f"{p}.attn.qact1", _linear(t, w, blk["qkv"]["b"]))
+                return fq(f"{p}.attn.qact1",
+                          linear(f"{p}.attn.qkv", t, w, blk["qkv"]["b"]))
 
             def proj_fn(t, p=p, blk=blk, s_proj=s_proj):
                 w = wfn(f"{p}.attn.proj.w", blk["proj"]["w"], s_proj)
-                return _linear(t, w, blk["proj"]["b"])
+                return linear(f"{p}.attn.proj", t, w, blk["proj"]["b"])
 
             def softmax_fn(a, p=p):
                 if cfg.lis:
                     return log_int_softmax(a, qp[f"{p}.attn.qact2.scale"],
-                                           cfg.bit_s)
+                                           cfg.bit_s, ste)
                 return _softmax(a)
 
             aw = _attn_core(_windows(y, res, ws, shift), blk, spec, s, geom,
@@ -598,11 +644,13 @@ def _forward_q_body(params, qp, spec: SwinSpec, cfg: QuantConfig, x, wfn,
 
             y = norm(blk["norm2"], h, f"{p}.qact2", f"{p}.qact3", s_fc1)
             y = fq(f"{p}.qact3", y)
-            y = _linear(y, wfn(f"{p}.mlp.fc1.w", blk["fc1"]["w"], s_fc1),
-                        blk["fc1"]["b"])
+            y = linear(f"{p}.mlp.fc1", y,
+                       wfn(f"{p}.mlp.fc1.w", blk["fc1"]["w"], s_fc1),
+                       blk["fc1"]["b"])
             y = fq(f"{p}.mlp.qact1", gelu_exact(y))
-            y = _linear(y, wfn(f"{p}.mlp.fc2.w", blk["fc2"]["w"], s_fc2),
-                        blk["fc2"]["b"])
+            y = linear(f"{p}.mlp.fc2", y,
+                       wfn(f"{p}.mlp.fc2.w", blk["fc2"]["w"], s_fc2),
+                       blk["fc2"]["b"])
             y = fq(f"{p}.mlp.qact2", y)
             h = fq(f"{p}.qact4", h + y)
             last_q = f"{p}.qact4"
@@ -615,15 +663,15 @@ def _forward_q_body(params, qp, spec: SwinSpec, cfg: QuantConfig, x, wfn,
             h = _merge_patches(h, spec.stage_resolution(s))
             h = norm(ds["norm"], h, last_q, f"{p}.qact1", s_red, expand=4)
             h = fq(f"{p}.qact1", h)
-            h = _linear(h, wfn(f"{p}.reduction.w", ds["reduction"]["w"],
-                               s_red))
+            h = linear(f"{p}.reduction", h,
+                       wfn(f"{p}.reduction.w", ds["reduction"]["w"], s_red))
             h = fq(f"{p}.qact2", h)
             last_q = f"{p}.qact2"
 
     h = norm(params["norm"], h, last_q, "qact2", slot)
     h = fq("qact3", _token_mean(fq("qact2", h)))
-    logits = _linear(h, wfn("head.w", params["head"]["w"], slot),
-                     params["head"]["b"])
+    logits = linear("head", h, wfn("head.w", params["head"]["w"], slot),
+                    params["head"]["b"])
     return fq("act_out", logits)
 
 

@@ -4,14 +4,23 @@ calibration and the fake-quant forward (counterpart of
 with the JAX pytree's keys:
 
 * ``init_params(spec, generator, device)`` and ``params_from_numpy``;
-* ``forward_fp(params, spec, x)``, the float forward;
+* ``forward_fp(params, spec, x, taps, w_in_taps)``, the float forward;
 * ``calibrate(params, spec, cfg, x)`` and ``calibrate_batches``: every
   quantization parameter (observer scales, PoT exponents, SmoothQuant
   channel scales, per-bit weight scales) as the flat ``{path: tensor}``
   dict under the reference's key names, and the per-linear per-bit weight
   distances (``global_distance``);
 * ``forward_q(params, qp, spec, cfg, x, bit_config)``, the fake-quant
-  forward, ``bit_config`` in {4, 8, -1} per slot.
+  forward, ``bit_config`` in {4, 8, -1} per slot; ``ste=True`` makes it
+  differentiable with respect to the params (straight-through rounding,
+  the same values) and ``remat=True`` recomputes each block in the
+  backward pass (``torch.utils.checkpoint``).
+
+Both forwards append ``(name, tensor)`` pairs to the lists ``taps`` (the
+biased linears' outputs, and the attention's context in the float
+forward) and ``w_in_taps`` (each weight site's input) at the JAX
+package's places, under its names and in its order: the recovery passes
+(``calib/``) read them.
 
 Exactness, so that calibration on the card equals calibration on the CPU:
 every float product (the linears, q @ k^T, attn @ v) and the float
@@ -28,6 +37,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..calib.observers import (act_qparams, act_stats_update,
                                minmax_act_qparams_asymmetric,
@@ -165,6 +175,20 @@ def params_from_numpy(tree, device="cuda"):
     return torch.tensor(np.asarray(tree, np.float32), device=device)
 
 
+def autograd_safe(tree):
+    """``tree`` with every inference tensor (made under
+    ``torch.inference_mode``, as ``QuantizedViT.calibrate``'s qparams are,
+    which autograd cannot save for backward) cloned; dicts and lists
+    copied, everything else kept."""
+    if isinstance(tree, dict):
+        return {k: autograd_safe(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [autograd_safe(v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_inference():
+        return tree.clone()
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # Float pieces, each rounded once to float32
 # ---------------------------------------------------------------------------
@@ -211,21 +235,57 @@ def _embed_tokens(params, spec: ViTSpec, h):
     return torch.cat([cls, h], dim=1)
 
 
-def forward_fp(params, spec: ViTSpec, x):
-    """The float forward: (B, 3, H, W) float32 -> (B, classes) logits."""
+def _tapper(taps):
+    """``tap(name, t)``: appends ``(name, t)`` to ``taps`` (None: ignores
+    it)."""
+    def tap(name, t):
+        if taps is not None:
+            taps.append((name, t))
+    return tap
+
+
+def forward_fp(params, spec: ViTSpec, x, taps=None, w_in_taps=None):
+    """The float forward: (B, 3, H, W) float32 -> (B, classes) logits.
+    ``taps``: the outputs of the patch embedding, of qkv (as
+    ``blocks.i.attn.qkv`` and, the CKA cache, ``blocks.i.attn``), the
+    attention context (``attn.ctx``, attn @ v merged over the heads), proj,
+    fc1 (also as ``blocks.i.mlp``), fc2 and the head; ``w_in_taps``: each
+    weight site's input (``patch``, ``blocks.i.attn.qkv`` ..., ``head``)."""
+    tap, wtap = _tapper(taps), _tapper(w_in_taps)
     pe = params["patch_embed"]
-    h = _linear(patchify(x, spec), pe["w"], pe["b"])
+    patches = patchify(x, spec)
+    wtap("patch", patches)
+    h = _linear(patches, pe["w"], pe["b"])
+    tap("patch_embed.proj", h)
     h = _embed_tokens(params, spec, h) + params["pos_embed"]
-    for blk in params["blocks"]:
-        y = _linear(_float_ln(h, blk["norm1"], spec), blk["qkv"]["w"],
-                    blk["qkv"]["b"])
+    for i, blk in enumerate(params["blocks"]):
+        p = f"blocks.{i}"
+        y = _float_ln(h, blk["norm1"], spec)
+        wtap(f"{p}.attn.qkv", y)
+        y = _linear(y, blk["qkv"]["w"], blk["qkv"]["b"])
+        tap(f"{p}.attn.qkv", y)
+        tap(f"{p}.attn", y)
         y, _ = _sdpa(y, spec, _softmax)
-        h = h + _linear(y, blk["proj"]["w"], blk["proj"]["b"])
-        y = gelu_exact(_linear(_float_ln(h, blk["norm2"], spec),
-                               blk["fc1"]["w"], blk["fc1"]["b"]))
-        h = h + _linear(y, blk["fc2"]["w"], blk["fc2"]["b"])
+        tap(f"{p}.attn.ctx", y)
+        wtap(f"{p}.attn.proj", y)
+        y = _linear(y, blk["proj"]["w"], blk["proj"]["b"])
+        tap(f"{p}.attn.proj", y)
+        h = h + y
+        y = _float_ln(h, blk["norm2"], spec)
+        wtap(f"{p}.mlp.fc1", y)
+        y = _linear(y, blk["fc1"]["w"], blk["fc1"]["b"])
+        tap(f"{p}.mlp.fc1", y)
+        tap(f"{p}.mlp", y)
+        y = gelu_exact(y)
+        wtap(f"{p}.mlp.fc2", y)
+        y = _linear(y, blk["fc2"]["w"], blk["fc2"]["b"])
+        tap(f"{p}.mlp.fc2", y)
+        h = h + y
     h = _float_ln(h, params["norm"], spec)[:, 0]
-    return _linear(h, params["head"]["w"], params["head"]["b"])
+    wtap("head", h)
+    logits = _linear(h, params["head"]["w"], params["head"]["b"])
+    tap("head", logits)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -245,9 +305,9 @@ def _smoothquant_channel_scale(x, w, alpha):
     return exp2(round_ln(cs))
 
 
-def _wq(w, s, bt: BitType):
+def _wq(w, s, bt: BitType, ste: bool = False):
     """Fake-quant of a (Cout, K) weight at a per-channel or scalar scale."""
-    return fake_quant(w, s[:, None] if s.dim() == 1 else s, 0.0, bt)
+    return fake_quant(w, s[:, None] if s.dim() == 1 else s, 0.0, bt, ste)
 
 
 def _wdist(w, s, bt: BitType):
@@ -570,43 +630,45 @@ def calibrate_batches(params, spec: ViTSpec, cfg: QuantConfig, batches):
 # The fake-quant forward
 # ---------------------------------------------------------------------------
 
-def _fq(qp, path, x, bit_type: BitType):
+def _fq(qp, path, x, bit_type: BitType, ste: bool = False):
     """A QAct site: fake-quant with the stored scale and zero point."""
-    return fake_quant(x, qp[f"{path}.scale"], qp[f"{path}.zp"], bit_type)
+    return fake_quant(x, qp[f"{path}.scale"], qp[f"{path}.zp"], bit_type,
+                      ste)
 
 
-def _q_weight(qp, path, w2d, bit: int):
+def _q_weight(qp, path, w2d, bit: int, ste: bool = False):
     """A weight fake-quantized at its calibrated PoT scale for ``bit``."""
     bt = BIT_TYPE_DICT[f"int{bit}"]
     s = qp[f"{path}.{bt.name}.scale"]
     s = s[:, None] if s.dim() == 1 and s.shape[0] == w2d.shape[0] else s
-    return fake_quant(w2d, s, 0.0, bt)
+    return fake_quant(w2d, s, 0.0, bt, ste)
 
 
-def _q_smooth_linear(qp, path, x, w, b, bit: int, cfg: QuantConfig):
+def _q_smooth_linear(qp, path, x, w, b, bit: int, cfg: QuantConfig,
+                     ste: bool = False):
     """qkv/fc1: divide by the SmoothQuant channel scale, fake-quant the
     activation and the smoothed weight at the bit-pool entry of ``bit``.
     -1: the float linear (the channel scale cancels)."""
     if bit == -1:
         return _linear(x, w, b)
     if not cfg.smoothquant:
-        xq = _fq(qp, f"{path}.qact0", x, cfg.bit_a)
-        return _linear(xq, _q_weight(qp, f"{path}.w", w, bit), b)
+        xq = _fq(qp, f"{path}.qact0", x, cfg.bit_a, ste)
+        return _linear(xq, _q_weight(qp, f"{path}.w", w, bit, ste), b)
     idx = cfg.bit_pool.index(bit)
     ch = qp[f"{path}.sq.channel_scale"][idx]
     xq = fake_quant(x / ch, qp[f"{path}.qact0.scale"][idx],
-                    qp[f"{path}.qact0.zp"][idx], cfg.bit_a)
+                    qp[f"{path}.qact0.zp"][idx], cfg.bit_a, ste)
     bt = BIT_TYPE_DICT[f"int{bit}"]
     return _linear(xq, _wq(w * ch, qp[f"{path}.w.{bt.name}.scale"][idx],
-                           bt), b)
+                           bt, ste), b)
 
 
 def _q_norm(qp, x, ln, in_path, out_scale, out_ch, cfg: QuantConfig,
-            float_mode: bool, spec: ViTSpec):
+            float_mode: bool, spec: ViTSpec, ste: bool = False):
     if float_mode or not cfg.int_norm:
         return _float_ln(x, ln, spec)
     return int_layernorm(x, ln["w"], ln["b"], qp[f"{in_path}.scale"],
-                         out_scale, out_scale_channel=out_ch)
+                         out_scale, out_scale_channel=out_ch, ste=ste)
 
 
 def _check_bit_config(spec: ViTSpec, cfg: QuantConfig, bit_config):
@@ -622,85 +684,134 @@ def _check_bit_config(spec: ViTSpec, cfg: QuantConfig, bit_config):
     return bit_config
 
 
+def _q_block(h, blk, i, qp, spec: ViTSpec, cfg: QuantConfig, bits, ste,
+             tap, wtap):
+    """Block ``i`` of the fake-quant forward; ``bits`` its (qkv, proj,
+    fc1, fc2) slots."""
+    p = f"blocks.{i}"
+    b_qkv, b_proj, b_fc1, b_fc2 = bits
+    bt_a = cfg.bit_a
+    in_path = "qact1" if i == 0 else f"blocks.{i - 1}.qact4"
+
+    # attention
+    out_scale = out_ch = None
+    if b_qkv != -1 and cfg.smoothquant:
+        idx = cfg.bit_pool.index(b_qkv)
+        out_scale = qp[f"{p}.attn.qkv.qact0.scale"][idx]
+        out_ch = qp[f"{p}.attn.qkv.sq.channel_scale"][idx]
+    y = _q_norm(qp, h, blk["norm1"], in_path,
+                out_scale if out_scale is not None
+                else qp.get(f"{p}.attn.qkv.qact0.scale"),
+                out_ch, cfg, -1 in (b_qkv, b_proj), spec, ste)
+    wtap(f"{p}.attn.qkv", y)
+    qkv = _q_smooth_linear(qp, f"{p}.attn.qkv", y, blk["qkv"]["w"],
+                           blk["qkv"]["b"], b_qkv, cfg, ste)
+    tap(f"{p}.attn.qkv", qkv)
+    tap(f"{p}.attn", qkv)
+    qkv = _fq(qp, f"{p}.attn.qact1", qkv, bt_a, ste)
+
+    def softmax_fn(a):
+        a = _fq(qp, f"{p}.attn.qact_attn1", a, bt_a, ste)
+        if cfg.lis:
+            return log_int_softmax(a, qp[f"{p}.attn.qact_attn1.scale"],
+                                   cfg.bit_s, ste)
+        return _softmax(a)
+
+    y, _ = _sdpa(qkv, spec, softmax_fn)
+    y = _fq(qp, f"{p}.attn.qact2", y, bt_a, ste)
+    wtap(f"{p}.attn.proj", y)
+    w = blk["proj"]["w"] if b_proj == -1 else _q_weight(
+        qp, f"{p}.attn.proj.w", blk["proj"]["w"], b_proj, ste)
+    y = _linear(y, w, blk["proj"]["b"])
+    tap(f"{p}.attn.proj", y)
+    y = _fq(qp, f"{p}.attn.qact3", y, bt_a, ste)
+    h = _fq(qp, f"{p}.qact2", h + y, bt_a, ste)
+
+    # mlp
+    out_scale = out_ch = None
+    if b_fc1 != -1 and cfg.smoothquant:
+        idx = cfg.bit_pool.index(b_fc1)
+        out_scale = qp[f"{p}.mlp.fc1.qact0.scale"][idx]
+        # norm2 takes the attention's channel scale, not the MLP's (the
+        # reference's quirk, which its published accuracies come from)
+        a_idx = cfg.bit_pool.index(b_qkv) if b_qkv != -1 else -1
+        out_ch = qp[f"{p}.attn.qkv.sq.channel_scale"][a_idx]
+    y = _q_norm(qp, h, blk["norm2"], f"{p}.qact2",
+                out_scale if out_scale is not None
+                else qp.get(f"{p}.mlp.fc1.qact0.scale"),
+                out_ch, cfg, -1 in (b_fc1, b_fc2), spec, ste)
+    wtap(f"{p}.mlp.fc1", y)
+    y = _q_smooth_linear(qp, f"{p}.mlp.fc1", y, blk["fc1"]["w"],
+                         blk["fc1"]["b"], b_fc1, cfg, ste)
+    tap(f"{p}.mlp.fc1", y)
+    tap(f"{p}.mlp", y)
+    y = _fq(qp, f"{p}.mlp.qact1", gelu_exact(y), bt_a, ste)
+    wtap(f"{p}.mlp.fc2", y)
+    w = blk["fc2"]["w"] if b_fc2 == -1 else _q_weight(
+        qp, f"{p}.mlp.fc2.w", blk["fc2"]["w"], b_fc2, ste)
+    y = _linear(y, w, blk["fc2"]["b"])
+    tap(f"{p}.mlp.fc2", y)
+    y = _fq(qp, f"{p}.mlp.qact2", y, bt_a, ste)
+    return _fq(qp, f"{p}.qact4", h + y, bt_a, ste)
+
+
 def forward_q(params, qp, spec: ViTSpec, cfg: QuantConfig, x,
-              bit_config=None):
+              bit_config=None, taps=None, w_in_taps=None, ste: bool = False,
+              remat: bool = False):
     """The fake-quant forward.  ``bit_config``: 4 * depth + 2 ints in {4, 8,
     -1} (patch, then qkv/proj/fc1/fc2 a block, then head; None: every slot
     ``cfg.bit_w``'s); -1 runs the site in float and its LayerNorm in float.
-    Returns (B, classes) float32 logits on the act_out grid."""
+    Returns (B, classes) float32 logits on the act_out grid.
+
+    ``taps``: the outputs of the patch embedding, of qkv (also as
+    ``blocks.i.attn``), proj, fc1 (also as ``blocks.i.mlp``), fc2 and the
+    head, before their fences; ``w_in_taps``: each weight site's input
+    (after its fence; a SmoothQuant site's before the smoothing).
+    ``ste``: straight-through rounding everywhere, the same values.
+    ``remat``: each block recomputed in the backward pass
+    (``torch.utils.checkpoint``), so that only the residual stream at the
+    block boundaries is saved; the same loss and gradients bit for bit.
+    It takes no taps (``ValueError`` before any is appended)."""
     bit_config = _check_bit_config(spec, cfg, bit_config)
+    if remat and (taps is not None or w_in_taps is not None):
+        raise ValueError(
+            "remat=True cannot export taps: tapped tensors live inside the "
+            "checkpointed block and would be recomputed, not saved")
+    tap, wtap = _tapper(taps), _tapper(w_in_taps)
     bt_a = cfg.bit_a
     if spec.input_quant:
-        x = _fq(qp, "qact_input", x, bt_a)
+        x = _fq(qp, "qact_input", x, bt_a, ste)
     pe = params["patch_embed"]
     pb = bit_config[0]
-    w = pe["w"] if pb == -1 else _q_weight(qp, "patch.w", pe["w"], pb)
-    h = _fq(qp, "patch.qact", _linear(patchify(x, spec), w, pe["b"]), bt_a)
-    h = _fq(qp, "qact_embed", _embed_tokens(params, spec, h), bt_a)
-    h = h + _fq(qp, "qact_pos", params["pos_embed"], bt_a)
-    h = _fq(qp, "qact1", h, bt_a)
+    patches = patchify(x, spec)
+    wtap("patch", patches)
+    w = pe["w"] if pb == -1 else _q_weight(qp, "patch.w", pe["w"], pb, ste)
+    h = _linear(patches, w, pe["b"])
+    tap("patch_embed.proj", h)
+    h = _fq(qp, "patch.qact", h, bt_a, ste)
+    h = _fq(qp, "qact_embed", _embed_tokens(params, spec, h), bt_a, ste)
+    h = h + _fq(qp, "qact_pos", params["pos_embed"], bt_a, ste)
+    h = _fq(qp, "qact1", h, bt_a, ste)
 
     for i, blk in enumerate(params["blocks"]):
-        p = f"blocks.{i}"
-        b_qkv, b_proj, b_fc1, b_fc2 = bit_config[4 * i + 1: 4 * i + 5]
-        in_path = "qact1" if i == 0 else f"blocks.{i - 1}.qact4"
-
-        # attention
-        out_scale = out_ch = None
-        if b_qkv != -1 and cfg.smoothquant:
-            idx = cfg.bit_pool.index(b_qkv)
-            out_scale = qp[f"{p}.attn.qkv.qact0.scale"][idx]
-            out_ch = qp[f"{p}.attn.qkv.sq.channel_scale"][idx]
-        y = _q_norm(qp, h, blk["norm1"], in_path,
-                    out_scale if out_scale is not None
-                    else qp.get(f"{p}.attn.qkv.qact0.scale"),
-                    out_ch, cfg, -1 in (b_qkv, b_proj), spec)
-        qkv = _q_smooth_linear(qp, f"{p}.attn.qkv", y, blk["qkv"]["w"],
-                               blk["qkv"]["b"], b_qkv, cfg)
-        qkv = _fq(qp, f"{p}.attn.qact1", qkv, bt_a)
-
-        def softmax_fn(a, p=p):
-            a = _fq(qp, f"{p}.attn.qact_attn1", a, bt_a)
-            if cfg.lis:
-                return log_int_softmax(a, qp[f"{p}.attn.qact_attn1.scale"],
-                                       cfg.bit_s)
-            return _softmax(a)
-
-        y, _ = _sdpa(qkv, spec, softmax_fn)
-        y = _fq(qp, f"{p}.attn.qact2", y, bt_a)
-        w = blk["proj"]["w"] if b_proj == -1 else _q_weight(
-            qp, f"{p}.attn.proj.w", blk["proj"]["w"], b_proj)
-        y = _fq(qp, f"{p}.attn.qact3", _linear(y, w, blk["proj"]["b"]), bt_a)
-        h = _fq(qp, f"{p}.qact2", h + y, bt_a)
-
-        # mlp
-        out_scale = out_ch = None
-        if b_fc1 != -1 and cfg.smoothquant:
-            idx = cfg.bit_pool.index(b_fc1)
-            out_scale = qp[f"{p}.mlp.fc1.qact0.scale"][idx]
-            # norm2 takes the attention's channel scale, not the MLP's (the
-            # reference's quirk, which its published accuracies come from)
-            a_idx = cfg.bit_pool.index(b_qkv) if b_qkv != -1 else -1
-            out_ch = qp[f"{p}.attn.qkv.sq.channel_scale"][a_idx]
-        y = _q_norm(qp, h, blk["norm2"], f"{p}.qact2",
-                    out_scale if out_scale is not None
-                    else qp.get(f"{p}.mlp.fc1.qact0.scale"),
-                    out_ch, cfg, -1 in (b_fc1, b_fc2), spec)
-        y = _q_smooth_linear(qp, f"{p}.mlp.fc1", y, blk["fc1"]["w"],
-                             blk["fc1"]["b"], b_fc1, cfg)
-        y = _fq(qp, f"{p}.mlp.qact1", gelu_exact(y), bt_a)
-        w = blk["fc2"]["w"] if b_fc2 == -1 else _q_weight(
-            qp, f"{p}.mlp.fc2.w", blk["fc2"]["w"], b_fc2)
-        y = _fq(qp, f"{p}.mlp.qact2", _linear(y, w, blk["fc2"]["b"]), bt_a)
-        h = _fq(qp, f"{p}.qact4", h + y, bt_a)
+        bits = bit_config[4 * i + 1: 4 * i + 5]
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _q_block, h, blk, i, qp, spec, cfg, bits, ste, tap, wtap,
+                use_reentrant=False)
+        else:
+            h = _q_block(h, blk, i, qp, spec, cfg, bits, ste, tap, wtap)
 
     h = _q_norm(qp, h, params["norm"], f"blocks.{spec.depth - 1}.qact4",
-                qp["qact2.scale"], None, cfg, False, spec)[:, 0]
-    h = _fq(qp, "qact2", h, bt_a)
+                qp["qact2.scale"], None, cfg, False, spec, ste)[:, 0]
+    h = _fq(qp, "qact2", h, bt_a, ste)
+    wtap("head", h)
     hb = bit_config[-1]
     w = params["head"]["w"] if hb == -1 else _q_weight(
-        qp, "head.w", params["head"]["w"], hb)
-    return _fq(qp, "act_out", _linear(h, w, params["head"]["b"]), bt_a)
+        qp, "head.w", params["head"]["w"], hb, ste)
+    logits = _linear(h, w, params["head"]["b"])
+    tap("head", logits)
+    return _fq(qp, "act_out", logits, bt_a, ste)
 
 
 def check_search_bits(cfg: QuantConfig, bits, n_slots: int, smoothquant=True):

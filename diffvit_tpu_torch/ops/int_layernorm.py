@@ -11,20 +11,31 @@ codes out) run, so the exactness fixes below hold for both:
   quotient;
 * the root is taken in float64 and rounded to float32 (the correctly
   rounded root); CUDA torch's float32 ``sqrt`` is not correctly rounded.
+
+``int_layernorm(ste=True)`` (the recovery passes) keeps this exact value
+and takes the gradient of the reference's float formula with its
+straight-through rounds (``diffvit_tpu/ops/int_layernorm.py:52-78``;
+:func:`~.quant.with_grad_of`): gradients through int64 sums and exponent
+bits would be zero.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .quant import floor_log2, pow2
+from .quant import (clip_ties, floor_log2, pow2, ste_floor, ste_round,
+                    with_grad_of)
 
 
-def get_mn(x: torch.Tensor):
+def get_mn(x: torch.Tensor, ste: bool = False):
     """Fixed-point decomposition A ≈ M · 2^-N with a 7-bit mantissa.
-    ``2^N`` is built exactly."""
+    ``2^N`` is built exactly.  ``ste``: the mantissa's floor
+    straight-through and its clip split at the bounds as the reference's;
+    N stays without gradient."""
     bit = 7
-    n = torch.clamp(bit - floor_log2(x), 0, 31)
+    n = torch.clamp(bit - floor_log2(x.detach() if ste else x), 0, 31)
+    if ste:
+        return clip_ties(ste_floor(x * pow2(n)), 0, 2 ** (bit + 1) - 1), n
     m = torch.clamp(torch.floor(x * pow2(n)), 0, 2 ** (bit + 1) - 1)
     return m, n
 
@@ -90,19 +101,45 @@ def mlp_block_ln_codes(codes, r, s_min, lnw_out, lnb_out, rescale, c):
     return torch.clamp(torch.round(y * rescale), -128, 127)
 
 
+def _int_layernorm_formula(x, weight, bias, in_scale, out_scale):
+    """The reference's integer LayerNorm in float32 with its
+    straight-through rounds, as it differentiates it (float sums, the
+    float32 root)."""
+    c = x.shape[-1]
+    in_scale1 = in_scale.min()
+    x_q = ste_round(x / in_scale) * torch.round(in_scale / in_scale1)
+    sum_x = x_q.sum(-1)
+    sum_x2 = (x_q * x_q).sum(-1)
+    mean = (sum_x / c) * in_scale1
+    std = (in_scale1 / c) * torch.sqrt(c * sum_x2 - sum_x * sum_x)
+    a = (in_scale1 / std)[..., None] * weight / out_scale
+    m, n = get_mn(torch.abs(a), ste=True)
+    p2n = pow2(n)
+    b = ste_round((bias - (mean / std)[..., None] * weight) / out_scale
+                  * p2n)
+    return ste_round((torch.sign(a) * m * x_q + b) / p2n) * out_scale
+
+
 def int_layernorm(x, weight, bias, in_scale, out_scale, *,
-                  out_scale_channel=None):
+                  out_scale_channel=None, ste: bool = False):
     """Integer LayerNorm of the fake-quantized float32 ``x`` (values on the
     ``in_scale`` grid), returned as float32 values on the ``out_scale``
     grid.  ``out_scale_channel``: a per-channel factor multiplied into
     ``out_scale`` (the SmoothQuant channel scale of the consuming linear,
     as the reference's argument of that name).  The reference's
-    ``in_scale_expand`` is folded into ``in_scale`` by the caller."""
+    ``in_scale_expand`` is folded into ``in_scale`` by the caller.
+    ``ste``: the same value, with the reference's straight-through
+    gradient with respect to ``x``, ``weight`` and ``bias``."""
     c = x.shape[-1]
     in_scale = in_scale.expand(c)
     if out_scale_channel is not None:
         out_scale = out_scale * out_scale_channel
     out_scale = out_scale.expand(c)
+    if ste:
+        exact = int_layernorm(x.detach(), weight.detach(), bias.detach(),
+                              in_scale, out_scale)
+        return with_grad_of(exact, _int_layernorm_formula(
+            x, weight, bias, in_scale, out_scale))
     x_q = torch.round(x / in_scale)
     return int_ln_codes(x_q, weight, bias, in_scale, out_scale) * out_scale
 

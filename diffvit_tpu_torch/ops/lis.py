@@ -15,6 +15,12 @@ differ from it on purpose:
 * the row sum of the integer exponentials is exact, rounded once to
   float32 (:func:`wide_row_sum`, an int64 sum wherever ``lis_sum_fits``
   holds); the reference sums float32 terms of up to 2^68 in its own order.
+
+``ste=True`` (the recovery passes) keeps these exact values and takes the
+gradient of the reference's float formula with its straight-through
+floors and rounds (``diffvit_tpu/ops/lis.py:44-99``): the range-reduction
+index q stays hard, ``max(., 0)`` and the row max split their gradient at
+ties as JAX's do (:func:`~.quant.with_grad_of`).
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ import numpy as np
 import torch
 
 from .bit_types import BitType
-from .quant import exp2, floor_log2, pow2
+from .quant import (exp2, floor_log2, pow2, ste_floor, ste_round,
+                    with_grad_of)
 
 # float32 roundings of the reference's weakly typed Python constants
 _X0 = float(np.float32(-0.6931))
@@ -128,41 +135,73 @@ def wide_row_sum(exp_int: torch.Tensor) -> torch.Tensor:
     return torch.where(small, narrow, v.to(torch.float32) * 2.0**16)
 
 
-def _int_exp(x_int, scaling_factor, n: int = 32):
+def _int_exp_formula(x_int, s):
+    """The reference's integer exponential as it differentiates it (n =
+    32): q hard, the final floor straight-through, ``maximum`` with JAX's
+    split at ties."""
+    x0_int = torch.floor(_const(s, _X0) / s)
+    x_int = torch.maximum(x_int, 32.0 * x0_int)
+    q = torch.floor(x_int / x0_int).detach()
+    e = _int_polynomial(x_int - x0_int * q, s)[0] * pow2(32.0 - q)
+    e = ste_floor(e)
+    return torch.maximum(e, e.new_zeros(()))
+
+
+def _int_exp(x_int, scaling_factor, n: int = 32, ste: bool = False):
     """Integer exp via the range reduction x = q * (-ln2) + r:
     (exp_int, its scaling factor).  n = 32 only (the reference's)."""
     if n != 32:
         raise NotImplementedError("int_exp takes n = 32 (the reference's)")
     s = scaling_factor
-    return int_exp(x_int, s), _A * (s * s) / 2.0**32
+    exp_int = int_exp(x_int.detach() if ste else x_int, s)
+    if ste:
+        exp_int = with_grad_of(exp_int, _int_exp_formula(x_int, s))
+    return exp_int, _A * (s * s) / 2.0**32
 
 
-def int_softmax_from_int(x_int, scaling_factor):
+def int_softmax_from_int(x_int, scaling_factor, ste: bool = False):
     """(exp_int, exp_sum) of integer scores ``x_int`` (float32 carrier) at
     ``scaling_factor`` (a float32 tensor), shifted by the row max."""
     x_int = x_int - torch.amax(x_int, -1, keepdim=True)
-    exp_int = int_exp(x_int, scaling_factor)
-    return exp_int, wide_row_sum(exp_int)
+    exp_int = _int_exp(x_int, scaling_factor, ste=ste)[0]
+    exp_sum = wide_row_sum(exp_int.detach() if ste else exp_int)
+    if ste:
+        exp_sum = with_grad_of(exp_sum, exp_int.sum(-1, keepdim=True))
+    return exp_int, exp_sum
 
 
-def int_softmax(x, scaling_factor):
+def int_softmax(x, scaling_factor, ste: bool = False):
     """(exp_int, exp_sum) of the float logits ``x`` on the
     ``scaling_factor`` grid (``x / scaling_factor`` need not be integer:
     calibration passes the raw logits)."""
-    return int_softmax_from_int(x / scaling_factor, scaling_factor)
+    return int_softmax_from_int(x / scaling_factor, scaling_factor, ste)
 
 
-def _lis_tail(exp_int, exp_sum, bit_type: BitType):
+def _lis_tail_formula(exp_int, exp_sum, bits: int):
+    """The reference's log2 tail as it differentiates it: the inverse's
+    round and the log's floor straight-through."""
+    y = ste_round(exp_sum / exp_int) * _NUDGE
+    deq = torch.exp2(-ste_floor(torch.log2(y)))
+    return torch.where(y >= 2.0 ** (2**bits), 0.0, deq)
+
+
+def _lis_tail(exp_int, exp_sum, bit_type: BitType, ste: bool = False):
     """The dequantized weights ``2^-code`` (float32), 0 where saturated."""
-    w = lis_tail_plain(exp_sum, exp_int, bit_type.bits)
-    return w.to(torch.float32) * 2.0**-15
+    if not ste:
+        w = lis_tail_plain(exp_sum, exp_int, bit_type.bits)
+        return w.to(torch.float32) * 2.0**-15
+    exact = _lis_tail(exp_int.detach(), exp_sum.detach(), bit_type)
+    return with_grad_of(exact, _lis_tail_formula(exp_int, exp_sum,
+                                                 bit_type.bits))
 
 
-def log_int_softmax(x, scaling_factor, bit_type: BitType):
+def log_int_softmax(x, scaling_factor, bit_type: BitType,
+                    ste: bool = False):
     """Full LIS of the float logits ``x``: integer softmax, log2
     quantization to ``bit_type``, dequantized ``2^-code`` (float32, exact
-    powers of two) with the saturated codes at 0."""
-    return _lis_tail(*int_softmax(x, scaling_factor), bit_type)
+    powers of two) with the saturated codes at 0.  ``ste``: the same
+    values, with the reference's straight-through gradient."""
+    return _lis_tail(*int_softmax(x, scaling_factor, ste), bit_type, ste)
 
 
 def log_int_softmax_from_int(x_int: torch.Tensor, scaling_factor,

@@ -6,7 +6,13 @@ to even, like ``jnp.round``.
 Powers of two and ``floor(log2 x)`` come from exponent bits (``pow2``,
 ``floor_log2``), where the reference takes XLA's ``exp2``/``log2``: they
 are exact on every device, and the PoT scale a calibration picks is one of
-them."""
+them.
+
+``ste=True`` (the recovery passes' path) makes each rounding a
+straight-through estimator, ``x + (round(x) - x).detach()``: the same
+value (the inner difference is exact in float32, so the outer add gives
+``round(x)`` back), with the identity as its gradient.  Its clips split the
+gradient at a bound as ``jnp.clip`` does (:func:`clip_ties`)."""
 from __future__ import annotations
 
 import torch
@@ -14,9 +20,46 @@ import torch
 from .bit_types import BitType
 
 
-def quantize(x, scale, zero_point, bit_type: BitType):
-    """x -> integer grid (still float dtype), clamped to the bit-type bounds."""
-    q = torch.round(x / scale + zero_point)
+def ste_round(x):
+    """``round(x)`` with the identity's gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
+def ste_floor(x):
+    """``floor(x)`` with the identity's gradient."""
+    return x + (torch.floor(x) - x).detach()
+
+
+def round_fn(ste: bool):
+    return ste_round if ste else torch.round
+
+
+def floor_fn(ste: bool):
+    return ste_floor if ste else torch.floor
+
+
+def clip_ties(x, lo: float, hi: float):
+    """``clamp(x, lo, hi)`` whose gradient at a value equal to a bound is
+    half, as ``jnp.clip`` (``minimum(maximum(x, lo), hi)``) gives it;
+    ``torch.clamp`` passes all of it.  The same value either way."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def with_grad_of(exact, surrogate):
+    """``exact``'s value (bit for bit, while ``surrogate`` is finite) with
+    ``surrogate``'s gradient: where the port computes a value exactly
+    (integer sums, exponent bits) and the reference takes a float formula,
+    the STE path keeps the exact value and differentiates the formula."""
+    return exact + (surrogate - surrogate.detach())
+
+
+def quantize(x, scale, zero_point, bit_type: BitType, ste: bool = False):
+    """x -> integer grid (still float dtype), clamped to the bit-type
+    bounds.  ``ste``: straight-through rounding, the clip's gradient split
+    at the bounds (:func:`clip_ties`)."""
+    q = round_fn(ste)(x / scale + zero_point)
+    if ste:
+        return clip_ties(q, bit_type.lower_bound, bit_type.upper_bound)
     return torch.clamp(q, bit_type.lower_bound, bit_type.upper_bound)
 
 
@@ -24,9 +67,9 @@ def dequantize(q, scale, zero_point):
     return (q - zero_point) * scale
 
 
-def fake_quant(x, scale, zero_point, bit_type: BitType):
+def fake_quant(x, scale, zero_point, bit_type: BitType, ste: bool = False):
     """quantize-then-dequantize."""
-    return dequantize(quantize(x, scale, zero_point, bit_type),
+    return dequantize(quantize(x, scale, zero_point, bit_type, ste),
                       scale, zero_point)
 
 

@@ -10,7 +10,10 @@ on each wire and route; ``--quant --mode 1 --int-path --save-int`` writes
 an artifact JAX serves; every flag whose machinery is not ported exits
 naming its ROADMAP item; each ``--mixed`` flag's value reaches the search
 (the search's machinery replaced by recorders; the search itself:
-tests/test_torch_mixed.py)."""
+tests/test_torch_mixed.py); each recovery flag's value reaches
+``adaround``, ``qat`` or ``bias_correct``, after calibration and before
+``--save-int``, and under ``--mixed`` at the searched best (the passes
+replaced by recorders; the passes themselves: tests/test_torch_recovery*.py)."""
 import re
 
 import jax
@@ -299,6 +302,135 @@ def test_mixed_flag_reaches_the_search(mixed_root, monkeypatch, capsys,
     assert got == dict(MIXED_DEFAULTS, **MIXED_FLAGS[dest][1])
     assert result == [[cands[0], 1.0]]
     assert f"best: {result[0]}" in capsys.readouterr().out.splitlines()
+
+
+RECOVERY_FLAGS = {  # case: (flags, the passes called with what)
+    "adaround": (["--adaround"],
+                 dict(adaround=dict(steps=1000, seed=0))),
+    "adaround_steps": (["--adaround", "--adaround-steps", "7"],
+                       dict(adaround=dict(steps=7, seed=0))),
+    "adaround_seed": (["--adaround", "--seed", "3"],
+                      dict(adaround=dict(steps=1000, seed=3))),
+    "qat_steps": (["--qat-steps", "3"],
+                  dict(qat=dict(steps=3, lr=1e-5, remat=False))),
+    "qat_remat": (["--qat-steps", "2", "--qat-remat"],
+                  dict(qat=dict(steps=2, lr=1e-5, remat=True))),
+    "qat_lr": (["--qat-steps", "2", "--qat-lr", "0.001"],
+               dict(qat=dict(steps=2, lr=1e-3, remat=False))),
+    "bias_corr": (["--bias-corr"], dict(bias_correct={})),
+    "all_three": (["--adaround", "--adaround-steps", "5", "--qat-steps", "4",
+                   "--bias-corr"],
+                  dict(adaround=dict(steps=5, seed=0),
+                       qat=dict(steps=4, lr=1e-5, remat=False),
+                       bias_correct={})),
+}
+RECOVERY_LINES = {
+    "adaround": ["AdaRound reconstruction ({} steps/site, 1 calib "
+                 "batch)...", "AdaRound: 2 sites, mean site-MSE reduction "
+                 "37.5%"],
+    "qat": ["Distillation QAT ({} steps, lr {:g})...",
+            "QAT: distill MSE 2.000e+00 -> 5.000e-01"],
+    "bias_correct": ["Bias correction (DFQ-style mean-shift fold)...",
+                     "Bias correction: 2 sites, mean |shift| 2.000e-01 -> "
+                     "1.500e-02"],
+}
+
+
+def _record_passes(monkeypatch, calls):
+    """The engine's calibrate, passes and save_int_model replaced by
+    recorders that append (name, bit_config, keywords) to ``calls``."""
+    def recorder(name, result):
+        def fn(self, *args, **kw):
+            bits = args[1] if len(args) > 1 else kw.pop("bit_config", None)
+            calls.append((name, bits, kw))
+            return result
+        return fn
+
+    n = vit.num_bit_slots(TINY)
+    monkeypatch.setattr(engine.QuantizedViT, "calibrate",
+                        lambda self, batch: (calls.append(
+                            ("calibrate", None, {})), setattr(
+                            self, "global_distance", np.ones((n - 1, 4)))))
+    for name, result in (("adaround", {"a": (1.0, 0.5), "b": (0.4, 0.3)}),
+                         ("qat", [2.0, 1.0, 0.5]),
+                         ("bias_correct", {"a": (0.3, 0.01),
+                                           "b": (0.1, 0.02)}),
+                         ("save_int_model", None)):
+        monkeypatch.setattr(engine.QuantizedViT, name, recorder(name, result))
+    monkeypatch.setattr(engine, "validate", lambda *a, **k: (0.0, 0.0, 0.0))
+
+
+@pytest.mark.parametrize("case", list(RECOVERY_FLAGS))
+def test_recovery_flag_reaches_its_pass(mixed_root, monkeypatch, capsys,
+                                        tmp_path, case):
+    """Each recovery flag's value reaches its pass on the calibration
+    batch, after calibrate and before the --save-int bake, in the
+    reference's order (AdaRound, QAT, bias correction), with the
+    reference's report lines; no other pass runs."""
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY_T)
+    calls = []
+    _record_passes(monkeypatch, calls)
+    flags, want = RECOVERY_FLAGS[case]
+    art = str(tmp_path / "r.npz")
+    cli.main(["deit_test", str(mixed_root), "--quant", "--mode", "1",
+              "--calib-batchsize", "2", "--device", "cpu", "--num-workers",
+              "2", "--save-int", art, *flags])
+    names = [c[0] for c in calls]
+    assert names == ["calibrate", *want, "save_int_model"]
+    for name, bits, kw in calls[1:-1]:
+        assert bits is None and kw == want[name], name
+    assert calls[-1][2] == {} and calls[-1][1] is None
+    out = capsys.readouterr().out.splitlines()
+    lines = []
+    for name in want:
+        first, second = RECOVERY_LINES[name]
+        if name == "adaround":
+            first = first.format(want[name]["steps"])
+        if name == "qat":
+            first = first.format(want[name]["steps"], want[name]["lr"])
+        lines += [first, second]
+    i = out.index("Calibrating with Gaussian noise...")
+    assert out[i + 1:i + 1 + len(lines)] == lines
+    assert out[i + 1 + len(lines)] == f"Saved int artifact: {art}"
+
+
+def test_mixed_reconstructs_at_the_searched_best(mixed_root, monkeypatch,
+                                                 capsys, tmp_path):
+    """Under --mixed the passes run after the search, at its best
+    configuration, and --save-int bakes that configuration after them."""
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY_T)
+    n = vit.num_bit_slots(TINY)
+    best = [8, 4] * (n // 2)
+    calls = []
+    _record_passes(monkeypatch, calls)
+    monkeypatch.setattr(hessian, "hessian_sensitivity",
+                        lambda *a, **k: [0.5] * (n - 1))
+    monkeypatch.setattr(mp, "sample_candidates", lambda *a, **k: [best])
+    monkeypatch.setattr(mp, "omega_rank",
+                        lambda bit_list, *a, **k: [[c, 0.0] for c in bit_list])
+
+    def search(omega_list, *a, **k):
+        calls.append(("search", None, {}))
+        return [[best, 1.0]]
+
+    monkeypatch.setattr(mp, "evolutionary_search", search)
+    monkeypatch.setattr(engine, "validate_bits",
+                        lambda model, loader, configs: [1.0] * len(configs))
+    art = str(tmp_path / "m.npz")
+    cli.main(["deit_test", str(mixed_root), "--quant", "--mode", "1",
+              "--mixed", "--calib-batchsize", "2", "--device", "cpu",
+              "--num-workers", "2", "--hessian-batches", "1", "--adaround",
+              "--adaround-steps", "9", "--qat-steps", "2", "--bias-corr",
+              "--save-int", art])
+    assert [c[0] for c in calls] == ["calibrate", "search", "adaround",
+                                     "qat", "bias_correct", "save_int_model"]
+    for name, bits, _ in calls[2:]:
+        assert tuple(bits) == tuple(best), name
+    assert calls[2][2] == dict(steps=9, seed=0)
+    out = capsys.readouterr().out.splitlines()
+    assert out.index(f"best: {[best, 1.0]}") < out.index(
+        "AdaRound reconstruction (9 steps/site, 1 calib batch)...") < \
+        out.index(f"Saved int artifact (mixed best): {art}")
 
 
 def test_load_int_with_mixed_is_refused():

@@ -1194,3 +1194,93 @@ def test_cli_on_card(cuda, tmp_path, monkeypatch, capsys):
         got = engine.load_int_model(art, cuda, resident=resident_route,
                                     microbatch=3)(x).cpu().numpy()
         np.testing.assert_array_equal(got, want)
+
+
+# ---- the recovery passes (AdaRound, QAT, bias correction) -----------------
+
+@pytest.mark.parametrize("spec", [TINY, SMALL2], ids=["tiny", "deit_s_2"])
+def test_ste_forward_on_card_equals_cpu(cuda, spec):
+    """forward_q(ste=True) on the card: bit-equal to ste=False there, and
+    the card's STE gradient of a logits MSE against the CPU's (cosine >=
+    0.9999 a leaf) from the same calibration."""
+    from diffvit_tpu_torch.models import vit
+    params = init_params(spec, torch.Generator().manual_seed(0), "cpu")
+    x = gaussian_calibration(4, seed=0)
+    cpu = engine.QuantizedViT(spec, QuantConfig(), params=params,
+                              device="cpu")
+    cpu.calibrate(x)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = vit.params_from_numpy(params, dev)
+        leaves = [t.requires_grad_(True) for t in (
+            p["head"]["w"], p["blocks"][0]["fc1"]["w"],
+            p["blocks"][0]["norm1"]["w"], p["pos_embed"])]
+        qp = vit.autograd_safe({k: v.to(dev)
+                                for k, v in cpu.qparams.items()})
+        xt = torch.tensor(x, device=dev)
+        y = vit.forward_q(p, qp, spec, QuantConfig(), xt, ste=True)
+        with torch.no_grad():
+            assert torch.equal(y, vit.forward_q(p, qp, spec, QuantConfig(),
+                                                xt))
+        loss = (y.to(torch.float64) ** 2).mean()
+        grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss,
+                                                                 leaves)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        assert cos >= 0.9999, cos
+
+
+@pytest.mark.parametrize("spec", [TINY, SMALL2], ids=["tiny", "deit_s_2"])
+def test_recovery_passes_on_card_then_k1_k2(cuda, spec):
+    """AdaRound and QAT on the card and on the CPU from the same
+    calibration: the learned codes equal (at least 99.9%), the first QAT
+    loss within rtol 1e-6 (Adam moves a weight by about lr whatever the
+    size of its gradient, so a last-bit difference of a float64 backward
+    can flip a code later on); bias correction from the CPU's QAT params
+    on both, the biases within 1e-6; the card's bake equals a fresh bake
+    of its params, is served through exactly depth K1 + depth K2 a
+    forward, holds the params' codes, and agrees with the CPU's by
+    _assert_paths_agree."""
+    from diffvit_tpu_torch.models import vit
+    params = init_params(spec, torch.Generator().manual_seed(0), "cpu")
+    x = gaussian_calibration(4, seed=0)
+    models = {}
+    for dev in (cuda, torch.device("cpu")):
+        q = engine.QuantizedViT(spec, QuantConfig(), params=params,
+                                device=dev)
+        q.calibrate(x)
+        q.adaround(x, steps=20, max_rows=512)
+        codes = q.params["blocks"][0]["fc1"]["w"].cpu().clone()
+        losses = q.qat(x, steps=3, lr=1e-5)
+        models[dev.type] = (q, codes, losses)
+    (card, w_card, l_card), (cpu, w_cpu, l_cpu) = models["cuda"], \
+        models["cpu"]
+    assert float((w_card == w_cpu).float().mean()) >= 0.999
+    np.testing.assert_allclose(l_card[0], l_cpu[0], rtol=1e-6)
+    card.params = vit.params_from_numpy(cpu.params, cuda)
+    card.bias_correct(x)
+    cpu.bias_correct(x)
+    b_card = card.params["blocks"][0]["qkv"]["b"].cpu()
+    b_cpu = cpu.params["blocks"][0]["qkv"]["b"]
+    assert float((b_card - b_cpu).abs().max()) <= 1e-6
+    pixels = np.random.default_rng(1).integers(0, 256, (4, 3, 224, 224),
+                                               dtype=np.uint8)
+    model = card.prepare_int()
+    k1, k2 = fused_qkv_attention_v2.launches, fused_int_mlp.launches
+    got = model(pixels)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention_v2.launches - k1 == spec.depth
+    assert fused_int_mlp.launches - k2 == spec.depth
+    fresh = engine.IntModel(vit_int.prepare_int(card.params, card.qparams,
+                                                spec, QuantConfig()),
+                            spec, QuantConfig(), cuda)
+    assert torch.equal(fresh(pixels), got)
+    qp = card.qparams
+    ch = qp["blocks.0.mlp.fc1.sq.channel_scale"][0]
+    s = qp["blocks.0.mlp.fc1.w.int4.scale"][0]
+    codes = torch.clamp(torch.round(card.params["blocks"][0]["fc1"]["w"]
+                                    * ch / s[:, None]), -8, 7)
+    # the served (K, Cout) int8 codes are the params' codes
+    assert torch.equal(model.ip["blocks"][0]["fc1"]["w_int"].to(
+        torch.float32), codes.T)
+    _assert_paths_agree(got.cpu().numpy(), cpu.prepare_int()(pixels).numpy())

@@ -235,7 +235,19 @@ def test_port_runs_without_jax():
         "m = e.IntModel(random_int_model(spec, fq), spec, fq, 'cpu')\n"
         "out = m(np.zeros((1, 3, 224, 224), np.uint8))\n"
         "assert out.shape == (1, 10)\n"
+        "import torch\n"
+        "from diffvit_tpu_torch.models.vit import init_params\n"
+        "q = e.QuantizedViT(spec, cfg, device='cpu', params=init_params("
+        "spec, torch.Generator().manual_seed(0), 'cpu'))\n"
+        "x = np.random.default_rng(0).standard_normal((1, 3, 224, 224))"
+        ".astype(np.float32)\n"
+        "q.calibrate(x)\n"
+        "assert len(q.adaround(x, steps=2, max_rows=64)) == 6\n"
+        "assert len(q.qat(x, steps=1)) == 1\n"
+        "assert len(q.bias_correct(x)) == 6\n"
+        "assert q.prepare_int()(x).shape == (1, 10)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'optax' not in sys.modules, 'optax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'diffvit_tpu' or m.startswith('diffvit_tpu.')]\n"
         "assert not bad, bad\n"
@@ -265,7 +277,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 20
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "diffvit_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "optax", "diffvit_tpu")]
     assert not bad, bad
 
 
