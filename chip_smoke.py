@@ -173,6 +173,23 @@
             CLI with --adaround --adaround-steps 20 --qat-steps 5
             --bias-corr --int-path --save-int, its report lines, seconds and
             launches, and its artifact served.
+16. analysis: PSAQ data generation (analysis/datagen.py) and the CKA
+            toolkit on the port's own models (params at seed 0): DeiT-S
+            generates 50 images (two epochs of 3 steps; seconds a step,
+            peak GiB), calibrates on them, and its bake is served through
+            exactly 12 K1 + 12 K2 and through K6 once (logits equal), every
+            K1, K2 and K6 call of a b = 8 forward held bit for bit against
+            its plain version; Swin-T the same at b = 8 through exactly 12
+            K4 + 12 K2; the CLI with --mode 2 --int-path --save-int
+            (1,000 steps at --calib-batchsize 2), its report lines,
+            seconds and launches, and its artifact served;
+            compute_cka_internal on the float DeiT-S and
+            compute_cka_with_adversarial (10 PGD steps against the float
+            DeiT-S, the generated bake's fake-quant forward as model 2) on
+            2 batches of 32, their seconds and pickles; the card against
+            the CPU at DeiT-S width, depth 2: the first PSAQ loss, the
+            images after two steps, an internal CKA heatmap and 3 PGD
+            steps from the same start.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -204,7 +221,7 @@ import numpy as np
 import torch
 
 from diffvit_tpu_torch import QuantConfig, cli, engine
-from diffvit_tpu_torch.analysis import hessian
+from diffvit_tpu_torch.analysis import cka_drivers, datagen, hessian, pgd
 from diffvit_tpu_torch.analysis import mixed_precision as mp
 from diffvit_tpu_torch.calib import adaround, qat
 from diffvit_tpu_torch.data.imagenet import device_normalize, normalize_lut
@@ -1316,11 +1333,12 @@ SWIN_KERNELS = ("fused_swin_attention", "fused_swin_attention_v2",
                 "fused_int_mlp")
 
 
-def swin_calls(run):
-    """Every call ``run()`` makes to the Swin forward's kernels, in order,
-    as (kernel name, args, kwargs)."""
+def kernel_calls(run, module=swin_int, names=SWIN_KERNELS):
+    """Every call ``run()`` makes to the kernels ``names`` of the forward's
+    ``module`` (by default the Swin forward's), in order, as (kernel name,
+    args, kwargs)."""
     calls = []
-    orig = {name: getattr(swin_int, name) for name in SWIN_KERNELS}
+    orig = {name: getattr(module, name) for name in names}
 
     def recording(name):
         def call(*args, **kw):
@@ -1328,14 +1346,14 @@ def swin_calls(run):
             return orig[name](*args, **kw)
         return call
 
-    for name in SWIN_KERNELS:
-        setattr(swin_int, name, recording(name))
+    for name in names:
+        setattr(module, name, recording(name))
     try:
         run()
         torch.cuda.synchronize()
     finally:
         for name, fn in orig.items():
-            setattr(swin_int, name, fn)
+            setattr(module, name, fn)
     return calls
 
 
@@ -1434,7 +1452,7 @@ def phase_calibrate_swin(dev, summary):
     # the kernels on the operands this bake gives them: per block the
     # attention, then the MLP
     for route, run in (("K4", lambda: model(xc)), ("K4b", forward_v2)):
-        for i, (name, args, kw) in enumerate(swin_calls(run)):
+        for i, (name, args, kw) in enumerate(kernel_calls(run)):
             note(summary, name, hold(name, args, kw, "bitwise", iters=5,
                                      model=f"{SWIN.name} calibrated",
                                      route=route, batch=8, block=i // 2))
@@ -2656,6 +2674,224 @@ def phase_recovery(dev):
     return paths
 
 
+ANALYSIS_ITERS = 3  # generate_data iterations an epoch in the phase (CLI: 500)
+ANALYSIS_CLI_BATCH = 2  # --calib-batchsize of the --mode 2 CLI run
+ANALYSIS_PGD = 10  # PGD steps of the adversarial CKA (the reference's: 50)
+ANALYSIS_CKA_BATCH = 32  # images a CKA batch
+
+
+def _generated(name, batch, dev):
+    """engine.QuantizedViT of ``name`` (params at seed 0) on ``dev``, the
+    PSAQ batch generated from it at seed 0 (two epochs of ANALYSIS_ITERS,
+    after a one-step warm-up run), the seconds a step and the peak GiB.
+    Fails unless the batch has its shape and lies within the clip."""
+    q = engine.QuantizedViT(name, CFG, seed=0, device=dev)
+    kw = dict(batch_size=batch, seed=0)
+    datagen.generate_data(q.params, q.spec, iters_per_epoch=1, epochs=1,
+                          **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    imgs = datagen.generate_data(q.params, q.spec,
+                                 iters_per_epoch=ANALYSIS_ITERS, **kw)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (2 * ANALYSIS_ITERS)
+    lo, hi = datagen._clip_bounds(dev)
+    size = q.spec.img_size
+    if imgs.shape != (batch, 3, size, size) \
+            or not bool(((imgs >= lo) & (imgs <= hi)).all()):
+        raise RuntimeError(f"{name}: generated batch {tuple(imgs.shape)} "
+                           "off its shape or its clip")
+    return q, imgs, step_s, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _held_calls(summary, run, module, names, **where):
+    """Every call ``run()`` makes to the kernels ``names`` of ``module``,
+    held bit for bit against its plain version; returns their number."""
+    calls = kernel_calls(run, module, names)
+    for i, (name, args, kw) in enumerate(calls):
+        note(summary, name, hold(name, args, kw, "bitwise", iters=5, call=i,
+                                 **where))
+    return len(calls)
+
+
+def _timed(fn):
+    """fn() and its wall seconds, the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _cka_card_vs_cpu(dev, tmp):
+    """DeiT-S width, depth 2, on both devices from the same params and
+    draws: the first PSAQ loss, the images after two steps, the internal
+    CKA heatmap of 8 images and 3 PGD steps on 4."""
+    spec = dataclasses.replace(SPEC, depth=2)
+    params = vit.init_params(spec, torch.Generator().manual_seed(0), "cpu")
+    img, pred, var = datagen._draws(spec, 4, seed=0)
+    rng = np.random.default_rng(15)
+    x8 = rng.standard_normal((8, 3, 224, 224)).astype(np.float32)
+    y4 = rng.integers(0, spec.num_classes, 4)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        p = vit.params_from_numpy(params, d)
+        loss = float(datagen.psaq_loss(p, spec, img.to(d), pred.to(d), var,
+                                       4))
+        two = datagen.generate_data(p, spec, batch_size=4, seed=0,
+                                    iters_per_epoch=2, epochs=1).cpu()
+        fp = engine.QuantizedViT(spec, CFG, params=params, device=d)
+        heat = cka_drivers.compute_cka_internal(
+            fp, lambda: iter([(x8, None)]), cka_iter=1, cka_batch_iter=0,
+            result_name=os.path.join(tmp, f"card_vs_cpu_{len(runs)}"),
+            log=_quiet)
+        adv = pgd.AttackPGD(fp, num_steps=3, quant=False).gen_adv_inputs(
+            x8[:4], y4, generator=torch.Generator().manual_seed(0)).cpu()
+        runs.append((loss, two, heat, adv))
+    (l_card, two_card, h_card, a_card), (l_cpu, two_cpu, h_cpu, a_cpu) = runs
+    d = (two_card - two_cpu).abs()
+    out = dict(first_loss_card=l_card, first_loss_cpu=l_cpu,
+               first_loss_rel_diff=abs(l_card / l_cpu - 1),
+               pixels_equal_after_two_steps=float((d == 0).float().mean()),
+               pixels_apart_1e3=float((d > 1e-3).float().mean()),
+               pixels_max_abs_diff=float(d.max()),
+               heatmap_max_abs_diff=float(np.nanmax(np.abs(h_card - h_cpu))),
+               heatmap_nan_equal=bool(np.array_equal(np.isnan(h_card),
+                                                     np.isnan(h_cpu))),
+               pgd_equal_share=float((a_card == a_cpu).float().mean()))
+    emit(phase="analysis", part="card_vs_cpu", depth=2, **out)
+    # measured 100% of the pixels bit-equal; a few sign flips of Adam's
+    # first step (lr * sign(g)) may part some, a fault confined to one
+    # row of one channel (224 pixels) may not
+    if out["first_loss_rel_diff"] > 1e-6 \
+            or out["pixels_equal_after_two_steps"] < 0.999 \
+            or out["pixels_apart_1e3"] > 1e-4 \
+            or out["heatmap_max_abs_diff"] > 1e-5 \
+            or not out["heatmap_nan_equal"] or out["pgd_equal_share"] < 0.99:
+        raise RuntimeError(f"analysis card vs CPU: {out}")
+
+
+def phase_analysis(dev, summary):
+    """PSAQ data generation, CKA and PGD on the card (see the module
+    docstring, 16).  Returns the launches by path."""
+    paths = {}
+    px = np.random.default_rng(13).integers(0, 256, (8, 3, 224, 224),
+                                            dtype=np.uint8)
+
+    # DeiT-S: generate 50 images, calibrate, bake, serve (K1 + K2 and K6)
+    q, imgs, step_s, peak = _generated(SPEC.name, 50, dev)
+    _, calib_s = _timed(lambda: q.calibrate(imgs))
+    model = q.prepare_int()
+    model(px[:1])  # warm-up: K-major weight copies
+    got, paths[f"{SPEC.name} generated"] = drive(
+        {K1: SPEC.depth, K2: SPEC.depth}, lambda: model(px))
+    resident = q.prepare_int(resident=True)
+    resident(px[:1])
+    res, paths[f"{SPEC.name} generated resident"] = drive(
+        {K6: 1}, lambda: resident(px))
+    xc = torch.tensor(model.encode(px), device=dev)
+    where = dict(model=f"{SPEC.name} generated", batch=8)
+    held = _held_calls(summary, lambda: model(xc), vit_int, (K1, K2),
+                       route="K1+K2", **where)
+    held += _held_calls(summary, lambda: resident(xc), vit_int, (K6,),
+                        route="K6", **where)
+    equal = bool(torch.equal(res, got))
+    finite = bool(torch.isfinite(got).all())
+    emit(phase="analysis", part="deit_small", batch=50,
+         iters_per_epoch=ANALYSIS_ITERS, epochs=2, seconds_per_step=step_s,
+         peak_gib=peak, calibration_seconds=calib_s,
+         kernel_calls_held=held, resident_logits_equal=equal, finite=finite)
+    if not (equal and finite and held == 2 * SPEC.depth + 1):
+        raise RuntimeError(f"the generated-data DeiT-S bake: K6 equal "
+                           f"{equal}, finite {finite}, {held} calls held")
+
+    # Swin-T: generate 8 images, calibrate, bake, serve (K4 + K2)
+    qs, imgs_s, step_s, peak = _generated(SWIN.name, 8, dev)
+    _, calib_s = _timed(lambda: qs.calibrate(imgs_s))
+    model_s = qs.prepare_int()
+    model_s(px[:1])
+    depth = sum(SWIN.depths)
+    got_s, paths[f"{SWIN.name} generated"] = drive(
+        {K4: depth, K2: depth}, lambda: model_s(px))
+    xs = torch.tensor(model_s.encode(px), device=dev)
+    held = _held_calls(summary, lambda: model_s(xs), swin_int, (K4, K2),
+                       model=f"{SWIN.name} generated", batch=8)
+    finite = bool(torch.isfinite(got_s).all())
+    emit(phase="analysis", part="swin_tiny", batch=8,
+         iters_per_epoch=ANALYSIS_ITERS, epochs=2, seconds_per_step=step_s,
+         peak_gib=peak, calibration_seconds=calib_s,
+         kernel_calls_held=held, finite=finite)
+    if not (finite and held == 2 * depth):
+        raise RuntimeError(f"the generated-data Swin-T bake: finite "
+                           f"{finite}, {held} calls held")
+    del qs, model_s, imgs_s
+
+    # the CLI: --mode 2 (1,000 Adam steps) --int-path --save-int
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fake_imagefolder(os.path.join(tmp, "val"), **CLI_FOLDER)
+        art = os.path.join(tmp, "psaq.npz")
+        forwards = -(-CLI_FOLDER["num_classes"] * CLI_FOLDER["per_class"]
+                     // CLI_BATCH)
+        argv = [SPEC.name, tmp, "--quant", "--mode", "2", "--int-path",
+                "--save-int", art, "--calib-batchsize",
+                str(ANALYSIS_CLI_BATCH), "--val-batchsize", str(CLI_BATCH),
+                "--num-workers", "8", "--wire", "u8", "--device", dev.type]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            (loss, top1, _), counts = drive(
+                {K1: SPEC.depth * forwards, K2: SPEC.depth * forwards},
+                lambda: cli.main(argv))
+        seconds = time.perf_counter() - t0
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("Generating", "Calibrating with",
+                                   " * Prec@1", "Saved"))]
+        served = engine.load_int_model(art, dev)
+        got_art, counts_art = drive({K1: SPEC.depth, K2: SPEC.depth},
+                                    lambda: served(px))
+    emit(phase="analysis", part="cli", seconds=seconds, lines=lines,
+         calib_batchsize=ANALYSIS_CLI_BATCH, loss=loss, prec1=top1,
+         artifact_finite=bool(torch.isfinite(got_art).all()))
+    if len(lines) != 4 or not np.isfinite(loss):
+        raise RuntimeError(f"cli --mode 2: report {lines}")
+    paths["cli mode 2"] = counts
+    paths["cli mode 2 artifact"] = counts_art
+
+    # CKA at DeiT-S: the float model alone, and against the generated bake
+    rng = np.random.default_rng(14)
+    batches = [(rng.standard_normal((ANALYSIS_CKA_BATCH, 3, 224, 224))
+                .astype(np.float32), rng.integers(0, 1000, ANALYSIS_CKA_BATCH))
+               for _ in range(2)]
+    fp = engine.QuantizedViT(SPEC.name, CFG, seed=0, device=dev)
+    bits = (CFG.bit_w.bits,) * vit.num_bit_slots(SPEC)
+    with tempfile.TemporaryDirectory() as tmp:
+        heat, internal_s = _timed(lambda: cka_drivers.compute_cka_internal(
+            fp, lambda: iter(batches), cka_iter=1, cka_batch_iter=1,
+            result_name=os.path.join(tmp, "internal"), log=_quiet))
+        adv, adv_s = _timed(lambda: cka_drivers.compute_cka_with_adversarial(
+            fp, q, lambda: iter(batches), model2_bit_config=bits,
+            cka_iter=1, cka_batch_iter=1, pgd_steps=ANALYSIS_PGD,
+            result_name=os.path.join(tmp, "adv"), log=_quiet))
+        pickles = [os.path.exists(os.path.join(tmp, f))
+                   for f in ("internal/_heatmap.pkl", "adv/adv_heatmap.pkl")]
+        diag = np.diag(heat)
+        emit(phase="analysis", part="cka", batch=ANALYSIS_CKA_BATCH,
+             batches=len(batches), internal_seconds=internal_s,
+             internal_shape=list(heat.shape),
+             internal_diag_max_err=float(np.nanmax(np.abs(diag - 1))),
+             adversarial_seconds=adv_s, pgd_steps=ANALYSIS_PGD,
+             adversarial_shape=list(adv.shape),
+             adversarial_finite_share=float(np.isfinite(adv).mean()),
+             pickles=pickles)
+        if heat.shape != (6 * SPEC.depth + 2,) * 2 \
+                or adv.shape != (6 * SPEC.depth + 2, 4 * SPEC.depth + 2) \
+                or not all(pickles) or np.nanmax(np.abs(diag - 1)) > 1e-5:
+            raise RuntimeError("the CKA drivers' heatmaps or pickles")
+        _cka_card_vs_cpu(dev, tmp)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2715,11 +2951,13 @@ def main():
     t.append(time.perf_counter())
     paths.update(phase_recovery(dev))
     t.append(time.perf_counter())
+    paths.update(phase_analysis(dev, summary))
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
          "alternatives", "calibrate", "calibrate_swin", "probes",
-         "lis_wide", "cli", "mixed", "recovery"),
+         "lis_wide", "cli", "mixed", "recovery", "analysis"),
         t, t[1:])})
 
     kernels = []

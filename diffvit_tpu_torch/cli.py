@@ -40,6 +40,13 @@ reference's order: ``--adaround`` (``--adaround-steps`` a site), QAT
     python3 -m diffvit_tpu_torch.cli deit_small <data> --quant --mode 1 \\
         --adaround --qat-steps 100 --bias-corr --int-path --save-int r.npz
 
+``--mode 2`` calibrates on a batch of ``--calib-batchsize`` images that
+PSAQ generates on the device (``analysis/datagen.py``: 2 x 500 Adam steps
+inverting the float model, or the ``--prior-checkpoint`` weights):
+
+    python3 -m diffvit_tpu_torch.cli deit_small <data> --quant --mode 2 \\
+        --int-path --save-int psaq.npz
+
 A flag whose machinery is not ported yet exits with ``SystemExit`` and
 names its ROADMAP item (:data:`NOT_PORTED`).
 """
@@ -54,12 +61,10 @@ import torch
 
 # ROADMAP Queue 1 items of the flags whose machinery is not ported yet
 _ITEMS = {
-    8: "the analysis toolkit",
     9: "parallelism",
     11: "the native JPEG decoder and preprocessing",
 }
 NOT_PORTED = {
-    "prior_checkpoint": 8,
     **dict.fromkeys(("dp", "tp", "sp", "pp", "host_devices"), 9),
     "native_preproc": 11,
 }
@@ -86,7 +91,7 @@ def build_parser():
     p.add_argument("--calib-batchsize", default=50, type=int)
     p.add_argument("--mode", default=0, type=int,
                    help="calibration data: 0 real, 1 Gaussian noise, "
-                        "2 generated (not ported)")
+                        "2 generated (PSAQ, analysis/datagen.py)")
     p.add_argument("--calib-iter", default=6, type=int)
     p.add_argument("--val-batchsize", default=50, type=int)
     p.add_argument("--num-workers", default=16, type=int)
@@ -98,7 +103,8 @@ def build_parser():
     p.add_argument("--checkpoint", default=None,
                    help="local weights: a .pth, or for ViT/DeiT a .npz")
     p.add_argument("--prior-checkpoint", default=None,
-                   help="mode-2 prior weights (not ported)")
+                   help="--mode 2: invert these local weights (a .pth, "
+                        "or for ViT/DeiT a .npz) in place of the model's")
     p.add_argument("--dp", default=None, type=int, help="(not ported)")
     p.add_argument("--tp", default=1, type=int, help="(not ported)")
     p.add_argument("--sp", default=1, type=int, help="(not ported)")
@@ -195,7 +201,7 @@ def parse_args(argv=None):
         args.model = args.model_pos
     if args.data_pos is not None:
         args.data = args.data_pos
-    refuse_unported(args, given)
+    refuse_unported(given)
     return args
 
 
@@ -204,13 +210,11 @@ def _not_ported(what: str, item: int):
                      f"(ROADMAP Queue 1, item {item}: {_ITEMS[item]})")
 
 
-def refuse_unported(args, given):
+def refuse_unported(given):
     """``SystemExit`` naming the ROADMAP item of the first flag in
-    ``given`` whose machinery is not ported, or of ``--mode 2``."""
+    ``given`` whose machinery is not ported."""
     for dest in sorted(given, key=list(NOT_PORTED).index):
         _not_ported("--" + dest.replace("_", "-"), NOT_PORTED[dest])
-    if args.mode == 2:
-        _not_ported("--mode 2 (generated calibration data)", 8)
 
 
 def seed_everything(seed):
@@ -304,7 +308,22 @@ def main(argv=None):
         print("\n***Trace: ", mean_hessian)
 
     if args.quant and not args.load_int:
-        if args.mode == 1:
+        if args.mode == 2:
+            from .analysis.datagen import generate_data
+            from .models.registry import build_params
+
+            prior_params = None
+            if args.prior_checkpoint:
+                _, prior_params = build_params(args.model,
+                                               args.prior_checkpoint,
+                                               args.seed, device=model.device)
+                print(f"PSAQ prior: {args.prior_checkpoint}")
+            print("Generating data...")
+            calib = generate_data(model.params, model.spec,
+                                  batch_size=args.calib_batchsize,
+                                  seed=args.seed, prior_params=prior_params)
+            print("Calibrating with generated data...")
+        elif args.mode == 1:
             print("Calibrating with Gaussian noise...")
             if args.calib_multi_batch:
                 calib = [gaussian_calibration(args.calib_batchsize,

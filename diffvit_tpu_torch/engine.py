@@ -377,6 +377,24 @@ class QuantizedViT:
                                            self._bit_config(bit_config))
             return self._mod.forward_fp(self.params, self.spec, x)
 
+    def forward_fn(self, quant: bool, bit_config=None):
+        """``fwd(x) -> logits`` with autograd on (the counterpart of the
+        JAX engine's ``_forward_fn``; PGD differentiates it with respect
+        to ``x``): ``_prep``, then the fake-quant forward at
+        ``bit_config`` (a Swin's ``bit``: None, an int or a per-slot
+        sequence) or the float forward.  The fake-quant forward rounds
+        without the STE, as JAX's does, so its gradient is exactly 0."""
+        if not quant:
+            return lambda x: self._mod.forward_fp(self.params, self.spec,
+                                                  self._prep(x))
+        qp = vit.autograd_safe(self._calibrated())
+        if self.is_swin:
+            return lambda x: swin.forward_q(self.params, qp, self.spec,
+                                            self.cfg, self._prep(x),
+                                            bit=bit_config)
+        return lambda x: vit.forward_q(self.params, qp, self.spec, self.cfg,
+                                       self._prep(x), bit_config)
+
     # -- mixed-precision candidates -----------------------------------------
     def forward_bits(self, x, bits_batch) -> torch.Tensor:
         """(ncand, B, classes) logits of the fake-quant forward at each

@@ -7,8 +7,10 @@ _assert_paths_agree), and the CLI ``python3 -m diffvit_tpu_torch.cli``:
 prints the report that JAX's ``engine.validate`` prints over JAX's
 ``DataLoader`` (the same loss, Prec@1 and Prec@5 lines, the times aside),
 on each wire and route; ``--quant --mode 1 --int-path --save-int`` writes
-an artifact JAX serves; every flag whose machinery is not ported exits
-naming its ROADMAP item; each ``--mixed`` flag's value reaches the search
+an artifact JAX serves; ``--mode 2`` calibrates on exactly the batch that
+``generate_data`` returns for the seed (run at 2 iterations an epoch), and
+``--prior-checkpoint`` hands a local ``.pth`` to it as the prior; every
+flag whose machinery is not ported exits naming its ROADMAP item; each ``--mixed`` flag's value reaches the search
 (the search's machinery replaced by recorders; the search itself:
 tests/test_torch_mixed.py); each recovery flag's value reaches
 ``adaround``, ``qat`` or ``bias_correct``, after calibration and before
@@ -29,9 +31,11 @@ from diffvit_tpu.engine import validate as jax_validate
 from diffvit_tpu.models import vit
 
 from diffvit_tpu_torch import cli, engine
-from diffvit_tpu_torch.analysis import hessian
+from diffvit_tpu_torch.analysis import datagen, hessian
+from diffvit_tpu_torch.analysis.datagen import generate_data
 from diffvit_tpu_torch.analysis import mixed_precision as mp
 from diffvit_tpu_torch.data.synthetic import make_fake_imagefolder
+from diffvit_tpu_torch.models import registry
 from diffvit_tpu_torch.models.registry import preprocessing_for
 from diffvit_tpu_torch.models.swin import SWIN_SPECS, SwinSpec
 from diffvit_tpu_torch.models.vit import VIT_SPECS, ViTSpec
@@ -190,17 +194,88 @@ def _given(dest):
     return [a.option_strings[0], str(1 if value is None else value)]
 
 
-REFUSED = [(_given(d), item) for d, item in cli.NOT_PORTED.items()] + [
-    (["--mode", "2"], 8)]
+REFUSED = [(_given(d), item) for d, item in cli.NOT_PORTED.items()]
 
 
-@pytest.mark.parametrize("flags,item", REFUSED,
-                         ids=[f[0][0] for f in REFUSED[:-1]] + ["--mode-2"])
+@pytest.mark.parametrize("flags,item", REFUSED, ids=[f[0][0] for f in REFUSED])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item):
     """Given on the command line (even at its default value), each flag
     whose machinery is not ported exits before any work, naming its item."""
     with pytest.raises(SystemExit, match=rf"ROADMAP Queue 1, item {item}:"):
         cli.main(["deit_tiny", "/nonexistent", "--quant", *flags])
+
+
+def _generate_in_two_steps(calls):
+    """``datagen.generate_data`` at 2 iterations an epoch (the CLI's 500
+    take minutes on the CPU), recording each call's arguments."""
+    def generate(params, spec, **kw):
+        calls.append((params, spec, kw))
+        return generate_data(params, spec, iters_per_epoch=2, **kw)
+
+    return generate
+
+
+def test_mode_2_calibrates_on_generated_data(artifact, monkeypatch, capsys):
+    """--quant --mode 2 --int-path on a registered TINY DeiT: the batch
+    generate_data returns for --seed and --calib-batchsize is exactly what
+    calibrate receives; the reference's lines, then the report."""
+    _, root = artifact
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY_T)
+    gen_calls, calib_calls = [], []
+    monkeypatch.setattr(datagen, "generate_data",
+                        _generate_in_two_steps(gen_calls))
+    calibrate = engine.QuantizedViT.calibrate
+
+    def recording(self, batch):
+        calib_calls.append(batch)
+        return calibrate(self, batch)
+
+    monkeypatch.setattr(engine.QuantizedViT, "calibrate", recording)
+    loss, _, _ = cli.main([
+        "deit_test", str(root), "--quant", "--mode", "2", "--int-path",
+        "--calib-batchsize", "3", "--seed", "5", "--device", "cpu",
+        "--val-batchsize", "6", "--num-workers", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[:3] == ["Model: deit_test", "Generating data...",
+                       "Calibrating with generated data..."]
+    assert out[-1].startswith(" * Prec@1") and np.isfinite(loss)
+    (params, spec, kw), = gen_calls
+    assert spec == TINY_T and kw == dict(batch_size=3, seed=5,
+                                         prior_params=None)
+    _, seeded = registry.build_params("deit_test", None, 5, device="cpu")
+    want = generate_data(seeded, TINY_T, batch_size=3, seed=5,
+                         iters_per_epoch=2)
+    (got,), = [calib_calls]
+    assert torch.equal(got, want) and got.shape == (3, 3, 224, 224)
+
+
+def test_prior_checkpoint_is_the_generation_prior(artifact, monkeypatch,
+                                                  capsys, tmp_path):
+    """--mode 2 --prior-checkpoint: the local .pth is loaded as the
+    model's family and inverted in place of the model's own params."""
+    from test_torch_load import _state_dict
+
+    _, root = artifact
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY_T)
+    sd = _state_dict(TINY_T, seed=7)
+    pth = str(tmp_path / "prior.pth")
+    torch.save({"model": sd}, pth)
+    calls = []
+    monkeypatch.setattr(datagen, "generate_data",
+                        _generate_in_two_steps(calls))
+    cli.main(["deit_test", str(root), "--quant", "--mode", "2",
+              "--prior-checkpoint", pth, "--calib-batchsize", "3",
+              "--device", "cpu", "--val-batchsize", "6", "--num-workers",
+              "2", "--val-limit", "6"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[1:4] == [f"PSAQ prior: {pth}", "Generating data...",
+                        "Calibrating with generated data..."]
+    (params, spec, kw), = calls
+    prior = kw["prior_params"]
+    assert torch.equal(prior["head"]["w"], sd["head.weight"])
+    assert torch.equal(prior["blocks"][1]["fc2"]["b"],
+                       sd["blocks.1.mlp.fc2.bias"])
+    assert not torch.equal(params["head"]["w"], prior["head"]["w"])
 
 
 # what the search receives with no --mixed flag but --mixed given

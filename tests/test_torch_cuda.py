@@ -1284,3 +1284,48 @@ def test_recovery_passes_on_card_then_k1_k2(cuda, spec):
     assert torch.equal(model.ip["blocks"][0]["fc1"]["w_int"].to(
         torch.float32), codes.T)
     _assert_paths_agree(got.cpu().numpy(), cpu.prepare_int()(pixels).numpy())
+
+
+@pytest.mark.parametrize("spec", [TINY, SMALL2], ids=["tiny", "deit_s_2"])
+def test_generate_data_on_card_then_k1_k2(cuda, spec):
+    """PSAQ generation on the card and on the CPU from the same params and
+    draws: the first loss within rtol 1e-6 and, after two Adam steps, at
+    least 99.9% of the pixels bit-equal and at most 0.01% 1e-3 apart (a
+    first step is lr * sign(g); measured 100% bit-equal);
+    the card's images calibrate a bake served through exactly depth K1 +
+    depth K2 a forward; CKA heatmaps within 1e-5 and PGD's elements equal
+    in at least 99%."""
+    from diffvit_tpu_torch.analysis import activations, cka, datagen, pgd
+    params = init_params(spec, torch.Generator().manual_seed(0), "cpu")
+    img, pred, var = datagen._draws(spec, 4, seed=0)
+    x = gaussian_calibration(8, seed=3)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = engine.QuantizedViT(spec, QuantConfig(), params=params,
+                                device=dev)
+        loss = float(datagen.psaq_loss(p.params, spec, img.to(dev),
+                                       pred.to(dev), var, 4))
+        two = datagen.generate_data(p.params, spec, batch_size=4, seed=0,
+                                    iters_per_epoch=2, epochs=1)
+        acc = cka.MinibatchCKA(6 * spec.depth + 2)
+        acc.update_state(activations.get_activations(p, x))
+        adv = pgd.AttackPGD(p, num_steps=3, quant=False).gen_adv_inputs(
+            x[:4], [1, 2, 3, 4], generator=torch.Generator().manual_seed(0))
+        runs.append((p, loss, two, acc.result().cpu().numpy(), adv.cpu()))
+    (card, l_card, two_card, h_card, a_card), (_, l_cpu, two_cpu, h_cpu,
+                                               a_cpu) = runs
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-6)
+    d = (two_card.cpu() - two_cpu).abs()
+    assert float((d == 0).float().mean()) >= 0.999
+    assert float((d > 1e-3).float().mean()) <= 1e-4
+    np.testing.assert_allclose(h_card, h_cpu, atol=1e-5)
+    assert float((a_card == a_cpu).float().mean()) >= 0.99
+    card.calibrate(two_card)
+    model = card.prepare_int()
+    k1, k2 = fused_qkv_attention_v2.launches, fused_int_mlp.launches
+    got = model(np.random.default_rng(1).integers(0, 256, (4, 3, 224, 224),
+                                                  dtype=np.uint8))
+    torch.cuda.synchronize()
+    assert fused_qkv_attention_v2.launches - k1 == spec.depth
+    assert fused_int_mlp.launches - k2 == spec.depth
+    assert bool(torch.isfinite(got).all())

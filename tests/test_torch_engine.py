@@ -205,7 +205,7 @@ def test_clipped_codes_would_miss_the_float32_wire():
     assert np.mean(clipped == served(pixels).numpy()) < 0.995
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     code = (
         "import sys, numpy as np\n"
         "import diffvit_tpu_torch, diffvit_tpu_torch.engine as e\n"
@@ -246,14 +246,27 @@ def test_port_runs_without_jax():
         "assert len(q.qat(x, steps=1)) == 1\n"
         "assert len(q.bias_correct(x)) == 6\n"
         "assert q.prepare_int()(x).shape == (1, 10)\n"
+        "from diffvit_tpu_torch.analysis import cka_drivers, datagen, pgd\n"
+        "from diffvit_tpu_torch.analysis import ddv\n"
+        "g = datagen.generate_data(q.params, spec, batch_size=3, "
+        "iters_per_epoch=1, epochs=1)\n"
+        "q.calibrate(g)\n"
+        "b = [(np.concatenate([x, x + 1, x - 1]), [1, 2, 3])]\n"
+        "assert cka_drivers.compute_cka_internal(q, lambda: iter(b), "
+        "cka_iter=1, result_name=sys.argv[1], log=len).shape == (8, 8)\n"
+        "assert pgd.AttackPGD(q, num_steps=1, quant=False).gen_adv_inputs("
+        "x, [1]).shape == x.shape\n"
+        "assert len(ddv.compute_ddv(q, x, x + 0.05)) == 6\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'optax' not in sys.modules, 'optax was imported'\n"
+        "assert 'scipy' not in sys.modules, 'scipy was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'diffvit_tpu' or m.startswith('diffvit_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "cka")], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
@@ -277,7 +290,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 20
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "optax", "diffvit_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "optax", "scipy",
+                                  "diffvit_tpu")]
     assert not bad, bad
 
 
