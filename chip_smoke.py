@@ -190,6 +190,30 @@
             the CPU at DeiT-S width, depth 2: the first PSAQ loss, the
             images after two steps, an internal CKA heatmap and 3 PGD
             steps from the same start.
+17. diff:   the rest of the diff-analysis toolkit on the port's own DeiT-S
+            (params at seed 0): the DDV Hessian (analysis/ddv_hessian.py)
+            on one batch of 5 with 50-step PGD inputs against the float
+            model, the reference driver's tap 30 (blocks.4.mlp.fc2, 20
+            weights), 3 probes a trace (seconds a HVP, peak GiB); the
+            spectrum at b = 8 over all 49 weights (top_eigenvalues, two at
+            max_iter 10; eigenvalue_density at 10 Lanczos steps; seconds,
+            HVPs); the restore sweep (analysis/restore.py) of the CLI's
+            Gaussian-50 calibration over 64 JPEGs, the baseline and three
+            one-index restores, on the fake-quant path (no kernel) and
+            through validate(use_int=True) (exactly 12 K1 + 12 K2 a
+            forward), every K1 and K2 call of a restored bake's b = 8
+            forward held bit for bit against its plain version; ModelDiff
+            at b = 8 (analysis/modeldiff.py) between the float model and
+            the int4 bake, blackbox 20 iterations (exactly 2 + 2 x 20
+            forwards of the bake) and whitebox 2 iterations of 5-step PGD;
+            the card against the CPU at DeiT-S width, depth 2, with the
+            same params and draws (DDV traces and eigenvalues within 1e-6
+            relative, the blackbox's final inputs bit-equal, the restore
+            lines equal apart from Time); then the drivers
+            ddv_hessian_calc, layerwise_quant_compare and modeldiff_p2
+            (diffvit_tpu_torch/drivers) each to its report, with no kernel
+            launched.  ddv_cka_calc and the plotting functions need
+            matplotlib and are not run here.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -221,12 +245,17 @@ import numpy as np
 import torch
 
 from diffvit_tpu_torch import QuantConfig, cli, engine
-from diffvit_tpu_torch.analysis import cka_drivers, datagen, hessian, pgd
+from diffvit_tpu_torch.analysis import (cka_drivers, datagen, ddv_hessian,
+                                        hessian, modeldiff, pgd, restore)
 from diffvit_tpu_torch.analysis import mixed_precision as mp
 from diffvit_tpu_torch.calib import adaround, qat
+from diffvit_tpu_torch.data import imagenet
 from diffvit_tpu_torch.data.imagenet import device_normalize, normalize_lut
 from diffvit_tpu_torch.data.synthetic import (gaussian_calibration,
                                               make_fake_imagefolder)
+from diffvit_tpu_torch.drivers import ddv_hessian_calc as drv_ddv_hessian
+from diffvit_tpu_torch.drivers import layerwise_quant_compare as drv_restore
+from diffvit_tpu_torch.drivers import modeldiff_p2 as drv_modeldiff
 from diffvit_tpu_torch.models import swin, swin_int, vit, vit_int
 from diffvit_tpu_torch.models.convert import (attn_block_operands,
                                               attn_constants,
@@ -2892,6 +2921,289 @@ def phase_analysis(dev, summary):
     return paths
 
 
+DIFF_PGD = 50  # PGD steps of the DDV-Hessian inputs (the reference driver's)
+DIFF_LAYER = 30  # the reference driver's tap: blocks.4.mlp.fc2 at DeiT-S
+DIFF_BLACKBOX = 20  # blackbox ModelDiff iterations in the phase
+DIFF_RTOL = 1e-6  # card vs CPU: traces and eigenvalues
+
+
+@contextlib.contextmanager
+def _hvp_count():
+    """Counts the joint HVPs (``BatchGrads.joint_hvp``) taken inside."""
+    count = [0]
+    joint = hessian.BatchGrads.joint_hvp
+
+    def counted(self, vs):
+        count[0] += 1
+        return joint(self, vs)
+
+    hessian.BatchGrads.joint_hvp = counted
+    try:
+        yield count
+    finally:
+        hessian.BatchGrads.joint_hvp = joint
+
+
+def _cpu_draws(kind):
+    """Start vectors or probes drawn on the CPU (one generator a draw,
+    seeded by the draw's key) and moved to the tensor's device: the same
+    values on the card and on the CPU."""
+    table = {}
+
+    def draw(*key):
+        *key, like = key
+        key = tuple(key)
+        if key not in table:
+            g = torch.Generator().manual_seed(len(table))
+            table[key] = hessian.rademacher(like.cpu(), g) \
+                if kind == "rademacher" else torch.randn(like.shape,
+                                                         generator=g)
+        return table[key].to(like.device)
+    return draw
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _diff_card_vs_cpu(dev, root):
+    """DeiT-S width, depth 2, on both devices from the same params and
+    draws: the DDV-Hessian traces (tap 10, its 7 weights), the top two
+    eigenvalues, the blackbox search's final inputs and the restore
+    lines."""
+    spec = dataclasses.replace(SPEC, depth=2)
+    params = vit.init_params(spec, torch.Generator().manual_seed(0), "cpu")
+    params2 = vit.init_params(spec, torch.Generator().manual_seed(1), "cpu")
+    rng = np.random.default_rng(21)
+    x5 = gaussian_calibration(5, seed=21)
+    adv5 = x5 + rng.uniform(-0.06, 0.06, x5.shape).astype(np.float32)
+    x4, y4 = gaussian_calibration(4, seed=22), rng.integers(0, spec.num_classes,
+                                                            4)
+    probes, starts = _cpu_draws("rademacher"), _cpu_draws("normal")
+    cpu_q = engine.QuantizedViT(spec, CFG, params=params, device="cpu")
+    cpu_q.calibrate(gaussian_calibration(8, seed=23))
+    loader = imagenet.DataLoader(imagenet.ImageFolder(
+        os.path.join(root, "val"), imagenet.build_transform()), CLI_BATCH,
+        num_workers=8)
+    combos = restore.k_layer_combinations(1, vit.num_bit_slots(spec), 2)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        fp = engine.QuantizedViT(spec, CFG, params=params, device=d)
+        fp2 = engine.QuantizedViT(spec, CFG, params=params2, device=d)
+        names, traces = ddv_hessian.DDVHessian(
+            fp, fp, (x5, None), adv5, layer_indices=10, max_iter=3).trace(
+            probes=probes)
+        eig, _ = hessian.top_eigenvalues(fp.params, spec, x4, y4, top_n=2,
+                                         max_iter=5, starts=starts)
+        found = modeldiff.gen_profiling_inputs_blackbox(
+            lambda x, m=fp: m(x, quant=False),
+            lambda x, m=fp2: m(x, quant=False), x4, max_iterations=10,
+            seed=2, device=d).cpu()
+        fp.qparams = {k: v.to(d) for k, v in cpu_q.qparams.items()}
+        lines = []
+        restore.run_restore_sweep(fp, loader, combos,
+                                  log=lambda ln: lines.append(
+                                      ln.rsplit(" Time ", 1)[0]))
+        runs.append((names, traces, eig, found, lines))
+    (n_card, t_card, e_card, f_card, l_card), \
+        (n_cpu, t_cpu, e_cpu, f_cpu, l_cpu) = runs
+    out = dict(ddv_weights=len(n_card), ddv_traces_max_rel=_rel(t_card,
+                                                                t_cpu),
+               eigenvalues_card=e_card, eigenvalues_cpu=e_cpu,
+               eigenvalues_max_rel=_rel(e_card, e_cpu),
+               blackbox_inputs_equal=bool(torch.equal(f_card, f_cpu)),
+               blackbox_moved=bool((f_cpu != torch.tensor(x4)).any()),
+               restore_lines_equal=l_card == l_cpu, restore_lines=l_cpu)
+    emit(phase="diff", part="card_vs_cpu", depth=2, **out)
+    if n_card != n_cpu or len(n_card) != 7 \
+            or out["ddv_traces_max_rel"] > DIFF_RTOL \
+            or out["eigenvalues_max_rel"] > DIFF_RTOL \
+            or not (out["blackbox_inputs_equal"] and out["blackbox_moved"]
+                    and out["restore_lines_equal"]) or len(l_cpu) != 3:
+        raise RuntimeError(f"diff card vs CPU: {out}")
+
+
+def _driver(main, argv, cwd):
+    """Run a driver's ``main(argv)`` in ``cwd`` with no kernel launched
+    (its forwards are float or fake-quant); its printed lines, result and
+    wall seconds."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(out):
+        res, counts = drive({}, lambda: main(argv))
+    return out.getvalue().splitlines(), res, time.perf_counter() - t0, \
+        counts
+
+
+def phase_diff(dev, summary):
+    """The DDV Hessian, the Hessian spectrum, the restore sweeps, ModelDiff
+    and the analysis drivers on the card (see the module docstring, 17).
+    Returns the launches by path."""
+    paths = {}
+    rng = np.random.default_rng(20)
+    fp = engine.QuantizedViT(SPEC.name, CFG, seed=0, device=dev)
+
+    # the DDV Hessian: PGD inputs against the float DeiT-S, b = 5, tap 30
+    x5 = gaussian_calibration(5, seed=20)
+    y5 = rng.integers(0, SPEC.num_classes, 5)
+    attack = pgd.AttackPGD(fp, epsilon=0.06, step_size=0.01,
+                           num_steps=DIFF_PGD, quant=False)
+    adv, pgd_s = _timed(lambda: attack.gen_adv_inputs(
+        x5, y5, generator=torch.Generator().manual_seed(0)))
+    torch.cuda.reset_peak_memory_stats()
+    ddvh = ddv_hessian.DDVHessian(fp, fp, (x5, y5), adv,
+                                  layer_indices=DIFF_LAYER, max_iter=3)
+    hvps = [0]
+
+    def probes(name, k, like, g=torch.Generator(dev).manual_seed(0)):
+        hvps[0] += 1
+        return hessian.rademacher(like, g)
+
+    (names, traces), trace_s = _timed(lambda: ddvh.trace(probes=probes))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = hessian.BatchGrads(ddvh.q_params, SPEC, None, None,
+                               ddvh.param_names, loss_fn=ddvh.loss)
+    gen = torch.Generator(dev).manual_seed(1)
+    hvp_ms = {n: cuda_ms(lambda n=n, v=hessian.rademacher(grads.ws[n], gen):
+                         grads.hvp(n, v), iters=5)
+              for n in (names[0], names[-1])}
+    del grads
+    emit(phase="diff", part="ddv_hessian", batch=5, pgd_steps=DIFF_PGD,
+         pgd_seconds=pgd_s, layer_index=DIFF_LAYER, tap=ddvh.tap_names,
+         weights=len(names), last_weight=names[-1], max_iter=3, hvps=hvps[0],
+         trace_seconds=trace_s, seconds_per_hvp=trace_s / hvps[0],
+         hvp_ms=hvp_ms, peak_gib=peak, traces=traces)
+    if len(names) != 20 or names[-1] != "blocks.4.mlp.fc2.weight" \
+            or not np.isfinite(traces).all():
+        raise RuntimeError(f"DDV Hessian: {len(names)} weights, traces "
+                           f"{traces}")
+    del ddvh, attack
+
+    # the spectrum at b = 8 over all 49 weights
+    x8 = gaussian_calibration(8, seed=24)
+    y8 = rng.integers(0, SPEC.num_classes, 8)
+    torch.cuda.reset_peak_memory_stats()
+    with _hvp_count() as top_hvps:
+        (eigs, _), top_s = _timed(lambda: hessian.top_eigenvalues(
+            fp.params, SPEC, x8, y8, torch.Generator(dev).manual_seed(0),
+            top_n=2, max_iter=10))
+    with _hvp_count() as lanczos_hvps:
+        (ritz, weights), density_s = _timed(
+            lambda: hessian.eigenvalue_density(
+                fp.params, SPEC, x8, y8, torch.Generator(dev).manual_seed(0),
+                iters=10))
+    wsum = float(sum(weights[0]))
+    emit(phase="diff", part="spectrum", batch=8,
+         targets=len(hessian.hessian_target_names(SPEC)),
+         top_eigenvalues=eigs, top_hvps=top_hvps[0], top_seconds=top_s,
+         ritz_values=ritz[0], lanczos_hvps=lanczos_hvps[0],
+         density_seconds=density_s, weights_sum=wsum,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not (np.isfinite(eigs).all() and np.isfinite(ritz[0]).all()) \
+            or abs(wsum - 1) > 1e-6 or len(eigs) != 2:
+        raise RuntimeError(f"spectrum: {eigs}, {ritz}, weights {wsum}")
+
+    # the restore sweeps on the calibrated DeiT-S, 64 images, two paths
+    q, _ = _calibrated(CFG, gaussian_calibration(50, seed=0), dev)
+    with tempfile.TemporaryDirectory() as root:
+        for split in ("train", "val"):
+            make_fake_imagefolder(os.path.join(root, split), **CLI_FOLDER)
+        loader = imagenet.DataLoader(imagenet.ImageFolder(
+            os.path.join(root, "val"), imagenet.build_transform()),
+            CLI_BATCH, num_workers=8)
+        combos = restore.k_layer_combinations(1, limit=3)
+        forwards = -(-CLI_FOLDER["num_classes"] * CLI_FOLDER["per_class"]
+                     // CLI_BATCH)
+        sweeps = {}
+        for route, validate_fn, expected in (
+                ("fake", None, {}),
+                ("int", lambda bc: engine.validate(
+                    q, loader, bc, print_freq=0, log=_quiet,
+                    use_int=True)[1:],
+                 {K1: SPEC.depth * forwards * (1 + len(combos)),
+                  K2: SPEC.depth * forwards * (1 + len(combos))})):
+            path = os.path.join(root, f"restore_{route}.txt")
+            (res, counts), secs = _timed(lambda: drive(
+                expected, lambda: restore.run_restore_sweep(
+                    q, loader, combos, out_path=path, log=_quiet,
+                    validate_fn=validate_fn)))
+            paths[f"{SPEC.name} restore {route}"] = counts
+            sweeps[route] = dict(seconds_per_config=secs / len(res),
+                                 lines=[ln.rstrip() for ln in open(path)],
+                                 results=res)
+        restored = q.prepare_int((8,) + (4,) * (vit.num_bit_slots(SPEC) - 1))
+        px = rng.integers(0, 256, (8, 3, 224, 224), dtype=np.uint8)
+        xc = torch.tensor(restored.encode(px), device=dev)
+        held = _held_calls(summary, lambda: restored(xc), vit_int, (K1, K2),
+                           model=f"{SPEC.name} restore [0]", batch=8)
+        emit(phase="diff", part="restore", images=forwards * CLI_BATCH,
+             configs=1 + len(combos), kernel_calls_held=held,
+             **{f"{r}_{k}": v for r, sw in sweeps.items()
+                for k, v in sw.items() if k != "results"})
+        if held != 2 * SPEC.depth or len(sweeps["int"]["lines"]) != 4:
+            raise RuntimeError(f"restore sweeps: {held} calls held, "
+                               f"{sweeps}")
+
+        # ModelDiff at b = 8: the float DeiT-S against the int4 bake
+        model = q.prepare_int()
+        model(px[:1])  # warm-up: K-major weight copies
+        seeds = gaussian_calibration(8, seed=25)
+        n = 2 + 2 * DIFF_BLACKBOX
+        (found, blackbox_s), counts = drive(
+            {K1: SPEC.depth * n, K2: SPEC.depth * n},
+            lambda: _timed(lambda: modeldiff.gen_profiling_inputs_blackbox(
+                lambda x: fp(x, quant=False), model, seeds,
+                max_iterations=DIFF_BLACKBOX, seed=0, device=dev)))
+        paths[f"{SPEC.name} modeldiff blackbox"] = counts
+        moved = int((found.cpu() != torch.tensor(seeds)).sum())
+        attack = pgd.AttackPGD(fp, num_steps=5, quant=False)
+        g = torch.Generator().manual_seed(0)
+        (best, whitebox_s), counts = drive(
+            {K1: SPEC.depth * 4, K2: SPEC.depth * 4},
+            lambda: _timed(lambda: modeldiff.gen_profiling_inputs_whitebox(
+                lambda x: fp(x, quant=False), model,
+                lambda x, y: attack.gen_adv_inputs(x, y, generator=g),
+                seeds, rng.integers(0, SPEC.num_classes, 8),
+                max_iterations=2, device=dev)))
+        paths[f"{SPEC.name} modeldiff whitebox"] = counts
+        emit(phase="diff", part="modeldiff", batch=8,
+             blackbox_iterations=DIFF_BLACKBOX, blackbox_seconds=blackbox_s,
+             forward2_calls=n, elements_moved=moved,
+             whitebox_iterations=2, whitebox_pgd_steps=5,
+             whitebox_seconds=whitebox_s, whitebox_improved=best is not None)
+        if not bool(torch.isfinite(found).all()) or found.shape != (
+                8, 3, 224, 224):
+            raise RuntimeError("ModelDiff blackbox: bad inputs")
+        del model, attack
+
+        _diff_card_vs_cpu(dev, root)
+
+        # the drivers, each to its report (float and fake-quant: no kernel)
+        common = [SPEC.name, root, "--num-workers", "8", "--device",
+                  dev.type]
+        for name, main, argv, check in (
+                ("ddv_hessian_calc", drv_ddv_hessian.main,
+                 ["--batch-num", "1", "--max-iter", "3"],
+                 lambda ln: ln[-1].startswith("***Trace:  [")),
+                ("layerwise_quant_compare", drv_restore.main,
+                 ["--mode", "1", "--k", "1", "--limit", "2", "--val-limit",
+                  "32"],
+                 lambda ln: sum(x.startswith("Restore Index:")
+                                for x in ln) == 3),
+                ("modeldiff_p2", drv_modeldiff.main,
+                 ["--mode", "1", "--pgd-steps", "5", "--seed-batch", "8"],
+                 lambda ln: sum("layer similarity" in x for x in ln)
+                 == 4 * SPEC.depth + 2)):
+            lines, _, secs, counts = _driver(main, common + argv, root)
+            paths[f"driver {name}"] = counts
+            emit(phase="diff", part="driver", driver=name, argv=argv,
+                 seconds=secs, lines=lines[-4:])
+            if not check(lines):
+                raise RuntimeError(f"driver {name}: report {lines[-3:]}")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2953,11 +3265,13 @@ def main():
     t.append(time.perf_counter())
     paths.update(phase_analysis(dev, summary))
     t.append(time.perf_counter())
+    paths.update(phase_diff(dev, summary))
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
          "alternatives", "calibrate", "calibrate_swin", "probes",
-         "lis_wide", "cli", "mixed", "recovery", "analysis"),
+         "lis_wide", "cli", "mixed", "recovery", "analysis", "diff"),
         t, t[1:])})
 
     kernels = []

@@ -16,8 +16,10 @@ forward (``models.swin_int``), their hand-written CUDA kernels
 (``models.load``, ``models.registry``), the data pipeline
 (``data.imagenet``: transform, ImageFolder, DataLoader, the codes wire,
 DevicePrefetcher), the engine (``engine.QuantizedViT``, ``IntModel``,
-``load_int_model``, ``validate``) and the command line
-(``python3 -m diffvit_tpu_torch.cli``, the port's ``test_quant.py``).
+``load_int_model``, ``validate``), the command line
+(``python3 -m diffvit_tpu_torch.cli``, the port's ``test_quant.py``), the
+calibration recovery passes (``calib``), the analysis toolkit
+(``analysis``) and its drivers (``drivers``, the root analysis scripts).
 """
 from .config import QuantConfig
 

@@ -1,6 +1,8 @@
-"""Hessian sensitivity by Hutchinson trace estimation (counterpart of
-``diffvit_tpu/analysis/hessian.py``, the parts the mixed-precision search
-uses; ``top_eigenvalues`` and ``eigenvalue_density`` are not ported yet).
+"""Hessian sensitivity by Hutchinson trace estimation, and the Hessian's
+spectrum (counterpart of ``diffvit_tpu/analysis/hessian.py``): the traces
+the mixed-precision search ranks by, ``top_eigenvalues`` (power iteration
+with deflation) and ``eigenvalue_density`` (stochastic Lanczos
+quadrature).
 
 The Hessian-vector product is the reference PyHessian's own form: double
 backward.  The loss's gradient with respect to the target weights is taken
@@ -24,7 +26,15 @@ The probes come from a ``torch.Generator`` on the model's device, not from
 JAX's key stream, so a trace estimates the same quantity as the JAX
 package's from other samples.  ``probes`` injects them: a function
 ``probes(batch, name, sample, like) -> tensor`` called for every probe a
-trace draws, so that tests can hand both packages the same ones.
+trace draws, so that tests can hand both packages the same ones.  The
+spectrum's start vectors come the same way (``starts`` / ``probes``).
+
+The spectrum's arithmetic (``power_iteration``, ``lanczos``) takes any
+``hvp`` over dicts of tensors.  Its dot products are taken in float64 and
+its vector updates in float64 rounded once to the vectors' dtype (JAX:
+float32); JAX's quirks are kept: ``_normalize`` divides by ``sqrt(v . v)
++ 1e-6``, the power loop's stop rule returns the newest value, Lanczos
+does not reorthogonalize.
 """
 from __future__ import annotations
 
@@ -126,35 +136,61 @@ class BatchGrads:
     ``names``, kept with its graph (``create_graph=True``), so that each
     HVP is one more backward pass.  ``hvp(name, v)`` is the diagonal
     block's product ``H_ww v``; ``joint_hvp(vs)`` the full product over
-    every weight of ``names``."""
+    every weight of ``names``.
 
-    def __init__(self, params, spec, inputs, targets, names):
+    The loss is the mean cross-entropy of ``forward_fp``'s logits on
+    ``inputs`` against ``targets``, or ``loss_fn(params)`` where given
+    (``inputs`` and ``targets`` are then unused).  A weight the loss does
+    not reach has a zero HVP."""
+
+    def __init__(self, params, spec, inputs, targets, names, loss_fn=None):
         self.names = list(names)
-        x, t = _as_tensors(params, inputs, targets)
+        if loss_fn is None:
+            x, t = _as_tensors(params, inputs, targets)
+
+            def loss_fn(p):
+                return _ce_loss(_fp_forward(p, spec, x), t)
+
         with torch.inference_mode(False), torch.enable_grad():
             params = vit_mod.autograd_safe(params)
             self.ws = {n: _get_leaf(params, n).detach().clone()
                        .requires_grad_(True) for n in self.names}
             for n, w in self.ws.items():
                 params = _set_leaf(params, n, w)
-            loss = _ce_loss(_fp_forward(params, spec, x), t)
-            grads = torch.autograd.grad(loss, list(self.ws.values()),
-                                        create_graph=True)
+            loss = loss_fn(params)
+            grads = torch.autograd.grad(
+                loss, list(self.ws.values()), create_graph=True,
+                allow_unused=True) if loss.requires_grad \
+                else [None] * len(self.names)
         self.grads = dict(zip(self.names, grads))
 
+    def _live(self, names):
+        """The names whose gradient depends on some weight."""
+        return [n for n in names if self.grads[n] is not None
+                and self.grads[n].requires_grad]
+
     def hvp(self, name, v):
+        if not self._live([name]):
+            return torch.zeros_like(v)
         with torch.inference_mode(False), torch.enable_grad():
             (hv,) = torch.autograd.grad(self.grads[name], self.ws[name],
-                                        grad_outputs=v, retain_graph=True)
-        return hv
+                                        grad_outputs=v, retain_graph=True,
+                                        allow_unused=True)
+        return torch.zeros_like(v) if hv is None else hv
 
     def joint_hvp(self, vs):
-        with torch.inference_mode(False), torch.enable_grad():
-            hvs = torch.autograd.grad(
-                [self.grads[n] for n in self.names],
-                [self.ws[n] for n in self.names],
-                grad_outputs=[vs[n] for n in self.names], retain_graph=True)
-        return dict(zip(self.names, hvs))
+        live = self._live(self.names)
+        out = {n: torch.zeros_like(vs[n]) for n in self.names}
+        if live:
+            with torch.inference_mode(False), torch.enable_grad():
+                hvs = torch.autograd.grad(
+                    [self.grads[n] for n in live],
+                    [self.ws[n] for n in self.names],
+                    grad_outputs=[vs[n] for n in live], retain_graph=True,
+                    allow_unused=True)
+            out.update({n: hv for n, hv in zip(self.names, hvs)
+                        if hv is not None})
+        return out
 
 
 def make_block_hvp(params, spec, inputs, targets, name):
@@ -196,6 +232,19 @@ def hutchinson_trace(hvp, w, draw, max_iter=150, tol=5e-3):
     return trace, max_iter
 
 
+def leaf_traces(grads, names, draw, max_iter, tol):
+    """The per-leaf (diagonal-block) Hutchinson traces of ``grads`` (a
+    :class:`BatchGrads`), one weight after the other; ``draw(name, sample,
+    like)`` gives each probe."""
+    traces = []
+    for name in names:
+        t, _ = hutchinson_trace(
+            lambda v, name=name: grads.hvp(name, v), grads.ws[name],
+            lambda k, w, name=name: draw(name, k, w), max_iter, tol)
+        traces.append(t)
+    return traces
+
+
 def hessian_traces(params, spec, inputs, targets, generator=None,
                    max_iter=150, tol=5e-3, names=None, probes=None,
                    batch=0):
@@ -207,13 +256,8 @@ def hessian_traces(params, spec, inputs, targets, generator=None,
     names = list(names or hessian_target_names(spec))
     probes = probes or _generator_probes(generator)
     grads = BatchGrads(params, spec, inputs, targets, names)
-    traces = []
-    for name in names:
-        t, _ = hutchinson_trace(
-            lambda v, name=name: grads.hvp(name, v), grads.ws[name],
-            lambda k, w, name=name: probes(batch, name, k, w), max_iter, tol)
-        traces.append(t)
-    return names, traces
+    return names, leaf_traces(
+        grads, names, lambda n, k, w: probes(batch, n, k, w), max_iter, tol)
 
 
 def hessian_traces_joint(params, spec, inputs, targets, generator=None,
@@ -264,3 +308,151 @@ def hessian_sensitivity(params, spec, batches, generator=None, max_iter=150,
         lo, hi = t.min(), t.max()
         normalized.append((t - lo) / (hi - lo))
     return np.stack(normalized).mean(axis=0).tolist()
+
+
+# ---------------------------------------------------------------------------
+# The spectrum (``diffvit_tpu/analysis/hessian.py:241-341``)
+# ---------------------------------------------------------------------------
+
+def _dot(a, b) -> float:
+    """sum over the leaves of a . b, in float64."""
+    return float(sum(torch.sum(a[n].to(F64) * b[n].to(F64)) for n in a))
+
+
+def _lincomb(terms):
+    """sum of c * v over the (c, v) ``terms``, leaf by leaf, in float64
+    rounded once to the first vector's dtype."""
+    first = terms[0][1]
+    return {n: sum(c * v[n].to(F64) for c, v in terms).to(first[n].dtype)
+            for n in first}
+
+
+def _scale(v, s):
+    """v / s leaf by leaf, in float64 rounded once (a true division: CUDA
+    torch divides by a Python number through its reciprocal)."""
+    return {n: (x.to(F64) / torch.tensor(s, dtype=F64, device=x.device))
+            .to(x.dtype) for n, x in v.items()}
+
+
+def _normalize(v):
+    return _scale(v, float(np.sqrt(_dot(v, v))) + 1e-6)
+
+
+def power_iteration(hvp, start, top_n=1, max_iter=100, tol=1e-3):
+    """The top ``top_n`` eigenvalues of the operator ``hvp`` (a dict of
+    tensors -> a dict of tensors) by power iteration with deflation
+    (``pyhessian/hessian.py:114-161``).  ``start(i)``: the (unnormalized)
+    start dict of eigenvalue ``i``.  Each step deflates against the
+    eigenvectors found, normalizes, takes the HVP, reads ``eig = hv . v``
+    and sets ``v = normalize(hv)``; it stops when ``|new - eig| / (|eig| +
+    1e-6) < tol``, keeping ``new``.  Returns (eigenvalues, eigenvectors,
+    HVPs taken for each)."""
+    eigenvalues, eigenvectors, steps = [], [], []
+    for i in range(top_n):
+        v = _normalize(start(i))
+        eig = None
+        for step in range(1, max_iter + 1):
+            for prev in eigenvectors:
+                v = _lincomb([(1.0, v), (-_dot(v, prev), prev)])
+            v = _normalize(v)
+            hv = hvp(v)
+            new = _dot(hv, v)
+            v = _normalize(hv)
+            done = eig is not None and abs(new - eig) / (abs(eig) + 1e-6) \
+                < tol
+            eig = new
+            if done:
+                break
+        eigenvalues.append(eig)
+        eigenvectors.append(v)
+        steps.append(step)
+    return eigenvalues, eigenvectors, steps
+
+
+def lanczos(hvp, v0, iters):
+    """(alphas, betas) of ``iters`` Lanczos steps of ``hvp`` from ``v0``
+    (normalized here), without reorthogonalization; it stops early where
+    ``beta < 1e-8``.  There is one beta fewer than alphas."""
+    vs = [_normalize(v0)]
+    alphas, betas = [], []
+    w_prev = None
+    for i in range(iters):
+        hv = hvp(vs[-1])
+        alpha = _dot(hv, vs[-1])
+        alphas.append(alpha)
+        terms = [(1.0, hv), (-alpha, vs[-1])]
+        if w_prev is not None:
+            terms.append((-betas[-1], w_prev))
+        w = _lincomb(terms)
+        beta = float(np.sqrt(_dot(w, w)))
+        if beta < 1e-8 or i == iters - 1:
+            break
+        betas.append(beta)
+        w_prev = vs[-1]
+        vs.append(_scale(w, beta))
+    return alphas, betas
+
+
+def tridiagonal_ritz(alphas, betas):
+    """The Ritz values of the Lanczos tridiagonal and their weights (the
+    squared first components of its eigenvectors), as lists."""
+    t = np.diag(alphas) + np.diag(betas, 1) + np.diag(betas, -1)
+    evals, evecs = np.linalg.eigh(t)
+    return evals.tolist(), (evecs[0] ** 2).tolist()
+
+
+def _spectrum_grads(params, spec, inputs, targets, names):
+    names = list(names or hessian_target_names(spec))
+    return names, BatchGrads(params, spec, inputs, targets, names)
+
+
+def _default_generator(grads):
+    dev = next(iter(grads.ws.values())).device
+    return torch.Generator(dev).manual_seed(0)
+
+
+def top_eigenvalues(params, spec, inputs, targets, generator=None, top_n=1,
+                    max_iter=100, tol=1e-3, names=None, starts=None):
+    """The top ``top_n`` eigenvalues of the cross-entropy Hessian with
+    respect to the weights ``names`` jointly (default every target
+    weight) and their eigenvectors ({name: tensor}), by
+    :func:`power_iteration` over ``BatchGrads.joint_hvp``.  Start vectors
+    are standard normal from ``generator`` (on the params' device; None:
+    seeded with 0), or ``starts(i, name, like)``."""
+    names, grads = _spectrum_grads(params, spec, inputs, targets, names)
+    if starts is None:
+        g = generator or _default_generator(grads)
+
+        def starts(i, name, like):
+            return torch.randn(like.shape, generator=g, device=like.device,
+                               dtype=like.dtype)
+
+    eigenvalues, eigenvectors, _ = power_iteration(
+        grads.joint_hvp, lambda i: {n: starts(i, n, grads.ws[n])
+                                    for n in names},
+        top_n, max_iter, tol)
+    return eigenvalues, eigenvectors
+
+
+def eigenvalue_density(params, spec, inputs, targets, generator=None,
+                       iters=100, n_v=1, names=None, probes=None):
+    """Stochastic Lanczos quadrature of the cross-entropy Hessian over the
+    weights ``names`` jointly: for each of ``n_v`` Rademacher start
+    vectors (from ``generator``, or ``probes(i, name, like)``), the Ritz
+    values of ``iters`` Lanczos steps and their weights.  Returns (a list
+    of value lists, a list of weight lists)."""
+    names, grads = _spectrum_grads(params, spec, inputs, targets, names)
+    if probes is None:
+        g = generator or _default_generator(grads)
+
+        def probes(i, name, like):
+            return rademacher(like, g)
+
+    all_eigs, all_weights = [], []
+    for i in range(n_v):
+        v0 = {n: probes(i, n, grads.ws[n]) for n in names}
+        evals, weights = tridiagonal_ritz(*lanczos(grads.joint_hvp, v0,
+                                                   iters))
+        all_eigs.append(evals)
+        all_weights.append(weights)
+    return all_eigs, all_weights

@@ -1329,3 +1329,80 @@ def test_generate_data_on_card_then_k1_k2(cuda, spec):
     assert fused_qkv_attention_v2.launches - k1 == spec.depth
     assert fused_int_mlp.launches - k2 == spec.depth
     assert bool(torch.isfinite(got).all())
+
+
+# ---- the diff-analysis toolkit (DDV Hessian, spectrum, restore sweeps) ----
+
+def test_ddv_hessian_on_card_equals_cpu(cuda):
+    """The DDV-Hessian traces of TINY (tap 10, its 7 weights, 3 probes a
+    trace) on the card and on the CPU from the same params and probes:
+    within 1e-6 relative; the top eigenvalue the same way."""
+    from diffvit_tpu_torch.analysis import ddv_hessian, hessian
+    params = init_params(TINY, torch.Generator().manual_seed(0), "cpu")
+    x = gaussian_calibration(3, seed=4)
+    adv = x + np.random.default_rng(5).uniform(-0.06, 0.06, x.shape).astype(
+        np.float32)
+    probes = {}
+
+    def draw(name, k, like):
+        key = (name, k)
+        if key not in probes:
+            probes[key] = hessian.rademacher(
+                like.cpu(), torch.Generator().manual_seed(len(probes)))
+        return probes[key].to(like.device)
+
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        m = engine.QuantizedViT(TINY, QuantConfig(), params=params,
+                                device=dev)
+        d = ddv_hessian.DDVHessian(m, m, (x, None), adv, layer_indices=10,
+                                   max_iter=3)
+        names, traces = d.trace(probes=draw)
+        eig, _ = hessian.top_eigenvalues(
+            m.params, TINY, x, [1, 2, 3], max_iter=4,
+            names=["head.weight", "blocks.1.mlp.fc1.weight"],
+            starts=lambda i, n, like: torch.randn(
+                like.shape, generator=torch.Generator().manual_seed(i))
+            .to(like.device))
+        out.append((names, traces, eig))
+    (n_card, t_card, e_card), (n_cpu, t_cpu, e_cpu) = out
+    assert n_card == n_cpu and len(n_card) == 7
+    np.testing.assert_allclose(t_card, t_cpu, rtol=1e-6)
+    np.testing.assert_allclose(e_card, e_cpu, rtol=1e-6)
+
+
+def test_int_restore_sweep_on_card_equals_cpu(cuda, tmp_path):
+    """The restore sweep of a calibrated TINY on the integer path
+    (``validate(use_int=True)``) over a fake ImageFolder of 8 images in
+    batches of 4: exactly depth K1 + depth K2 a forward on the card, and
+    the lines equal to the CPU's apart from ``Time``."""
+    from diffvit_tpu_torch.analysis import restore
+    from diffvit_tpu_torch.data import imagenet
+    from diffvit_tpu_torch.data.synthetic import make_fake_imagefolder
+    make_fake_imagefolder(str(tmp_path / "val"), num_classes=4, per_class=2)
+    loader = imagenet.DataLoader(imagenet.ImageFolder(
+        str(tmp_path / "val"), imagenet.build_transform()), 4,
+        num_workers=2)
+    params = init_params(TINY, torch.Generator().manual_seed(0), "cpu")
+    calib = gaussian_calibration(4, seed=6)
+    combos = restore.k_layer_combinations(1, limit=3)
+    lines = []
+    for dev in (cuda, torch.device("cpu")):
+        q = engine.QuantizedViT(TINY, QuantConfig(), params=params,
+                                device=dev)
+        q.calibrate(calib)
+        path = tmp_path / f"{dev.type}.txt"
+        k1, k2 = fused_qkv_attention_v2.launches, fused_int_mlp.launches
+        restore.run_restore_sweep(
+            q, loader, combos, out_path=str(path), log=lambda *_: None,
+            validate_fn=lambda bc, q=q: engine.validate(
+                q, loader, bc, print_freq=0, log=lambda *_: None,
+                use_int=True)[1:])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            forwards = 4 * 2  # four configurations, two batches each
+            assert fused_qkv_attention_v2.launches - k1 == \
+                forwards * TINY.depth
+            assert fused_int_mlp.launches - k2 == forwards * TINY.depth
+        lines.append([ln.rsplit(" Time ", 1)[0] for ln in open(path)])
+    assert lines[0] == lines[1] and len(lines[0]) == 4

@@ -206,8 +206,19 @@ def test_clipped_codes_would_miss_the_float32_wire():
 
 
 def test_port_runs_without_jax(tmp_path):
+    """The port in a process where jax, jaxlib, optax, scipy and
+    matplotlib cannot be imported: the served forwards, calibration, the
+    recovery passes and the analysis toolkit run, ``analysis.plotting``
+    imports, and drawing raises ``ImportError``."""
     code = (
-        "import sys, numpy as np\n"
+        "import sys\n"
+        "class Absent:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'optax', "
+        "'scipy', 'matplotlib'):\n"
+        "            raise ImportError(f'{name} is absent here')\n"
+        "sys.meta_path.insert(0, Absent())\n"
+        "import numpy as np\n"
         "import diffvit_tpu_torch, diffvit_tpu_torch.engine as e\n"
         "import diffvit_tpu_torch.models.vit_int\n"
         "import diffvit_tpu_torch.models.swin_int\n"
@@ -257,6 +268,29 @@ def test_port_runs_without_jax(tmp_path):
         "assert pgd.AttackPGD(q, num_steps=1, quant=False).gen_adv_inputs("
         "x, [1]).shape == x.shape\n"
         "assert len(ddv.compute_ddv(q, x, x + 0.05)) == 6\n"
+        "from diffvit_tpu_torch.analysis import (ddv_hessian, hessian, "
+        "modeldiff, plotting, restore)\n"
+        "x2 = np.concatenate([x, x * 0.5])\n"
+        "d = ddv_hessian.DDVHessian(q, q, (x2, None), x2 + 0.05, "
+        "layer_indices=4, max_iter=1)\n"
+        "names, traces = d.trace()\n"
+        "assert len(names) == len(traces) == 3 and np.isfinite(traces)"
+        ".all()\n"
+        "e, _ = hessian.top_eigenvalues(q.params, spec, x2, [1, 2], "
+        "max_iter=1, names=['head.weight'])\n"
+        "assert len(e) == 1 and np.isfinite(e[0])\n"
+        "fwd = lambda t: q(t, quant=False)\n"
+        "assert modeldiff.gen_profiling_inputs_blackbox(fwd, fwd, x2, "
+        "max_iterations=1).shape == x2.shape\n"
+        "res = restore.run_restore_sweep(q, [(x, [1])], [(0,)], log=len)\n"
+        "assert [r[0] for r in res] == [(), (0,)]\n"
+        "try:\n"
+        "    plotting.plot_ckalist_resume([np.eye(2)], sys.argv[1])\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('drew without matplotlib')\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib was imported'\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'optax' not in sys.modules, 'optax was imported'\n"
         "assert 'scipy' not in sys.modules, 'scipy was imported'\n"
@@ -282,7 +316,27 @@ def _imported_modules(path):
             yield node.module
 
 
+def _module_level_imports(path):
+    """Every absolute module name that ``path`` imports when it is
+    imported (outside its functions)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
 def test_port_imports_nothing_of_jax_or_the_jax_package():
+    """No jax, jaxlib, optax, scipy or diffvit_tpu anywhere in the package
+    or in chip_smoke.py, and no matplotlib at import time (the card's
+    machine does not have it)."""
     pkg = os.path.dirname(diffvit_tpu_torch.__file__)
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
              for f in fs if f.endswith(".py")]
@@ -293,6 +347,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
            if m.split(".")[0] in ("jax", "jaxlib", "optax", "scipy",
                                   "diffvit_tpu")]
     assert not bad, bad
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _module_level_imports(f)
+           if m.split(".")[0] == "matplotlib"]
+    assert not bad, bad
+    plotting = os.path.join(pkg, "analysis", "plotting.py")
+    assert "matplotlib" in set(m.split(".")[0]
+                               for m in _imported_modules(plotting))
 
 
 @pytest.mark.parametrize("kw", [
