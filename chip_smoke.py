@@ -4,7 +4,8 @@
 
 1. device:  fails unless a CUDA card is present;
 2. build:   compiles the port's kernels from diffvit_tpu_torch/csrc with nvcc
-            (one nvcc per source, all started together);
+            (one nvcc per source, all started together) and, beside them,
+            its host library (csrc/host, one g++);
 3. kernels: holds each kernel against its plain PyTorch version on the card
             and times both: K1 (LIS and float softmax), K2 (int8 codes out
             and float32 out), K5 (LIS and float softmax) and K6 (the whole
@@ -115,7 +116,7 @@
             and K4b at Swin-T's four stages (s_a2 = 2^-13 over a 49-key
             window; b = 1, 64), each bit for bit against its plain version.
 13. cli:    the port's CLI (diffvit_tpu_torch/cli.py) end to end, through
-            cli.main on a fake ImageFolder of JPEGs (PIL), with
+            cli.main on a fake ImageFolder of JPEGs, with
             --device-prefetch 2: DeiT-S P2-ViT int4 calibrated on the CLI's
             Gaussian batch of 50, baked, saved and validated through its
             integer path (--quant --mode 1 --int-path --save-int, the u8
@@ -127,7 +128,26 @@
             chunk of 8); then the artifact's per-kernel and resident logits
             bit for bit on a b = 64 batch, and IntModel(microbatch=8) at
             b = 64 against microbatch=None, bit for bit.
-14. mixed:  the mixed-precision search (--mixed) on the port's own DeiT-S
+14. native: the native JPEG pipeline (data/native_decode.py over the host
+            library built by g++ from csrc/host, linked against the
+            libjpeg PIL loads): the build seconds, the libjpeg and its
+            headers, PIL's libjpeg-turbo, the CPU; NativeJpegLoader
+            against the PIL route (DataLoader, CodesLoader) bit for bit in
+            every emit (f32, u8, codes) on 64 JPEGs of 500 x 375 and on a
+            grayscale JPEG (decoded natively), a CMYK JPEG, a PNG named
+            .jpg and a truncated JPEG (the last three through PIL; the
+            truncated one refused by both routes unless PIL's
+            LOAD_TRUNCATED_IMAGES is set); the fast (DCT-scaled) decode
+            against the exact one (mean absolute difference < 0.05,
+            correlation > 0.998); the ingest rate at b = 64 on 256 such
+            JPEGs of the PIL route and the native codes, exact and fast
+            (median of 3 passes), beside the DeiT-S int4 forward's img/s
+            per kernel and resident; one b = 64 batch's codes and
+            per-kernel logits equal between the two loaders; and the CLI
+            through the native loader (DeiT-S per kernel and resident and
+            Swin-T on --wire u8, DeiT-S --wire f32 --native-preproc), each
+            run's launches exact and its report equal to the PIL route's.
+15. mixed:  the mixed-precision search (--mixed) on the port's own DeiT-S
             (params at seed 0, the CLI's Gaussian calibration of 50): the
             Hessian sensitivity on one batch of 8 through both estimators
             at --hessian-iter 3 (their seconds), one block HVP's and one
@@ -152,7 +172,7 @@
             exactly 12 K4 + 12 K2; then one CLI run (--mixed --search-path
             int --save-int on a fake ImageFolder) with its launches counted
             from its validate_bits_int lines, and its artifact served.
-15. recovery: the recovery passes (calib/adaround.py, qat.py, biascorr.py)
+16. recovery: the recovery passes (calib/adaround.py, qat.py, biascorr.py)
             on the port's own DeiT-S (params at seed 0, the CLI's Gaussian
             calibration of 50): one AdaRound site (block 11's fc1, 2048
             rows) at 1000 and at 100 steps; then AdaRound at 100 steps a
@@ -173,7 +193,7 @@
             CLI with --adaround --adaround-steps 20 --qat-steps 5
             --bias-corr --int-path --save-int, its report lines, seconds and
             launches, and its artifact served.
-16. analysis: PSAQ data generation (analysis/datagen.py) and the CKA
+17. analysis: PSAQ data generation (analysis/datagen.py) and the CKA
             toolkit on the port's own models (params at seed 0): DeiT-S
             generates 50 images (two epochs of 3 steps; seconds a step,
             peak GiB), calibrates on them, and its bake is served through
@@ -190,7 +210,7 @@
             the CPU at DeiT-S width, depth 2: the first PSAQ loss, the
             images after two steps, an internal CKA heatmap and 3 PGD
             steps from the same start.
-17. diff:   the rest of the diff-analysis toolkit on the port's own DeiT-S
+18. diff:   the rest of the diff-analysis toolkit on the port's own DeiT-S
             (params at seed 0): the DDV Hessian (analysis/ddv_hessian.py)
             on one batch of 5 with 50-step PGD inputs against the float
             model, the reference driver's tap 30 (blocks.4.mlp.fc2, 20
@@ -249,7 +269,7 @@ from diffvit_tpu_torch.analysis import (cka_drivers, datagen, ddv_hessian,
                                         hessian, modeldiff, pgd, restore)
 from diffvit_tpu_torch.analysis import mixed_precision as mp
 from diffvit_tpu_torch.calib import adaround, qat
-from diffvit_tpu_torch.data import imagenet
+from diffvit_tpu_torch.data import imagenet, native_decode
 from diffvit_tpu_torch.data.imagenet import device_normalize, normalize_lut
 from diffvit_tpu_torch.data.synthetic import (gaussian_calibration,
                                               make_fake_imagefolder)
@@ -2108,6 +2128,293 @@ def phase_cli(dev):
     return launches
 
 
+
+NATIVE_SIZE = (500, 375)  # width x height: an ImageNet-like JPEG
+NATIVE_FOLDER = dict(num_classes=8, per_class=8, size=NATIVE_SIZE,
+                     texture="photo")  # 64 JPEGs
+NATIVE_INGEST = dict(num_classes=8, per_class=32, size=NATIVE_SIZE,
+                     texture="photo", seed=1)  # 256 JPEGs
+NATIVE_BATCH = 64
+NATIVE_PASSES = 3  # ingest passes a route; the median is printed
+FAST_BOUNDS = (0.05, 0.998)  # tests/test_native_fast_decode.py: mean, corr
+_TIMES = re.compile(r"Time \S+( \(\S+\))?")
+
+
+class PilRoute:
+    """The PIL route in NativeJpegLoader's place (what the CLI's u8 wire
+    ran before the native loader): the threaded DataLoader, with
+    CodesLoader where a table is given."""
+
+    def __init__(self, dataset, batch_size, emit, code_lut=None):
+        loader = imagenet.DataLoader(dataset, batch_size, num_workers=16)
+        self.loader = loader if code_lut is None else \
+            imagenet.CodesLoader(loader, code_lut)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        return iter(self.loader)
+
+
+@contextlib.contextmanager
+def _pil_route():
+    """cli.main's u8 wire through PilRoute."""
+    native = imagenet.NativeJpegLoader
+    imagenet.NativeJpegLoader = PilRoute
+    try:
+        yield
+    finally:
+        imagenet.NativeJpegLoader = native
+
+
+@contextlib.contextmanager
+def _load_truncated():
+    """PIL's ImageFile.LOAD_TRUNCATED_IMAGES set: PIL pads a truncated
+    JPEG with grey instead of raising."""
+    from PIL import ImageFile
+    before = ImageFile.LOAD_TRUNCATED_IMAGES
+    ImageFile.LOAD_TRUNCATED_IMAGES = True
+    try:
+        yield
+    finally:
+        ImageFile.LOAD_TRUNCATED_IMAGES = before
+
+
+def _native_env(host_seconds):
+    """The host library's build, the libjpeg it linked (and the headers it
+    was compiled against), PIL's libjpeg-turbo, the CPU."""
+    import PIL
+    import PIL.features
+
+    cfg = (build.HOST / "include" / "jconfig.h").read_text()
+    macros = dict(re.findall(r"#define (JPEG_LIB_VERSION|LIBJPEG_TURBO_VERSION)"
+                             r"\s+(\S+)", cfg))
+    cpu = [ln.split(":", 1)[1].strip() for ln in
+           open("/proc/cpuinfo").read().splitlines()
+           if ln.startswith("model name")]
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    emit(phase="native", part="environment",
+         library=os.path.relpath(build.library_path("host")),
+         build_seconds=host_seconds, gxx=gxx,
+         libjpeg=str(build.pil_libjpeg()),
+         headers={"JPEG_LIB_VERSION": macros["JPEG_LIB_VERSION"],
+                  "LIBJPEG_TURBO_VERSION": macros["LIBJPEG_TURBO_VERSION"]},
+         pil=PIL.__version__,
+         pil_libjpeg_turbo=PIL.features.version("libjpeg_turbo"),
+         nproc=len(os.sched_getaffinity(0)), cpu_model=cpu[0] if cpu else None)
+
+
+def _loader_batches(loader):
+    out = list(loader)
+    return np.concatenate([b[0] for b in out]), \
+        np.concatenate([b[1] for b in out])
+
+
+def _native_vs_pil(root, lut, pp, label, fallback_expected):
+    """Every emit of NativeJpegLoader against the PIL route on the files
+    of ``root`` in one batch: the share of equal elements, and the files
+    that went to PIL (which must be ``fallback_expected``)."""
+    for emit_kind in ("f32", "u8", "codes"):
+        ds = imagenet.ImageFolder(root, imagenet.build_transform(
+            mean=pp.mean, std=pp.std, crop_pct=pp.crop_pct,
+            normalize=emit_kind == "f32"))
+        table = lut if emit_kind == "codes" else None
+        loader = imagenet.NativeJpegLoader(ds, NATIVE_BATCH, emit=emit_kind,
+                                           code_lut=table)
+        fell_back = []
+        fallback = loader._pil_fallback
+        loader._pil_fallback = lambda i: fell_back.append(
+            os.path.basename(ds.samples[i][0])) or fallback(i)
+        got, got_labels = _loader_batches(loader)
+        want, want_labels = _loader_batches(PilRoute(ds, NATIVE_BATCH,
+                                                     emit_kind, table))
+        share = float(np.mean(got == want)) if got.shape == want.shape \
+            else 0.0
+        emit(phase="native", part="pil_equal", files=label, emit=emit_kind,
+             images=len(ds), dtype=str(got.dtype), equal_share=share,
+             labels_equal=bool(np.array_equal(got_labels, want_labels)),
+             fell_back=sorted(fell_back))
+        if share != 1.0 or not np.array_equal(got_labels, want_labels) \
+                or sorted(fell_back) != fallback_expected:
+            raise RuntimeError(f"native {label} {emit_kind}: {share} equal "
+                               f"to PIL, fell back on {fell_back}")
+
+
+def _cli_runs(argv_native, argv_pil, expected, common):
+    """cli.main on the native route and on the PIL route, each with exact
+    launch counts; returns their stdout, results, launches and seconds."""
+    out = {}
+    for route, argv in (("native", argv_native), ("pil", argv_pil)):
+        buf = io.StringIO()
+        ctx = _pil_route() if route == "pil" else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with ctx, contextlib.redirect_stdout(buf):
+            res, counts = drive(expected, lambda: cli.main(argv + common))
+        out[route] = dict(seconds=time.perf_counter() - t0, result=res,
+                          counts=counts,
+                          lines=[_TIMES.sub("Time", ln) for ln in
+                                 buf.getvalue().splitlines()
+                                 if "Prec@1" in ln])
+    return out
+
+
+def phase_native(dev, host_seconds, smi):
+    """The native JPEG pipeline (data/native_decode.py over the host
+    library of csrc/host): its environment; NativeJpegLoader against the
+    PIL route bit for bit on 64 JPEGs of 500 x 375 and on the odd files
+    (a grayscale JPEG decoded natively; a CMYK JPEG, a PNG named .jpg and
+    a truncated JPEG through PIL, which refuses the truncated one unless
+    ImageFile.LOAD_TRUNCATED_IMAGES is set); the fast mode against the
+    exact one; the ingest rate at b = 64 of three routes beside the DeiT-S
+    int4 forward's; then the CLI through the native loader (DeiT-S per
+    kernel and resident and Swin-T on --wire u8, DeiT-S --wire f32
+    --native-preproc), each run's launches exact and its report equal to
+    the PIL route's, and one b = 64 batch's codes and logits equal between
+    the two loaders."""
+    from diffvit_tpu_torch.data.synthetic import write_odd_images
+    from diffvit_tpu_torch.models.registry import preprocessing_for
+
+    _native_env(host_seconds)
+    pp = preprocessing_for(SPEC.name)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        val = os.path.join(tmp, "val")
+        make_fake_imagefolder(val, **NATIVE_FOLDER)
+        odd = os.path.join(tmp, "odd")
+        os.makedirs(os.path.join(odd, "class_000"))
+        write_odd_images(os.path.join(odd, "class_000"), seed=2)
+        many = os.path.join(tmp, "ingest")
+        make_fake_imagefolder(many, **NATIVE_INGEST)
+        deit = os.path.join(tmp, "deit_small_int4.npz")
+        swin = os.path.join(tmp, "swin_tiny_int4.npz")
+        engine.save_int_model(deit, random_int_model(SPEC, CFG, seed=0),
+                              SPEC, CFG)
+        engine.save_int_model(swin, random_swin_int_model(SWIN, CFG, seed=0),
+                              SWIN, CFG)
+        models = {"per_kernel": engine.load_int_model(deit, dev),
+                  "resident": engine.load_int_model(deit, dev,
+                                                    resident=True)}
+        lut = models["per_kernel"].input_lut
+        emit(phase="native", part="setup", seconds=time.perf_counter() - t0)
+
+        # bit-equality with PIL, every emit
+        _native_vs_pil(val, lut, pp, "jpeg64", [])
+        refused = {}
+        ds = imagenet.ImageFolder(odd, imagenet.build_transform(
+            normalize=False))
+        for route in ("native", "pil"):
+            loader = imagenet.NativeJpegLoader(ds, 4, emit="u8") \
+                if route == "native" else PilRoute(ds, 4, "u8")
+            try:
+                list(loader)
+            except OSError as e:
+                refused[route] = str(e)
+        emit(phase="native", part="truncated_refused", refused=refused)
+        if set(refused) != {"native", "pil"}:
+            raise RuntimeError(f"truncated JPEG: refused by {refused}")
+        with _load_truncated():
+            _native_vs_pil(odd, lut, pp, "odd", ["cmyk.jpg", "png.jpg",
+                                                 "truncated.jpg"])
+
+        # the fast mode against the exact one
+        paths = [p for p, _ in imagenet.ImageFolder(val, None).samples]
+        exact = native_decode.decode_preprocess_batch(paths)
+        fast = native_decode.decode_preprocess_batch(paths, fast=True)
+        mean_abs = float(np.abs(exact - fast).mean())
+        corr = float(np.corrcoef(exact.reshape(-1), fast.reshape(-1))[0, 1])
+        emit(phase="native", part="fast_vs_exact", images=len(paths),
+             mean_abs_diff=mean_abs, corr=corr,
+             equal_share=float(np.mean(exact == fast)),
+             bounds={"mean_abs_diff": FAST_BOUNDS[0], "corr": FAST_BOUNDS[1]})
+        if not (mean_abs < FAST_BOUNDS[0] and corr > FAST_BOUNDS[1]):
+            raise RuntimeError(f"fast mode: mean {mean_abs}, corr {corr}")
+
+        # ingest rate at b = 64, beside the forward's
+        ds = imagenet.ImageFolder(many, imagenet.build_transform(
+            normalize=False))
+        routes = {
+            "pil_dataloader16_codesloader":
+                lambda: PilRoute(ds, NATIVE_BATCH, "codes", lut),
+            "native_codes": lambda: imagenet.NativeJpegLoader(
+                ds, NATIVE_BATCH, emit="codes", code_lut=lut),
+            "native_codes_fast": lambda: imagenet.NativeJpegLoader(
+                ds, NATIVE_BATCH, emit="codes", code_lut=lut, fast=True),
+        }
+        rates = {}
+        for name, make in routes.items():
+            per_pass = []
+            for _ in range(NATIVE_PASSES):
+                t0 = time.perf_counter()
+                n = sum(len(labels) for _, labels in make())
+                per_pass.append(n / (time.perf_counter() - t0))
+            rates[name] = dict(median=float(np.median(per_pass)),
+                               passes=per_pass)
+        codes = {}
+        for name, make in (("native", routes["native_codes"]),
+                           ("pil", routes["pil_dataloader16_codesloader"])):
+            codes[name] = next(iter(make()))[0]
+        x = torch.tensor(codes["native"], device=dev)
+        forward = {name: 1e3 * NATIVE_BATCH / cuda_ms(lambda: m(x), iters=10)
+                   for name, m in models.items()}
+        emit(phase="native", part="ingest", batch=NATIVE_BATCH,
+             images=len(ds), image_size=NATIVE_SIZE, img_per_s=rates,
+             forward_img_per_s=forward, nproc=len(os.sched_getaffinity(0)),
+             nvidia_smi=smi)
+
+        # one b = 64 batch: the codes and the per-kernel logits of both
+        logits = {}
+        for name, batch in codes.items():
+            logits[name], launches[f"native logits {name}"] = drive(
+                {K1: SPEC.depth, K2: SPEC.depth},
+                lambda: models["per_kernel"](torch.tensor(batch, device=dev)))
+            logits[name] = logits[name].cpu().numpy()
+        same = dict(codes=bool(np.array_equal(codes["native"], codes["pil"])),
+                    logits=bool(np.array_equal(logits["native"],
+                                               logits["pil"])))
+        emit(phase="native", part="b64_batch", equal=same,
+             finite=bool(np.isfinite(logits["native"]).all()))
+        if not all(same.values()) or not np.isfinite(logits["native"]).all():
+            raise RuntimeError(f"b=64 batch differs by loader: {same}")
+
+        # the CLI through the native loader, each run against the PIL route
+        forwards = -(-len(paths) // CLI_BATCH)
+        per_kernel = {K1: SPEC.depth * forwards, K2: SPEC.depth * forwards}
+        common = ["--device-prefetch", "2", "--val-batchsize", str(CLI_BATCH),
+                  "--num-workers", "8"]
+        u8 = [SPEC.name, tmp, "--load-int", deit, "--wire", "u8"]
+        f32 = [SPEC.name, tmp, "--load-int", deit, "--wire", "f32"]
+        swin_u8 = [SWIN.name, tmp, "--load-int", swin, "--wire", "u8"]
+        runs = (
+            ("deit_small --load-int u8", u8, u8, per_kernel),
+            ("deit_small --load-int --resident u8", u8 + ["--resident"],
+             u8 + ["--resident"], {K6: forwards * -(-CLI_BATCH // MICROBATCH)}),
+            ("swin_tiny --load-int u8", swin_u8, swin_u8,
+             {K4: sum(SWIN.depths) * forwards,
+              K2: sum(SWIN.depths) * forwards}),
+            ("deit_small --load-int f32 --native-preproc",
+             f32 + ["--native-preproc"], f32, per_kernel),
+        )
+        for label, argv, argv_pil, expected in runs:
+            r = _cli_runs(argv, argv_pil, expected, common)
+            equal = r["native"]["lines"] == r["pil"]["lines"] and \
+                r["native"]["result"] == r["pil"]["result"]
+            emit(phase="native", part="cli", run=label, images=len(paths),
+                 seconds=r["native"]["seconds"],
+                 pil_route_seconds=r["pil"]["seconds"],
+                 line=r["native"]["lines"][-1:],
+                 report_equal_to_pil_route=equal,
+                 launches={k: v for k, v in r["native"]["counts"].items()
+                           if v})
+            if not equal or len(r["native"]["lines"]) < 2:
+                raise RuntimeError(f"native cli {label}: report differs from "
+                                   f"the PIL route's: {r['native']['lines']}"
+                                   f" vs {r['pil']['lines']}")
+            launches[f"native cli {label}"] = r["native"]["counts"]
+    return launches
+
 MIXED_IMAGES, MIXED_BATCH = 64, 16  # the search's seeded validation set
 MIXED_FACTOR = 1.3  # at 1.1 a DeiT-S draw passes about once in 10^4
 MIXED_EVO = dict(pop_size=4, evo_iter=1, mutate_size=2, crossover_size=2,
@@ -3225,6 +3532,7 @@ def main():
         build.load_library(lib)
         emit(phase="build", library=os.path.relpath(path), seconds=seconds,
              cached=seconds == 0.0)
+    host_seconds = dict(zip(build.LIBRARIES, built))["host"][1]
 
     t = [time.perf_counter()]
     summary = {name: {"max_abs_err": 0} for name in KERNELS}
@@ -3259,6 +3567,8 @@ def main():
     t.append(time.perf_counter())
     paths.update(phase_cli(dev))
     t.append(time.perf_counter())
+    paths.update(phase_native(dev, host_seconds, smi))
+    t.append(time.perf_counter())
     paths.update(phase_mixed(dev))
     t.append(time.perf_counter())
     paths.update(phase_recovery(dev))
@@ -3271,7 +3581,8 @@ def main():
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
          "alternatives", "calibrate", "calibrate_swin", "probes",
-         "lis_wide", "cli", "mixed", "recovery", "analysis", "diff"),
+         "lis_wide", "cli", "native", "mixed", "recovery", "analysis",
+         "diff"),
         t, t[1:])})
 
     kernels = []

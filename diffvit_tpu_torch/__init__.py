@@ -15,7 +15,9 @@ forward (``models.swin_int``), their hand-written CUDA kernels
 (``calib.observers``, ``models.vit``), checkpoint loading
 (``models.load``, ``models.registry``), the data pipeline
 (``data.imagenet``: transform, ImageFolder, DataLoader, the codes wire,
-DevicePrefetcher), the engine (``engine.QuantizedViT``, ``IntModel``,
+DevicePrefetcher; the native JPEG pipeline, ``NativeJpegLoader`` over
+``data.native_decode`` and ``data.native_preproc``, host C++ in
+``csrc/host``), the hybrid patch embed (``models.hybrid``), the engine (``engine.QuantizedViT``, ``IntModel``,
 ``load_int_model``, ``validate``), the command line
 (``python3 -m diffvit_tpu_torch.cli``, the port's ``test_quant.py``), the
 calibration recovery passes (``calib``), the analysis toolkit

@@ -12,10 +12,14 @@ same prints and the same Prec@1/Prec@5 report).
 ``<data>`` holds ImageFolder trees ``val/`` (validation) and ``train/``
 (real calibration data, ``--mode 0``).  ``--device`` is ``cuda`` (the
 default: every kernel runs on the card) or ``cpu`` (the kernels' plain
-versions).  On ``--wire u8`` the loader ships the uint8 crop; where the
-served model has a codes table (``--load-int``, or ``--int-path``), the
-loader encodes it into int8 input codes (``CodesLoader``) before the
-prefetcher moves it to the card.
+versions).  On ``--wire u8`` the validation images go through the native
+JPEG pipeline (``data.imagenet.NativeJpegLoader``: libjpeg and the
+Pillow-exact resampler in the host library), which ships the uint8 crop;
+where the served model has a codes table (``--load-int``, or
+``--int-path``), the loader encodes it into int8 input codes before the
+prefetcher moves it to the card.  ``--native-preproc`` (``--wire f32``
+only) keeps PIL's decode and resamples natively
+(``data.native_preproc.build_native_transform``).
 
 ``--mixed`` runs the mixed-precision search as the reference does: the
 Hessian sensitivity on ``--hessian-batches`` train batches
@@ -62,12 +66,8 @@ import torch
 # ROADMAP Queue 1 items of the flags whose machinery is not ported yet
 _ITEMS = {
     9: "parallelism",
-    11: "the native JPEG decoder and preprocessing",
 }
-NOT_PORTED = {
-    **dict.fromkeys(("dp", "tp", "sp", "pp", "host_devices"), 9),
-    "native_preproc": 11,
-}
+NOT_PORTED = dict.fromkeys(("dp", "tp", "sp", "pp", "host_devices"), 9)
 _UNSET = object()
 
 
@@ -145,7 +145,8 @@ def build_parser():
                    help="batches copied to the device ahead of the model "
                         "(data/imagenet.DevicePrefetcher); 0 disables")
     p.add_argument("--native-preproc", default=False, action="store_true",
-                   help="(not ported)")
+                   help="resample, crop and normalize with the native "
+                        "resampler (PIL only decodes); --wire f32 only")
     p.add_argument("--hessian-batches", default=10, type=int,
                    help="train batches of --calib-batchsize for the "
                         "Hessian sensitivity (--mixed)")
@@ -202,6 +203,9 @@ def parse_args(argv=None):
     if args.data_pos is not None:
         args.data = args.data_pos
     refuse_unported(given)
+    if args.wire == "u8" and args.native_preproc:
+        raise SystemExit("--wire u8 already decodes natively; "
+                         "drop --native-preproc")
     return args
 
 
@@ -231,8 +235,9 @@ def main(argv=None):
     seed_everything(args.seed)
 
     from .config import QuantConfig
-    from .data.imagenet import (CodesLoader, DataLoader, DevicePrefetcher,
-                                ImageFolder, build_transform)
+    from .data.imagenet import (DataLoader, DevicePrefetcher, ImageFolder,
+                                NativeJpegLoader, build_transform)
+    from .data.native_preproc import build_native_transform
     from .data.synthetic import gaussian_calibration
     from .engine import QuantizedViT, load_int_model, validate
     from .models import vit as vit_mod
@@ -263,6 +268,9 @@ def main(argv=None):
                              input_norm=(pp.mean, pp.std))
 
     def transform(normalize):
+        if args.native_preproc:  # on --wire f32 only: normalize is True
+            return build_native_transform(mean=pp.mean, std=pp.std,
+                                          crop_pct=pp.crop_pct)
         return build_transform(mean=pp.mean, std=pp.std,
                                crop_pct=pp.crop_pct, normalize=normalize)
 
@@ -270,8 +278,22 @@ def main(argv=None):
                               transform(args.wire == "f32"))
     if args.val_limit:
         val_dataset.samples = val_dataset.samples[: args.val_limit]
-    val_loader = DataLoader(val_dataset, args.val_batchsize, shuffle=False,
-                            num_workers=args.num_workers)
+
+    def val_loader(code_lut=None):
+        """The validation batches: on --wire u8 from the native pipeline,
+        as int8 codes through ``code_lut`` where the served model has one;
+        then the prefetcher."""
+        if args.wire == "u8":
+            loader = NativeJpegLoader(
+                val_dataset, args.val_batchsize, code_lut=code_lut,
+                emit="u8" if code_lut is None else "codes")
+        else:
+            loader = DataLoader(val_dataset, args.val_batchsize,
+                                shuffle=False, num_workers=args.num_workers)
+        if args.device_prefetch > 0:
+            loader = DevicePrefetcher(loader, depth=args.device_prefetch,
+                                      device=args.device)
+        return loader
 
     train_loader = None
 
@@ -345,11 +367,7 @@ def main(argv=None):
                 model.save_int_model(args.save_int)
                 print(f"Saved int artifact: {args.save_int}")
     if args.mixed:
-        if args.device_prefetch > 0:
-            val_loader = DevicePrefetcher(val_loader,
-                                          depth=args.device_prefetch,
-                                          device=args.device)
-        return _mixed_search(args, model, val_loader, mean_hessian,
+        return _mixed_search(args, model, val_loader(), mean_hessian,
                              calib if args.quant else None)
 
     if not args.quant:
@@ -364,14 +382,9 @@ def main(argv=None):
     # the codes wire: the served model's table encodes on the loader side
     served = model if args.load_int else \
         model.prepare_int(bit_config) if use_int else None
-    if args.wire == "u8" and served is not None \
-            and served.input_lut is not None:
-        val_loader = CodesLoader(val_loader, served.input_lut)
-    if args.device_prefetch > 0:
-        val_loader = DevicePrefetcher(val_loader, depth=args.device_prefetch,
-                                      device=args.device)
+    loader = val_loader(None if served is None else served.input_lut)
     print(bit_config)
-    return validate(model, val_loader, bit_config, quant=args.quant,
+    return validate(model, loader, bit_config, quant=args.quant,
                     print_freq=args.print_freq, use_int=use_int)
 
 

@@ -1,8 +1,10 @@
 """The ImageNet data pipeline of the port (counterpart of
 ``diffvit_tpu/data/imagenet.py``): the torchvision-parity eval transform on
 PIL (``build_transform``), ``ImageFolder`` and the threaded ``DataLoader``,
-the codes wire (``input_code_lut``, ``encode_input``, ``CodesLoader``), the
-uint8 normalize on the model's device, and ``DevicePrefetcher``, the
+``NativeJpegLoader`` (a batch decoded and preprocessed in one call to the
+host library, ``data/native_decode.py``), the codes wire
+(``input_code_lut``, ``encode_input``, ``CodesLoader``), the uint8
+normalize on the model's device, and ``DevicePrefetcher``, the
 host-to-device stage (pinned memory and a side CUDA stream).
 
 Batches are NCHW numpy: float32 normalized pixels, or with
@@ -13,11 +15,14 @@ import concurrent.futures as cf
 import math
 import os
 import queue
+import subprocess
 import threading
 
 import numpy as np
 import torch
 from PIL import Image
+
+from . import native_decode
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".webp")
 
@@ -74,10 +79,18 @@ def input_code_lut(scale, zero_point, mean=IMAGENET_MEAN, std=IMAGENET_STD,
 
 def encode_input(x, lut) -> np.ndarray:
     """Apply :func:`input_code_lut` on the host: a uint8 NCHW (or CHW) batch
-    -> int8 input codes of the same shape, by numpy indexing."""
+    -> int8 input codes of the same shape, through the host library's
+    one-pass ``apply_code_lut``; by numpy indexing, with the same codes,
+    only where that library cannot be built or loaded."""
     x = np.asarray(x)
     if x.dtype != np.uint8:
         raise TypeError(f"encode_input expects uint8 pixels, got {x.dtype}")
+    try:
+        native_decode.load_library()
+    except (OSError, subprocess.CalledProcessError):
+        pass  # no g++ or libjpeg here (FileNotFoundError is an OSError)
+    else:
+        return native_decode.apply_code_lut(x, lut)
     if x.ndim == 3:
         return np.stack([lut[c][x[c]] for c in range(3)], 0)
     return np.stack([lut[c][x[:, c]] for c in range(3)], 1)
@@ -211,6 +224,134 @@ class DataLoader:
                 imgs = np.stack([o[0] for o in out])
                 labels = np.asarray([o[1] for o in out], np.int32)
                 yield imgs, labels
+
+
+class NativeJpegLoader:
+    """The native counterpart of :class:`DataLoader` over an
+    :class:`ImageFolder` of JPEGs (``diffvit_tpu/data/imagenet.py``'s):
+    each batch decodes and preprocesses in one call to the host library
+    (libjpeg's JDCT_ISLOW decode into the Pillow-exact resample, crop and
+    normalize; OpenMP across the images, the Python lock released), while
+    one background thread prepares the next batch.  The batches equal
+    DataLoader's bit for bit.
+
+    ``emit``: ``"f32"``, the normalized float32 input; ``"u8"``, the uint8
+    crop (the wire format: ``device_normalize`` on the device gives the
+    float32 input); ``"codes"``, the uint8 crop through ``code_lut``
+    (``IntModel.input_lut``) into int8 input codes, no work left on the
+    device.  ``fast``: the DCT-scaled decode, several-fold cheaper on large
+    JPEGs and not bit-exact (items that fall back to PIL stay exact).
+    ``input_size``, ``crop_pct``, ``mean`` and ``std`` come from the
+    dataset transform's ``params`` (``build_transform`` sets them) and must
+    agree with it where given.  An item that libjpeg refuses (not a JPEG,
+    CMYK, truncated: a ``ValueError``) goes through PIL, as DataLoader
+    would take it."""
+
+    def __init__(self, dataset: ImageFolder, batch_size, drop_last=False,
+                 input_size=None, crop_pct=None, mean=None, std=None,
+                 fast=False, emit="f32", code_lut=None):
+        native_decode.load_library()  # build or raise before any batch
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.fast = bool(fast)
+        if emit not in ("f32", "u8", "codes"):
+            raise ValueError(
+                f"emit must be 'f32', 'u8' or 'codes', got {emit!r}")
+        if (emit == "codes") != (code_lut is not None):
+            raise ValueError("emit='codes' requires code_lut (and code_lut "
+                             "requires emit='codes')")
+        self.code_lut = None if code_lut is None else \
+            np.ascontiguousarray(code_lut, np.int8)
+        self.emit = emit
+        # the dataset transform's geometry and normalization, so that native
+        # and PIL-fallback items of one batch are preprocessed alike
+        tf_params = getattr(getattr(dataset, "transform", None), "params",
+                            None)
+        defaults = dict(input_size=224, crop_pct=0.875, mean=IMAGENET_MEAN,
+                        std=IMAGENET_STD)
+        explicit = dict(input_size=input_size, crop_pct=crop_pct,
+                        mean=mean, std=std)
+        self.kw = {}
+        for k, v in explicit.items():
+            if v is None:
+                v = tf_params[k] if tf_params is not None else defaults[k]
+            if tf_params is not None and \
+                    not np.allclose(np.asarray(v, np.float64),
+                                    np.asarray(tf_params[k], np.float64)):
+                raise ValueError(
+                    f"NativeJpegLoader {k}={v!r} disagrees with the "
+                    f"dataset transform's {k}={tf_params[k]!r}; native and "
+                    "PIL-fallback items would be preprocessed differently")
+            self.kw[k] = v
+        if tf_params is not None and tf_params["interpolation"] != "bicubic":
+            raise ValueError(
+                "the native pipeline implements bicubic resampling only; "
+                f"dataset transform uses {tf_params['interpolation']!r}")
+        if emit == "f32" and tf_params is not None \
+                and not tf_params.get("normalize", True):
+            raise ValueError(
+                "emit='f32' normalizes, but the dataset transform has "
+                "normalize=False: PIL-fallback items would stay uint8; "
+                "use emit='u8' with an un-normalized consumer instead")
+        self._u8_transform = build_transform(
+            input_size=self.kw["input_size"], crop_pct=self.kw["crop_pct"],
+            normalize=False)
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else math.ceil(
+            n / self.batch_size)
+
+    def _pil_fallback(self, idx):
+        if self.emit == "f32":
+            return self.dataset[idx][0]
+        # u8 and codes: the uint8 crop of the same geometry (codes batches
+        # take the table after assembly)
+        with Image.open(self.dataset.samples[idx][0]) as img:
+            return self._u8_transform(img)
+
+    def _make(self, idxs):
+        samples = [self.dataset.samples[i] for i in idxs]
+        labels = np.asarray([s[1] for s in samples], np.int32)
+        paths = [s[0] for s in samples]
+        if self.emit == "f32":
+            kw = self.kw
+            batch_fn = native_decode.decode_preprocess_batch
+            item_fn = native_decode.decode_preprocess
+        else:
+            kw = dict(input_size=self.kw["input_size"],
+                      crop_pct=self.kw["crop_pct"])
+            batch_fn = native_decode.decode_preprocess_batch_u8
+            item_fn = native_decode.decode_preprocess_u8
+        try:
+            imgs = batch_fn(paths, fast=self.fast, **kw)
+        except ValueError:
+            # an item libjpeg refuses: item by item, PIL for the refused
+            outs = []
+            for i, p in zip(idxs, paths):
+                try:
+                    outs.append(item_fn(p, fast=self.fast, **kw))
+                except ValueError:
+                    outs.append(self._pil_fallback(i))
+            imgs = np.stack(outs)
+        if self.emit == "codes":
+            imgs = native_decode.apply_code_lut(imgs, self.code_lut)
+        return imgs, labels
+
+    def __iter__(self):
+        nb = len(self)
+        order = np.arange(len(self.dataset))
+        with cf.ThreadPoolExecutor(1) as pool:
+            def submit(bi):
+                idxs = order[bi * self.batch_size:(bi + 1) * self.batch_size]
+                return pool.submit(self._make, idxs)
+
+            pending = submit(0) if nb else None
+            for bi in range(nb):
+                fut = pending
+                pending = submit(bi + 1) if bi + 1 < nb else None
+                yield fut.result()
 
 
 class DevicePrefetcher:

@@ -2,9 +2,11 @@
 ``gaussian_calibration``, the reference's --mode 1 source, pure Gaussian
 noise; ``make_fake_imagefolder``, a small ImageFolder of JPEGs on disk for
 tests and smoke runs.  The same numpy generator gives the same data in
-both packages."""
+both packages.  ``write_odd_images`` (the port's own) writes the files
+that the native JPEG decoder treats apart."""
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
@@ -47,3 +49,24 @@ def make_fake_imagefolder(root, num_classes=4, per_class=8, size=224, seed=0,
                 ).astype(np.uint8)
             Image.fromarray(img).save(os.path.join(cdir, f"img_{i:04d}.jpg"))
     return root
+
+
+def write_odd_images(root, seed=0, size=(130, 90)):
+    """Write, under ``root``, the ``.jpg`` files that libjpeg's RGB decode
+    treats apart: a grayscale JPEG (decoded natively, expanded to RGB) and
+    three it refuses, which the native loader hands to PIL: a CMYK JPEG, a
+    PNG named ``.jpg`` and a JPEG cut at half its bytes.  Returns their
+    paths by kind ("gray", "cmyk", "png", "truncated")."""
+    w, h = size
+    rgb = Image.fromarray(np.random.default_rng(seed).integers(
+        0, 256, (h, w, 3), dtype=np.uint8))
+    paths = {k: os.path.join(root, f"{k}.jpg")
+             for k in ("gray", "cmyk", "png", "truncated")}
+    rgb.convert("L").save(paths["gray"], "JPEG")
+    rgb.convert("CMYK").save(paths["cmyk"], "JPEG")
+    rgb.save(paths["png"], "PNG")
+    buf = io.BytesIO()
+    rgb.save(buf, "JPEG")
+    with open(paths["truncated"], "wb") as f:
+        f.write(buf.getvalue()[:len(buf.getvalue()) // 2])
+    return paths

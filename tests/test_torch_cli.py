@@ -6,7 +6,9 @@ _assert_paths_agree), and the CLI ``python3 -m diffvit_tpu_torch.cli``:
 ``--load-int`` of a TINY artifact saved by JAX, over a fake ImageFolder,
 prints the report that JAX's ``engine.validate`` prints over JAX's
 ``DataLoader`` (the same loss, Prec@1 and Prec@5 lines, the times aside),
-on each wire and route; ``--quant --mode 1 --int-path --save-int`` writes
+on each wire and route (``--wire u8`` through ``NativeJpegLoader``, whose
+report equals the PIL route's; ``--native-preproc`` on ``--wire f32``);
+``--quant --mode 1 --int-path --save-int`` writes
 an artifact JAX serves; ``--mode 2`` calibrates on exactly the batch that
 ``generate_data`` returns for the seed (run at 2 iterations an epoch), and
 ``--prior-checkpoint`` hands a local ``.pth`` to it as the prior; every
@@ -34,6 +36,7 @@ from diffvit_tpu_torch import cli, engine
 from diffvit_tpu_torch.analysis import datagen, hessian
 from diffvit_tpu_torch.analysis.datagen import generate_data
 from diffvit_tpu_torch.analysis import mixed_precision as mp
+from diffvit_tpu_torch.data import imagenet as port_imagenet
 from diffvit_tpu_torch.data.synthetic import make_fake_imagefolder
 from diffvit_tpu_torch.models import registry
 from diffvit_tpu_torch.models.registry import preprocessing_for
@@ -112,8 +115,10 @@ def jax_report(artifact):
 
 @pytest.mark.parametrize("flags", [
     ["--wire", "f32"], ["--wire", "u8"], ["--wire", "u8", "--resident"],
-    ["--wire", "f32", "--device-prefetch", "0"]],
-    ids=["f32", "u8-codes", "u8-codes-resident", "f32-no-prefetch"])
+    ["--wire", "f32", "--device-prefetch", "0"],
+    ["--wire", "f32", "--native-preproc"]],
+    ids=["f32", "u8-codes", "u8-codes-resident", "f32-no-prefetch",
+         "f32-native-preproc"])
 def test_cli_load_int_prints_jax_report(artifact, jax_report, capsys,
                                         flags):
     """The port CLI serving JAX's artifact prints JAX's report: the same
@@ -129,6 +134,70 @@ def test_cli_load_int_prints_jax_report(artifact, jax_report, capsys,
     want_res, want_lines = jax_report
     assert _report(out) == want_lines and len(want_lines) == 3
     assert res == pytest.approx(want_res, abs=5e-5)
+
+
+class PilRoute:
+    """The PIL route in NativeJpegLoader's place: the threaded DataLoader,
+    then CodesLoader where a table is given (the CLI's u8 wire before the
+    native loader)."""
+    made = []
+
+    def __init__(self, dataset, batch_size, emit, code_lut=None):
+        loader = port_imagenet.DataLoader(dataset, batch_size, num_workers=2)
+        self.loader = loader if code_lut is None else \
+            port_imagenet.CodesLoader(loader, code_lut)
+        PilRoute.made.append((emit, code_lut))
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        return iter(self.loader)
+
+
+@pytest.mark.parametrize("flags,emit", [
+    (["--load-int"], "codes"), (["--load-int", "--resident"], "codes"),
+    (["--quant", "--mode", "1", "--calib-batchsize", "2"], "u8"),
+    (["--quant", "--mode", "1", "--calib-batchsize", "2", "--int-path"],
+     "codes")], ids=["load-int", "resident", "fake-quant", "int-path"])
+def test_wire_u8_goes_through_the_native_loader(artifact, monkeypatch,
+                                                capsys, flags, emit):
+    """--wire u8 validates on NativeJpegLoader's batches: int8 codes
+    through the served model's table where it has one, else the uint8
+    crop; the report equals the PIL route's line for line."""
+    path, root = artifact
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY_T)
+    flags = [f for flag in flags for f in
+             ([flag, path] if flag == "--load-int" else [flag])]
+    argv = ["deit_test", str(root), "--device", "cpu", "--val-batchsize",
+            "4", "--num-workers", "2", "--print-freq", "1", "--wire", "u8",
+            *flags]
+    made = []
+
+    class Recorded(port_imagenet.NativeJpegLoader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append((self.emit, self.code_lut))
+
+    monkeypatch.setattr(port_imagenet, "NativeJpegLoader", Recorded)
+    native = cli.main(argv)
+    native_lines = _report(capsys.readouterr().out.splitlines())
+    assert [m[0] for m in made] == [emit] and len(native_lines) == 3
+    if "--load-int" in flags:
+        np.testing.assert_array_equal(
+            made[0][1], engine.load_int_model(path, "cpu").input_lut)
+    PilRoute.made = []
+    monkeypatch.setattr(port_imagenet, "NativeJpegLoader", PilRoute)
+    pil = cli.main(argv)
+    assert _report(capsys.readouterr().out.splitlines()) == native_lines
+    assert pil == native and [m[0] for m in PilRoute.made] == [emit]
+
+
+def test_wire_u8_with_native_preproc_exits():
+    with pytest.raises(SystemExit, match="--wire u8 already decodes "
+                                         "natively; drop --native-preproc"):
+        cli.main(["deit_tiny", "/nonexistent", "--wire", "u8",
+                  "--native-preproc", "--device", "cpu"])
 
 
 def test_cli_calibrates_bakes_and_saves(artifact, tmp_path, capsys,
