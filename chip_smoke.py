@@ -234,6 +234,27 @@
             (diffvit_tpu_torch/drivers) each to its report, with no kernel
             launched.  ddv_cka_calc and the plotting functions need
             matplotlib and are not run here.
+19. parallel: the mesh (diffvit_tpu_torch/parallel) on ranks of their own,
+            spawned once per world size (2, then 4; each rank a process
+            with its own kernel counts): ranks that share the card talk
+            over gloo through pinned host memory, NCCL only where every
+            rank has a card (else a line says why it was not run).  The
+            seeded DeiT-S int4 at b = 64 and a ragged b = 61 under dp=2,
+            tp=2, pp=2, pp=4, dp=2 x pp=2 and tp=2 x pp=2; the FQ-ViT
+            DeiT-S int8 (K5 + K2 float32 out) and Swin-T int4 (K4 + K2)
+            under dp=2 x tp=2 at b = 8; each leg's logits bit-equal to the
+            single-process forward on the card, its launches exact on every
+            rank (12 K1 + 12 K2 a forward on a dp or tp rank, K1 on 3 of
+            the 6 heads under tp; 6 M K1 + 6 M K2 on a pp=2 stage of M
+            microbatches), every kernel call of rank 0's forward held bit
+            for bit against its plain version, the median of 5 forwards
+            and the bytes each rank sends a forward.  The fake-quant DeiT-S
+            (calibrated here on 8 images) under sp=2 x tp=2 at b = 8, its
+            logits and STE input gradient against the single process
+            (rtol = atol = 2e-4, the share of equal elements printed); the
+            dryrun of parallel/dryrun.py on 4 ranks; the CLI with
+            --int-path --tp 2 --pp 2 on phase cli's fake ImageFolder, its
+            report equal to the single-process run's apart from Time.
 
 Every phase prints one JSON line.  Then come a JSON line with every kernel
 of the main paths (launches, error, times, and the bound: the least time
@@ -3511,6 +3532,179 @@ def phase_diff(dev, summary):
     return paths
 
 
+PAR_REPEAT = 5  # forwards timed a leg (the median is printed)
+
+
+def _par_legs(models):
+    """Phase parallel's legs by world size, each with the launches every
+    rank of it must make in one forward."""
+    rng = np.random.default_rng(7)
+    x64 = rng.integers(0, 256, (64, 3, 224, 224), dtype=np.uint8)
+    x8 = x64[:8]
+    s8 = rng.integers(0, 256, (8, 3, 224, 224), dtype=np.uint8)
+    xf = rng.standard_normal((8, 3, 224, 224)).astype(np.float32)
+    d = SPEC.depth
+    per_forward = {K1: d, K2: d}
+    legs = {2: [], 4: []}
+    for b in (64, 61):
+        x = x64[:b]
+        for n, dims in ((2, dict(dp=2)), (2, dict(dp=1, tp=2)),
+                        (2, dict(dp=1, pp=2)), (4, dict(dp=1, pp=4)),
+                        (4, dict(dp=2, pp=2)), (4, dict(dp=1, tp=2, pp=2))):
+            pp, dp = dims.get("pp", 1), dims["dp"]
+            expected = per_forward
+            if pp > 1:  # a stage's blocks, once a microbatch
+                m = 2 * pp if b >= 2 * pp * dp else pp
+                expected = {K1: d // pp * m, K2: d // pp * m}
+            name = "x".join(f"{k}={v}" for k, v in dims.items() if v > 1)
+            legs[n].append(dict(name=f"{SPEC.name} int4 b={b} {name}",
+                                kind="int", n=n, mesh=dims, model="deit",
+                                x=x, repeat=PAR_REPEAT, hold=True,
+                                expected=expected))
+    legs[4] += [
+        dict(name=f"{SPEC.name} fqvit_int8 b=8 dp=2xtp=2", kind="int", n=4,
+             mesh=dict(dp=2, tp=2), model="fqvit", x=x8, repeat=PAR_REPEAT,
+             hold=True, expected={"fused_int_attention": d, K2: d}),
+        dict(name=f"{SWIN.name} int4 b=8 dp=2xtp=2", kind="int", n=4,
+             mesh=dict(dp=2, tp=2), model="swin", x=s8, repeat=PAR_REPEAT,
+             hold=True, expected={K4: sum(SWIN.depths),
+                                  K2: sum(SWIN.depths)}),
+        dict(name=f"{SPEC.name} fake-quant b=8 tp=2xsp=2", kind="fake", n=4,
+             mesh=dict(dp=1, tp=2, sp=2), model="fake", x=xf,
+             repeat=PAR_REPEAT, grad=True, expected={}),
+        dict(name="dryrun", kind="dryrun", n=4)]
+    return legs
+
+
+def _par_models(dev):
+    """The seeded bakes of phases serve and calibrate, and the DeiT-S
+    float params with qparams calibrated here on 8 Gaussian images."""
+    q, _ = _calibrated(CFG, gaussian_calibration(8, 0), dev)
+    return {
+        "deit": ("int", random_int_model(SPEC, CFG, seed=0), SPEC, CFG),
+        "fqvit": ("int", random_int_model(SPEC, FQVIT, seed=0), SPEC,
+                  FQVIT),
+        "swin": ("int", random_swin_int_model(SWIN, CFG, seed=0), SWIN,
+                 CFG),
+        "fake": ("fake", vit_int._host(q.params), vit_int._host(q.qparams),
+                 SPEC, CFG)}
+
+
+@contextlib.contextmanager
+def _fd1(path):
+    """File descriptor 1 (this process's stdout and its children's) sent to
+    ``path`` for the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+
+
+def _par_cli():
+    """The CLI with --int-path --tp 2 --pp 2 (four ranks sharing the card)
+    against the same run on one process: their report lines, times
+    aside."""
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fake_imagefolder(os.path.join(tmp, "val"), **CLI_FOLDER)
+        argv = [SPEC.name, tmp, "--quant", "--mode", "1", "--int-path",
+                "--calib-batchsize", "8", "--val-batchsize", str(CLI_BATCH),
+                "--num-workers", "8", "--wire", "u8", "--print-freq", "1"]
+        runs = {}
+        for label, extra in (("single", []), ("tp=2xpp=2", ["--tp", "2",
+                                                            "--pp", "2"])):
+            log = os.path.join(tmp, f"{label}.log")
+            t0 = time.perf_counter()
+            with _fd1(log):
+                result = cli.main(argv + extra)
+            with open(log) as f:
+                out = f.read().splitlines()
+            runs[label] = dict(result=result, seconds=time.perf_counter() - t0,
+                               report=[_TIMES.sub("Time", ln) for ln in out
+                                       if "Prec@1" in ln],
+                               mesh=[ln for ln in out
+                                     if ln.startswith("mesh:")])
+    equal = runs["single"]["report"] == runs["tp=2xpp=2"]["report"]
+    emit(phase="parallel", leg="cli --int-path --tp 2 --pp 2",
+         mesh=runs["tp=2xpp=2"]["mesh"], report_equal=equal,
+         report_lines=len(runs["single"]["report"]),
+         seconds={k: r["seconds"] for k, r in runs.items()},
+         result=[float(v) for v in runs["tp=2xpp=2"]["result"]])
+    if not equal or len(runs["single"]["report"]) < 2:
+        raise RuntimeError("the CLI's report under tp=2 x pp=2 differs from "
+                           "the single-process run's")
+
+
+def phase_parallel(dev):
+    """Phase 19 (module docstring).  Returns the launches by leg, every
+    rank's added."""
+    from diffvit_tpu_torch.parallel import comm, dryrun
+
+    count = torch.cuda.device_count()
+    models = _par_models(dev)
+    launches = {}
+    for world, legs in _par_legs(models).items():
+        if count < world:
+            emit(phase="parallel", world=world, nccl="not run",
+                 reason=f"{count} card(s) for {world} ranks: NCCL refuses "
+                        "two ranks on one device, so the ranks share the "
+                        "card over gloo through pinned host memory")
+        t0 = time.perf_counter()
+        ranks = comm.spawn(dryrun.run_legs, world, "cuda",
+                           args=([{k: v for k, v in leg.items()
+                                   if k != "expected"} for leg in legs],
+                                 models))
+        seconds = time.perf_counter() - t0
+        for i, leg in enumerate(legs):
+            res = [r[i] for r in ranks][:leg["n"]]
+            if leg["kind"] == "dryrun":
+                emit(phase="parallel", leg="dryrun", world=world,
+                     **dryrun._summary(res[0]))
+                continue
+            _par_check(leg, res, launches)
+        emit(phase="parallel", world=world, legs=len(legs), seconds=seconds)
+    _par_cli()
+    return launches
+
+
+def _par_check(leg, res, launches):
+    """One leg's JSON line from its ranks' results; fails on a departure
+    from the single process, an inexact launch count or a held kernel
+    call that differs from its plain version."""
+    counts = [r.get("launches", {}) for r in res]
+    exact = all(c.get(k, 0) == leg["expected"].get(k, 0)
+                for c in counts for k in set(c) | set(leg["expected"]))
+    r0 = res[0]
+    line = dict(phase="parallel", leg=leg["name"], ranks=leg["n"],
+                backend=r0["backend"], host_staged=r0["host_staged"],
+                ms=r0["ms"], bytes_per_rank=[r["bytes"] for r in res],
+                launches_per_rank=[{k: v for k, v in c.items() if v}
+                                   for c in counts], launches_exact=exact)
+    if leg["kind"] == "int":
+        held = r0["held"]
+        line.update(equal_to_single=[r["equal"] for r in res],
+                    held_calls=held[0], held_equal=held[1],
+                    held_kernels=held[2])
+        ok = all(r["equal"] for r in res) and held[0] == held[1] > 0
+    else:
+        line.update(logits=r0["logits"], grad=r0["grad"],
+                    grad_logits=r0["grad_logits"])
+        ok = all(r["logits"]["within"] and r["logits"]["argmax_equal"]
+                 and r["grad"]["within"] for r in res)
+    emit(**line)
+    if not (ok and exact):
+        raise RuntimeError(f"parallel leg {leg['name']} failed: {line}")
+    total = launches.setdefault("parallel", dict.fromkeys(KERNELS, 0))
+    for c in counts:
+        for k, v in c.items():
+            total[k] += v
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3577,12 +3771,14 @@ def main():
     t.append(time.perf_counter())
     paths.update(phase_diff(dev, summary))
     t.append(time.perf_counter())
+    paths.update(phase_parallel(dev))
+    t.append(time.perf_counter())
     emit(phase="seconds", **{k: b - a for k, a, b in zip(
         ("kernels", "alternative_kernels", "deit_small", "deit_small_fqvit",
          "deit_small_resident", "branches", "swin_tiny", "swin_branches",
          "alternatives", "calibrate", "calibrate_swin", "probes",
          "lis_wide", "cli", "native", "mixed", "recovery", "analysis",
-         "diff"),
+         "diff", "parallel"),
         t, t[1:])})
 
     kernels = []

@@ -51,24 +51,28 @@ inverting the float model, or the ``--prior-checkpoint`` weights):
     python3 -m diffvit_tpu_torch.cli deit_small <data> --quant --mode 2 \\
         --int-path --save-int psaq.npz
 
-A flag whose machinery is not ported yet exits with ``SystemExit`` and
-names its ROADMAP item (:data:`NOT_PORTED`).
+``--dp/--tp/--sp/--pp`` build a mesh (``parallel/mesh.py``) as
+``test_quant.py`` does: the CLI starts ``dp * tp * sp * pp`` ranks itself
+(``parallel.comm.spawn``; without ``--dp``, dp fills the visible cards),
+on the visible cards in turn, or joins the ranks torchrun started; ranks
+that share a card talk over gloo.  ``--host-devices N`` runs N gloo ranks
+on the CPU (with ``--device cpu``).  ``--pp`` pipelines the integer path,
+so it needs ``--int-path`` or ``--load-int``.  Rank 0 prints the report:
+
+    python3 -m diffvit_tpu_torch.cli deit_small <data> --quant --mode 1 \
+        --int-path --tp 2 --pp 2
+    torchrun --nproc-per-node 4 -m diffvit_tpu_torch.cli deit_small <data> \
+        --quant --mode 1 --int-path --dp 2 --tp 2
 """
 from __future__ import annotations
 
 import argparse
 import os
 import random
+import sys
 
 import numpy as np
 import torch
-
-# ROADMAP Queue 1 items of the flags whose machinery is not ported yet
-_ITEMS = {
-    9: "parallelism",
-}
-NOT_PORTED = dict.fromkeys(("dp", "tp", "sp", "pp", "host_devices"), 9)
-_UNSET = object()
 
 
 def build_parser():
@@ -105,12 +109,20 @@ def build_parser():
     p.add_argument("--prior-checkpoint", default=None,
                    help="--mode 2: invert these local weights (a .pth, "
                         "or for ViT/DeiT a .npz) in place of the model's")
-    p.add_argument("--dp", default=None, type=int, help="(not ported)")
-    p.add_argument("--tp", default=1, type=int, help="(not ported)")
-    p.add_argument("--sp", default=1, type=int, help="(not ported)")
-    p.add_argument("--pp", default=1, type=int, help="(not ported)")
+    p.add_argument("--dp", default=None, type=int,
+                   help="data-parallel ranks (default: the rest of the "
+                        "devices)")
+    p.add_argument("--tp", default=1, type=int,
+                   help="tensor-parallel ranks (megatron-sharded weights)")
+    p.add_argument("--sp", default=1, type=int,
+                   help="sequence-parallel ranks (the fake-quant residual "
+                        "stream's tokens)")
+    p.add_argument("--pp", default=1, type=int,
+                   help="pipeline stages of the integer path (needs "
+                        "--int-path or --load-int)")
     p.add_argument("--host-devices", default=0, type=int,
-                   help="(not ported)")
+                   help="run this many gloo ranks on the CPU (--device "
+                        "cpu)")
     p.add_argument("--adaround", default=False, action="store_true",
                    help="after calibration, learn each weight site's "
                         "rounding (AdaRound, calib/adaround.py)")
@@ -189,36 +201,43 @@ def build_parser():
 
 
 def parse_args(argv=None):
-    """The parsed flags, after :func:`refuse_unported`."""
-    parser = build_parser()
-    # a flag not on the command line keeps _UNSET: argparse sets a default
-    # only where the namespace has no value yet
-    args = parser.parse_args(
-        argv, argparse.Namespace(**dict.fromkeys(NOT_PORTED, _UNSET)))
-    given = {d for d in NOT_PORTED if getattr(args, d) is not _UNSET}
-    for d in NOT_PORTED.keys() - given:
-        setattr(args, d, parser.get_default(d))
+    """The parsed flags, with the refusals of flags that do not combine."""
+    args = build_parser().parse_args(argv)
     if args.model_pos is not None:
         args.model = args.model_pos
     if args.data_pos is not None:
         args.data = args.data_pos
-    refuse_unported(given)
     if args.wire == "u8" and args.native_preproc:
         raise SystemExit("--wire u8 already decodes natively; "
                          "drop --native-preproc")
+    if args.pp > 1 and not (args.int_path or args.load_int):
+        raise SystemExit("--pp pipelines the integer path; add --int-path "
+                         "(or serve one with --load-int)")
+    if args.host_devices and args.device != "cpu":
+        raise SystemExit("--host-devices runs gloo ranks on the CPU; it "
+                         "requires --device cpu")
     return args
 
 
-def _not_ported(what: str, item: int):
-    raise SystemExit(f"{what} is not ported to diffvit_tpu_torch yet "
-                     f"(ROADMAP Queue 1, item {item}: {_ITEMS[item]})")
+def mesh_dims(args, n_devices: int):
+    """(dp, tp, sp, pp) of the flags over ``n_devices`` devices
+    (``test_quant.py``'s rule): dp defaults to the devices that tp, sp and
+    pp leave."""
+    rest = args.tp * args.sp * args.pp
+    dp = args.dp if args.dp is not None else max(1, n_devices // rest)
+    return dp, args.tp, args.sp, args.pp
 
 
-def refuse_unported(given):
-    """``SystemExit`` naming the ROADMAP item of the first flag in
-    ``given`` whose machinery is not ported."""
-    for dest in sorted(given, key=list(NOT_PORTED).index):
-        _not_ported("--" + dest.replace("_", "-"), NOT_PORTED[dest])
+def _n_devices(args) -> int:
+    from .parallel import comm
+
+    if args.host_devices:
+        return args.host_devices
+    if comm.launched():
+        return int(os.environ["WORLD_SIZE"])
+    if args.device == "cuda" and torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return 1
 
 
 def seed_everything(seed):
@@ -230,9 +249,62 @@ def seed_everything(seed):
 
 def main(argv=None):
     """Run the CLI; returns validate's (loss, Prec@1, Prec@5), or under
-    ``--mixed`` the search's final population, best first."""
+    ``--mixed`` the search's final population, best first (rank 0's,
+    where it starts ranks)."""
+    from .parallel import comm
+
     args = parse_args(argv)
+    dims = mesh_dims(args, _n_devices(args))
+    world = int(np.prod(dims))
+    if comm.launched() and world != int(os.environ["WORLD_SIZE"]):
+        raise SystemExit(f"the mesh dp*tp*sp*pp = {world} does not match "
+                         f"torchrun's {os.environ['WORLD_SIZE']} ranks")
+    if world > 1 and not comm.launched() and comm.WORLD is None:
+        from .models.swin import SWIN_SPECS
+        from .models.vit import VIT_SPECS
+
+        # the ranks see this process's registry (specs added at run time)
+        return comm.spawn(_rank_main, world, args.device,
+                          args=(argv, dict(VIT_SPECS), dict(SWIN_SPECS)),
+                          threads=1 if args.device == "cpu" else None)[0]
+    return run(args, dims if world > 1 else None)
+
+
+def _rank_main(world, argv, vit_specs, swin_specs):
+    """One rank of :func:`main`: the registry of the process that started
+    it, then :func:`run`; only rank 0 prints."""
+    from .models.swin import SWIN_SPECS
+    from .models.vit import VIT_SPECS
+
+    VIT_SPECS.update(vit_specs)
+    SWIN_SPECS.update(swin_specs)
+    if world.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        args = parse_args(argv)
+        return run(args, mesh_dims(args, world.size))
+    finally:
+        sys.stdout.flush()
+
+
+def run(args, dims=None):
+    """The CLI's work on this process: on one device, or (``dims``: dp,
+    tp, sp, pp) as one rank of the mesh over the ranks of
+    ``parallel.comm`` (torchrun's, where it started this process)."""
     seed_everything(args.seed)
+    mesh = None
+    device = args.device
+    if dims is not None:
+        from .parallel import comm
+        from .parallel.mesh import make_mesh
+
+        if comm.WORLD is None:
+            comm.init_parallel(args.device)
+        dp, tp, sp, pp = dims
+        mesh = make_mesh(dp * tp * sp * pp, dp=dp, tp=tp, sp=sp, pp=pp)
+        device = mesh.device
+        print(f"mesh: dp={dp} tp={tp}" + (f" sp={sp}" if sp > 1 else "")
+              + (f" pp={pp}" if pp > 1 else ""))
 
     from .config import QuantConfig
     from .data.imagenet import (DataLoader, DevicePrefetcher, ImageFolder,
@@ -256,16 +328,16 @@ def main(argv=None):
         if args.mixed:
             raise SystemExit("--load-int serves one baked bit_config; "
                              "run --mixed with --save-int instead")
-        model = load_int_model(args.load_int, args.device,
+        model = load_int_model(args.load_int, device,
                                resident=args.resident,
-                               input_norm=(pp.mean, pp.std))
+                               input_norm=(pp.mean, pp.std), mesh=mesh)
         print(f"Serving int artifact: {args.load_int} "
               f"({model.spec.name})"
               + (" [resident kernel]" if args.resident else ""))
     else:
         model = QuantizedViT(args.model, cfg, checkpoint=args.checkpoint,
-                             seed=args.seed, device=args.device,
-                             input_norm=(pp.mean, pp.std))
+                             seed=args.seed, device=device,
+                             input_norm=(pp.mean, pp.std), mesh=mesh)
 
     def transform(normalize):
         if args.native_preproc:  # on --wire f32 only: normalize is True
@@ -291,8 +363,11 @@ def main(argv=None):
             loader = DataLoader(val_dataset, args.val_batchsize,
                                 shuffle=False, num_workers=args.num_workers)
         if args.device_prefetch > 0:
-            loader = DevicePrefetcher(loader, depth=args.device_prefetch,
-                                      device=args.device)
+            from .parallel.mesh import batch_sharding
+
+            loader = DevicePrefetcher(
+                loader, depth=args.device_prefetch, device=device,
+                sharding=None if mesh is None else batch_sharding(mesh))
         return loader
 
     train_loader = None
@@ -453,7 +528,7 @@ def _mixed_search(args, model, val_loader, mean_hessian, calib):
     # validates each candidate's own bake
     evaluate_batch = None
     if args.search_path == "int":
-        if model.is_swin:
+        if model.is_swin or model.mesh is not None:
             print("--search-path int is ViT-family/single-chip; "
                   "falling back to the fake-quant search substrate")
         else:

@@ -12,6 +12,7 @@ Batches are NCHW numpy: float32 normalized pixels, or with
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import math
 import os
 import queue
@@ -367,14 +368,19 @@ class DevicePrefetcher:
     ``(images, labels)`` in loader order: the images a tensor on
     ``device`` (on ``"cpu"``, the batch as a tensor), the labels as the
     loader gave them.  A loader error is raised in the consumer; a
-    consumer that stops early stops the feeder."""
+    consumer that stops early stops the feeder.
 
-    def __init__(self, loader, depth=2, device="cuda"):
+    ``sharding`` (``parallel.mesh.batch_sharding``): only this rank's dp
+    slice of each batch is copied, and the images come as a
+    ``parallel.mesh.DPBatch`` of it (the models take it as it is)."""
+
+    def __init__(self, loader, depth=2, device="cuda", sharding=None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.loader = loader
         self.depth = depth
         self.device = torch.device(device)
+        self.sharding = sharding
 
     def __len__(self):
         return len(self.loader)
@@ -396,6 +402,13 @@ class DevicePrefetcher:
             return False
 
         def copy(imgs):
+            if self.sharding is None:
+                return to_device(imgs)
+            part = self.sharding(np.asarray(imgs))
+            out, done = to_device(part.local)
+            return dataclasses.replace(part, local=out), done
+
+        def to_device(imgs):
             host = torch.from_numpy(np.ascontiguousarray(imgs))
             if not cuda:
                 return host.to(dev), None
@@ -429,7 +442,7 @@ class DevicePrefetcher:
                 if done is not None:
                     stream = torch.cuda.current_stream(dev)
                     stream.wait_event(done)
-                    imgs.record_stream(stream)
+                    getattr(imgs, "local", imgs).record_stream(stream)
                 slots.release()
                 yield imgs, labels
         finally:

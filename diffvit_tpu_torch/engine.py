@@ -24,6 +24,7 @@ from .models.convert import int_model_from_numpy, swin_int_model_from_numpy
 from .models.registry import build_params, get_spec
 from .models.swin import SwinSpec
 from .models.vit import ViTSpec
+from .parallel import mesh as mesh_mod
 from .utils.metrics import AverageMeter, accuracy, cross_entropy
 from .utils.serialize import ArtifactError, load_pytree, save_pytree
 
@@ -52,22 +53,46 @@ class IntModel:
     ``microbatch=m``: the forward runs over chunks of m images, the last
     one zero-padded, and the logits are sliced back to the batch
     (``_microbatched``, ``diffvit_tpu/engine.py:524``); every row's logits
-    are the unchunked forward's, bit for bit."""
+    are the unchunked forward's, bit for bit.
+
+    ``mesh`` (``parallel.mesh.make_mesh``; the model lives on the mesh's
+    device, and every rank of the mesh makes it): each call takes the whole
+    batch, or this rank's ``mesh.DPBatch``, runs this rank's dp slice
+    (padded with zero rows, ``mesh.batch_pad``) on its tp shard of the
+    weights (``mesh.shard_int_params``), or under pp on its pipeline stage
+    (``parallel/pipeline.py``, ``mesh.n_micro_for`` microbatches), and
+    returns the whole batch's logits on every rank.  As in JAX, pp refuses
+    a Swin, ``resident`` and ``microbatch``, and any mesh refuses
+    ``resident`` and ``microbatch``."""
 
     def __init__(self, ip, spec: ViTSpec | SwinSpec, cfg: QuantConfig,
                  device="cuda", resident=False,
-                 input_norm=(IMAGENET_MEAN, IMAGENET_STD), microbatch=None):
+                 input_norm=(IMAGENET_MEAN, IMAGENET_STD), microbatch=None,
+                 mesh=None):
         if microbatch is not None and int(microbatch) < 1:
             raise ValueError(f"microbatch must be >= 1, got {microbatch}")
         self.spec, self.cfg = spec, cfg
         self.microbatch = None if microbatch is None else int(microbatch)
         self.input_norm = tuple(input_norm)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None else mesh.device)
         self.is_swin = isinstance(spec, SwinSpec)
         self.packed = None
-        if resident and self.is_swin:
+        self._plan = None
+        pp = 1 if mesh is None else mesh.size("pp")
+        if pp > 1 and (self.is_swin or resident):
+            raise ValueError("pipeline parallelism supports the ViT family, "
+                             "per-kernel path")
+        if pp > 1 and mesh.size("sp") > 1:
+            # sp cuts the fake-quant residual stream; the integer pipeline
+            # never takes it, so an sp axis would only replicate work
+            raise ValueError("pp composes with dp/tp, not sp (sp is a "
+                             "fake-quant-path axis)")
+        if mesh is not None and microbatch:
+            raise ValueError("microbatch is a single-chip serving knob")
+        if resident and (self.is_swin or mesh is not None):
             raise ValueError("resident serving kernel supports the ViT "
-                             "family only")
+                             "family on a single chip")
         if self.is_swin:
             self.ip = swin_int_model_from_numpy(ip, spec, self.device, cfg)
             self._forward = swin_int.forward_q_int
@@ -82,6 +107,16 @@ class IntModel:
                     vit_int.forward_q_int_serve, packed=self.packed)
             site = ip.get("qact_input", {})
             scale, zp = site.get("scale"), site.get("zp")
+        if pp > 1:
+            from .parallel import pipeline
+
+            self._plan = pipeline.plan_shardings(
+                mesh, pipeline.prepare_pp(self.ip, spec, cfg, pp), spec)
+            # the stages hold the blocks: keep the embed and the head
+            self.ip = dict(self.ip,
+                           blocks=[{"qact4": self.ip["blocks"][-1]["qact4"]}])
+        elif mesh is not None:
+            self.ip = mesh_mod.shard_int_params(mesh, self.ip, spec)
         # Swin's integer path has no float sites beside input_quant=False
         float_patch = not self.is_swin and ip["patch"]["fp"]
         # (3, 256) float32 table on the device: uint8 pixel -> normalized
@@ -128,6 +163,9 @@ class IntModel:
         baked), so that ``validate`` drives an IntModel as it drives a
         QuantizedViT."""
         del bit_config, quant, use_int
+        if self.mesh is not None:
+            part = mesh_mod.batch_sharding(self.mesh)(x)
+            x = part.local
         if self.input_lut is not None:  # uint8 -> codes on the host
             if isinstance(x, torch.Tensor) and x.dtype == torch.uint8:
                 x = x.cpu().numpy()
@@ -141,9 +179,26 @@ class IntModel:
         if x.dtype == torch.int8 and self.input_lut is None:
             raise ValueError(self._no_codes)
         with torch.inference_mode():
+            if self.mesh is not None:
+                return self._mesh_forward(x, part.batch)
             if self.microbatch is not None:
                 return self._chunked(x)
             return self._forward(self.ip, self.spec, self.cfg, x)
+
+    def _mesh_forward(self, x, b):
+        """This rank's dp slice ``x`` of a batch of ``b``: its logits, then
+        the whole batch's."""
+        mesh = self.mesh
+        if self._plan is not None:
+            from .parallel import pipeline
+
+            out = pipeline.forward_q_int_pp(
+                self.ip, self._plan, self.spec, self.cfg, x, mesh,
+                n_micro=mesh_mod.n_micro_for(mesh, b))
+        else:
+            out = self._forward(self.ip, self.spec, self.cfg, x,
+                                tp=mesh.group("tp"))
+        return mesh_mod.gather_batch(mesh, out, b)
 
 
 class QuantizedViT:
@@ -161,11 +216,28 @@ class QuantizedViT:
     (``data.imagenet.device_normalize``), as the reference's ``_prep``
     does; float32 batches pass through.  A Swin's bit configuration is its
     uniform weight bit or a per-slot sequence
-    (``swin.normalize_bit_config``)."""
+    (``swin.normalize_bit_config``).
+
+    ``mesh`` (``parallel.mesh.make_mesh``; the model lives on the mesh's
+    device, and every rank of the mesh makes it): every rank keeps the
+    whole float params and calibrates on the whole batch (the qparams are
+    then broadcast from mesh rank 0, ``mesh.shard_replicated``), and the
+    recovery passes run on the whole params on every rank, so that each
+    rank holds the single process's result.  A call takes the whole batch
+    or this rank's ``mesh.DPBatch`` and returns the whole batch's logits:
+    the fake-quant forward of a ViT runs its dp slice on the rank's tp
+    shards (``mesh.shard_params``, ``mesh.tensor_parallel``) with its
+    tokens cut over sp (``mesh.act_constraint``); a Swin's fake-quant and
+    every float forward run the dp slice whole; the integer path is
+    ``IntModel(mesh=)``'s.  ``forward_bits`` puts the candidates on dp;
+    ``forward_bits_int`` refuses a mesh, as in JAX."""
 
     def __init__(self, name_or_spec, cfg: QuantConfig | None = None,
                  params=None, checkpoint=None, seed: int = 0, device="cuda",
-                 input_norm=(IMAGENET_MEAN, IMAGENET_STD)):
+                 input_norm=(IMAGENET_MEAN, IMAGENET_STD), mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device(device)
         spec = get_spec(name_or_spec) if isinstance(name_or_spec, str) \
             else name_or_spec
@@ -188,6 +260,25 @@ class QuantizedViT:
                                       device=self.device)
         self._int_models = {}
         self._int_bits = None
+        self._shards = None
+
+    def _mesh_kw(self):
+        """The fake-quant forward's sharding keywords under the mesh."""
+        if self.mesh is None or self.is_swin:
+            return {}
+        return {"act_constraint": mesh_mod.act_constraint(self.mesh),
+                "tp": mesh_mod.tensor_parallel(self.mesh, self.spec)}
+
+    def _q_params(self):
+        """The params the fake-quant forward takes: under a tp mesh (ViT
+        family) the rank's shards, cut once a set of params; else the
+        whole."""
+        if self.mesh is None or self.is_swin or self.mesh.size("tp") == 1:
+            return self.params
+        if self._shards is None:
+            self._shards = mesh_mod.shard_params(self.mesh, self.params,
+                                                 self.spec)
+        return self._shards
 
     def _prep(self, x) -> torch.Tensor:
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
@@ -210,6 +301,8 @@ class QuantizedViT:
             else:
                 qp, dist = self._mod.calibrate(self.params, self.spec,
                                                self.cfg, self._prep(batch))
+        if self.mesh is not None:
+            qp = mesh_mod.shard_replicated(self.mesh, qp)
         self.qparams = qp
         self.global_distance = dist.cpu().numpy()
         self._int_models, self._int_bits = {}, None
@@ -234,6 +327,8 @@ class QuantizedViT:
             self.qparams = {k[4:]: torch.tensor(z[k], device=self.device)
                             for k in z.files if k.startswith("qp::")}
             self.global_distance = np.asarray(z["__global_distance__"])
+        if self.mesh is not None:
+            self.qparams = mesh_mod.shard_replicated(self.mesh, self.qparams)
         self._int_models, self._int_bits = {}, None
         return self.qparams
 
@@ -260,6 +355,7 @@ class QuantizedViT:
         would serve the old weights)."""
         self.params = params
         self._int_models, self._int_bits = {}, None
+        self._shards = None
 
     def adaround(self, batch, bit_config=None, *, steps=1000, max_rows=2048,
                  seed=0, max_images=256):
@@ -345,6 +441,11 @@ class QuantizedViT:
         if resident and self.is_swin:
             raise ValueError("resident serving kernel supports the ViT "
                              "family only")
+        if self.is_swin and self.mesh is not None \
+                and self.mesh.size("pp") > 1:
+            raise ValueError("pipeline parallelism supports the ViT family "
+                             "(a Swin stage changes resolution mid-network, "
+                             "so its depth axis is not uniform)")
         bit_config = self._bit_config(bit_config)
         key = (bit_config, bool(resident))
         if key not in self._int_models:
@@ -354,7 +455,8 @@ class QuantizedViT:
                 del self._int_models[k]
             self._int_models[key] = IntModel(
                 self._bake(bit_config), self.spec, self.cfg, self.device,
-                resident=resident, input_norm=self.input_norm)
+                resident=resident, input_norm=self.input_norm,
+                mesh=self.mesh)
         return self._int_models[key]
 
     def save_int_model(self, path, bit_config=None):
@@ -369,13 +471,22 @@ class QuantizedViT:
         (:meth:`prepare_int`)."""
         if use_int and quant:
             return self.prepare_int(bit_config)(x)
+        part = None
+        if self.mesh is not None:
+            part = mesh_mod.batch_sharding(self.mesh)(x)
+            x = part.local
         x = self._prep(x)
         with torch.inference_mode():
             if quant:
-                return self._mod.forward_q(self.params, self._calibrated(),
-                                           self.spec, self.cfg, x,
-                                           self._bit_config(bit_config))
-            return self._mod.forward_fp(self.params, self.spec, x)
+                out = self._mod.forward_q(
+                    self._q_params(), self._calibrated(), self.spec,
+                    self.cfg, x, self._bit_config(bit_config),
+                    **self._mesh_kw())
+            else:
+                out = self._mod.forward_fp(self.params, self.spec, x)
+            if part is not None:
+                out = mesh_mod.gather_batch(self.mesh, out, part.batch)
+            return out
 
     def forward_fn(self, quant: bool, bit_config=None):
         """``fwd(x) -> logits`` with autograd on (the counterpart of the
@@ -400,14 +511,32 @@ class QuantizedViT:
         """(ncand, B, classes) logits of the fake-quant forward at each
         {4, 8} configuration of ``bits_batch`` (ncand, slots), one
         candidate after the other on one device-resident batch (the JAX
-        package vmaps them; ``diffvit_tpu/engine.py:372``)."""
+        package vmaps them; ``diffvit_tpu/engine.py:372``).  Under a mesh
+        the candidates are cut over dp (the last one repeated to the dp
+        multiple), each rank scores its own on the whole batch (a
+        ``mesh.DPBatch`` is gathered first), and every rank gets them
+        all."""
         qp = self._calibrated()
+        if isinstance(x, mesh_mod.DPBatch):  # the whole batch on every rank
+            x = mesh_mod.gather_batch(self.mesh, self._prep(x.local),
+                                      x.batch)
         x = self._prep(x)
+        bits = np.asarray(bits_batch).tolist()
+        n = len(bits)
+        mine = bits
+        if self.mesh is not None:
+            dp = self.mesh.size("dp")
+            bits = bits + bits[-1:] * ((-n) % dp)
+            per = len(bits) // dp
+            mine = bits[self.mesh.coords["dp"] * per:][:per]
         with torch.inference_mode():
-            return torch.stack([
-                self._mod.forward_q_bits(self.params, qp, self.spec,
-                                         self.cfg, x, bits)
-                for bits in np.asarray(bits_batch).tolist()])
+            out = torch.stack([
+                self._mod.forward_q_bits(self._q_params(), qp, self.spec,
+                                         self.cfg, x, b, **self._mesh_kw())
+                for b in mine])
+            if self.mesh is not None:
+                out = mesh_mod.gather_batch(self.mesh, out, n)
+            return out
 
     def forward_bits_int(self, x, bits) -> torch.Tensor:
         """(B, classes) logits of the {4, 8} configuration ``bits`` on the
@@ -423,6 +552,10 @@ class QuantizedViT:
             raise NotImplementedError(
                 "int-path search eval is wired for the ViT family; Swin "
                 "searches use the fake-path forward_bits")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "int-path search eval is single-chip; under a mesh the "
+                "fake-path forward_bits dp-shards the candidate axis")
         if self._int_bits is None:
             self._int_bits = vit_int.prepare_int_bits(
                 self.params, qp, self.spec, self.cfg, self.device)
@@ -450,11 +583,12 @@ def save_int_model(path, ip, spec: ViTSpec | SwinSpec,
 
 def load_int_model(path, device="cuda", resident=False,
                    input_norm=(IMAGENET_MEAN, IMAGENET_STD),
-                   microbatch=None) -> IntModel:
+                   microbatch=None, mesh=None) -> IntModel:
     """Load a ``save_int_model`` artifact (a ``save_pytree`` .npz) onto
     ``device``, served per kernel or (``resident``) through K6, over
-    ``microbatch``-image chunks where given.  The spec is rebuilt from the
-    embedded dataclass fields."""
+    ``microbatch``-image chunks where given, or over ``mesh``
+    (``IntModel``).  The spec is rebuilt from the embedded dataclass
+    fields."""
     ip, meta = load_pytree(path)
     if not all(k in meta for k in ("model", "spec", "cfg", "is_swin")):
         raise ArtifactError(
@@ -469,7 +603,7 @@ def load_int_model(path, device="cuda", resident=False,
         spec = ViTSpec(**sd)
     return IntModel(ip, spec, QuantConfig.from_dict(meta["cfg"]), device,
                     resident=resident, input_norm=input_norm,
-                    microbatch=microbatch)
+                    microbatch=microbatch, mesh=mesh)
 
 
 def validate(model, loader, bit_config=None, quant=True, print_freq=100,

@@ -48,7 +48,7 @@ from ..ops.quant import fake_quant
 from .swin import (SwinSpec, _merge_patches, _unwindows, _windows,
                    block_geometry, normalize_bit_config, swin_patchify)
 from .vit_int import (F32, I8, _fp_linear, _host, _int_dot, _ln_int8,
-                      _quant_w, _requant_i8, _t)
+                      _quant_w, _requant_i8, _t, mlp_weights)
 
 
 def prepare_int(params, qp, spec: SwinSpec, cfg: QuantConfig,
@@ -110,10 +110,18 @@ def prepare_int(params, qp, spec: SwinSpec, cfg: QuantConfig,
     return ip
 
 
-def int_linear(site, x_i8):
+def int_linear(site, x_i8, tp=None):
     """(.., K) int8 @ the site's (K, N) int8 weight, times ``mult``
-    (in_scale * sw), plus the bias where the site has one."""
-    y = _int_dot(x_i8, site["w_int"]).to(F32) * site["mult"]
+    (in_scale * sw), plus the bias where the site has one.  ``tp``: the
+    rank holds the weight's Cin rows for its part of ``x_i8``; the int32
+    partial sums are summed over the tp group first (exact in any
+    order)."""
+    acc = _int_dot(x_i8, site["w_int"])
+    if tp is not None:
+        from ..parallel import comm
+
+        acc = comm.all_reduce(acc.contiguous(), tp)
+    y = acc.to(F32) * site["mult"]
     return y if site["b"] is None else y + site["b"]
 
 
@@ -131,12 +139,14 @@ def _codes(t, scale, bt):
 
 
 def forward_q_int(ip, spec: SwinSpec, cfg: QuantConfig, x, *,
-                  attn_v2=False):
+                  attn_v2=False, tp=None):
     """Integer Swin forward over a converted int-model.  ``x``: (B, 3, H,
     W) int8 qact_input codes or float32 pixels, on the model's device.
     ``attn_v2`` runs the window attention through the natural-layout
     contract (K4b) instead of K4.  Returns (B, num_classes) float32 logits
-    on the act_out grid."""
+    on the act_out grid.  ``tp``: the rank's tp group, for a model cut by
+    ``parallel.mesh.shard_int_params``: the window attention on the rank's
+    heads, proj row-parallel, K2 on the gathered fc1 and fc2."""
     qp = ip["qp"]
     bt_a = cfg.bit_a
     eps = spec.ln_eps
@@ -188,12 +198,15 @@ def forward_q_int(ip, spec: SwinSpec, cfg: QuantConfig, x, *,
         for bi, ib in enumerate(st["blocks"]):
             p = f"layers.{si}.blocks.{bi}"
             res, ws, shift, _ = block_geometry(spec, si, bi)
-            nh = spec.num_heads[si]
+            # the rank's heads: all where tp does not divide them
+            nh = ib["bias_q"].shape[0]
+            atp = tp if nh < spec.num_heads[si] else None
 
             x_i8 = ln_i8(ib["norm1"], s(last_q), f"{p}.qact1")
             yw_i8 = _windows(x_i8, res, ws, shift)
             bw, n, c = yw_i8.shape
-            hd = c // nh
+            hd = c // spec.num_heads[si]
+            cl = nh * hd  # the rank's heads' channels
             # rint((acc * (in_scale * sw) + b) / s1), not a fold into the
             # GEMM epilogue: that would round differently
             qkv = int_linear(ib["qkv"], yw_i8)
@@ -217,8 +230,8 @@ def forward_q_int(ip, spec: SwinSpec, cfg: QuantConfig, x, *,
                 qkv_p = qkv_i8.view(bw, n, 3, nh, hd).permute(0, 2, 3, 1, 4)
                 o_i8 = fused_swin_attention(
                     qkv_p, ib["bias_q"], mask_div, ib["attn_scalars"], **kw) \
-                    .permute(0, 2, 1, 3).reshape(bw, n, c)
-            y = int_linear(ib["proj"], o_i8)
+                    .permute(0, 2, 1, 3).reshape(bw, n, cl)
+            y = int_linear(ib["proj"], o_i8, atp)
 
             if hc is not None:
                 # attn.qact4 -> residual -> qact2 on int8 codes
@@ -233,7 +246,7 @@ def forward_q_int(ip, spec: SwinSpec, cfg: QuantConfig, x, *,
 
             x_i8 = ln_i8(ib["norm2"], s(f"{p}.qact2"), f"{p}.qact3")
             y = fused_int_mlp(
-                x_i8.reshape(-1, c), ib["fc1"]["w_int"], ib["fc2"]["w_int"],
+                x_i8.reshape(-1, c), *mlp_weights(ib),
                 ib["fc1"]["mult"], ib["fc1"]["b"], ib["fc2"]["mult"],
                 ib["fc2"]["b"], s(f"{p}.mlp.qact2"), s(f"{p}.mlp.qact1"),
                 emit_codes=hc is not None).reshape(x_i8.shape)

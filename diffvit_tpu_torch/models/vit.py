@@ -34,6 +34,7 @@ where a candidate's score is within that of another.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -214,12 +215,16 @@ def _softmax(a):
     return torch.softmax(a.to(F64), dim=-1).to(F32)
 
 
-def _sdpa(qkv, spec: ViTSpec, softmax_fn):
-    """qkv (B, N, 3C) -> attention output (B, N, C) and the weights."""
+def _sdpa(qkv, spec: ViTSpec, softmax_fn, heads=None, kv=None):
+    """qkv (B, N, 3C) -> attention output (B, N, C) and the weights.
+    ``heads``: the heads that qkv holds (default: all); ``kv``: (2, B, H,
+    Nk, D) keys and values in place of qkv's own (under sequence
+    parallelism: the whole sequence's, for the rank's query tokens)."""
     b, n, _ = qkv.shape
-    h, d = spec.num_heads, spec.head_dim
+    h, d = heads or spec.num_heads, spec.head_dim
     t = qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
-    q, k, v = t[0].to(F64), t[1].to(F64), t[2].to(F64)
+    k, v = (t[1], t[2]) if kv is None else (kv[0], kv[1])
+    q, k, v = t[0].to(F64), k.to(F64), v.to(F64)
     attn = torch.matmul(q, k.transpose(-1, -2)).to(F32) * spec.attn_scale
     attn = softmax_fn(attn)
     out = torch.matmul(attn.to(F64), v).to(F32)
@@ -636,31 +641,60 @@ def _fq(qp, path, x, bit_type: BitType, ste: bool = False):
                       ste)
 
 
-def _q_weight(qp, path, w2d, bit: int, ste: bool = False):
-    """A weight fake-quantized at its calibrated PoT scale for ``bit``."""
+def _q_weight(qp, path, w2d, bit: int, ste: bool = False, rows=None):
+    """A weight fake-quantized at its calibrated PoT scale for ``bit``.
+    ``rows``: the rank's entries of a per-channel scale (tensor
+    parallelism: ``w2d`` holds the rank's output channels)."""
     bt = BIT_TYPE_DICT[f"int{bit}"]
     s = qp[f"{path}.{bt.name}.scale"]
+    if rows is not None:
+        s = rows(s)
     s = s[:, None] if s.dim() == 1 and s.shape[0] == w2d.shape[0] else s
     return fake_quant(w2d, s, 0.0, bt, ste)
 
 
 def _q_smooth_linear(qp, path, x, w, b, bit: int, cfg: QuantConfig,
-                     ste: bool = False):
+                     ste: bool = False, rows=None):
     """qkv/fc1: divide by the SmoothQuant channel scale, fake-quant the
     activation and the smoothed weight at the bit-pool entry of ``bit``.
-    -1: the float linear (the channel scale cancels)."""
+    -1: the float linear (the channel scale cancels).  ``rows``: the
+    rank's entries of the per-output-channel weight scale (column-parallel
+    ``w`` and ``b``)."""
     if bit == -1:
         return _linear(x, w, b)
     if not cfg.smoothquant:
         xq = _fq(qp, f"{path}.qact0", x, cfg.bit_a, ste)
-        return _linear(xq, _q_weight(qp, f"{path}.w", w, bit, ste), b)
+        return _linear(xq, _q_weight(qp, f"{path}.w", w, bit, ste, rows), b)
     idx = cfg.bit_pool.index(bit)
     ch = qp[f"{path}.sq.channel_scale"][idx]
     xq = fake_quant(x / ch, qp[f"{path}.qact0.scale"][idx],
                     qp[f"{path}.qact0.zp"][idx], cfg.bit_a, ste)
     bt = BIT_TYPE_DICT[f"int{bit}"]
-    return _linear(xq, _wq(w * ch, qp[f"{path}.w.{bt.name}.scale"][idx],
-                           bt, ste), b)
+    sw = qp[f"{path}.w.{bt.name}.scale"][idx]
+    return _linear(xq, _wq(w * ch, sw if rows is None else rows(sw), bt,
+                           ste), b)
+
+
+def _enter(x, tp):
+    """``x`` entering a column-parallel site (its gradient summed over
+    ``tp``); ``x`` itself without tp."""
+    return x if tp is None else tp.enter(x)
+
+
+def _rows(tp, site):
+    """The rank's entries of ``site``'s per-output-channel vectors, as a
+    function (None without tp)."""
+    return None if tp is None else functools.partial(tp.rows, site)
+
+
+def _row_linear(x, w, b, tp):
+    """``_linear`` of a row-parallel site: the rank's float64 partial sum
+    over its input channels, summed over ``tp``, then the bias and the one
+    rounding (``tp`` None: ``_linear``)."""
+    if tp is None:
+        return _linear(x, w, b)
+    y = tp.reduce(torch.matmul(x.to(F64), w.to(F64).T))
+    return (y + b.to(F64)).to(F32)
 
 
 def _q_norm(qp, x, ln, in_path, out_scale, out_ch, cfg: QuantConfig,
@@ -685,10 +719,15 @@ def _check_bit_config(spec: ViTSpec, cfg: QuantConfig, bit_config):
 
 
 def _q_block(h, blk, i, qp, spec: ViTSpec, cfg: QuantConfig, bits, ste,
-             tap, wtap):
+             tap, wtap, tp=None, sp=None):
     """Block ``i`` of the fake-quant forward; ``bits`` its (qkv, proj,
-    fc1, fc2) slots."""
+    fc1, fc2) slots.  ``tp``: qkv and fc1 column-parallel on the rank's
+    heads and hidden channels, proj and fc2 row-parallel; ``sp``: ``h``
+    holds the rank's tokens, and attention gathers every rank's keys and
+    values (``parallel.mesh``)."""
     p = f"blocks.{i}"
+    # the attention's tp context: None where it runs whole on every rank
+    atp = tp if tp is not None and tp.attn else None
     b_qkv, b_proj, b_fc1, b_fc2 = bits
     bt_a = cfg.bit_a
     in_path = "qact1" if i == 0 else f"blocks.{i - 1}.qact4"
@@ -704,8 +743,9 @@ def _q_block(h, blk, i, qp, spec: ViTSpec, cfg: QuantConfig, bits, ste,
                 else qp.get(f"{p}.attn.qkv.qact0.scale"),
                 out_ch, cfg, -1 in (b_qkv, b_proj), spec, ste)
     wtap(f"{p}.attn.qkv", y)
-    qkv = _q_smooth_linear(qp, f"{p}.attn.qkv", y, blk["qkv"]["w"],
-                           blk["qkv"]["b"], b_qkv, cfg, ste)
+    qkv = _q_smooth_linear(qp, f"{p}.attn.qkv", _enter(y, atp),
+                           blk["qkv"]["w"], blk["qkv"]["b"], b_qkv, cfg, ste,
+                           _rows(atp, "qkv"))
     tap(f"{p}.attn.qkv", qkv)
     tap(f"{p}.attn", qkv)
     qkv = _fq(qp, f"{p}.attn.qact1", qkv, bt_a, ste)
@@ -717,12 +757,18 @@ def _q_block(h, blk, i, qp, spec: ViTSpec, cfg: QuantConfig, bits, ste,
                                    cfg.bit_s, ste)
         return _softmax(a)
 
-    y, _ = _sdpa(qkv, spec, softmax_fn)
+    heads = spec.num_heads if atp is None else tp.heads
+    kv = None
+    if sp is not None:
+        b_, n_ = qkv.shape[:2]
+        t = qkv.reshape(b_, n_, 3, heads, spec.head_dim)[:, :, 1:]
+        kv = sp.gather_kv(t, spec.seq_len).permute(2, 0, 3, 1, 4)
+    y, _ = _sdpa(qkv, spec, softmax_fn, heads, kv)
     y = _fq(qp, f"{p}.attn.qact2", y, bt_a, ste)
     wtap(f"{p}.attn.proj", y)
     w = blk["proj"]["w"] if b_proj == -1 else _q_weight(
         qp, f"{p}.attn.proj.w", blk["proj"]["w"], b_proj, ste)
-    y = _linear(y, w, blk["proj"]["b"])
+    y = _row_linear(y, w, blk["proj"]["b"], atp)
     tap(f"{p}.attn.proj", y)
     y = _fq(qp, f"{p}.attn.qact3", y, bt_a, ste)
     h = _fq(qp, f"{p}.qact2", h + y, bt_a, ste)
@@ -741,15 +787,15 @@ def _q_block(h, blk, i, qp, spec: ViTSpec, cfg: QuantConfig, bits, ste,
                 else qp.get(f"{p}.mlp.fc1.qact0.scale"),
                 out_ch, cfg, -1 in (b_fc1, b_fc2), spec, ste)
     wtap(f"{p}.mlp.fc1", y)
-    y = _q_smooth_linear(qp, f"{p}.mlp.fc1", y, blk["fc1"]["w"],
-                         blk["fc1"]["b"], b_fc1, cfg, ste)
+    y = _q_smooth_linear(qp, f"{p}.mlp.fc1", _enter(y, tp), blk["fc1"]["w"],
+                         blk["fc1"]["b"], b_fc1, cfg, ste, _rows(tp, "fc1"))
     tap(f"{p}.mlp.fc1", y)
     tap(f"{p}.mlp", y)
     y = _fq(qp, f"{p}.mlp.qact1", gelu_exact(y), bt_a, ste)
     wtap(f"{p}.mlp.fc2", y)
     w = blk["fc2"]["w"] if b_fc2 == -1 else _q_weight(
         qp, f"{p}.mlp.fc2.w", blk["fc2"]["w"], b_fc2, ste)
-    y = _linear(y, w, blk["fc2"]["b"])
+    y = _row_linear(y, w, blk["fc2"]["b"], tp)
     tap(f"{p}.mlp.fc2", y)
     y = _fq(qp, f"{p}.mlp.qact2", y, bt_a, ste)
     return _fq(qp, f"{p}.qact4", h + y, bt_a, ste)
@@ -757,7 +803,7 @@ def _q_block(h, blk, i, qp, spec: ViTSpec, cfg: QuantConfig, bits, ste,
 
 def forward_q(params, qp, spec: ViTSpec, cfg: QuantConfig, x,
               bit_config=None, taps=None, w_in_taps=None, ste: bool = False,
-              remat: bool = False):
+              remat: bool = False, act_constraint=None, tp=None):
     """The fake-quant forward.  ``bit_config``: 4 * depth + 2 ints in {4, 8,
     -1} (patch, then qkv/proj/fc1/fc2 a block, then head; None: every slot
     ``cfg.bit_w``'s); -1 runs the site in float and its LayerNorm in float.
@@ -771,12 +817,24 @@ def forward_q(params, qp, spec: ViTSpec, cfg: QuantConfig, x,
     ``remat``: each block recomputed in the backward pass
     (``torch.utils.checkpoint``), so that only the residual stream at the
     block boundaries is saved; the same loss and gradients bit for bit.
-    It takes no taps (``ValueError`` before any is appended)."""
+    It takes no taps (``ValueError`` before any is appended).
+
+    ``act_constraint``: JAX's sequence-parallel hook, here the context of
+    ``parallel.mesh.act_constraint`` (None: the forward as it is): between
+    blocks the residual stream holds the rank's tokens, padded to the sp
+    multiple, and attention gathers the whole keys and values.  ``tp``:
+    ``parallel.mesh.tensor_parallel``'s context, with ``params`` the rank's
+    shards (``parallel.mesh.shard_params``): qkv and fc1 column-parallel,
+    proj and fc2 row-parallel, their float64 partial sums summed over tp
+    before the one rounding.  Under either the forward takes no taps."""
     bit_config = _check_bit_config(spec, cfg, bit_config)
     if remat and (taps is not None or w_in_taps is not None):
         raise ValueError(
             "remat=True cannot export taps: tapped tensors live inside the "
             "checkpointed block and would be recomputed, not saved")
+    if (act_constraint is not None or tp is not None) and (
+            taps is not None or w_in_taps is not None):
+        raise ValueError("a sharded forward takes no taps")
     tap, wtap = _tapper(taps), _tapper(w_in_taps)
     bt_a = cfg.bit_a
     if spec.input_quant:
@@ -792,15 +850,21 @@ def forward_q(params, qp, spec: ViTSpec, cfg: QuantConfig, x,
     h = _fq(qp, "qact_embed", _embed_tokens(params, spec, h), bt_a, ste)
     h = h + _fq(qp, "qact_pos", params["pos_embed"], bt_a, ste)
     h = _fq(qp, "qact1", h, bt_a, ste)
+    sp = act_constraint
+    if sp is not None:
+        h = sp.shard(h)
 
     for i, blk in enumerate(params["blocks"]):
         bits = bit_config[4 * i + 1: 4 * i + 5]
         if remat:
             h = torch.utils.checkpoint.checkpoint(
                 _q_block, h, blk, i, qp, spec, cfg, bits, ste, tap, wtap,
-                use_reentrant=False)
+                tp, sp, use_reentrant=False)
         else:
-            h = _q_block(h, blk, i, qp, spec, cfg, bits, ste, tap, wtap)
+            h = _q_block(h, blk, i, qp, spec, cfg, bits, ste, tap, wtap, tp,
+                         sp)
+    if sp is not None:
+        h = sp.gather(h, spec.seq_len)
 
     h = _q_norm(qp, h, params["norm"], f"blocks.{spec.depth - 1}.qact4",
                 qp["qact2.scale"], None, cfg, False, spec, ste)[:, 0]
@@ -835,13 +899,14 @@ def check_search_bits(cfg: QuantConfig, bits, n_slots: int, smoothquant=True):
     return bits
 
 
-def forward_q_bits(params, qp, spec: ViTSpec, cfg: QuantConfig, x, bits):
+def forward_q_bits(params, qp, spec: ViTSpec, cfg: QuantConfig, x, bits,
+                   **kw):
     """The mixed-precision search's forward (``diffvit_tpu/models/vit.py:
     886``): ``bits`` holds 4 * depth + 2 entries in {4, 8}.  The JAX
     function selects between the 4- and 8-bit variants with ``jnp.where``
     so that one trace serves every candidate, and its numerics are
     ``forward_q(bit_config)``'s; here there is no trace to share, so it
     checks the search space (:func:`check_search_bits`) and runs
-    :func:`forward_q` at ``bits``."""
+    :func:`forward_q` at ``bits`` (``kw``: its sharding keywords)."""
     bits = check_search_bits(cfg, bits, num_bit_slots(spec))
-    return forward_q(params, qp, spec, cfg, x, bits)
+    return forward_q(params, qp, spec, cfg, x, bits, **kw)

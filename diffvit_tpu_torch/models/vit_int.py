@@ -428,26 +428,61 @@ def _attention_unfused(ib, qkv_i8, spec: ViTSpec, cfg: QuantConfig):
     return _fp_linear(_fq_site(ib["attn.qact2"], o, cfg.bit_a), ib["proj"])
 
 
+def whole_site(ib, name):
+    """The block's integer site ``name`` ("fc1" or "fc2") with its whole
+    int8 weight: under tp (``parallel.mesh.shard_int_params``) gathered
+    from the rank's tp group (``ib["mlp_tp"]``)."""
+    if "mlp_tp" not in ib:
+        return ib[name]
+    return dict(ib[name], w_int=ib["mlp_tp"][("fc1", "fc2").index(name)]())
+
+
+def mlp_weights(ib):
+    """fc1's and fc2's whole int8 weights (:func:`whole_site`)."""
+    return tuple(whole_site(ib, n)["w_int"] for n in ("fc1", "fc2"))
+
+
 def _mlp_kernel(ib, x_i8, *, emit_codes):
     """K2 over the block's (B, N, C) int8 LN2 codes: int8 mlp.qact2 codes
     or their float32 values, (B, N, C)."""
     B, N, _ = x_i8.shape
     fc1, fc2 = ib["fc1"], ib["fc2"]
+    w1, w2 = mlp_weights(ib)
     return fused_int_mlp(
-        x_i8.reshape(B * N, -1), fc1["w_int"], fc2["w_int"], fc1["mult"],
+        x_i8.reshape(B * N, -1), w1, w2, fc1["mult"],
         fc1["b"], fc2["mult"], fc2["b"], ib["mlp.qact2"]["scale"],
         ib["mlp.qact1"]["scale"], emit_codes=emit_codes).reshape(B, N, -1)
 
 
+def row_parallel(o_i8, site, tp):
+    """proj on the rank's heads' codes ``o_i8`` (.., C / tp) and its Cin
+    rows of the weight: the int32 partial sums summed over ``tp`` (exact in
+    any order), then ``* mult + b`` as :func:`_int_linear` (``tp`` None:
+    :func:`_int_linear` itself)."""
+    if tp is None:
+        return _int_linear(o_i8, site)
+    from ..parallel import comm
+
+    acc = comm.all_reduce(_int_dot(o_i8, site["w_int"]).contiguous(), tp)
+    return acc.to(F32) * site["mult"] + site["b"]
+
+
 def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
-               *, sym_acts=False):
+               *, sym_acts=False, tp=None):
     """One encoder block: (h, hc) -> (h, hc).  ``h`` is the f32 residual
     stream (meaningless while ``hc`` is set); ``hc`` its int8 codes on the
-    ``in_scale`` grid, carried between blocks that take the codes path."""
+    ``in_scale`` grid, carried between blocks that take the codes path.
+    ``tp``: the rank's tp group (``parallel.comm.Group``) of a block cut by
+    ``parallel.mesh.shard_int_params``: attention on the rank's heads,
+    proj row-parallel, the MLP on its gathered weights."""
     b_qkv, b_proj, b_fc1, b_fc2 = bits4
     bt_a = cfg.bit_a
     eps = spec.ln_eps
     n_heads, h_dim = spec.num_heads, spec.head_dim
+    atp = None  # the attention's tp group: None where it runs whole
+    if tp is not None:  # the rank's heads: all where tp does not divide them
+        n_heads = ib["qkv"]["w_int"].shape[1] // (3 * h_dim)
+        atp = tp if n_heads < spec.num_heads else None
     qkv_site, proj_site = ib["qkv"], ib["proj"]
     fc1_site, fc2_site = ib["fc1"], ib["fc2"]
     fused2_path = (not qkv_site["fp"] and not proj_site["fp"]
@@ -480,8 +515,8 @@ def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
             bits=cfg.bit_s.bits, lis=cfg.lis, lis_fast=ib["lis_fast"],
             lis_wide=ib["lis_wide"])
         # proj contracts the (H, D) head layout jointly
-        y = _int_linear(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
-                        proj_site)
+        y = row_parallel(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
+                         proj_site, atp)
     else:
         if y is None:
             y = _int_linear(x_i8, qkv_site)
@@ -495,8 +530,8 @@ def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
             o_i8 = fused_int_attention(
                 qkv5, ib["int_attn_scalars"], num_heads=n_heads, n_real=N,
                 bits=cfg.bit_s.bits, lis=cfg.lis, lis_wide=ib["lis_wide"])
-            y = _int_linear(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
-                            proj_site)
+            y = row_parallel(o_i8.permute(0, 2, 1, 3).reshape(B, N, -1),
+                             proj_site, atp)
 
     # ---- fences + mlp ----
     s_blk2 = ib["qact2"]["scale"]
@@ -530,21 +565,23 @@ def _block_int(ib, bits4, in_scale, h, hc, spec: ViTSpec, cfg: QuantConfig,
             else:
                 x_i8 = _requant_i8(_float_ln(h, ib["norm2"], spec),
                                    fc1_site["in_scale"])
-            y = _int_linear(x_i8, fc1_site)
+            y = _int_linear(x_i8, whole_site(ib, "fc1"))
         y = gelu_exact(y)
         if fc2_site["fp"]:
             y = _fp_linear(_fq_site(ib["mlp.qact1"], y, bt_a), fc2_site)
         else:
             y = _int_linear(_requant_i8(y, ib["mlp.qact1"]["scale"]),
-                            fc2_site)
+                            whole_site(ib, "fc2"))
         y = _fq_site(ib["mlp.qact2"], y, bt_a)
     return _fq_site(ib["qact4"], h + y, bt_a), hc
 
 
-def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x):
+def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x, *, tp=None):
     """Integer forward over a converted int-model (``int_model_from_numpy``).
     ``x``: (B, 3, H, W) int8 input codes or float32 pixels, on the model's
-    device.  Returns (B, num_classes) float32 logits on the act_out grid."""
+    device.  Returns (B, num_classes) float32 logits on the act_out grid.
+    ``tp``: the rank's tp group, for a model cut by
+    ``parallel.mesh.shard_int_params`` (:func:`_block_int`)."""
     h = _embed_front(ip, spec, cfg, x)
     bc = ip["bit_config"]
     sym_acts = bool(ip.get("sym_acts", False))
@@ -553,7 +590,7 @@ def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x):
         in_scale = ip["qact1"]["scale"] if i == 0 \
             else ip["blocks"][i - 1]["qact4"]["scale"]
         h, hc = _block_int(ib, bc[4 * i + 1: 4 * i + 5], in_scale, h, hc,
-                           spec, cfg, sym_acts=sym_acts)
+                           spec, cfg, sym_acts=sym_acts, tp=tp)
     return _head_tail(ip, spec, cfg, h, hc)
 
 

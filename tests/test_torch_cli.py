@@ -11,8 +11,11 @@ report equals the PIL route's; ``--native-preproc`` on ``--wire f32``);
 ``--quant --mode 1 --int-path --save-int`` writes
 an artifact JAX serves; ``--mode 2`` calibrates on exactly the batch that
 ``generate_data`` returns for the seed (run at 2 iterations an epoch), and
-``--prior-checkpoint`` hands a local ``.pth`` to it as the prior; every
-flag whose machinery is not ported exits naming its ROADMAP item; each ``--mixed`` flag's value reaches the search
+``--prior-checkpoint`` hands a local ``.pth`` to it as the prior; each of
+``--dp/--tp/--sp/--pp/--host-devices`` builds its mesh on four gloo ranks
+on the CPU, whose report equals the single-process run's, and JAX's CLI
+refusals of ``--pp`` without ``--int-path`` and ``--host-devices`` on
+``--device cuda`` hold; each ``--mixed`` flag's value reaches the search
 (the search's machinery replaced by recorders; the search itself:
 tests/test_torch_mixed.py); each recovery flag's value reaches
 ``adaround``, ``qat`` or ``bias_correct``, after calibration and before
@@ -253,24 +256,51 @@ def test_cli_calibrates_a_swin(artifact, tmp_path, capsys, monkeypatch,
         assert served.is_swin and served.spec.name == "swin_test"
 
 
-def _given(dest):
-    """The flag of ``dest`` on a command line, at its default value (or
-    its first choice; 1 where the default is None)."""
-    a = next(a for a in cli.build_parser()._actions if a.dest == dest)
-    if a.nargs == 0:
-        return [a.option_strings[0]]
-    value = a.choices[0] if a.choices else a.default
-    return [a.option_strings[0], str(1 if value is None else value)]
+# each mesh flag on a --host-devices 4 --device cpu run: (the flags beside
+# the mesh's, the mesh's, the mesh line JAX's CLI prints)
+MESH_CASES = [
+    ("--dp", [], ["--dp", "4"], "mesh: dp=4 tp=1"),
+    ("--tp", ["--int-path"], ["--tp", "2"], "mesh: dp=2 tp=2"),
+    ("--sp", [], ["--sp", "2", "--tp", "2"], "mesh: dp=1 tp=2 sp=2"),
+    ("--pp", ["--int-path", "--wire", "u8"], ["--pp", "2"],
+     "mesh: dp=2 tp=1 pp=2"),
+    ("--host-devices", [], [], "mesh: dp=4 tp=1"),
+    ("--load-int", ["--load-int"], ["--tp", "2", "--pp", "2"],
+     "mesh: dp=1 tp=2 pp=2"),
+]
 
 
-REFUSED = [(_given(d), item) for d, item in cli.NOT_PORTED.items()]
+@pytest.mark.parametrize("common,mesh,line",
+                         [c[1:] for c in MESH_CASES],
+                         ids=[c[0] for c in MESH_CASES])
+def test_mesh_flags_reach_the_mesh(artifact, monkeypatch, capfd, common,
+                                   mesh, line):
+    """Each of --dp, --tp, --sp, --pp and --host-devices builds its mesh on
+    four gloo ranks on the CPU (the mesh line JAX's CLI prints, from rank
+    0 alone), and the report equals the single-process run's line for
+    line (a batch of 4 and a ragged one of 2), times aside."""
+    path, root = artifact
+    monkeypatch.setitem(VIT_SPECS, "deit_test", TINY_T)
+    common = [f for flag in common for f in
+              ([flag, path] if flag == "--load-int" else [flag])]
+    argv = ["deit_test", str(root), "--device", "cpu", "--val-batchsize",
+            "4", "--num-workers", "1", "--print-freq", "1", *common]
+    if "--load-int" not in argv:
+        argv += ["--quant", "--mode", "1", "--calib-batchsize", "2"]
+    single = cli.main(argv)
+    want = _report(capfd.readouterr().out.splitlines())
+    got = cli.main(argv + ["--host-devices", "4", *mesh])
+    out = capfd.readouterr().out.splitlines()
+    assert out.count(line) == 1 and len(want) == 3
+    assert _report(out) == want and got == single
 
 
-@pytest.mark.parametrize("flags,item", REFUSED, ids=[f[0][0] for f in REFUSED])
-def test_unported_flags_exit_naming_their_roadmap_item(flags, item):
-    """Given on the command line (even at its default value), each flag
-    whose machinery is not ported exits before any work, naming its item."""
-    with pytest.raises(SystemExit, match=rf"ROADMAP Queue 1, item {item}:"):
+@pytest.mark.parametrize("flags,match", [
+    (["--pp", "2"], "--pp pipelines the integer path"),
+    (["--host-devices", "2", "--device", "cuda"], "requires --device cpu")],
+    ids=["pp_without_int_path", "host_devices_on_cuda"])
+def test_mesh_flag_refusals_as_jax(flags, match):
+    with pytest.raises(SystemExit, match=match):
         cli.main(["deit_tiny", "/nonexistent", "--quant", *flags])
 
 

@@ -1406,3 +1406,36 @@ def test_int_restore_sweep_on_card_equals_cpu(cuda, tmp_path):
             assert fused_int_mlp.launches - k2 == forwards * TINY.depth
         lines.append([ln.rsplit(" Time ", 1)[0] for ln in open(path)])
     assert lines[0] == lines[1] and len(lines[0]) == 4
+
+
+@pytest.mark.parametrize("dims", [dict(dp=1, tp=2), dict(dp=1, pp=2)],
+                         ids=["tp2", "pp2"])
+def test_parallel_leg_on_card_world_2(cuda, dims):
+    """Two ranks on the card (gloo through pinned host memory where they
+    share it, NCCL where each has its own; ``parallel.comm.spawn``): the
+    DeiT-S-wide int4 model at depth 2 under tp=2 (K1 on 3 of the 6 heads)
+    or pp=2 (one block a stage, 4 microbatches), b = 8: every rank's
+    logits equal the single-process card forward's bit for bit, its
+    launches are exact, and every kernel call of rank 0's forward equals
+    its plain version."""
+    from diffvit_tpu_torch.parallel import comm, dryrun
+
+    x = np.random.default_rng(3).integers(0, 256, (8, 3, 224, 224),
+                                          dtype=np.uint8)
+    models = {"m": ("int", random_int_model(SMALL2, QuantConfig(), 0),
+                    SMALL2, QuantConfig())}
+    legs = [dict(name="leg", kind="int", n=2, mesh=dims, model="m", x=x,
+                 hold=True)]
+    res = [r[0] for r in comm.spawn(dryrun.run_legs, 2, "cuda",
+                                    args=(legs, models))]
+    per = 2 if "tp" in dims else 4  # blocks a rank runs, times microbatches
+    want = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for r in res:
+        assert r["equal"] and r["backend"] == want and r["bytes"] > 0
+        assert r["launches"] == {"fused_qkv_attention_v2": per,
+                                 "fused_int_attention": 0,
+                                 "fused_int_mlp": per,
+                                 "fused_swin_attention": 0}
+    calls, equal, names = res[0]["held"]
+    assert calls == equal == 2 * per
+    assert names == ["fused_int_mlp", "fused_qkv_attention_v2"]
