@@ -78,8 +78,10 @@
             the script's full geometry (P1 producer, consumer and paired
             at B = 128, P2's five modes at 32768 x 512 with 220 chain
             steps, P3's five modes at 50,688 rows, P4 on a b = 64 uint8
-            batch cast to float32, P5 at B = 256), paired against the two
-            halves, and the served kernels that the legs time beside them
+            batch cast to float32, P5 at B = 256; P1 and P5 also at B = 1
+            and 8), paired against the two halves at each batch, P1's and
+            P5's footprints (failing on a spill), torch.mm beside P2's
+            dot_only, and the served kernels that the legs time beside them
             at the legs' shapes (K1 with the fast LIS and the float
             softmax, K8's _v3, _v4 with group 2 and 4 and _v5 at B = 256;
             K2 at 50,688 rows); then each probe's timing legs once, with
@@ -1904,23 +1906,33 @@ def _variant_name(fn):
 
 def phase_probes_kernels(dev, summary):
     """Each probe kernel against its plain version at its script's full
-    geometry (iters 5 a side: the plain versions take up to tens of ms);
-    P1's paired against the producer and the consumer run alone; P4 with
-    torch.sum beside it (the function in one PyTorch call, which the port
+    geometry (iters 5 a side: the plain versions take up to tens of ms),
+    P1's and P5's also at B = 1 and 8; P1's paired against the producer and
+    the consumer run alone at each batch; P1's and P5's footprints, failing
+    on a spill; P2's dot_only with torch.mm (float32 out) and P4 with
+    torch.sum beside them (the function in one PyTorch call, which the port
     never calls).  The served kernels that the legs time beside the probes
     (K1 with the fast LIS and with the float softmax, K8's _v3, _v4 with
     group 2 and 4, _v5; K2 on P3's operands) are held at the legs' shapes
     and arguments too."""
     def row(name, args, kw, label, library_ms=None, tol="exact",
-            beside=None, **opts):
+            beside=None, heaviest=True, **opts):
         # a served kernel's line names the probe it is timed beside
         where = dict(beside=beside) if beside else \
             dict(probe=name.split(".")[0])
         result = hold(name, args, kw, tol, iters=5, at=label, **where,
                       **opts)
         note(summary, name, result,
-             None if beside else (label, args, kw), library_ms)
+             None if beside or not heaviest else (label, args, kw),
+             library_ms)
 
+    # P5 and P1 also at B = 1 and 8 (ragged grids, persistent blocks with
+    # few items), before the legs' batch, whose row goes to the summary
+    heads = dict(num_heads=attn_overlap.H, head_dim=attn_overlap.D)
+    for b in (1, 8):
+        xb, *ops = attn_overlap.inputs(dev, b)
+        row("attn_overlap.qkv_attention_nv", (xb, *ops), heads, f"B={b}",
+            heaviest=False)
     x, *ops = attn_overlap.inputs(dev)
     at = f"B={x.shape[0]}"
     for fn, kw in attn_overlap.VARIANTS.values():
@@ -1928,27 +1940,47 @@ def phase_probes_kernels(dev, summary):
         row(name, (x, *ops), kw, at,
             tol="exact" if kw.get("lis", True) else "softmax",
             beside=None if name in PROBES else "attn_overlap")
-    heads = dict(num_heads=attn_overlap.H, head_dim=attn_overlap.D)
+    # K1 with the LIS and P5 by launch: one qkv GEMM kernel, so the cores'
+    # difference is the LIS step's device time.  A trace here has held as
+    # little as 39% of the call's event time (launches dropped): up to
+    # three tries, the line gives both
+    for variant in ("k1_lis", "p5_linear"):
+        fn, kw = attn_overlap.VARIANTS[variant]
+        events = cuda_ms(lambda: fn(x, *ops, **kw))
+        for _ in range(3):
+            t = device_by_launch(lambda: fn(x, *ops, **kw))
+            if sum(t.values()) >= 0.9 * events:
+                break
+        emit(phase="probes", probe="attn_overlap", variant=variant, at=at,
+             events_ms=events, device_ms=sum(t.values()),
+             **{f"{k}_device_ms": v for k, v in t.items()})
 
-    x, w, mb, scores, v, scal = pingpong.inputs(dev)
-    p_args, c_args = (x, w, mb, scal), (scores, v, scal)
     n_real = dict(n_real=pingpong.N)
-    at = f"B={x.shape[0]}"
-    row("pingpong.producer", p_args, heads, at)
-    row("pingpong.consumer", c_args, n_real, at)
-    row("pingpong.paired", (x, w, mb, scores, v, scal), dict(heads, **n_real),
-        at)
-    sco, out = pingpong.paired(x, w, mb, scores, v, scal, **heads, **n_real)
-    halves = bool(torch.equal(sco, pingpong.producer(*p_args, **heads))
-                  and torch.equal(out, pingpong.consumer(*c_args, **n_real)))
-    emit(phase="probes", probe="pingpong", paired_equals_halves=halves)
-    if not halves:
-        raise RuntimeError("pingpong.paired differs from its two halves")
+    for b in (1, 8, pingpong.BATCH):
+        x, w, mb, scores, v, scal = pingpong.inputs(dev, b)
+        p_args, c_args = (x, w, mb, scal), (scores, v, scal)
+        at, top = f"B={b}", b == pingpong.BATCH
+        row("pingpong.producer", p_args, heads, at, heaviest=top)
+        row("pingpong.consumer", c_args, n_real, at, heaviest=top)
+        row("pingpong.paired", (x, w, mb, scores, v, scal),
+            dict(heads, **n_real), at, heaviest=top)
+        sco, out = pingpong.paired(x, w, mb, scores, v, scal, **heads,
+                                   **n_real)
+        halves = bool(
+            torch.equal(sco, pingpong.producer(*p_args, **heads))
+            and torch.equal(out, pingpong.consumer(*c_args, **n_real)))
+        emit(phase="probes", probe="pingpong", at=at,
+             paired_equals_halves=halves)
+        if not halves:
+            raise RuntimeError(f"pingpong.paired differs from its two halves"
+                               f" at {at}")
+    probe_footprints(dev)
 
     a, b, v = overlap.inputs(dev)
     for mode in overlap.MODES:
         row(f"overlap.{mode}", (a, b, v), dict(iters=overlap.ITERS),
             f"{a.shape[0]}x{b.shape[1]}",
+            library_ms=mm_f32_ms(a, b) if mode == "dot_only" else None,
             compare=lambda got, want, m=mode: overlap.compare(
                 m, a, b, got, want, overlap.ITERS))
 
@@ -1966,6 +1998,38 @@ def phase_probes_kernels(dev, summary):
         .reshape(ingest.FLAT).to(torch.float32)
     row("ingest.tile_sum", (xf,), {}, "b=64 uint8 batch",
         library_ms=cuda_ms(lambda: torch.sum(xf, dtype=torch.float64)))
+
+
+def probe_footprints(dev):
+    """The footprints of P1's three kernels (paired by role) and of P5's
+    linear core at B = 1, 8 and the legs' batch; fails on a spill."""
+    prints = [(f"pingpong.{role}", b, pingpong.footprint(role, b, dev))
+              for b in (1, 8, pingpong.BATCH)
+              for role in ("producer", "consumer", "paired")]
+    prints += [("attn_overlap.qkv_attention_nv core", b,
+                attn_overlap.core_footprint(b, dev))
+               for b in (1, 8, attn_overlap.BATCH)]
+    for kernel, b, f in prints:
+        emit(phase="footprint", kernel=kernel, at=f"B={b}", **f)
+    spills = [(kernel, b) for kernel, b, f in prints if f["local_bytes"] > 0]
+    if spills:
+        raise RuntimeError(f"probe kernels spill to local memory: {spills}")
+
+
+def mm_f32_ms(a, b):
+    """ms of ``torch.mm(a, b, out_dtype=torch.float32)`` (the
+    ``aten::mm.dtype`` overload: P2 dot_only's bf16 product, float32 out,
+    in one PyTorch call), or None where this torch lacks it (a line says
+    why)."""
+    def call():
+        return torch.mm(a, b, out_dtype=torch.float32)
+    try:
+        call()
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        emit(phase="probes", probe="overlap", library="torch.mm out_dtype",
+             unavailable=f"{type(e).__name__}: {str(e)[:200]}")
+        return None
+    return cuda_ms(call)
 
 
 def phase_probes(dev):

@@ -1,16 +1,17 @@
-// The tensor-core attention core of K1, K5, K7a and K8 (qkv_attention.cu),
-// of K4/K4b (swin_attention.cu) and of the resident encoder K6
-// (resident.cu, inside its persistent launch): for 16 query rows a warp, integer
+// The tensor-core attention core of K1, K5, K7a and K8 (qkv_core.cuh,
+// qkv_attention.cu), of K4/K4b (swin_attention.cu), of the resident encoder
+// K6 (resident.cu, inside its persistent launch) and of the probes P1 and P5
+// (probes/pingpong.cu, probes/attn_nv.cu): for 16 query rows a warp, integer
 // scores on mma.sync, a per-score chain onto the softmax's grid (K1's c1
-// requant, or Swin's bias / requant / mask), the Log-Int-Softmax (or the
-// float softmax) and attn@v, requantized onto the output grid.
+// requant, or Swin's bias / requant / mask), the weight rule (the
+// Log-Int-Softmax, the float softmax, or P5's linear w = a * 2^-7) and
+// attn@v, requantized onto the output grid.
 //
-// Replaces the SIMT core (attention_core.cuh's attention_item, which the
-// probes P1 and P5 keep): one warp a query row, scores
-// by __dp4a over shared-memory words, attn@v a per-lane loop over the keys
-// with two shared-memory loads for every 32 multiply-adds.  At DeiT-S b=64
-// that loop alone issued ~60 M warp-level loads (~0.27 ms at one a clock
-// an SM) and the scores ~0.07 ms more, most of K1's and K4's ~0.49 ms.
+// Why tensor cores: a SIMT core (one warp a query row, scores by __dp4a
+// over shared-memory words, attn@v a per-lane loop over the keys with two
+// shared-memory loads for every 32 multiply-adds) issued ~60 M warp-level
+// loads in that loop alone at DeiT-S b=64 (~0.27 ms at one a clock an SM)
+// and ~0.07 ms more in the scores, most of K1's and K4's ~0.49 ms then.
 //
 // What bounds it on the H100: the products are small tensor-core work
 // (DeiT-S b=64: 1.9 G int8 MACs, ~2 us of peak) and the bytes are few
@@ -47,11 +48,16 @@
 //    with its keys in that order (key_slot) and the planes are built from
 //    the lane's own words, two byte permutes a word (weight_planes).  D in
 //    steps of 16 columns: 16 accumulators a thread.
-//  * The float softmax (Lis = false, its own kernel instance; off the main
-//    paths) takes its scores from the same mma, writes them to a per-warp
-//    buffer and runs attention_core.cuh's softmax_row_bf16 and double
-//    attn@v a row at a time, as the SIMT core does: exact in any order of
-//    the sum.
+//  * The float softmax (Weight::kSoftmax, its own kernel instance; off the
+//    main paths) takes its scores from the same mma, writes them to a
+//    per-warp buffer and runs attention_core.cuh's softmax_row_bf16 and
+//    double attn@v a row at a time: exact in any order of the sum.
+//  * P5's linear rule (Weight::kLinear) skips the LIS: the packed int8
+//    codes are the A fragments of attn@v as they stand, one s8 plane on
+//    mma.sync s8 x s8, and the int32 sum times 2^-7 is exact.
+//  * P1's consumer takes its int8 scores from device memory (a Scores type
+//    that loads them, LoadedScores) and reads no keys: its `kv` is V^T
+//    alone.
 //  * Shared memory: K (keys x DP, words padded to an odd multiple of 4:
 //    the fragment loads hit 32 distinct banks) and V^T (DP x keys, same
 //    rule), staged once per block; a block takes one (image, head) and
@@ -73,6 +79,11 @@ namespace dvt {
 namespace amma {
 
 constexpr int kRows = 16;     // query rows a warp: mma.sync's m16
+
+// attend_rows' weight rule, one kernel instance each: the float softmax
+// rounded to bfloat16, the Log-Int-Softmax, or probe P5's linear weight
+// w = a * 2^-7 over every key it is given.
+enum class Weight { kSoftmax, kLis, kLinear };
 
 // D[16 x 8] += A[16 x 32] B[32 x 8], s8 x s8 -> s32, A row-major, B
 // column-major (K-major).
@@ -213,6 +224,22 @@ __device__ __forceinline__ ExpTable fill_exp_table(uint8_t* smem, const LisConst
   return ExpTable{ti, tf, k, fast};
 }
 
+// The same by `threads` threads of which this is `tid` (probe P1's
+// consumer, in a block it may share with other roles); kept apart from
+// the block's form above for the reason stage_vt is.
+__device__ __forceinline__ ExpTable fill_exp_table(uint8_t* smem, const LisConsts& k, bool fast,
+                                                   int tid, int threads) {
+  long long* const ti = reinterpret_cast<long long*>(smem);
+  float* const tf = reinterpret_cast<float*>(smem + kExpEntries * 8);
+  for (int n = tid; n < kExpEntries; n += threads) {
+    const float x = n < 256 ? -static_cast<float>(n) : k.x_lo;
+    const float e = lis_exp(x, 0.f, k, fast);
+    tf[n] = e;
+    ti[n] = static_cast<long long>(e);
+  }
+  return ExpTable{ti, tf, k, fast};
+}
+
 __device__ __forceinline__ uint32_t load_word(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -268,6 +295,42 @@ __device__ __forceinline__ void stage_kv(const int8_t* k_src, const int8_t* v_sr
   }
 }
 
+// stage_kv's V^T half alone, by `threads` threads of which this is `tid`
+// (probe P1's consumer, which reads its scores and no keys, in a block it
+// may share with other roles): V^T at `vt`, keys in key_slot order, zero
+// past d and past n_real.  A copy of stage_kv's loop rather than a call
+// from it: routing the served kernels' staging through a shared routine
+// changed their register allocation (K6 spilled), so theirs stays as it
+// was.
+__device__ __forceinline__ void stage_vt(const int8_t* v_src, long long row, int n_real, int d,
+                                         const KvGeom& g, uint8_t* vt_bytes, int tid,
+                                         int threads) {
+  uint32_t* const vt = reinterpret_cast<uint32_t*>(vt_bytes);
+  const int vw = g.v_pitch() / 4, dw = g.dp / 4;
+  const int words = d / 4;
+  const int quartets = g.keys_pad / 4;
+#pragma unroll 4
+  for (int idx = tid; idx < quartets * dw; idx += threads) {
+    const int qd = idx % quartets, w = idx / quartets;
+    const int j0 = (qd & ~7) * 4 + (qd >> 2 & 1) * 16 + (qd & 3) * 2;
+    uint32_t x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = j0 + (i & 1) + 8 * (i >> 1);
+      x[i] = j < n_real && w < words ? load_word(v_src + j * row + 4 * w) : 0u;
+    }
+    const uint32_t lo01 = __byte_perm(x[0], x[1], 0x5140);
+    const uint32_t hi01 = __byte_perm(x[0], x[1], 0x7362);
+    const uint32_t lo23 = __byte_perm(x[2], x[3], 0x5140);
+    const uint32_t hi23 = __byte_perm(x[2], x[3], 0x7362);
+    const int col = key_slot(j0) / 4;
+    vt[(4 * w + 0) * vw + col] = __byte_perm(lo01, lo23, 0x5410);
+    vt[(4 * w + 1) * vw + col] = __byte_perm(lo01, lo23, 0x7632);
+    vt[(4 * w + 2) * vw + col] = __byte_perm(hi01, hi23, 0x5410);
+    vt[(4 * w + 3) * vw + col] = __byte_perm(hi01, hi23, 0x7632);
+  }
+}
+
 // The LIS weights w = 2^shift (shift = 15 - code, 0 for kLisZero) of four
 // keys as the two u8 planes of attn@v, hi = w >> 8 and lo = w & 255, each
 // one byte permute of the table {1, 2, 4, ..., 128}: a key's selector
@@ -309,6 +372,7 @@ struct SlotKeys {
 template <int N>
 struct PackedScores : SlotKeys<N> {
   static constexpr int kBytes = 2 * (N / 4) * 32 * 4;  // a warp's buffer
+  static constexpr bool kLoaded = false;               // computed by mma.sync
   // words a loop step: two, so that the LIS's chains of a few words
   // interleave without holding a 256-key row's in registers
   static constexpr int kUnroll = 2;
@@ -341,6 +405,44 @@ struct PackedScores : SlotKeys<N> {
   __device__ uint32_t selectors(int r, int p) const { return w[(r * (N / 4) + p) * 32]; }
 };
 
+// PackedScores whose codes come from device memory rather than from the
+// score mma (probe P1's consumer): row i of the tile's int8 scores at
+// tile.q + i * tile.q_row, keys in order.  Word p of row r holds keys
+// 16p + 2t, 16p + 2t + 1, 16p + 8 + 2t, 16p + 9 + 2t in its bytes 0-3
+// (put4's order); keys at or past n_keys and rows past tile.rows read 0.
+// Two 2-byte loads a word where the rows are an even number of bytes
+// apart (a key pair then never crosses a row), else four byte loads.
+template <int N>
+struct LoadedScores : PackedScores<N> {
+  static constexpr bool kLoaded = true;
+  __device__ LoadedScores(uint32_t* buf, int lane) : PackedScores<N>(buf, lane) {}
+  template <class Tile>
+  __device__ void load4(int p, const Tile& tile, int n_keys, int gq, int t) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = gq + 8 * r;
+      uint32_t word = 0u;
+      if (row < tile.rows) {
+        const int8_t* src = tile.q + row * tile.q_row;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int key = 16 * p + 8 * half + 2 * t;
+          uint32_t pair = 0u;
+          if ((tile.q_row & 1) == 0) {
+            if (key < n_keys) pair = *reinterpret_cast<const uint16_t*>(src + key);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (key + e < n_keys) pair |= static_cast<uint32_t>(static_cast<uint8_t>(src[key + e])) << (8 * e);
+          }
+          word |= pair << (16 * half);
+        }
+      }
+      this->w[(r * (N / 4) + p) * 32] = word;
+    }
+  }
+};
+
 // float values (Swin's: a float mask is added), kept in the warp's shared
 // memory as PackedScores keeps its codes: 2 * N floats a lane, lane
 // interleaved.  The plane selectors of slots 4p .. 4p+3 replace the value
@@ -348,6 +450,7 @@ struct PackedScores : SlotKeys<N> {
 template <int N>
 struct FloatScores : SlotKeys<N> {
   static constexpr int kBytes = 2 * N * 32 * 4;  // a warp's buffer
+  static constexpr bool kLoaded = false;
   static constexpr int kUnroll = 2;
   float* w;  // this lane's first value
   __device__ FloatScores(uint32_t* buf, int lane) : w(reinterpret_cast<float*>(buf) + lane) {}
@@ -400,13 +503,25 @@ struct QkvChain {
   }
 };
 
+// P1's consumer's chain: the scores are given, int8 codes in device memory
+// (RowTile::q: the tile's first score row, q_row bytes between rows), so
+// there is nothing to compute a score.
+struct LoadedChain {
+  template <int N>
+  using Scores = LoadedScores<N>;
+  using Value = int8_t;
+  static constexpr bool kIntegral = true;
+};
+
 // One warp's 16 query rows against the staged keys and values `kv`
 // (geometry g): scores, chain(s, i, j) -> the softmax's input for query
-// row i (of the tile) and key j, the softmax, attn@v, the output codes.
-// `scratch` is the warp's shared memory: for the LIS its scores
-// (Chain::Scores<N>::kBytes), for the float softmax its buffers.
+// row i (of the tile) and key j, the weight rule W, attn@v, the output
+// codes.  `scratch` is the warp's shared memory: for the LIS and the
+// linear rule its scores (Chain::Scores<N>::kBytes), for the float
+// softmax its buffers.  Where the chain's scores are loaded
+// (LoadedScores) no key is read and `kv` is V^T alone.
 // MaxKB: 32-key blocks a row holds at most; DP: the padded head width.
-template <int MaxKB, int DP, bool Lis, class Chain>
+template <int MaxKB, int DP, Weight W, class Chain>
 __device__ __forceinline__ void attend_rows(const RowTile& tile, const uint8_t* kv,
                                             const KvGeom& g, const SoftArgs& a,
                                             const Chain& chain, uint8_t* scratch) {
@@ -416,7 +531,8 @@ __device__ __forceinline__ void attend_rows(const RowTile& tile, const uint8_t* 
   using Scores = typename Chain::template Scores<N>;
   const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
   const uint32_t* const k = reinterpret_cast<const uint32_t*>(kv);
-  const uint32_t* const vt = reinterpret_cast<const uint32_t*>(kv + g.keys_pad * g.k_pitch());
+  const uint32_t* const vt = reinterpret_cast<const uint32_t*>(
+      kv + (Scores::kLoaded ? 0 : g.keys_pad * g.k_pitch()));
   const int kw = g.k_pitch() / 4, vw = g.v_pitch() / 4;
   constexpr int kRowKeys = 32 * MaxKB;  // the float softmax's rows
   using Value = typename Chain::Value;
@@ -424,60 +540,69 @@ __device__ __forceinline__ void attend_rows(const RowTile& tile, const uint8_t* 
 
   // the query fragments: rows gq and gq + 8, D bytes 4t.. and 16 + 4t..
   uint32_t qa[KC][4];
+  if constexpr (!Scores::kLoaded) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
+    for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = gq + 8 * (i & 1), col = 32 * kc + 16 * (i >> 1) + 4 * t;
-      qa[kc][i] = row < tile.rows && col < a.d ? load_word(tile.q + row * tile.q_row + col) : 0u;
-    }
+      for (int i = 0; i < 4; ++i) {
+        const int row = gq + 8 * (i & 1), col = 32 * kc + 16 * (i >> 1) + 4 * t;
+        qa[kc][i] = row < tile.rows && col < a.d ? load_word(tile.q + row * tile.q_row + col) : 0u;
+      }
+  }
 
   // scores, two key tiles at a time
   Scores sc(reinterpret_cast<uint32_t*>(scratch), lane);
 #pragma unroll(Scores::kUnroll)
   for (int p = 0; p < NKT / 2; ++p) {
     if (16 * p < a.n_real) {
-      float v[2][4];
+      if constexpr (Scores::kLoaded) {
+        sc.load4(p, tile, a.n_real, gq, t);
+      } else {
+        float v[2][4];
 #pragma unroll
-      for (int tt = 0; tt < 2; ++tt) {
-        const int j = 2 * p + tt;
-        int acc[4] = {0, 0, 0, 0};
-        if (8 * j < a.n_real) {
-          const uint32_t* kr = k + (8 * j + gq) * kw + t;
+        for (int tt = 0; tt < 2; ++tt) {
+          const int j = 2 * p + tt;
+          int acc[4] = {0, 0, 0, 0};
+          if (8 * j < a.n_real) {
+            const uint32_t* kr = k + (8 * j + gq) * kw + t;
 #pragma unroll
-          for (int kc = 0; kc < KC; ++kc) mma_s8(acc, qa[kc], kr[8 * kc], kr[8 * kc + 4]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[tt][i] = chain(acc[i], gq + 8 * (i >> 1), 8 * j + 2 * t + (i & 1));
-      }
-      if constexpr (Lis) {
-        sc.put4(p, v);
-      } else {  // straight into the float softmax's rows, keys in order
-#pragma unroll
-        for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int key = 8 * (2 * p + tt) + 2 * t + (i & 1);
-            if (key < a.n_real)
-              vals[(gq + 8 * (i >> 1)) * kRowKeys + key] = static_cast<Value>(v[tt][i]);
+            for (int kc = 0; kc < KC; ++kc) mma_s8(acc, qa[kc], kr[8 * kc], kr[8 * kc + 4]);
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[tt][i] = chain(acc[i], gq + 8 * (i >> 1), 8 * j + 2 * t + (i & 1));
+        }
+        if constexpr (W != Weight::kSoftmax) {
+          sc.put4(p, v);
+        } else {  // straight into the float softmax's rows, keys in order
+#pragma unroll
+          for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int key = 8 * (2 * p + tt) + 2 * t + (i & 1);
+              if (key < a.n_real)
+                vals[(gq + 8 * (i >> 1)) * kRowKeys + key] = static_cast<Value>(v[tt][i]);
+            }
+        }
       }
     }
   }
 
-  if constexpr (Lis) {
-    const auto put = [&](int r, int u, int s) { sc.put_shift(r, u, s); };
-    if constexpr (Chain::kIntegral)
-      lis_row_quad<N>(sc, a.n_real, a.exp.k, ExpLookup<true>{a.exp}, t, put);
-    else if (table_covers<N>(sc, a.n_real, a.exp, t))
-      lis_row_quad<N>(sc, a.n_real, a.exp.k, ExpLookup<false>{a.exp}, t, put);
-    else
-      lis_row_quad<N>(sc, a.n_real, a.exp.k, ExpDirect{a.exp.k, a.exp.fast}, t, put);
+  if constexpr (W != Weight::kSoftmax) {
+    if constexpr (W == Weight::kLis) {
+      const auto put = [&](int r, int u, int s) { sc.put_shift(r, u, s); };
+      if constexpr (Chain::kIntegral)
+        lis_row_quad<N>(sc, a.n_real, a.exp.k, ExpLookup<true>{a.exp}, t, put);
+      else if (table_covers<N>(sc, a.n_real, a.exp, t))
+        lis_row_quad<N>(sc, a.n_real, a.exp.k, ExpLookup<false>{a.exp}, t, put);
+      else
+        lis_row_quad<N>(sc, a.n_real, a.exp.k, ExpDirect{a.exp.k, a.exp.fast}, t, put);
+    }
 
-    // attn@v, 16 columns of D at a time: the weight planes are rebuilt
+    // attn@v, 16 columns of D at a time: the LIS weight planes are rebuilt
     // for each (8 instructions a block of 32 keys), so that a thread holds
-    // 16 accumulators
+    // 16 accumulators; the linear rule's A fragments are the packed codes
+    // as they stand, one s8 plane
     constexpr int NT = 2;  // n tiles of 8 columns a step
 #pragma unroll
     for (int d0 = 0; d0 < DP; d0 += 8 * NT) {
@@ -490,17 +615,29 @@ __device__ __forceinline__ void attend_rows(const RowTile& tile, const uint8_t* 
 #pragma unroll(Scores::kUnroll)
         for (int kb = 0; kb < MaxKB; ++kb) {
           if (32 * kb < a.n_real) {
-            uint32_t ph[4], pl[4];
-            weight_planes(sc.selectors(0, 2 * kb), ph[0], pl[0]);
-            weight_planes(sc.selectors(1, 2 * kb), ph[1], pl[1]);
-            weight_planes(sc.selectors(0, 2 * kb + 1), ph[2], pl[2]);
-            weight_planes(sc.selectors(1, 2 * kb + 1), ph[3], pl[3]);
+            if constexpr (W == Weight::kLinear) {
+              const uint32_t pa[4] = {sc.selectors(0, 2 * kb), sc.selectors(1, 2 * kb),
+                                      sc.selectors(0, 2 * kb + 1), sc.selectors(1, 2 * kb + 1)};
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              if (d0 + 8 * nt < a.d) {
-                const uint32_t* vr = vt + (d0 + 8 * nt + gq) * vw + 8 * kb + t;
-                mma_u8s8(hi[nt], ph, vr[0], vr[4]);
-                mma_u8s8(lo[nt], pl, vr[0], vr[4]);
+              for (int nt = 0; nt < NT; ++nt) {
+                if (d0 + 8 * nt < a.d) {
+                  const uint32_t* vr = vt + (d0 + 8 * nt + gq) * vw + 8 * kb + t;
+                  mma_s8(hi[nt], pa, vr[0], vr[4]);
+                }
+              }
+            } else {
+              uint32_t ph[4], pl[4];
+              weight_planes(sc.selectors(0, 2 * kb), ph[0], pl[0]);
+              weight_planes(sc.selectors(1, 2 * kb), ph[1], pl[1]);
+              weight_planes(sc.selectors(0, 2 * kb + 1), ph[2], pl[2]);
+              weight_planes(sc.selectors(1, 2 * kb + 1), ph[3], pl[3]);
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                if (d0 + 8 * nt < a.d) {
+                  const uint32_t* vr = vt + (d0 + 8 * nt + gq) * vw + 8 * kb + t;
+                  mma_u8s8(hi[nt], ph, vr[0], vr[4]);
+                  mma_u8s8(lo[nt], pl, vr[0], vr[4]);
+                }
               }
             }
           }
@@ -515,8 +652,13 @@ __device__ __forceinline__ void attend_rows(const RowTile& tile, const uint8_t* 
                 int8_t c[2];
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                  const int acc = hi[nt][2 * r + e] * 256 + lo[nt][2 * r + e];
-                  const float o = static_cast<float>(acc) * 0x1p-15f;
+                  // the LIS: 256 * P_hi V + P_lo V, weights x 2^15; the
+                  // linear rule: the sum of a * v (|acc| < 2^22), x 2^7
+                  const int acc = W == Weight::kLinear
+                                      ? hi[nt][2 * r + e]
+                                      : hi[nt][2 * r + e] * 256 + lo[nt][2 * r + e];
+                  const float o =
+                      static_cast<float>(acc) * (W == Weight::kLinear ? 0x1p-7f : 0x1p-15f);
                   c[e] = clip_i8(rintf(o * a.out_scale));
                 }
                 *reinterpret_cast<uint16_t*>(tile.out + row * tile.o_row + d0 + 8 * nt +

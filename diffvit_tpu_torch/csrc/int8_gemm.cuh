@@ -1,11 +1,10 @@
 // Shared int8 GEMM tile core with a fused epilogue (mma.sync), for the
 // kernels in this directory that have not moved to wgmma_gemm.cuh: K7a's
-// proj (qkv_attention.cu), and the probes (probes/pingpong.cu, which runs
-// the tile inside its own kernel, probes/attn_nv.cu, and
-// probes/overlap_mlp.cu, whose dot mode is the same-run yardstick of this
-// tile and whose staged and pipelined modes run their own double-buffered
-// K loop on int8_gemm_mma_step).  K1's qkv GEMM, K2, K3, K6 and K7b run on
-// wgmma_gemm.cuh.
+// proj (qkv_attention.cu) and probe P3 (probes/overlap_mlp.cu, whose dot
+// mode is the same-run yardstick of this tile and whose staged and
+// pipelined modes run their own double-buffered K loop on
+// int8_gemm_mma_step).  K1's qkv GEMM, K2, K3, K6, K7b and the probes P1
+// and P5 run on wgmma_gemm.cuh.
 //
 // Computes C[M, N] = A[M, K] @ B[K, N] for int8 A and B (B is a weight in
 // the JAX package's (Cin, Cout) layout), accumulating exactly in int32 with
@@ -21,12 +20,12 @@
 // bytes so that the fragment loads are free of bank conflicts.  Two operand
 // loaders fill the tiles:
 //  * DenseOperands: row-major A and B; the caller guarantees K % 32 == 0,
-//    N % 16 == 0 and 16-byte aligned A and B (the probes);
+//    N % 16 == 0 and 16-byte aligned A and B (probe P3);
 //  * ViewOperands: row-major A with any K, and B read through a BView
 //    (pointers and element strides, see below) with any N, so that K1's
 //    and K8's weights are read in place; the ragged K and N edges are
 //    zero-filled, and a 16-byte chunk is one vector load where it is in
-//    range and aligned, else loaded byte by byte (K7a's proj, P1, P5).  Its
+//    range and aligned, else loaded byte by byte (K7a's proj).  Its
 //    checks cost a dense caller about 19% (K2 on this tile at DeiT-S
 //    b=64, H100 80GB HBM3 at 700 W; PERF.md), so the dense callers keep
 //    the first.
@@ -298,7 +297,7 @@ inline void launch_int8_gemm_ops(const Ops& ops, Epi epi, cudaStream_t stream) {
   int8_gemm_kernel<Ops, Epi><<<grid, kGemmThreads, 0, stream>>>(ops, epi);
 }
 
-// The dense GEMM launch of K7b and the probes.
+// The dense GEMM launch of probe P3.
 template <class Epi>
 inline void launch_int8_gemm(const int8_t* A, const int8_t* B, int M, int N,
                              int K, Epi epi, cudaStream_t stream) {

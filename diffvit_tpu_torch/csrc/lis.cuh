@@ -1,11 +1,10 @@
-// Log-Int-Softmax over one score row, shared by the attention kernels so
-// that they cannot drift apart: lis_row over a row held by one warp (the
-// SIMT attention item of the probes, attention_core.cuh), lis_row_quad
-// over two rows held by the four lanes of a quad in the mma accumulator
-// layout (attention_mma.cuh: K1, K5, K6, K7a, K8, K4/K4b).  Both are built
-// from the same two steps, lis_exp (the integer exponential of one score)
-// and lis_shift (the log2 code of one weight), so they compute the same
-// function with the same arithmetic.
+// Log-Int-Softmax over score rows, shared by the attention kernels so
+// that they cannot drift apart: lis_row_quad over two rows held by the
+// four lanes of a quad in the mma accumulator layout (attention_mma.cuh:
+// K1, K5, K6, K7a, K8, K4/K4b and probe P1's consumer), built from two
+// steps, lis_exp (the integer exponential of one score) and lis_shift (the
+// log2 code of one weight), which attention_mma.cuh's exponential table
+// also calls.
 // The device form of _lis_body (diffvit_tpu/ops/pallas/attention.py:51)
 // and of its plain PyTorch specification, lis_body_plain
 // (ops/kernels/attention.py).
@@ -16,7 +15,7 @@
 //    2^16, since exp_sum >= e);
 //  * the row sum of the integer exponentials is exact, rounded once to
 //    float, so it does not depend on the summation order, nor does the row
-//    max: the warp and the quad forms agree bit for bit.  It is an int64
+//    max: any split of a row over lanes agrees bit for bit.  It is an int64
 //    sum where lis_sum_fits bounds the total below 2^63, and elsewhere
 //    (LisConsts::wide) the 128-bit sum of wide_add / wide_to_float: each
 //    exponential (an integer float below 2^68 for s_a >= 2^-17) split at
@@ -110,47 +109,6 @@ constexpr int kLisZero = 16;
 __device__ __forceinline__ int lis_shift(float exp_sum, float e, const LisConsts& k) {
   const float y = rintf(exp_sum / e) * k.nudge;
   return (y < 65536.f) ? 15 - ((__float_as_int(y) >> 23) - 127) : kLisZero;
-}
-
-// Lane `lane` of a warp holds a[u], the integer score of key lane + 32u,
-// for keys below n_keys.  Writes weights[j] = 2^(15 - code) (0 where the
-// log2 code saturates) for every key j < n_keys.
-template <int KeysPerLane>
-__device__ __forceinline__ void lis_row(const float (&a)[KeysPerLane],
-                                        int n_keys, const LisConsts& k,
-                                        bool fast, int* weights, int lane) {
-  float row_max = -INFINITY;
-#pragma unroll
-  for (int u = 0; u < KeysPerLane; ++u)
-    if (lane + 32 * u < n_keys) row_max = fmaxf(row_max, a[u]);
-  row_max = warp_max(row_max);
-
-  // integer exponential and its exact row sum
-  float e[KeysPerLane];
-  long long part = 0, part_hi = 0;
-#pragma unroll
-  for (int u = 0; u < KeysPerLane; ++u) {
-    e[u] = 0.f;
-    if (lane + 32 * u < n_keys) {
-      e[u] = lis_exp(a[u], row_max, k, fast);
-      if (k.wide)
-        wide_add(part_hi, part, e[u]);
-      else
-        part += static_cast<long long>(e[u]);
-    }
-  }
-  const float exp_sum = k.wide ? wide_to_float(warp_sum(part_hi), warp_sum(part))
-                               : static_cast<float>(warp_sum(part));
-
-  // log2 quantization: weight 2^-code, kept as the integer 2^(15-code)
-#pragma unroll
-  for (int u = 0; u < KeysPerLane; ++u) {
-    const int j = lane + 32 * u;
-    if (j < n_keys) {
-      const int shift = lis_shift(exp_sum, e[u], k);
-      weights[j] = shift < kLisZero ? 1 << shift : 0;
-    }
-  }
 }
 
 // The quad form: the four lanes of a quad (lanes 4g .. 4g+3, t = lane % 4)

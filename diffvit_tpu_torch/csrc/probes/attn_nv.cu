@@ -6,61 +6,62 @@
 // Npad keys (no mask), attn @ v and the requant onto the qact2 grid.
 //
 // The H100 question: what K1's LIS chain costs.  This kernel is K1's two
-// launches (qkv_attention.cu's GEMM with the qkv requant epilogue, then the
-// attention core of attention_core.cuh) with the weight rule kRuleLinear in
-// place of lis_row, so K1's time minus this one's is the LIS row's cost, and
-// K1 with the float softmax minus this one's is the softmax's.
+// launches as K1 runs them (qkv_core.cuh: the qkv GEMM on the wgmma
+// mainloop with the QkvOut requant, then attention_mma.cuh's tensor-core
+// core with K1's plan and K/V staging) with one step changed, the weight
+// rule: Weight::kLinear in place of the LIS, so the packed int8 codes go
+// to attn@v as they stand, one s8 plane, and no exponential table is
+// filled.  K1's time minus this one's is then the LIS step (the table, the
+// row max and exact sum, a division and a log2 a score, the two u8 planes),
+// and K1 with the float softmax minus this one's the softmax's.
 //
 // What bounds it: as K1, the qkv GEMM's int8 tensor-core work (at B=256 x
-// Npad 200, 45 G of 61 G operations); the scores and attn@v run in SIMT
-// (dp4a, then an int32 sum) as in K1's core.
+// Npad 200, 45 G of 61 G operations; 30.8 us at the int8 peak).
 //
 // Exactness: a * 2^-7 is exact in bfloat16, and the sum of its products
 // with int8 v is a multiple of 2^-7 below 2^15, exact in float32 in any
-// order; the kernel sums a * v in int32 and scales by 2^-7, so it equals
-// the plain version and the Pallas kernel bit for bit.
+// order; the kernel sums a * v in int32 (mma.sync s8 x s8) and scales by
+// 2^-7, so it equals the plain version and the Pallas kernel bit for bit.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "attention_core.cuh"
-#include "int8_gemm.cuh"
+#include "qkv_core.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(dvt::kAttnWarps * 32)
-    linear_core_kernel(const int8_t* __restrict__ qkv, dvt::CoreScalars sc,
-                       int8_t* __restrict__ out, int npad, int d, dvt::Strides st) {
-  __shared__ dvt::AttnSmem sm;
-  dvt::attention_item<dvt::kRuleLinear>(qkv, sc, out, npad, d, npad, 0, 0, st, blockIdx.z,
-                                        blockIdx.y, blockIdx.x * dvt::kQueryTile, sm);
-}
+using dvt::amma::Weight;
 
 }  // namespace
 
-// x: (B, Npad, Cin) int8; w: (Cin, 3C) int8, columns [slot, head, d]; mb:
-// (2, 3C) f32 [mult/s1, bias/s1]; scalars: (4,) f32 [s_a, c1, 1/s1, s1/s2]
-// on the device; qkv: (B, Npad, 3C) int8 scratch; out: (B, H, Npad, D)
-// int8.  Requires Npad <= 256, D <= 64, D % 4 == 0 (checked by the
-// wrapper).
-extern "C" int dvt_probe_qkv_attention_nv(const void* x, const void* w, const void* mb,
+// x: (B*Npad, Kp) int8 (K zero-padded to Kp, a multiple of 16; 16-byte
+// aligned); wk: (3C, Kp) int8, the (Cin, 3C) weight K-major with rows
+// [slot, head, d]; mb: (2, 3C) f32 [mult/s1, bias/s1]; scalars: (4,) f32
+// [s_a, c1, 1/s1, s1/s2] on the device; qkv: (B, Npad, 3C) int8 scratch;
+// out: (B, H, Npad, D) int8.  bm .. grid: gemm_plan's; a_*:
+// attention_plan's for n_real = Npad.  Requires Npad <= 256, D <= 64,
+// D % 4 == 0 (checked by the wrapper).
+extern "C" int dvt_probe_qkv_attention_nv(const void* x, const void* wk, const void* mb,
                                           const void* scalars, void* qkv, void* out,
-                                          int batch, int npad, int cin, int heads, int d,
+                                          int batch, int npad, int kp, int heads, int d, int bm,
+                                          int bn, int blocks, int stages, int smem, int grid,
+                                          int a_warps, int a_tiles, int a_split, int a_smem,
                                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int c = heads * d, rows = batch * npad;
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const dvt::BView view{{wp, wp + c, wp + 2 * c}, d, 3 * c, 1, c, d};
-  dvt::QkvEpilogue epi{static_cast<const float*>(mb), static_cast<int8_t*>(qkv), 3 * c};
-  dvt::launch_int8_gemm_ops(
-      dvt::ViewOperands{static_cast<const int8_t*>(x), cin, rows, 3 * c, cin, view}, epi, s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const float* sp = static_cast<const float*>(scalars);
-  const dvt::Strides st{(long long)npad * 3 * c, c, d, 3 * c,
-                        (long long)heads * npad * d, (long long)npad * d, d};
-  dim3 grid((npad + dvt::kQueryTile - 1) / dvt::kQueryTile, heads, batch);
-  linear_core_kernel<<<grid, dvt::kAttnWarps * 32, 0, s>>>(
-      static_cast<const int8_t*>(qkv), dvt::CoreScalars{sp + 1, sp + 3, sp},
-      static_cast<int8_t*>(out), npad, d, st);
-  return cudaGetLastError();
+  const dvt::Strides ost{0, 0, 0, 0, (long long)heads * npad * d, (long long)npad * d, d};
+  const int gp[6] = {bm, bn, blocks, stages, smem, grid};
+  // every Npad key weighs in: n_real = Npad
+  return dvt::qkv::launch_qkv_attention<Weight::kLinear>(
+      x, wk, mb, static_cast<const float*>(scalars), static_cast<int8_t*>(qkv),
+      static_cast<int8_t*>(out), ost, batch, npad, kp, heads, d, npad, 0, 0, 0, gp,
+      dvt::qkv::AttnPlan{a_warps, a_tiles, a_split, a_smem}, static_cast<cudaStream_t>(stream));
+}
+
+// The linear core's footprint for Npad keys and head width d at `warps`
+// warps and `smem` bytes: registers and local memory (spills) a thread,
+// shared memory a block, blocks an SM.
+extern "C" int dvt_probe_linear_core_footprint(int npad, int d, int warps, int smem,
+                                               int* registers, int* local_bytes,
+                                               int* smem_bytes, int* blocks_per_sm) {
+  return dvt::amma::footprint(
+      reinterpret_cast<const void*>(dvt::qkv::core_kernel<Weight::kLinear>(npad, d)), warps,
+      smem, registers, local_bytes, smem_bytes, blocks_per_sm);
 }

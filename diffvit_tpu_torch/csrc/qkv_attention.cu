@@ -24,7 +24,8 @@
 // divisions and the integer exponential a score) and the staging of each
 // head's keys and values.
 //
-// Design, K1/K8 in two launches, K7a in three:
+// Design, K1/K8 in two launches (qkv_core.cuh, which probe P5 shares), K7a
+// in three:
 //  1. The qkv GEMM on wgmma_gemm.cuh's mainloop (TMA into an mbarrier
 //     ring, wgmma, persistent blocks; the plan from gemm.gemm_plan) with
 //     the requant epilogue QkvOut (attention_core.cuh) in either order,
@@ -54,9 +55,8 @@
 #include <cuda_runtime.h>
 
 #include "attention_core.cuh"
-#include "attention_mma.cuh"
 #include "int8_gemm.cuh"
-#include "wgmma_gemm.cuh"
+#include "qkv_core.cuh"
 
 namespace {
 
@@ -64,115 +64,41 @@ using dvt::CoreScalars;
 using dvt::Strides;
 namespace amma = dvt::amma;
 
-using amma::QkvChain;
+using amma::Weight;
+using dvt::qkv::AttnPlan;
 
-constexpr int kMaxKB = 8;     // 256 keys (attention.py's MAX_KEYS)
-constexpr int kMidKB = 7;     // 224 keys (DeiT's 197): 7 blocks of attn@v, not 8
-constexpr int kQkvWarps = 7;  // warps a block at most (attn_plan.QKV_MAX_WARPS)
-// a warp's shared memory: its packed scores (the LIS) or the float
-// softmax's buffers
-constexpr int kCodeBytes = amma::PackedScores<8 * kMaxKB>::kBytes;
-
-__host__ __device__ int warp_scratch(int lis) {
-  return lis ? kCodeBytes : amma::soft_bytes(32 * kMaxKB, 1);
+// The core's weight rule for the entries' `lis` (0, 1, or lis.cuh's
+// kLisWide): the LIS or the float softmax.
+dvt::qkv::CoreKernel core_kernel(int n_real, int d, int lis) {
+  return lis ? dvt::qkv::core_kernel<Weight::kLis>(n_real, d)
+             : dvt::qkv::core_kernel<Weight::kSoftmax>(n_real, d);
 }
 
-// The attention plan (attn_plan.attention_plan): warps a block, query
-// tiles a block, blocks an (image, head), dynamic shared memory.
-struct AttnPlan {
-  int warps, tiles, split, smem;
-};
-
-// Block (split index, head, image) takes query tiles [x * tiles, + tiles)
-// of 16 rows; warp w the tiles w, w + warps, ...  The LIS runs at three
-// blocks an SM, because its chain is latency-bound and wants the warps:
-// at most 80 registers a thread (a 7-warp block's registers are allocated
-// as 8 warps'); the float softmax's double sums take more.
-template <int MaxKB, int DP, bool Lis>
-__global__ void __launch_bounds__(kQkvWarps * 32, Lis ? 3 : 1)
-    qkv_core_kernel(const int8_t* __restrict__ qkv, CoreScalars sc,
-                    int8_t* __restrict__ out, int npad, int d, int n_real, int lis_fast,
-                    int lis_wide, Strides st, int tiles) {
-  extern __shared__ __align__(16) uint8_t attn_smem[];
-  const int bx = blockIdx.x, b = blockIdx.z, h = blockIdx.y;
-  const amma::KvGeom g = amma::kv_geom(n_real, d, Lis);
-  const float s_a = *sc.s_a;
-  const amma::ExpTable et =
-      amma::fill_exp_table(attn_smem, dvt::lis_consts(s_a, lis_wide != 0), lis_fast != 0);
-  uint8_t* const kv = attn_smem + amma::kExpBytes;
-  const int8_t* base = qkv + b * st.q_image + h * st.q_head;
-  amma::stage_kv(base + st.q_slot, base + 2 * st.q_slot, st.q_row, n_real, d, g, kv);
-  __syncthreads();
-
-  const amma::SoftArgs a{n_real, d, et, s_a, *sc.s1_over_s2};
-  const QkvChain chain{*sc.c1, 0.f};
-  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  uint8_t* scratch = kv + g.bytes() + warp * warp_scratch(Lis);
-  int8_t* out_bh = out + b * st.o_image + h * st.o_head;
-  const int q_tiles = (npad + amma::kRows - 1) / amma::kRows;
-  const int t1 = min((bx + 1) * tiles, q_tiles);
-  for (int tile = bx * tiles + warp; tile < t1; tile += warps) {
-    const int q0 = tile * amma::kRows;
-    const amma::RowTile rt{base + q0 * st.q_row, st.q_row, out_bh + q0 * st.o_row, st.o_row,
-                           min(amma::kRows, npad - q0)};
-    amma::attend_rows<MaxKB, DP, Lis>(rt, kv, g, a, chain, scratch);
-  }
-}
-
-// Dynamic shared memory the core needs (attn_plan.py's core_smem).
-int core_smem(int n_real, int d, int lis, int warps) {
-  return amma::kExpBytes + amma::kv_geom(n_real, d, lis != 0).bytes() + warps * warp_scratch(lis);
-}
-
-using CoreKernel = void (*)(const int8_t*, CoreScalars, int8_t*, int, int, int, int, int,
-                           Strides, int);
-
-// The core's instance for n_real keys (224 or 256 at most), head width d
-// (32 or 64 at most) and softmax.
-CoreKernel core_kernel(int n_real, int d, int lis) {
-  const bool mid = n_real <= 32 * kMidKB, narrow = d <= 32;
-  if (lis)
-    return mid ? (narrow ? qkv_core_kernel<kMidKB, 32, true> : qkv_core_kernel<kMidKB, 64, true>)
-               : (narrow ? qkv_core_kernel<kMaxKB, 32, true> : qkv_core_kernel<kMaxKB, 64, true>);
-  return mid ? (narrow ? qkv_core_kernel<kMidKB, 32, false> : qkv_core_kernel<kMidKB, 64, false>)
-             : (narrow ? qkv_core_kernel<kMaxKB, 32, false> : qkv_core_kernel<kMaxKB, 64, false>);
-}
-
-cudaError_t launch_core(const int8_t* qkv, CoreScalars sc, int8_t* out, int batch, int heads,
-                        int npad, int d, int n_real, int lis, int lis_fast, const Strides& st,
+cudaError_t launch_core(const int8_t* codes, CoreScalars sc, int8_t* out, int batch, int heads,
+                        int npad, int d, int n_real, int lis, const Strides& st,
                         const AttnPlan& p, cudaStream_t s) {
-  const int q_tiles = (npad + amma::kRows - 1) / amma::kRows;
-  if (p.warps < 1 || p.warps > kQkvWarps || p.tiles < 1 ||
-      p.split * p.tiles < q_tiles || p.smem < core_smem(n_real, d, lis, p.warps) ||
-      n_real > 32 * kMaxKB || d > 64)
-    return cudaErrorInvalidValue;
-  const CoreKernel kernel = core_kernel(n_real, d, lis);
-  cudaError_t err = amma::allow_smem(reinterpret_cast<const void*>(kernel), p.smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.split, heads, batch), 32 * p.warps, p.smem, s>>>(qkv, sc, out, npad, d, n_real,
-                                                                   lis_fast, lis == dvt::kLisWide,
-                                                                   st, p.tiles);
-  return cudaGetLastError();
+  const int wide = lis == dvt::kLisWide;
+  if (lis)
+    return dvt::qkv::launch_core<Weight::kLis>(codes, sc, out, batch, heads, npad, d, n_real,
+                                               wide, 0, st, p, s);
+  return dvt::qkv::launch_core<Weight::kSoftmax>(codes, sc, out, batch, heads, npad, d, n_real,
+                                                 wide, 0, st, p, s);
 }
 
-// The qkv GEMM (plan g: gemm_plan's numbers) with its requant epilogue
-// into the (B*Npad, 3C) scratch, then the attention core into `out` at the
-// output strides (o_image, o_head, o_row) of `ost`.  x: (B*Npad, Kp) int8;
-// wk: (3C, Kp) int8, the weight K-major; scalars: [s_a, c1, 1/s1, s1/s2].
+// K1's (and K7a's and K8's) two launches, with the LIS or the float softmax.
 cudaError_t launch_qkv_attention(const void* x, const void* wk, const void* mb,
-                                 const float* sp, int8_t* qkv, int8_t* out, const Strides& ost,
-                                 int batch, int npad, int kp, int heads, int d, int n_real,
-                                 int lis, int lis_fast, int requant_v1, const int* gp,
-                                 const AttnPlan& ap, cudaStream_t s) {
-  const int c = heads * d, rows = batch * npad;
-  const dvt::wg::GemmArgs g{x, wk, rows, 3 * c, kp, gp[0], gp[1], gp[2], gp[3], gp[4], gp[5]};
-  cudaError_t err = dvt::wg::gemm(
-      g, dvt::QkvOut{static_cast<const float*>(mb), qkv, 3 * c, requant_v1 ? sp + 2 : nullptr},
-      s);
-  if (err != cudaSuccess) return err;
-  const Strides st{(long long)npad * 3 * c, c, d, 3 * c, ost.o_image, ost.o_head, ost.o_row};
-  return launch_core(qkv, CoreScalars{sp + 1, sp + 3, sp}, out, batch, heads, npad, d, n_real,
-                     lis, lis_fast, st, ap, s);
+                                 const float* sp, int8_t* codes, int8_t* out,
+                                 const Strides& ost, int batch, int npad, int kp, int heads,
+                                 int d, int n_real, int lis, int lis_fast, int requant_v1,
+                                 const int* gp, const AttnPlan& ap, cudaStream_t s) {
+  const int wide = lis == dvt::kLisWide;
+  if (lis)
+    return dvt::qkv::launch_qkv_attention<Weight::kLis>(x, wk, mb, sp, codes, out, ost, batch,
+                                                        npad, kp, heads, d, n_real, wide,
+                                                        lis_fast, requant_v1, gp, ap, s);
+  return dvt::qkv::launch_qkv_attention<Weight::kSoftmax>(x, wk, mb, sp, codes, out, ost, batch,
+                                                          npad, kp, heads, d, n_real, wide,
+                                                          lis_fast, requant_v1, gp, ap, s);
 }
 
 // K7a's proj: y = acc * mult_p + bias_p; the qact3 fence; the residual
@@ -268,7 +194,7 @@ extern "C" int dvt_int_attention(const void* qkv, const void* scalars, void* out
   const float* sp = static_cast<const float*>(scalars);
   const Strides st{sq_i, sq_s, sq_h, sq_r, so_i, so_h, so_r};
   return launch_core(static_cast<const int8_t*>(qkv), CoreScalars{sp, sp + 1, sp + 2},
-                     static_cast<int8_t*>(out), batch, heads, npad, d, n_real, lis, 0, st,
+                     static_cast<int8_t*>(out), batch, heads, npad, d, n_real, lis, st,
                      AttnPlan{a_warps, a_tiles, a_split, a_smem},
                      static_cast<cudaStream_t>(stream));
 }

@@ -366,7 +366,8 @@ __device__ __forceinline__ void attention_items(const Params& p, int l, uint8_t*
       const amma::RowTile rt{base + (size_t)q0 * c3, c3,
                              p.act + ((size_t)b * p.npad + q0) * c + h * p.d, c,
                              min(amma::kRows, p.npad - q0)};
-      amma::attend_rows<kMaxKB, kDP, Lis>(rt, kv, g, a, chain, scratch);
+      amma::attend_rows<kMaxKB, kDP, Lis ? amma::Weight::kLis : amma::Weight::kSoftmax>(
+          rt, kv, g, a, chain, scratch);
     }
   }
 }

@@ -148,7 +148,8 @@ __global__ void __launch_bounds__(kSwinWarps * 32, Lis ? 3 : 1)
     const amma::RowTile rt{base + q0 * st.q_row, st.q_row,
                            out + win * st.o_window + h * st.o_head + q0 * st.o_row, st.o_row,
                            min(amma::kRows, npad - q0)};
-    amma::attend_rows<kMaxKB, DP, Lis>(rt, kv0 + wi * g.bytes(), g, a, chain, scratch);
+    amma::attend_rows<kMaxKB, DP, Lis ? amma::Weight::kLis : amma::Weight::kSoftmax>(
+        rt, kv0 + wi * g.bytes(), g, a, chain, scratch);
   }
 }
 

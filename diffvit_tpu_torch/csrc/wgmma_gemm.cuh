@@ -1,8 +1,9 @@
 // Hopper int8 GEMM mainloop with a fused epilogue, for K2 (int_mlp.cu), K3
-// (int_linear.cu), the qkv GEMM of K1, K7a and K8 (qkv_attention.cu), K7b's
-// fc1 and fc2 (int_mlp_block.cu) and the four GEMM steps of the resident
-// encoder K6 (resident.cu, which calls the tile routine gemm_tiles inside
-// its persistent launch).
+// (int_linear.cu), the qkv GEMM of K1, K7a and K8 (qkv_core.cuh) and of
+// probe P5, K7b's fc1 and fc2 (int_mlp_block.cu), the four GEMM steps of
+// the resident encoder K6 (resident.cu) and probe P1's per-head qkv GEMM
+// (probes/pingpong.cu); the last two call the tile routine gemm_tiles
+// inside their persistent launches.
 //
 // Serves the Pallas kernels diffvit_tpu/ops/pallas/linear.py:69
 // fused_int_linear and diffvit_tpu/ops/pallas/mlp.py:290 fused_int_mlp (and
@@ -365,7 +366,9 @@ struct RingPos {
 // warpgroups 0 and 1 consume and thread 256, the first of a ninth warp,
 // issues.  A consumer c holds a 64 x WN accumulator: rows 64 * c of the
 // tile for BM = 128, columns WN * c for BM = 64.  W's rows are read from
-// row w_row0 of its map (a layer's offset in a stack of weights).
+// row w_row0 of its map (a layer's offset in a stack of weights), A's from
+// row a_row0 of its map (an image's offset in a batch: probe P1's
+// producer); the epilogue sees rows and columns from 0.
 // MoveRegs (1 or 2, the blocks an SM; first layout only) moves registers
 // from the producer warpgroup to the consumers with setmaxnreg; 0 leaves
 // every warp the launch's count.  Every stage this call loads it also
@@ -375,7 +378,7 @@ template <int BM, int BN, int MoveRegs, bool ProducerLast, class Epi>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
                                            int M, int N, int K, int w_row0, const Epi& epi,
                                            const Ring& ring, RingPos& pos, int tile0,
-                                           int step) {
+                                           int step, int a_row0 = 0) {
   constexpr int WN = BM == 128 ? BN : BN / 2;  // a consumer's columns: one wgmma's
   static_assert(BM == 64 || BM == 128, "BM is 64 or 128");
   static_assert(WN == 32 || WN == 64 || WN == 128, "BN is 64 or 128");
@@ -395,7 +398,8 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* tma_a, const CUten
           const int s = pos.stage;
           mbar_wait(ring.empty + 8 * s, pos.phase ^ 1);
           mbar_expect_tx(ring.full + 8 * s, (BM + BN) * kBK);
-          tma_load_2d(ring.a + s * ring.a_slot, tma_a, kt * kBK, m0, ring.full + 8 * s);
+          tma_load_2d(ring.a + s * ring.a_slot, tma_a, kt * kBK, a_row0 + m0,
+                      ring.full + 8 * s);
           tma_load_2d(ring.b + s * ring.b_slot, tma_b, kt * kBK, w_row0 + n0, ring.full + 8 * s);
           pos.next(ring.stages);
         }
@@ -505,23 +509,28 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int cols, int 
 // limit: the launch path pays no driver call for it after the first) and
 // checks that its register count leaves setmaxnreg's budget (40 x 128 +
 // 232 x 256) within what the launch allocates: a short budget would stall
-// setmaxnreg.inc.
+// setmaxnreg.inc.  The cache is keyed by the kernel's address too: two
+// libraries that instantiate the same kernel (the served one and the
+// probes') share these statics (g++ makes a template's statics unique
+// process-wide), and each library's kernel needs its own limit set.
 template <int BM, int BN, int B, class Epi>
 inline cudaError_t prepare(int smem, cudaFuncAttributes* attr) {
   constexpr int kCards = 16;
   static int ready_smem[kCards] = {};
+  static const void* ready_fn[kCards] = {};
   static cudaFuncAttributes attrs[kCards];
   const void* f = reinterpret_cast<const void*>(wgmma_gemm_kernel<BM, BN, B, Epi>);
   int card = 0;
   cudaError_t err = cudaGetDevice(&card);
   if (err != cudaSuccess) return err;
   if (card >= kCards) return cudaErrorInvalidDevice;
-  if (smem > ready_smem[card]) {
+  if (smem > ready_smem[card] || ready_fn[card] != f) {
     err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     err = cudaFuncGetAttributes(&attrs[card], f);
     if (err != cudaSuccess) return err;
     ready_smem[card] = smem;
+    ready_fn[card] = f;
   }
   *attr = attrs[card];
   if (attr->numRegs * kThreads < kProducerRegs<B> * 128 + kConsumerRegs<B> * 256 ||

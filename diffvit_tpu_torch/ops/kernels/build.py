@@ -75,15 +75,16 @@ ENTRIES = {
 }
 # the probes of ``diffvit_tpu_torch/probes`` (csrc/probes/*.cu)
 PROBE_ENTRIES = {
-    "dvt_probe_producer": (_P,) * 5 + (_I,) * 5 + (_P,),
-    "dvt_probe_consumer": (_P,) * 4 + (_I,) * 5 + (_P,),
-    "dvt_probe_paired": (_P,) * 8 + (_I,) * 6 + (_P,),
+    "dvt_probe_producer": (_P,) * 5 + (_I,) * 8 + (_P,),
+    "dvt_probe_consumer": (_P,) * 4 + (_I,) * 9 + (_P,),
+    "dvt_probe_paired": (_P,) * 8 + (_I,) * 11 + (_P,),
     "dvt_probe_overlap": (_P,) * 5 + (_I,) * 5 + (_P,),
     "dvt_probe_overlap_mlp": (_P,) * 10 + (_I,) * 4 + (_P,),
     "dvt_probe_overlap_mlp_fc1_occupancy": (_I, _P, _P, _P),
-    "dvt_probe_pingpong_occupancy": (_I, _P, _P, _P),
+    "dvt_probe_pingpong_occupancy": (_I,) * 5 + (_P,) * 4,
     "dvt_probe_tile_sum": (_P,) * 3 + (_L,) + (_P,),
-    "dvt_probe_qkv_attention_nv": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "dvt_probe_qkv_attention_nv": (_P,) * 6 + (_I,) * 15 + (_P,),
+    "dvt_probe_linear_core_footprint": (_I,) * 4 + (_P,) * 4,
 }
 
 _U8, _F32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)

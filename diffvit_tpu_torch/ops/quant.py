@@ -151,17 +151,21 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     to int32; on CUDA the product runs as float32 matmuls over K-chunks of
     at most 1024, each exact (|chunk sum| <= 1024*128*128 = 2^24) and
     converted to int32 before the chunks are added.  TF32 would drop
-    mantissa bits, so it is switched off for these matmuls."""
+    mantissa bits, so it is switched off for these matmuls and the
+    caller's setting restored after them."""
     if a.device.type == "cpu":
         return torch.matmul(a.to(torch.int32), b.to(torch.int32))
     if a.device.type != "cuda":
         raise ValueError(f"int_matmul: unsupported device {a.device}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    k = a.shape[-1]
-    out = None
-    for k0 in range(0, k, 1024):
-        part = torch.matmul(a[..., k0:k0 + 1024].to(torch.float32),
-                            b[..., k0:k0 + 1024, :].to(torch.float32))
-        part = part.to(torch.int32)
-        out = part if out is None else out + part
+    try:
+        out = None
+        for k0 in range(0, a.shape[-1], 1024):
+            part = torch.matmul(a[..., k0:k0 + 1024].to(torch.float32),
+                                b[..., k0:k0 + 1024, :].to(torch.float32))
+            part = part.to(torch.int32)
+            out = part if out is None else out + part
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return out

@@ -9,19 +9,26 @@ Npad keys:
     a    = clip(rint(q_h @ k_h^T * c1))
     out  = clip(rint((a * 2^-7) @ v_h * s1/s2))
 
-Its kernel is K1's two launches with that weight rule
-(``csrc/probes/attn_nv.cu``).  :func:`legs` times K1 (LIS and float
-softmax), this kernel and K8's ``_v3``/``_v4``/``_v5`` at the script's B=256,
-each chained 12 deep, and reports K1 minus this kernel: the LIS row's
-cost.  ``VARIANTS`` lists what it times, so that a caller can hold each
-kernel at the legs' arguments."""
+Its kernel is K1's two launches as K1 runs them, the qkv GEMM on the TMA +
+``wgmma`` mainloop and the tensor-core core with K1's plans, with that
+weight rule in place of the LIS (``csrc/probes/attn_nv.cu`` on
+``csrc/qkv_core.cuh``).  :func:`legs` times K1 (LIS and float softmax),
+this kernel and K8's ``_v3``/``_v4``/``_v5`` at the script's B=256, each
+chained 12 deep, and reports K1 minus this kernel: the LIS step's cost.
+``VARIANTS`` lists what it times, so that a caller can hold each kernel
+at the legs' arguments."""
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ..ops.kernels import attention, check_for_kernel, require, route
+from ..ops.kernels.attn_plan import attention_plan
 from ..ops.kernels.build import check, load_library
+from ..ops.kernels.gemm import (gemm_plan, kmajor, pad_k, per_weight,
+                                require_tma_operand, round_up, sm_count)
 from ..ops.quant import int_matmul
 from .timing import REPEATS, rounds_ms, run_main, spread
 
@@ -48,6 +55,15 @@ def qkv_attention_nv_plain(x_i8, w_all, mult, bias, scalars, *, num_heads,
         .to(torch.int8)
 
 
+def launch_plans(batch, npad, cin, num_heads, head_dim, sms):
+    """K1's plans for the two launches: the qkv GEMM's
+    (``gemm.gemm_plan`` for (B*Npad, Kp) @ (Kp, 3C)) and the core's
+    (``attn_plan.attention_plan`` over every one of the Npad keys)."""
+    kp = round_up(cin, 16)
+    return (gemm_plan(batch * npad, 3 * num_heads * head_dim, kp, sms),
+            attention_plan(batch, num_heads, npad, head_dim, npad, True, sms))
+
+
 def qkv_attention_nv(x_i8, w_all, mult, bias, scalars, *, num_heads,
                      head_dim):
     """x_i8: (B, Npad, Cin) int8; w_all: (Cin, 3C) int8, columns [slot,
@@ -72,17 +88,40 @@ def qkv_attention_nv(x_i8, w_all, mult, bias, scalars, *, num_heads,
             f"Npad={npad}: the kernel takes 1..{attention.MAX_KEYS} keys")
     require(head_dim <= 64 and head_dim % 4 == 0,
             f"head_dim={head_dim}: the kernel takes multiples of 4 up to 64")
-    mb = attention.fold_requant(mult, bias, scalars[2], c3).contiguous()
+    mb = per_weight(
+        lambda: attention.fold_requant(mult, bias, scalars[2], c3)
+        .contiguous(), mult, bias, scalars, c3, "p5_mb")
+    wk = kmajor(w_all)
+    x2 = pad_k(x_i8.reshape(b * npad, cin), wk.shape[1])
+    require_tma_operand(x2, "x_i8")
+    gp, ap = launch_plans(b, npad, cin, num_heads, head_dim,
+                          sm_count(x_i8.device))
     qkv = torch.empty((b, npad, c3), dtype=torch.int8, device=x_i8.device)
     out = torch.empty((b, num_heads, npad, head_dim), dtype=torch.int8,
                       device=x_i8.device)
     err = load_library("probes").dvt_probe_qkv_attention_nv(
-        x_i8.data_ptr(), w_all.data_ptr(), mb.data_ptr(), scalars.data_ptr(),
-        qkv.data_ptr(), out.data_ptr(), b, npad, cin, num_heads, head_dim,
+        x2.data_ptr(), wk.data_ptr(), mb.data_ptr(), scalars.data_ptr(),
+        qkv.data_ptr(), out.data_ptr(), b, npad, wk.shape[1], num_heads,
+        head_dim, *gp.launch_args(), *ap.launch_args(),
         torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, "qkv_attention_nv", "probes")
     qkv_attention_nv.launches += 1
     return out
+
+
+def core_footprint(batch=BATCH, dev=None):
+    """{"registers", "local_bytes", "smem_bytes", "blocks_per_sm", "warps"}
+    of the linear core at the legs' geometry and ``batch``'s plan on the
+    current card.  Needs a card."""
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    _, ap = launch_plans(batch, NP, C, H, D, sm_count(dev))
+    out = [ctypes.c_int() for _ in range(4)]
+    check(load_library("probes").dvt_probe_linear_core_footprint(
+        NP, D, ap.warps, ap.smem, *map(ctypes.byref, out)),
+        "dvt_probe_linear_core_footprint", "probes")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), (o.value for o in out)),
+                warps=ap.warps)
 
 
 qkv_attention_nv.launches = 0

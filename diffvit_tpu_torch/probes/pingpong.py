@@ -11,19 +11,28 @@ are ``producer_part`` (``:80``, called at ``:141``), ``consumer_part``
     consumer  out = clip(rint(LIS(scores) @ v_h * s1/s2))    (B, H, Npad, D)
     paired    both, on two half-streams, in one launch
 
-The kernels are ``csrc/probes/pingpong.cu``.  :func:`legs` answers the
-script's question on the card: does the paired launch take max(producer,
-consumer) or their sum?  It times each chained 12 deep, and the producer and
-the consumer on two CUDA streams at once."""
+The kernels are ``csrc/probes/pingpong.cu``, on the parts K1 runs: the
+producer's per-head qkv GEMM on the TMA + ``wgmma`` mainloop and its scores
+on the tensor-core score step, the consumer K1's core on loaded scores,
+and paired one warp-specialized launch of both roles (their plans:
+``ops/kernels/pingpong_plan.py``).  :func:`legs` answers the script's
+question on the card: does the paired launch take max(producer, consumer)
+or their sum?  It times each chained 12 deep, and the producer and the
+consumer on two CUDA streams at once."""
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ..ops.kernels import attention, check_for_kernel, require, route
+from ..ops.kernels import pingpong_plan as plans
 from ..ops.kernels.build import check, load_library
+from ..ops.kernels.gemm import (pad_k, per_weight, require_tma_operand,
+                                round_up, sm_count)
 from ..ops.quant import int_matmul
-from .timing import REPEATS, occupancy, rounds_ms, run_main, spread
+from .timing import REPEATS, rounds_ms, run_main, spread
 
 NP, N, H, D = 200, 197, 6, 64
 C = H * D
@@ -96,6 +105,26 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def head_major_weight(w_all, num_heads, head_dim):
+    """The (H * 3D, Kp) K-major copy of ``w_all`` (Cin, 3C) with its rows
+    ordered [head, slot, d], K zero-padded to a multiple of 16: one
+    item's q, k and v columns are 3D consecutive rows.  Kept per weight
+    (``gemm.per_weight``)."""
+    def make():
+        cin = w_all.shape[0]
+        w = w_all.view(cin, 3, num_heads, head_dim).permute(2, 1, 3, 0)
+        return pad_k(w.reshape(-1, cin).contiguous(), round_up(cin, 16))
+    return per_weight(make, w_all, num_heads, head_dim, "p1_head_major")
+
+
+def _producer_operands(x_i8, w_all, num_heads, head_dim):
+    b, npad, cin = x_i8.shape
+    wk = head_major_weight(w_all, num_heads, head_dim)
+    x2 = pad_k(x_i8.reshape(b * npad, cin), wk.shape[1])
+    require_tma_operand(x2, "x_i8")
+    return x2, wk
+
+
 def producer(x_i8, w_all, mb, scalars, *, num_heads, head_dim):
     """x_i8: (B, Npad, Cin) int8; w_all: (Cin, 3C) int8, columns [slot,
     head, d]; mb: (2, 3C) float32 [mult/s1, bias/s1]; scalars: (4,) float32
@@ -106,13 +135,16 @@ def producer(x_i8, w_all, mb, scalars, *, num_heads, head_dim):
         return producer_plain(x_i8, w_all, mb, scalars, num_heads=num_heads,
                               head_dim=head_dim)
     _check_producer(x_i8, w_all, mb, scalars, num_heads, head_dim)
-    b, npad, cin = x_i8.shape
+    b, npad, _ = x_i8.shape
+    x2, wk = _producer_operands(x_i8, w_all, num_heads, head_dim)
+    plan = plans.producer_plan(b, num_heads, npad, head_dim,
+                               sm_count(x_i8.device))
     scores = torch.empty((b, num_heads, npad, npad), dtype=torch.int8,
                          device=x_i8.device)
     err = load_library("probes").dvt_probe_producer(
-        x_i8.data_ptr(), w_all.data_ptr(), mb.data_ptr(), scalars.data_ptr(),
-        scores.data_ptr(), b, npad, cin, num_heads, head_dim,
-        _stream(x_i8))
+        x2.data_ptr(), wk.data_ptr(), mb.data_ptr(), scalars.data_ptr(),
+        scores.data_ptr(), b, npad, wk.shape[1], num_heads, head_dim,
+        *plan.launch_args(), _stream(x_i8))
     check(err, "producer", "probes")
     producer.launches += 1
     return scores
@@ -127,10 +159,11 @@ def consumer(scores, v, scalars, *, n_real):
         return consumer_plain(scores, v, scalars, n_real=n_real)
     _check_consumer(scores, v, scalars, n_real)
     b, h, npad, d = v.shape
+    plan = plans.consumer_plan(b, h, npad, d, n_real, sm_count(v.device))
     out = torch.empty_like(v)
     err = load_library("probes").dvt_probe_consumer(
         scores.data_ptr(), v.data_ptr(), scalars.data_ptr(), out.data_ptr(),
-        b, npad, h, d, n_real, _stream(v))
+        b, npad, h, d, n_real, *plan.launch_args(), _stream(v))
     check(err, "consumer", "probes")
     consumer.launches += 1
     return out
@@ -148,16 +181,19 @@ def paired(x_i8, w_all, mb, scores, v, scalars, *, num_heads, head_dim,
                             n_real=n_real)
     _check_producer(x_i8, w_all, mb, scalars, num_heads, head_dim)
     _check_consumer(scores, v, scalars, n_real)
-    b, npad, cin = x_i8.shape
+    b, npad, _ = x_i8.shape
     require(v.shape == (b, num_heads, npad, head_dim),
             f"v {tuple(v.shape)} does not match x {tuple(x_i8.shape)}")
+    x2, wk = _producer_operands(x_i8, w_all, num_heads, head_dim)
+    plan = plans.paired_plan(b, num_heads, npad, head_dim, n_real,
+                             sm_count(x_i8.device))
     scores_out = torch.empty_like(scores)
     out = torch.empty_like(v)
     err = load_library("probes").dvt_probe_paired(
-        x_i8.data_ptr(), w_all.data_ptr(), mb.data_ptr(), scores.data_ptr(),
+        x2.data_ptr(), wk.data_ptr(), mb.data_ptr(), scores.data_ptr(),
         v.data_ptr(), scalars.data_ptr(), scores_out.data_ptr(),
-        out.data_ptr(), b, npad, cin, num_heads, head_dim, n_real,
-        _stream(x_i8))
+        out.data_ptr(), b, npad, wk.shape[1], num_heads, head_dim, n_real,
+        *plan.launch_args(), _stream(x_i8))
     check(err, "paired", "probes")
     paired.launches += 1
     return scores_out, out
@@ -168,12 +204,37 @@ for _fn in (producer, consumer, paired):
 del _fn
 
 
-def footprint(role):
-    """{"registers", "smem_bytes", "blocks_per_sm"} of the kernel of role
-    ``role`` ("producer", "consumer" or "paired") on the current card.
-    Needs a card."""
-    return occupancy(load_library("probes").dvt_probe_pingpong_occupancy,
-                     ("producer", "consumer", "paired").index(role))
+def footprint(role, batch=BATCH, dev=None):
+    """The footprint of the kernel of role ``role`` ("producer",
+    "consumer" or "paired") at the legs' geometry and ``batch``'s plan on
+    the current card: {"registers" (a thread at launch), "local_bytes"
+    (spills), "smem_bytes", "blocks_per_sm", "warps"}, and for the
+    producer and paired {"roles": {name: {"warps", "registers"
+    (setmaxnreg's)}}} and each part's shared memory.  Needs a card."""
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    sms = sm_count(dev)
+    if role == "producer":
+        plan = plans.producer_plan(batch, H, NP, D, sms)
+        warps, smem = plan.threads // 32, plan.smem
+    elif role == "consumer":
+        plan = plans.consumer_plan(batch, H, NP, D, N, sms)
+        warps, smem = plan.warps, plan.smem
+    else:
+        plan = plans.paired_plan(batch, H, NP, D, N, sms)
+        warps, smem = plan.threads // 32, plan.smem
+    out = [ctypes.c_int() for _ in range(4)]
+    check(load_library("probes").dvt_probe_pingpong_occupancy(
+        ("producer", "consumer", "paired").index(role), N, D, warps, smem,
+        *map(ctypes.byref, out)), "dvt_probe_pingpong_occupancy", "probes")
+    f = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                 (o.value for o in out)), warps=warps)
+    if role != "consumer":
+        f["roles"] = {r.name: dict(warps=r.warps, registers=r.registers)
+                      for r in plan.roles}
+    if role == "paired":
+        f["producer_smem"] = plan.attn_offset
+        f["consumer_smem"] = plan.smem - plan.attn_offset
+    return f
 
 
 def inputs(dev, batch=BATCH):
@@ -199,8 +260,8 @@ def legs(dev):
     chains them), and the producer and the consumer on two CUDA streams at
     once, at B = BATCH: ms per chain, and paired and two streams over the
     sum and over the max, each as the median, min and max over the rounds
-    (``timing``); and each role's kernel footprint (registers, shared
-    memory, blocks an SM): paired gives every block the larger of the two."""
+    (``timing``); and each kernel's footprint (:func:`footprint`), paired's
+    by role."""
     x, w_all, mb, scores, v, scalars = inputs(dev)
     heads = dict(num_heads=H, head_dim=D)
 

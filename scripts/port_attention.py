@@ -1,6 +1,6 @@
 """The attention kernels of the PyTorch port, timed on the card by row.
 
-    python3 scripts/port_attention.py [label]
+    python3 scripts/port_attention.py [label] [--footprints]
 
 From the root of a checkout: K1 (LIS and float softmax) and K5 at DeiT-S
 b = 1, 8, 64; K8 v1, K8 ``_v3`` and K7a at DeiT-S b = 64 (200 rows, 197
@@ -8,11 +8,17 @@ real); K4 and K4b at Swin-T stage 0 (b = 1, 8, 64) and stages 1-3 (b =
 64), LIS and float softmax, on the shifted block.  One JSON line a row:
 the wrapper's time (CUDA events, host included, ``chip_smoke.cuda_ms``)
 and the summed device time of its launches (``torch.profiler``, mean of
-10 calls), with ``label`` (default "tree") in each line.  The arguments are
-``chip_smoke.py``'s own case builders, so running this script in a parent
-commit's checkout and in this one, in turns within one call, compares the
-two on the same inputs.  Seeded random weights; needs a CUDA card;
-imports neither JAX nor the JAX package.
+10 calls), with ``label`` (default "tree") in each line.  With
+``--footprints``, first the footprints (registers, local memory, shared
+memory, blocks an SM) of every instance of the attention cores that
+``chip_smoke.py``'s phase ``attention`` reads: K1's and K5's core at
+DeiT-S b = 1, 8, 64, K4's at Swin-T stages 0-3 b = 64, K1's qkv GEMM, K6
+at DeiT-S b = 1, 8, 64, both softmaxes.  The arguments are
+``chip_smoke.py``'s own case functions and the package's footprint
+entries, so running this script (from any checkout) with the working
+directory at a parent commit's checkout and at this one, in turns within
+one call, compares the two on the same inputs.  Seeded random weights;
+needs a CUDA card; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -27,7 +33,10 @@ sys.path.insert(0, os.getcwd())
 
 import chip_smoke as cs  # noqa: E402
 from diffvit_tpu_torch import QuantConfig  # noqa: E402
-from diffvit_tpu_torch.ops.kernels import build  # noqa: E402
+from diffvit_tpu_torch.ops.kernels import (attention, build,  # noqa: E402
+                                           swin_attention)
+from diffvit_tpu_torch.ops.kernels.serve import \
+    resident_footprint  # noqa: E402
 from diffvit_tpu_torch.testing import (alt_kernel_cases,  # noqa: E402
                                        random_int_model,
                                        random_swin_int_model)
@@ -61,12 +70,46 @@ def row(label, name, at, args, kw):
                           device_ms=device_ms(call))), flush=True)
 
 
+def footprints(label, dev):
+    """One JSON line a core instance's footprint, as phase attention lists
+    them."""
+    spec, swin = cs.SPEC, cs.SWIN
+    rows = []
+    for b in (1, 8, 64):
+        for lis in (True, False):
+            rows.append(("qkv core", f"b={b}", lis, attention.core_footprint(
+                b, spec.num_heads, spec.seq_len, spec.head_dim, spec.seq_len,
+                dev, lis=lis)))
+    for stage in range(swin.num_layers):
+        res = swin.stage_resolution(stage)[0]
+        for lis in (True, False):
+            rows.append(("swin core", f"stage {stage} b=64", lis,
+                         swin_attention.footprint(
+                             64 * (res // 7) ** 2, swin.num_heads[stage], 56,
+                             swin.stage_dim(stage) // swin.num_heads[stage],
+                             49, dev, lis=lis)))
+    for at, r in (("b=1", spec.seq_len), ("b=64", 64 * spec.seq_len)):
+        rows.append(("qkv gemm", at, True, attention.qkv_gemm_footprint(
+            r, 3 * spec.embed_dim, spec.embed_dim, dev)))
+    for b in (1, 8, 64):
+        for lis in (True, False):
+            rows.append(("resident_codes", f"b={b}", lis,
+                         resident_footprint(b, spec.seq_len, spec, dev,
+                                            lis=lis)))
+    for kernel, at, lis, f in rows:
+        print(json.dumps(dict(tree=label, footprint=kernel, at=at, lis=lis,
+                              **f)), flush=True)
+
+
 def main():
-    label = sys.argv[1] if len(sys.argv) > 1 else "tree"
+    args = [a for a in sys.argv[1:] if a != "--footprints"]
+    label = args[0] if args else "tree"
     if not torch.cuda.is_available():
         sys.exit("port_attention: no CUDA card")
     dev = torch.device("cuda", 0)
     build.load_library()
+    if "--footprints" in sys.argv:
+        footprints(label, dev)
     ib = random_int_model(cs.SPEC, cs.CFG, seed=0)["blocks"][0]
     ib_fq = random_int_model(cs.SPEC, cs.FQVIT, seed=0)["blocks"][0]
     for name, blk, opts, lab in (

@@ -9,8 +9,10 @@ The kernel runs only on the card (``tests/test_torch_cuda.py`` and
   from the CUDA source index for index (the staging of K and of V^T in
   ``key_slot`` order with byte permutes, the m16n8k32 fragments as PTX
   defines them, the packing of the codes and of the LIS shifts, the two
-  u8 planes of attn@v), whose output must equal the plain version and
-  agree with the JAX Pallas kernel in interpret mode;
+  u8 planes of attn@v; the probes' variants: P5's linear rule on one s8
+  plane, P1's consumer on scores loaded from memory), whose output must
+  equal the plain version and agree with the JAX Pallas kernel in
+  interpret mode;
 * the hi/lo split of the LIS weights with the permuted key order against
   ``weighted_values``;
 * the quad form of the LIS (four lanes' partial maxima and int64 sums)
@@ -37,6 +39,7 @@ from diffvit_tpu_torch.ops.kernels.attn_plan import (
     swin_attention_plan, weight_planes)
 from diffvit_tpu_torch.ops.kernels.gemm import SMEM_LIMIT
 from diffvit_tpu_torch.ops.quant import pow2
+from diffvit_tpu_torch.probes import attn_overlap, pingpong
 from diffvit_tpu_torch.testing import random_int_model
 
 from test_torch_calibrate import one_torch_thread  # noqa: F401
@@ -137,43 +140,51 @@ def _stage_kv(k_rows, v_rows, n_real, d):
     return k, vt, keys_pad, dp
 
 
-def _model_core(q, k_rows, v_rows, c1, s_a, out_scale, n_real, lis_fast):
+def _loaded_codes(scores, q0, rows, n_real, nkb):
+    """LoadedScores.load4: the codes of slot u = 4p + 2 half + e of row r
+    (key 16p + 8 half + 2t + e of query row q0 + g + 8r) read from the
+    (npad, npad) int8 ``scores``; 0 past n_real and past the tile's rows."""
+    codes = np.zeros((32, 2, 2 * nkb * 4), np.int64)  # [lane][r][u]
+    for p in range(2 * nkb):
+        if 16 * p >= n_real:
+            continue
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for r in range(2):
+                if g + 8 * r >= rows:
+                    continue
+                for half in range(2):
+                    for e in range(2):
+                        key = 16 * p + 8 * half + 2 * t + e
+                        if key < n_real:
+                            codes[lane, r, 4 * p + 2 * half + e] = \
+                                scores[q0 + g + 8 * r, key]
+    return codes
+
+
+def _model_core(q, k_rows, v_rows, c1, s_a, out_scale, n_real, lis_fast,
+                rule="lis", scores=None):
     """attend_rows with K1's chain and the LIS, for every 16-row tile of
     one (image, head): q, k_rows, v_rows (npad, d) int8.  The LIS values
     themselves come from lis_body_plain on the rows' codes (the quad form
     is held on its own below); what is modelled is where each score, code,
-    shift and weight lives."""
+    shift and weight lives.  ``rule`` "linear": probe P5's weight rule, the
+    packed codes as they stand as the s8 A fragments of attn@v, the int32
+    sum times 2^-7.  ``scores`` (npad, npad) int8: probe P1's consumer, the
+    codes loaded (LoadedScores) where the score mma would compute them."""
     npad, d = q.shape
     k, vt, keys_pad, dp = _stage_kv(k_rows, v_rows, n_real, d)
     nkb, kc_n = keys_pad // 32, dp // 32
     out = np.zeros((npad, d), np.int8)
     for q0 in range(0, npad, 16):
         rows = min(16, npad - q0)
-        qa = [[[0] * 4 for _ in range(kc_n)] for _ in range(32)]
-        for lane in range(32):
-            g, t = lane >> 2, lane & 3
-            for kc in range(kc_n):
-                for i in range(4):
-                    row, col = g + 8 * (i & 1), 32 * kc + 16 * (i >> 1) + 4 * t
-                    qa[lane][kc][i] = _word(q[q0 + row], col) \
-                        if row < rows and col < d else 0
-        # scores -> codes, packed 4 a register: reg u // 4, byte u % 4 of
-        # slot u = 2j + e (key 8j + 2t + e)
-        codes = np.zeros((32, 2, 2 * nkb * 4), np.int64)  # [lane][r][u]
-        for j in range(4 * nkb):
-            if 8 * j >= n_real:
-                continue
-            acc = [[0] * 4 for _ in range(32)]
-            for kc in range(kc_n):
-                b = [[int(k[8 * j + (lane >> 2), 8 * kc + (lane & 3)]),
-                      int(k[8 * j + (lane >> 2), 8 * kc + 4 + (lane & 3)])]
-                     for lane in range(32)]
-                _mma(acc, [qa[lane][kc] for lane in range(32)], b, True)
-            for lane in range(32):
-                for i in range(4):
-                    s = np.float32(acc[lane][i]) * np.float32(c1)
-                    codes[lane, i >> 1, 2 * j + (i & 1)] = \
-                        np.clip(np.round(s), -128, 127)
+        if scores is not None:
+            codes = _loaded_codes(scores, q0, rows, n_real, nkb)
+        else:
+            codes = _mma_codes(q, k, q0, rows, c1, n_real, d, nkb, kc_n)
+        if rule == "linear":
+            _linear_attn_v(codes, vt, out, q0, rows, d, nkb, out_scale)
+            continue
         # the LIS shifts of each (row, key), from the plain LIS on the codes
         a = torch.zeros((16, keys_pad))
         for lane in range(32):
@@ -233,6 +244,67 @@ def _model_core(q, k_rows, v_rows, c1, s_a, out_scale, n_real, lis_fast):
     return out
 
 
+def _mma_codes(q, k, q0, rows, c1, n_real, d, nkb, kc_n):
+    """The score step: the query fragments, mma.sync against the staged K
+    words, K1's chain; codes packed 4 a register: reg u // 4, byte u % 4
+    of slot u = 2j + e (key 8j + 2t + e)."""
+    qa = [[[0] * 4 for _ in range(kc_n)] for _ in range(32)]
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for kc in range(kc_n):
+            for i in range(4):
+                row, col = g + 8 * (i & 1), 32 * kc + 16 * (i >> 1) + 4 * t
+                qa[lane][kc][i] = _word(q[q0 + row], col) \
+                    if row < rows and col < d else 0
+    codes = np.zeros((32, 2, 2 * nkb * 4), np.int64)  # [lane][r][u]
+    for j in range(4 * nkb):
+        if 8 * j >= n_real:
+            continue
+        acc = [[0] * 4 for _ in range(32)]
+        for kc in range(kc_n):
+            b = [[int(k[8 * j + (lane >> 2), 8 * kc + (lane & 3)]),
+                  int(k[8 * j + (lane >> 2), 8 * kc + 4 + (lane & 3)])]
+                 for lane in range(32)]
+            _mma(acc, [qa[lane][kc] for lane in range(32)], b, True)
+        for lane in range(32):
+            for i in range(4):
+                s = np.float32(acc[lane][i]) * np.float32(c1)
+                codes[lane, i >> 1, 2 * j + (i & 1)] = \
+                    np.clip(np.round(s), -128, 127)
+    return codes
+
+
+def _linear_attn_v(codes, vt, out, q0, rows, d, nkb, out_scale):
+    """attn@v of the linear rule: A = the packed code words of slots
+    4p .. 4p + 3 (rows g, g + 8; words 2kb, 2kb + 1 of each), one s8
+    plane on mma.sync s8 x s8; the sum times 2^-7, requantized."""
+    def word(lane, r, p):
+        return sum((int(codes[lane, r, 4 * p + i]) & 0xFF) << (8 * i)
+                   for i in range(4))
+
+    for nt in range(-(-d // 8)):
+        acc = [[0] * 4 for _ in range(32)]
+        for kb in range(nkb):
+            a = [[word(lane, 0, 2 * kb), word(lane, 1, 2 * kb),
+                  word(lane, 0, 2 * kb + 1), word(lane, 1, 2 * kb + 1)]
+                 for lane in range(32)]
+            b = [[int(vt[8 * nt + (lane >> 2), 8 * kb + (lane & 3)]),
+                  int(vt[8 * nt + (lane >> 2), 8 * kb + 4 + (lane & 3)])]
+                 for lane in range(32)]
+            _mma(acc, a, b, True)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for r in range(2):
+                for e in range(2):
+                    row, col = g + 8 * r, 8 * nt + 2 * t + e
+                    if row < rows and col < d:
+                        assert abs(acc[lane][2 * r + e]) < 2**22
+                        o = np.float32(acc[lane][2 * r + e]) \
+                            * np.float32(2.0**-7)
+                        out[q0 + row, col] = np.clip(
+                            np.round(o * np.float32(out_scale)), -128, 127)
+
+
 @pytest.mark.parametrize("npad,n_real,d,lis_fast", [
     (40, 33, 32, False), (24, 24, 16, True), (70, 64, 64, False),
     (20, 7, 16, False)])
@@ -276,6 +348,57 @@ def test_model_of_the_mma_core_agrees_with_pallas():
                     for hh in range(h)])
     diff = np.abs(got.astype(np.int32) - want)
     assert diff.max() <= 1 and np.mean(diff == 0) >= 0.999
+
+
+@pytest.mark.parametrize("npad,d", [(24, 16), (40, 32), (70, 64), (200, 64)])
+def test_model_of_the_linear_rule_equals_p5_plain(npad, d):
+    """Probe P5's weight rule in the core (Weight::kLinear), modelled index
+    for index: the packed codes of every one of the Npad keys are the s8 A
+    fragments of attn@v as they stand (one plane, no LIS), and the int32
+    sum times 2^-7 gives qkv_attention_nv_plain's codes, head by head."""
+    rng = np.random.default_rng(npad + d)
+    heads, cin = 2, 64
+    x = torch.tensor(rng.integers(-128, 128, (1, npad, cin)),
+                     dtype=torch.int8)
+    w = torch.tensor(rng.integers(-8, 8, (cin, 3 * heads * d)),
+                     dtype=torch.int8)
+    mult = torch.full((3 * heads * d,), 2.0**-12)
+    bias = torch.tensor(rng.standard_normal(3 * heads * d) * 0.01,
+                        dtype=torch.float32)
+    scal = torch.tensor([2.0**-4, 0.01, 24.0, 0.5])
+    want = attn_overlap.qkv_attention_nv_plain(
+        x, w, mult, bias, scal, num_heads=heads, head_dim=d)[0]
+    mb = attention.fold_requant(mult, bias, scal[2], w.shape[1])
+    qkv = attention.qkv_projection_plain(x, w, mb)[0].numpy()
+    for h in range(heads):
+        q, k, v = (qkv[:, (slot * heads + h) * d:(slot * heads + h + 1) * d]
+                   for slot in range(3))
+        got = _model_core(q, k, v, float(scal[1]), float(scal[0]),
+                          float(scal[3]), npad, False, rule="linear")
+        np.testing.assert_array_equal(got, want[h].numpy())
+        assert len(np.unique(got)) > 8
+
+
+@pytest.mark.parametrize("npad,n_real,d", [(24, 21, 16), (45, 33, 64),
+                                           (70, 64, 32), (200, 197, 64)])
+def test_model_of_loaded_scores_equals_p1_consumer_plain(npad, n_real, d):
+    """Probe P1's consumer in the core (LoadedChain): LoadedScores.load4's
+    index arithmetic puts the int8 scores read from memory into the slots
+    the score mma fills (a ragged last tile, keys past n_real read as 0),
+    then K1's fast LIS and attn@v give consumer_plain's codes; no query or
+    key is read."""
+    rng = np.random.default_rng(npad + n_real)
+    scores = rng.integers(-128, 128, (npad, npad)).astype(np.int8)
+    v = rng.integers(-128, 128, (npad, d)).astype(np.int8)
+    scal = torch.tensor([2.0**-4, 0.05, 24.0, 1.3])
+    want = pingpong.consumer_plain(torch.tensor(scores)[None, None],
+                                   torch.tensor(v)[None, None], scal,
+                                   n_real=n_real)[0, 0]
+    unread = np.full((npad, d), 127, np.int8)  # q and k: never read
+    got = _model_core(unread, unread, v, 0.0, float(scal[0]), float(scal[3]),
+                      n_real, True, scores=scores)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert len(np.unique(got)) > 8
 
 
 # ---- attn@v: the hi/lo planes in key_slot order ----

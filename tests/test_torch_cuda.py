@@ -698,10 +698,11 @@ def _launched_once(fn, before):
     assert fn.launches == before + 1
 
 
-@pytest.mark.parametrize("batch,npad", [(2, 24), (3, 200), (256, 200)])
+@pytest.mark.parametrize("batch,npad", [(2, 24), (3, 200), (256, 200),
+                                        (1, 200), (8, 200)])
 def test_probe_linear_attention_matches_plain(cuda, batch, npad):
-    """P5 (K1 with w = a * 2^-7) at the script's width, bit for bit, up to
-    its B=256."""
+    """P5 (K1 with w = a * 2^-7) at the script's width, bit for bit, at
+    B = 1 and 8 and up to its B=256."""
     from diffvit_tpu_torch.probes import attn_overlap as p5
     x, *ops = p5.inputs(cuda, batch)
     x = x[:, :npad].contiguous()
@@ -714,11 +715,12 @@ def test_probe_linear_attention_matches_plain(cuda, batch, npad):
 
 
 @pytest.mark.parametrize("batch,npad,heads,d,n_real", [
-    (2, 24, 2, 16, 21), (3, 45, 6, 64, 33), (128, 200, 6, 64, 197)])
+    (2, 24, 2, 16, 21), (3, 45, 6, 64, 33), (128, 200, 6, 64, 197),
+    (1, 200, 6, 64, 197), (8, 200, 6, 64, 197), (2, 256, 2, 32, 256)])
 def test_probe_pingpong_matches_plain(cuda, batch, npad, heads, d, n_real):
     """P1's producer and consumer against their plain versions bit for bit
-    (the last case is the script's B=128 half-stream), and paired equal to
-    the two halves."""
+    (the script's B=128 half-stream, and B = 1 and 8, whose persistent
+    blocks get one item or none), and paired equal to the two halves."""
     from diffvit_tpu_torch.probes import pingpong as p1
     rng = np.random.default_rng(batch)
     dev = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
@@ -815,6 +817,52 @@ def test_probe_footprints(cuda):
     assert fc1["pipelined"]["blocks_per_sm"] <= fc1["dot"]["blocks_per_sm"]
     assert roles["paired"]["smem_bytes"] >= max(
         roles["producer"]["smem_bytes"], roles["consumer"]["smem_bytes"])
+
+
+@pytest.mark.parametrize("batch", [1, 8, 128])
+def test_probe_footprints_do_not_spill(cuda, batch):
+    """P1's three kernels and P5's linear core at the legs' geometry: no
+    spill to local memory, one block an SM for the producer and paired
+    (a launch count that leaves setmaxnreg's moves their registers), at
+    least as many consumer blocks an SM as K1's core holds."""
+    from diffvit_tpu_torch.ops.kernels import attention
+    from diffvit_tpu_torch.ops.kernels import pingpong_plan as plans
+    from diffvit_tpu_torch.probes import attn_overlap as p5
+    from diffvit_tpu_torch.probes import pingpong as p1
+    roles = {r: p1.footprint(r, batch, cuda)
+             for r in ("producer", "consumer", "paired")}
+    core = p5.core_footprint(2 * batch, cuda)
+    for f in (*roles.values(), core):
+        assert f["local_bytes"] == 0 and f["blocks_per_sm"] >= 1, f
+    for role, threads, split in (
+            ("producer", 384, plans.PRODUCER_ROLES),
+            ("paired", 896, plans.PAIRED_ROLES)):
+        f = roles[role]
+        assert f["blocks_per_sm"] == 1, f
+        assert f["registers"] * threads >= sum(
+            32 * r.warps * r.registers for r in split), f
+    assert roles["consumer"]["blocks_per_sm"] >= 3, roles["consumer"]
+    k1 = attention.core_footprint(2 * batch, 6, 200, 64, 197, cuda)
+    assert core["registers"] <= 80 and k1["registers"] <= 80
+
+
+def test_int_matmul_keeps_the_callers_tf32_setting(cuda):
+    """int_matmul switches TF32 off for its own float32 products and gives
+    the caller's setting back: set True before, True after, the product
+    exact."""
+    from diffvit_tpu_torch.ops.quant import int_matmul
+    rng = np.random.default_rng(11)
+    a = torch.tensor(rng.integers(-128, 128, (64, 2500)), dtype=torch.int8)
+    b = torch.tensor(rng.integers(-128, 128, (2500, 48)), dtype=torch.int8)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = int_matmul(a.to(cuda), b.to(cuda))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    want = torch.matmul(a.to(torch.int64), b.to(torch.int64))
+    assert torch.equal(got.cpu().to(torch.int64), want)
 
 
 @pytest.mark.parametrize("shape", [(4,), (64, 3, 224, 224), (1176, 1024)])
