@@ -79,8 +79,13 @@
             at B = 128, P2's five modes at 32768 x 512 with 220 chain
             steps, P3's five modes at 50,688 rows, P4 on a b = 64 uint8
             batch cast to float32, P5 at B = 256; P1 and P5 also at B = 1
-            and 8), paired against the two halves at each batch, P1's and
-            P5's footprints (failing on a spill), torch.mm beside P2's
+            and 8, P2 at 64 and 192 rows and at K = 32, 96 and 0, P3 at
+            197 and 1,000 rows and at Cin 1024 -> 4096, with P3's dot,
+            pipelined and staged bit-equal), paired against the
+            two halves at each batch, P1's, P2's, P3's and P5's
+            footprints (failing on a spill), a chain step's instructions
+            counted in the probes library's SASS (cuobjdump; the bound of
+            P2's chain modes), torch.mm and torch.mm + copy_ beside P2's
             dot_only, and the served kernels that the legs time beside them
             at the legs' shapes (K1 with the fast LIS and the float
             softmax, K8's _v3, _v4 with group 2 and 4 and _v5 at B = 256;
@@ -342,9 +347,13 @@ TOL = {"exact": (0.999, 1), "softmax": (0.98, 1), "bitwise": (1.0, 0)}
 # a Swin window's 49 (lis_sum_fits fails; the 128-bit sum serves them)
 WIDE_VIT, WIDE_SWIN = 2.0**-12, 2.0**-13
 PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12  # H100 SXM: int8 op/s, HBM B/s
-# H100 SXM dense peaks by operand type (op/s); the probes' tanh chain,
-# which has no published rate, counts three float32 operations a step
+# H100 SXM dense peaks by operand type (op/s).  P2's tanh chain has no
+# published rate: a step is counted in the SASS (phase probes, CHAIN) as
+# special-function results ("sfu", 16 a clock an SM) and float32-pipe
+# instructions ("fp32_pipe", 128 a clock an SM), whose rates phase probes
+# sets from the SM count and nvidia-smi's clocks.max.sm
 PEAKS = {"int8": PEAK_OPS, "bf16": 989e12, "float32": 67e12}
+CHAIN = {}  # a chain step's instructions by unit (overlap.chain_instructions)
 
 
 def _swin_plain(qkv5, bias_q, mask_div, scalars, *, num_heads, n_real,
@@ -626,8 +635,9 @@ def probe_work(name, args, kw, inputs):
     :func:`work`: the bytes each input read once and each output written
     once (P3's g_src only where its mode reads it); P1 and P5 count their
     int8 GEMM, scores and attn@v (P1's consumer over the real keys, P5 over
-    all Npad), P2 its bf16 dot and three float32 operations a chain step,
-    P3 its two int8 GEMMs, P4 one float32 add an element."""
+    all Npad), P2 its bf16 dot and a chain step's special-function and
+    float32-pipe instructions as the SASS counts them (CHAIN), P3 its two
+    int8 GEMMs, P4 one float32 add an element."""
     probe = name.split(".")[1]
     if probe == "consumer":
         scores, v = args[0], args[1]
@@ -657,8 +667,10 @@ def probe_work(name, args, kw, inputs):
         return ({"int8": 4 * rows * cin * w1.shape[1]},
                 inputs + rows * cin * 4)
     a, b, v = args
-    chain = 0 if probe == "dot_only" else 3 * kw["iters"] * v.numel()
-    ops = {"float32": chain}
+    ops = {}
+    if probe != "dot_only":
+        steps = kw["iters"] * v.numel()
+        ops.update(sfu=CHAIN["sfu"] * steps, fp32_pipe=CHAIN["fp32"] * steps)
     if probe != "vpu_only":
         ops["bf16"] = 2 * a.shape[0] * a.shape[1] * b.shape[1]
     return ops, inputs + 2 * v.numel() * 4
@@ -1911,10 +1923,16 @@ def phase_probes_kernels(dev, summary):
     the consumer run alone at each batch; P1's and P5's footprints, failing
     on a spill; P2's dot_only with torch.mm (float32 out) and P4 with
     torch.sum beside them (the function in one PyTorch call, which the port
-    never calls).  The served kernels that the legs time beside the probes
-    (K1 with the fast LIS and with the float softmax, K8's _v3, _v4 with
-    group 2 and 4, _v5; K2 on P3's operands) are held at the legs' shapes
-    and arguments too."""
+    never calls).  P2 at 64 and 192 rows and P3 at 197 and 1,000 rows too
+    (partly filled persistent blocks, masked edges), P2 at K = 32, 96 and
+    0, P3 at Cin 1024 -> 4096 (more K stages than pipelined's ring), P3's
+    dot, pipelined and staged held bit-equal to each other at each shape;
+    P2's and
+    P3's footprints; the chain's instructions counted in the SASS, which
+    bound P2's chain modes.  The served kernels that the legs time beside
+    the probes (K1 with the fast LIS and with the float softmax, K8's _v3,
+    _v4 with group 2 and 4, _v5; K2 on P3's operands) are held at the
+    legs' shapes and arguments too."""
     def row(name, args, kw, label, library_ms=None, tol="exact",
             beside=None, heaviest=True, **opts):
         # a served kernel's line names the probe it is timed beside
@@ -1976,19 +1994,52 @@ def phase_probes_kernels(dev, summary):
                                f" at {at}")
     probe_footprints(dev)
 
-    a, b, v = overlap.inputs(dev)
-    for mode in overlap.MODES:
-        row(f"overlap.{mode}", (a, b, v), dict(iters=overlap.ITERS),
-            f"{a.shape[0]}x{b.shape[1]}",
-            library_ms=mm_f32_ms(a, b) if mode == "dot_only" else None,
-            compare=lambda got, want, m=mode: overlap.compare(
-                m, a, b, got, want, overlap.ITERS))
+    chain_bound(dev)
+    for rows in (64, 192, overlap.ROWS):
+        a, b, v = overlap.inputs(dev, rows)
+        top, mm = rows == overlap.ROWS, None
+        if top:  # y alone, and y with the copy of v (the whole dot_only)
+            mm = mm_f32_ms(a, b)
+            pair = None if mm is None else mm_copy_ms(a, b, v)
+            summary["overlap.dot_only"]["library_pair_ms"] = pair
+            emit(phase="probes", probe="overlap", at=f"{rows}x{b.shape[1]}",
+                 torch_mm_ms=mm, torch_mm_copy_ms=pair)
+        for mode in overlap.MODES:
+            row(f"overlap.{mode}", (a, b, v), dict(iters=overlap.ITERS),
+                f"{rows}x{b.shape[1]}", heaviest=top,
+                library_ms=mm if mode == "dot_only" else None,
+                compare=lambda got, want, m=mode, a=a, b=b: overlap.compare(
+                    m, a, b, got, want, overlap.ITERS))
+    # off the legs' geometry: K = 32 (a stage half zero filled), K = 96 on
+    # three column tiles, K = 0 (no stage)
+    for shape in ((128, 64, 32), (192, 192, 96), (64, 64, 0)):
+        a, b, v = overlap.inputs(dev, *shape)
+        for mode in overlap.MODES:
+            row(f"overlap.{mode}", (a, b, v), dict(iters=overlap.ITERS),
+                "x".join(map(str, shape)), heaviest=False,
+                compare=lambda got, want, m=mode, a=a, b=b: overlap.compare(
+                    m, a, b, got, want, overlap.ITERS))
 
-    args = overlap_mlp.inputs(dev)
-    at = f"rows={args[0].shape[0]}"
-    for mode in overlap_mlp.MODES:
-        row(f"overlap_mlp.mlp_{mode}", args, {}, at,
-            decode=lambda y, s=args[4][2]: torch.round(y / s))
+    # the legs' widths, then Cin = 1024 (ViT-L's MLP): more K stages than
+    # pipelined's ring holds for a tile
+    for rows, widths in ((197, ()), (1000, ()), (1000, (1024, 4096)),
+                         (overlap_mlp.ROWS, ())):
+        args = overlap_mlp.inputs(dev, rows, *widths)
+        at = f"rows={rows}" + (f" {widths[0]}->{widths[1]}" if widths
+                               else "")
+        outs = {}
+        for mode in overlap_mlp.MODES:
+            row(f"overlap_mlp.mlp_{mode}", args, {}, at,
+                heaviest=rows == overlap_mlp.ROWS,
+                decode=lambda y, s=args[4][2]: torch.round(y / s))
+            outs[mode] = overlap_mlp.KERNELS[f"mlp_{mode}"](*args)
+        equal = all(torch.equal(outs["dot"], outs[m])
+                    for m in ("pipelined", "staged"))
+        emit(phase="probes", probe="overlap_mlp", at=at,
+             dot_pipelined_staged_bit_equal=equal)
+        if not equal:
+            raise RuntimeError(f"P3's pipelined or staged differs from dot "
+                               f"at {at}")
     k2 = overlap_mlp.production_args(*args)
     row("fused_int_mlp", k2, {}, at, beside="overlap_mlp",
         decode=lambda y, s=k2[7]: torch.round(y / s))
@@ -2002,16 +2053,24 @@ def phase_probes_kernels(dev, summary):
 
 def probe_footprints(dev):
     """The footprints of P1's three kernels (paired by role) and of P5's
-    linear core at B = 1, 8 and the legs' batch; fails on a spill."""
-    prints = [(f"pingpong.{role}", b, pingpong.footprint(role, b, dev))
+    linear core at B = 1, 8 and the legs' batch, of P2's five kernels and
+    of P3's five fc1 kernels at the legs' plans (setmaxnreg's split by
+    role beside each); fails on a spill."""
+    prints = [(f"pingpong.{role}", f"B={b}", pingpong.footprint(role, b, dev))
               for b in (1, 8, pingpong.BATCH)
               for role in ("producer", "consumer", "paired")]
-    prints += [("attn_overlap.qkv_attention_nv core", b,
+    prints += [("attn_overlap.qkv_attention_nv core", f"B={b}",
                 attn_overlap.core_footprint(b, dev))
                for b in (1, 8, attn_overlap.BATCH)]
-    for kernel, b, f in prints:
-        emit(phase="footprint", kernel=kernel, at=f"B={b}", **f)
-    spills = [(kernel, b) for kernel, b, f in prints if f["local_bytes"] > 0]
+    prints += [(f"overlap.{mode}", f"rows={overlap.ROWS}",
+                overlap.footprint(mode, dev=dev)) for mode in overlap.MODES]
+    prints += [(f"overlap_mlp.mlp_{mode} fc1", f"rows={overlap_mlp.ROWS}",
+                overlap_mlp.fc1_occupancy(mode, dev=dev))
+               for mode in overlap_mlp.MODES]
+    for kernel, at, f in prints:
+        emit(phase="footprint", kernel=kernel, at=at, **f)
+    spills = [(kernel, at) for kernel, at, f in prints
+              if f["local_bytes"] > 0]
     if spills:
         raise RuntimeError(f"probe kernels spill to local memory: {spills}")
 
@@ -2032,6 +2091,45 @@ def mm_f32_ms(a, b):
     return cuda_ms(call)
 
 
+def mm_copy_ms(a, b, v):
+    """ms of ``torch.mm(a, b, out_dtype=torch.float32)`` and
+    ``o2.copy_(v)`` in turn: the library pair for P2 dot_only's whole
+    function (y, and the copy of v)."""
+    o2 = torch.empty_like(v)
+    return cuda_ms(lambda: (torch.mm(a, b, out_dtype=torch.float32),
+                            o2.copy_(v)))
+
+
+def chain_bound(dev):
+    """Counts a chain step's instructions in the probes library's SASS
+    (``overlap.chain_instructions``: vpu_only's step loop) into CHAIN, and
+    sets the special-function and float32-pipe rates from the SM count and
+    the maximum SM clock (nvidia-smi); one JSON line with the counts, the
+    rates and the bounds of 220 steps over the legs' elements by unit,
+    beside the issue slots' (every instruction of a step, one warp
+    instruction a clock a scheduler: the float32 pipe's 128 lanes a clock
+    an SM) and the three-float32-operations count the unit bound
+    replaces."""
+    CHAIN.update(overlap.chain_instructions(build.library_path("probes")))
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    PEAKS.update(sfu=16 * sms * mhz * 1e6, fp32_pipe=128 * sms * mhz * 1e6)
+    steps = overlap.ITERS * overlap.ROWS * overlap.N
+    emit(phase="probes", probe="overlap", chain_sass=CHAIN, sms=sms,
+         clocks_max_sm_mhz=mhz, sfu_per_s=PEAKS["sfu"],
+         fp32_pipe_per_s=PEAKS["fp32_pipe"],
+         chain_bound_ms={"sfu": 1e3 * CHAIN["sfu"] * steps / PEAKS["sfu"],
+                         "fp32_pipe": 1e3 * CHAIN["fp32"] * steps
+                         / PEAKS["fp32_pipe"],
+                         "issue": 1e3 * CHAIN["instructions"] * steps
+                         / PEAKS["fp32_pipe"],
+                         "three_float32_ops": 1e3 * 3 * steps
+                         / PEAKS["float32"]})
+
+
 def phase_probes(dev):
     """Each probe's timing legs once, through the probes' and the port's
     wrappers, with every kernel's launches counted: each function a leg
@@ -2048,9 +2146,10 @@ def phase_probes(dev):
     for role, chains in (("producer", 2), ("consumer", 2), ("paired", 1)):
         # producer and consumer alone and on two streams; paired alone
         expected[f"pingpong.{role}"] = chains * pingpong.DEPTH * calls
-    for mode in overlap.MODES:  # dot_only and vpu_only also size the chain
+    # dot_only and vpu_only (at two lengths) also size the chain
+    for mode in overlap.MODES:
         expected[f"overlap.{mode}"] = \
-            (2 if mode in ("dot_only", "vpu_only") else 1) * calls
+            {"dot_only": 2, "vpu_only": 3}.get(mode, 1) * calls
     for mode in overlap_mlp.MODES:
         expected[f"overlap_mlp.mlp_{mode}"] = calls
     expected["fused_int_mlp"] = calls

@@ -1,10 +1,7 @@
-// Shared int8 GEMM tile core with a fused epilogue (mma.sync), for the
-// kernels in this directory that have not moved to wgmma_gemm.cuh: K7a's
-// proj (qkv_attention.cu) and probe P3 (probes/overlap_mlp.cu, whose dot
-// mode is the same-run yardstick of this tile and whose staged and
-// pipelined modes run their own double-buffered K loop on
-// int8_gemm_mma_step).  K1's qkv GEMM, K2, K3, K6, K7b and the probes P1
-// and P5 run on wgmma_gemm.cuh.
+// Shared int8 GEMM tile core with a fused epilogue (mma.sync), for the one
+// kernel in this directory that has not moved to wgmma_gemm.cuh: K7a's
+// proj (qkv_attention.cu).  K1's qkv GEMM, K2, K3, K6, K7b and the probes
+// P1, P2 (its helpers), P3 and P5 run on wgmma_gemm.cuh.
 //
 // Computes C[M, N] = A[M, K] @ B[K, N] for int8 A and B (B is a weight in
 // the JAX package's (Cin, Cout) layout), accumulating exactly in int32 with
@@ -17,19 +14,13 @@
 // 32x32 (2 x 4 mma tiles); K in steps of 32 through shared memory, with no
 // double buffering.  B is transposed into shared memory on the way in
 // (mma's B operand wants K contiguous per column).  Rows are padded to 48
-// bytes so that the fragment loads are free of bank conflicts.  Two operand
-// loaders fill the tiles:
-//  * DenseOperands: row-major A and B; the caller guarantees K % 32 == 0,
-//    N % 16 == 0 and 16-byte aligned A and B (probe P3);
-//  * ViewOperands: row-major A with any K, and B read through a BView
-//    (pointers and element strides, see below) with any N, so that K1's
-//    and K8's weights are read in place; the ragged K and N edges are
-//    zero-filled, and a 16-byte chunk is one vector load where it is in
-//    range and aligned, else loaded byte by byte (K7a's proj).  Its
-//    checks cost a dense caller about 19% (K2 on this tile at DeiT-S
-//    b=64, H100 80GB HBM3 at 700 W; PERF.md), so the dense callers keep
-//    the first.
-// The ragged M edge is zero-filled and masked in both.
+// bytes so that the fragment loads are free of bank conflicts.  The operand
+// loader ViewOperands reads row-major A with any K, and B through a BView
+// (pointers and element strides, see below) with any N, so that K1's and
+// K8's weights are read in place; the ragged K and N edges are
+// zero-filled, and a 16-byte chunk is one vector load where it is in range
+// and aligned, else loaded byte by byte (K7a's proj).  The ragged M edge
+// is zero-filled and masked.
 #pragma once
 
 #include <cstdint>
@@ -60,7 +51,7 @@ struct GemmSmem {
   __align__(16) int8_t Bs[kGemmBN][kGemmStride];  // Bs[n][k]
 };
 
-// Each loader's thread fills one 16-byte chunk of the A tile (row tid/2,
+// The loader's thread fills one 16-byte chunk of the A tile (row tid/2,
 // bytes (tid%2)*16..) and one of the B tile (k-row tid/4, columns
 // (tid%4)*16..).  A and B are read with plain loads (no __restrict__).
 __device__ __forceinline__ void store_b_chunk(GemmSmem& sm, int c, int kr, int4 v) {
@@ -68,32 +59,6 @@ __device__ __forceinline__ void store_b_chunk(GemmSmem& sm, int c, int kr, int4 
 #pragma unroll
   for (int i = 0; i < 16; ++i) sm.Bs[c + i][kr] = bytes[i];
 }
-
-// Row-major A (M, K) and B (K, N); K % 32 == 0, N % 16 == 0, 16-byte
-// aligned.
-struct DenseOperands {
-  const int8_t* A;
-  const int8_t* B;
-  int M, N, K;
-  struct Thread {};
-  __device__ Thread thread(int, int, int) const { return {}; }
-  __device__ void load(const Thread&, GemmSmem& sm, int m0, int n0, int k0, int tid) const {
-    {  // A tile: 64 rows x 32 bytes
-      const int r = tid >> 1, c = (tid & 1) * 16;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const int4*>(A + (size_t)(m0 + r) * K + k0 + c);
-      *reinterpret_cast<int4*>(&sm.As[r][c]) = v;
-    }
-    {  // B tile: 32 k-rows x 64 columns, transposed
-      const int kr = tid >> 2, c = (tid & 3) * 16;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (n0 + c < N)
-        v = *reinterpret_cast<const int4*>(B + (size_t)(k0 + kr) * N + n0 + c);
-      store_b_chunk(sm, c, kr, v);
-    }
-  }
-};
 
 // B read in place through pointers and element strides: column n is
 // n = slot * c + h * dh + d, element (k, n) is at
@@ -277,14 +242,6 @@ __device__ __forceinline__ void int8_gemm_tile_ops(const Ops& ops, int m0, int n
   int8_gemm_epilogue(ops.M, ops.N, m0, n0, acc, epi);
 }
 
-// The tile of row-major A and B (K6).
-template <class Epi>
-__device__ __forceinline__ void int8_gemm_tile(const int8_t* A, const int8_t* B, int M,
-                                               int N, int K, int m0, int n0,
-                                               const Epi& epi, GemmSmem& sm) {
-  int8_gemm_tile_ops(DenseOperands{A, B, M, N, K}, m0, n0, epi, sm);
-}
-
 template <class Ops, class Epi>
 __global__ void __launch_bounds__(kGemmThreads) int8_gemm_kernel(Ops ops, Epi epi) {
   __shared__ GemmSmem sm;
@@ -295,13 +252,6 @@ template <class Ops, class Epi>
 inline void launch_int8_gemm_ops(const Ops& ops, Epi epi, cudaStream_t stream) {
   dim3 grid((ops.N + kGemmBN - 1) / kGemmBN, (ops.M + kGemmBM - 1) / kGemmBM);
   int8_gemm_kernel<Ops, Epi><<<grid, kGemmThreads, 0, stream>>>(ops, epi);
-}
-
-// The dense GEMM launch of probe P3.
-template <class Epi>
-inline void launch_int8_gemm(const int8_t* A, const int8_t* B, int M, int N,
-                             int K, Epi epi, cudaStream_t stream) {
-  launch_int8_gemm_ops(DenseOperands{A, B, M, N, K}, epi, stream);
 }
 
 }  // namespace dvt

@@ -3,7 +3,11 @@
 // probe P5, K7b's fc1 and fc2 (int_mlp_block.cu), the four GEMM steps of
 // the resident encoder K6 (resident.cu) and probe P1's per-head qkv GEMM
 // (probes/pingpong.cu); the last two call the tile routine gemm_tiles
-// inside their persistent launches.
+// inside their persistent launches.  Probe P3 (probes/overlap_mlp.cu) runs
+// K2's kernel with its own epilogues and builds its pipelined and staged
+// fc1 kernels from the ring, the wgmma and the staged epilogue below;
+// probe P2 (probes/overlap.cu) takes the ring, TMA, barrier and
+// descriptor helpers for its bf16 kernel.
 //
 // Serves the Pallas kernels diffvit_tpu/ops/pallas/linear.py:69
 // fused_int_linear and diffvit_tpu/ops/pallas/mlp.py:290 fused_int_mlp (and
@@ -505,6 +509,17 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int cols, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// cudaErrorInvalidConfiguration where a kernel of `attr` (384 threads,
+// setmaxnreg's moves at B blocks an SM) would stall: its register count at
+// launch short of the budget the moves give out, or above the consumers'.
+template <int B>
+inline cudaError_t register_budget(const cudaFuncAttributes& attr) {
+  return attr.numRegs * kThreads < kProducerRegs<B> * 128 + kConsumerRegs<B> * 256 ||
+                 attr.numRegs > kConsumerRegs<B>
+             ? cudaErrorInvalidConfiguration
+             : cudaSuccess;
+}
+
 // Sets the kernel's dynamic shared memory limit (once per card and
 // limit: the launch path pays no driver call for it after the first) and
 // checks that its register count leaves setmaxnreg's budget (40 x 128 +
@@ -533,10 +548,7 @@ inline cudaError_t prepare(int smem, cudaFuncAttributes* attr) {
     ready_fn[card] = f;
   }
   *attr = attrs[card];
-  if (attr->numRegs * kThreads < kProducerRegs<B> * 128 + kConsumerRegs<B> * 256 ||
-      attr->numRegs > kConsumerRegs<B>)
-    return cudaErrorInvalidConfiguration;
-  return cudaSuccess;
+  return register_budget<B>(*attr);
 }
 
 template <int BM, int BN, int B, class Epi>

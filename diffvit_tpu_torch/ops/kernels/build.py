@@ -78,9 +78,10 @@ PROBE_ENTRIES = {
     "dvt_probe_producer": (_P,) * 5 + (_I,) * 8 + (_P,),
     "dvt_probe_consumer": (_P,) * 4 + (_I,) * 9 + (_P,),
     "dvt_probe_paired": (_P,) * 8 + (_I,) * 11 + (_P,),
-    "dvt_probe_overlap": (_P,) * 5 + (_I,) * 5 + (_P,),
-    "dvt_probe_overlap_mlp": (_P,) * 10 + (_I,) * 4 + (_P,),
-    "dvt_probe_overlap_mlp_fc1_occupancy": (_I, _P, _P, _P),
+    "dvt_probe_overlap": (_P,) * 5 + (_I,) * 11 + (_P,),
+    "dvt_probe_overlap_footprint": (_I,) * 2 + (_P,) * 4,
+    "dvt_probe_overlap_mlp": (_P,) * 10 + (_I,) * 18 + (_P,),
+    "dvt_probe_overlap_mlp_fc1_occupancy": (_I,) * 5 + (_P,) * 4,
     "dvt_probe_pingpong_occupancy": (_I,) * 5 + (_P,) * 4,
     "dvt_probe_tile_sum": (_P,) * 3 + (_L,) + (_P,),
     "dvt_probe_qkv_attention_nv": (_P,) * 6 + (_I,) * 15 + (_P,),
@@ -117,8 +118,8 @@ HOST_VOID = {"jpeg_decode_preprocess_batch", "jpeg_decode_preprocess_batch_u8",
 @dataclasses.dataclass(frozen=True)
 class Library:
     """One shared library: its sources (``src_dir/*.cu``, which may include
-    the shared ``csrc/*.cuh``; for the host library ``src_dir/*.cpp``),
-    extra compiler flags and its C entries."""
+    the shared ``csrc/*.cuh`` and ``src_dir/*.cuh``; for the host library
+    ``src_dir/*.cpp``), extra compiler flags and its C entries."""
     stem: str
     src_dir: Path
     flags: tuple
@@ -197,7 +198,8 @@ def library_path(kind: str = "kernels") -> Path:
         sources = sorted(HOST.glob("*.cpp")) + sorted(HOST.glob("include/*"))
     else:
         h = hashlib.sha256(" ".join(NVCC_FLAGS + (lib.stem,)).encode())
-        sources = sorted(lib.src_dir.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+        sources = sorted(lib.src_dir.glob("*.cu")) + sorted(
+            {*CSRC.glob("*.cuh"), *lib.src_dir.glob("*.cuh")})
     for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())

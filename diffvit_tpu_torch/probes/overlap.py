@@ -1,9 +1,9 @@
 """Probe P2: does SIMT work overlap tensor-core work in one kernel, and does
-a data dependency on the mma result change that?
+a data dependency on the product change that?
 
-The counterpart of ``scripts/overlap_probe.py``, whose ``build`` (``:70``,
-call at ``:71``) makes five Pallas kernels over the same shapes, y = a @ b
-(bfloat16, float32 out) and chain(x) = 220 steps of x = tanh(x) + 0.25 x:
+The counterpart of ``scripts/overlap_probe.py``, whose ``build`` (``:71``)
+makes five Pallas kernels over the same shapes, y = a @ b (bfloat16,
+float32 out) and chain(x) = 220 steps of x = tanh(x) + 0.25 x:
 
     dot_only          o = y,             o2 = v
     vpu_only          o = 0,             o2 = chain(v)
@@ -11,18 +11,34 @@ call at ``:71``) makes five Pallas kernels over the same shapes, y = a @ b
     dot_vpu_in_join   o = y + chain(v),  o2 = v
     dot_vpu_in_split  o = y,             o2 = chain(v)
 
-One kernel per mode, ``csrc/probes/overlap.cu`` (a bf16 ``mma.sync`` tile;
-the chain with ``tanhf``).  :func:`legs` sizes the chain so that it takes
-about as long as the dot alone, as the script sized its 220 steps, then
-times the five modes and reports /sum and /max."""
+One kernel per mode, ``csrc/probes/overlap.cu``: TMA and bf16 ``wgmma``
+products on the served GEMMs' ring and roles, v and both outputs streamed
+in 16-byte vectors, and the chain (``tanhf``) on the consumer warpgroups,
+between each stage's ``wgmma`` commit and wait in the input-rooted modes;
+its plan is ``ops/kernels/overlap_plan.overlap_plan``.  :func:`legs` sizes
+the chain so that ``vpu_only`` takes about as long as ``dot_only``, from a
+line through ``vpu_only``'s time at two chain lengths (a floor, the bytes
+every mode moves, and a slope a step), then times the five modes and
+reports /sum and /max.  :func:`chain_instructions` counts a chain step's
+instructions in the built library's SASS (the bound of the chain
+modes)."""
 from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..ops.kernels import check_for_kernel, require, route
-from ..ops.kernels.build import check, load_library
-from .timing import REPEATS, medians, rounds_ms, run_main, spread
+from ..ops.kernels.build import (check, find_nvcc, library_path,
+                                 load_library)
+from ..ops.kernels.gemm import sm_count
+from ..ops.kernels.overlap_plan import overlap_plan
+from .timing import REPEATS, rounds_ms, run_main, spread
 
 ROWS, K, N = 64 * 512, 512, 512  # the script's 64 grid steps of 512 rows
 ITERS = 220                      # the script's chain length
@@ -124,13 +140,13 @@ def _wrapper(mode):
         require(b.shape[0] == k and v.shape == (m, n),
                 f"a {tuple(a.shape)}, b {tuple(b.shape)}, v {tuple(v.shape)} "
                 "do not match")
-        require(m % 64 == 0 and n % 64 == 0 and k % 32 == 0 and m * n > 0,
-                f"M={m} and N={n} must be multiples of 64, K={k} of 32")
         require(iters >= 0, f"iters={iters}")
+        plan = overlap_plan(m, n, k, sm_count(a.device))
         o, o2 = torch.empty_like(v), torch.empty_like(v)
         err = load_library("probes").dvt_probe_overlap(
             a.data_ptr(), b.data_ptr(), v.data_ptr(), o.data_ptr(),
             o2.data_ptr(), m, n, k, MODES.index(mode), iters,
+            *plan.launch_args(),
             torch.cuda.current_stream(a.device).cuda_stream)
         check(err, mode, "probes")
         fn.launches += 1
@@ -138,8 +154,9 @@ def _wrapper(mode):
 
     fn.__name__ = fn.__qualname__ = mode
     fn.__doc__ = (f"Mode {mode}: a (M, K) bfloat16, b (K, N) bfloat16, v (M, "
-                  "N) float32 -> (o, o2), (M, N) float32 each.  A CUDA tensor "
-                  "runs csrc/probes/overlap.cu; a CPU tensor overlap_plain.")
+                  "N) float32 -> (o, o2), (M, N) float32 each; M and N "
+                  "multiples of 64, K of 32.  A CUDA tensor runs "
+                  "csrc/probes/overlap.cu; a CPU tensor overlap_plain.")
     fn.launches = 0
     return fn
 
@@ -150,38 +167,99 @@ KERNELS = {f.__name__: f for f in (dot_only, vpu_only, dot_vpu_consume,
                                    dot_vpu_in_join, dot_vpu_in_split)}
 
 
-def inputs(dev, rows=ROWS):
-    """a (rows, K) and b (K, N) bfloat16 and v (rows, N) float32, all
-    N(0, 1)."""
+def inputs(dev, rows=ROWS, n=N, k=K):
+    """a (rows, k) and b (k, n) bfloat16 and v (rows, n) float32, all
+    N(0, 1); the script's N and K unless given."""
     rng = np.random.default_rng(0)
     t = lambda shape, dt: torch.tensor(  # noqa: E731
         rng.standard_normal(shape, dtype=np.float32), device=dev).to(dt)
-    return t((rows, K), torch.bfloat16), t((K, N), torch.bfloat16), \
-        t((rows, N), torch.float32)
+    return t((rows, k), torch.bfloat16), t((k, n), torch.bfloat16), \
+        t((rows, n), torch.float32)
+
+
+def footprint(mode, rows=ROWS, dev=None):
+    """{"registers" (a thread at launch), "local_bytes" (spills),
+    "smem_bytes", "blocks_per_sm"} of mode ``mode``'s kernel at its plan
+    for ``rows`` rows, and the plan's register split by role.  Needs a
+    card."""
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    plan = overlap_plan(rows, N, K, sm_count(dev))
+    out = [ctypes.c_int() for _ in range(4)]
+    check(load_library("probes").dvt_probe_overlap_footprint(
+        MODES.index(mode), plan.smem, *map(ctypes.byref, out)),
+        "dvt_probe_overlap_footprint", "probes")
+    f = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                 (o.value for o in out)))
+    f["roles"] = {r.name: dict(warps=r.warps, registers=r.registers)
+                  for r in plan.roles}
+    return f
+
+
+SIZING = (0, ITERS)  # the chain lengths of the sizing fit
+
+
+def size_chain(rounds):
+    """The chain length for the legs from sizing rounds of ``dot_only`` and
+    of ``vpu_only`` at the two SIZING lengths: a line t_vpu(iters) = floor
+    + slope * iters through them (per round, then the medians), and the
+    length at which the line meets dot_only's time, iters = (t_dot -
+    floor) / slope, at least 1: the script's rule (vpu_only about as long
+    as dot_only; ITERS * t_dot / t_vpu(ITERS) took the floor as 0).  The
+    floor is the bytes every mode moves (vpu_only with no steps copies v
+    and writes zeros).  Returns ({"floor_ms", "slope_ms", each as the
+    median, min and max over the rounds}, iters, the reason the answer is
+    inconclusive or None).  Inconclusive where dot_only's median lies
+    within its spread (max - min) of the floor: dot_only then took the
+    bytes every mode moves, and the ratios would measure the bytes, not the
+    pipes; and where the sized chain's work (slope * iters) comes to less
+    than the floor: every mode is then bound by the bytes it moves, and the
+    chain is too small a share of each to show whether it overlaps."""
+    short, long_ = SIZING
+    fit = []
+    for r in rounds:
+        slope = (r[f"vpu_only_{long_}"] - r[f"vpu_only_{short}"]) \
+            / (long_ - short)
+        fit.append({"floor_ms": r[f"vpu_only_{short}"] - slope * short,
+                    "slope_ms": slope})
+    fit = spread(fit)
+    dot = spread(rounds)["dot_only"]
+    floor, slope = fit["floor_ms"]["median"], fit["slope_ms"]["median"]
+    iters = max(1, round((dot["median"] - floor) / slope)) if slope > 0 \
+        else ITERS
+    reason = None
+    if dot["median"] - floor <= dot["max"] - dot["min"]:
+        reason = (f"dot_only ({dot['median']:.4f} ms) is within its spread "
+                  f"({dot['max'] - dot['min']:.4f} ms) of vpu_only's floor "
+                  f"({floor:.4f} ms): it took the bytes every mode moves, so "
+                  "the ratios measure the bytes, not the pipes")
+    elif slope * iters < floor:
+        reason = (f"the chain's {iters} steps take {slope * iters:.4f} ms, "
+                  f"less than vpu_only's floor ({floor:.4f} ms): every mode "
+                  "is bound by the bytes it moves, so the ratios measure "
+                  "the bytes, not the pipes")
+    return fit, iters, reason
 
 
 def legs(dev):
-    """The chain length that makes vpu_only take about as long as dot_only
-    (ITERS * t_dot / t_vpu(ITERS), the script's sizing rule, on the
-    medians), then every mode's ms at that length, /sum and /max, each as
-    the median, min and max over the rounds (``timing``), and the script's
-    verdicts on the medians: consume serializes (> 0.8 of the sum), split
-    overlaps (< 0.75)."""
+    """The chain length from :func:`size_chain` (sizing rounds of dot_only
+    and of vpu_only at the SIZING lengths), then every mode's ms at that
+    length, /sum and /max, each as the median, min and max over the rounds
+    (``timing``), and the script's verdicts on the medians: consume
+    serializes (> 0.8 of the sum), split overlaps (< 0.75).  INCONCLUSIVE,
+    with its reason and the ratios beside it, where dot_only sits at the
+    floor or the chain came out too short."""
     a, b, v = inputs(dev)
 
     def run(mode, iters):
         return lambda: KERNELS[mode](a, b, v, iters=iters)
 
-    sizing = medians(rounds_ms({"dot_only": run("dot_only", ITERS),
-                                "vpu_only": run("vpu_only", ITERS)}))
-    iters = max(1, round(ITERS * sizing["dot_only"] / sizing["vpu_only"]))
+    sizing = rounds_ms({"dot_only": run("dot_only", ITERS),
+                        **{f"vpu_only_{n}": run("vpu_only", n)
+                           for n in SIZING}})
+    fit, iters, reason = size_chain(sizing)
     rounds = rounds_ms({mode: run(mode, iters) for mode in MODES})
-    out = {"rows": ROWS, "repeats": REPEATS,
-           f"vpu_only_ms_at_{ITERS}": sizing["vpu_only"], "iters": iters,
-           "ms": spread(rounds)}
-    ms = medians(rounds)
-    if ms["vpu_only"] < 0.5 * ms["dot_only"]:
-        return dict(out, verdict="INCONCLUSIVE: the chain is too short")
+    out = {"rows": ROWS, "repeats": REPEATS, "sizing_ms": spread(sizing),
+           **fit, "iters": iters, "ms": spread(rounds)}
     ratios = []
     for r in rounds:
         total, most = r["dot_only"] + r["vpu_only"], max(r["dot_only"],
@@ -189,12 +267,94 @@ def legs(dev):
         ratios.append({f"{m}_over_{k}": r[m] / d for m in MODES[2:]
                        for k, d in (("sum", total), ("max", most))})
     ratio = spread(ratios)
+    ms = out["ms"]
+    if reason is None and ms["vpu_only"]["median"] \
+            < 0.5 * ms["dot_only"]["median"]:
+        reason = "the chain is too short"
     consume_serial = ratio["dot_vpu_consume_over_sum"]["median"] > 0.8
     split_overlaps = ratio["dot_vpu_in_split_over_sum"]["median"] < 0.75
+    verdict = f"INCONCLUSIVE: {reason}" if reason else \
+        "HOLDS" if consume_serial and split_overlaps else "CHANGED"
     return dict(out, **ratio, consume_serializes=consume_serial,
-                split_overlaps=split_overlaps,
-                verdict="HOLDS" if consume_serial and split_overlaps
-                else "CHANGED")
+                split_overlaps=split_overlaps, verdict=verdict)
+
+
+# SASS opcodes by the unit that runs them: the special-function unit (16
+# results a clock an SM on an H100) and the float32 pipe (128 a clock)
+SFU_OPS = ("MUFU",)
+FP32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
+            "FSWZADD")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                   r"([A-Z][A-Z0-9_.]*)([^;]*)")
+_LABEL = re.compile(r"^\s*\.(L_x_\d+):")
+_TARGET = re.compile(r"`?\(\.(L_x_\d+)\)|\s(0x[0-9a-f]+)\b")
+
+
+def sass_loops(sass: str) -> list[dict]:
+    """The loops of one function's SASS (``cuobjdump -sass`` text): each
+    backward branch (to a label, or to an address, as cuobjdump prints
+    it) and the instructions from its target to the branch, as
+    {"opcodes": [...], "branches": branches inside}."""
+    labels, at, opcodes, loops = {}, {}, [], []
+    for line in sass.splitlines():
+        lab = _LABEL.match(line)
+        if lab:
+            labels[lab.group(1)] = len(opcodes)
+            continue
+        ins = _INSN.search(line)
+        if not ins:
+            continue
+        at[int(ins.group(1), 16)] = len(opcodes)
+        opcodes.append(ins.group(2))
+        target = _TARGET.search(ins.group(3))
+        if not (ins.group(2).startswith("BRA") and target):
+            continue
+        start = labels.get(target.group(1)) if target.group(1) \
+            else at.get(int(target.group(2), 16))
+        if start is not None:  # a backward branch: its target came first
+            body = opcodes[start:]
+            loops.append({"opcodes": body, "branches": sum(
+                op.startswith("BRA") for op in body[:-1])})
+    return loops
+
+
+def count_chain(sass: str, steps: int = 32) -> dict:
+    """A chain step's instructions from vpu_only's SASS: the innermost loop
+    with at least ``steps`` special-function instructions (the chain's
+    step loop, whose body is 32 steps: ``chain`` in overlap.cu), by unit,
+    each divided by ``steps``."""
+    loops = [lp for lp in sass_loops(sass)
+             if sum(op.startswith(SFU_OPS) for op in lp["opcodes"]) >= steps]
+    require(loops, f"no loop of {steps} special-function instructions or "
+            "more in the SASS")
+    body = min(loops, key=lambda lp: len(lp["opcodes"]))  # the innermost
+    ops = body["opcodes"]
+    base = [op.split(".")[0] for op in ops]
+    mufu = sum(op in SFU_OPS for op in base)
+    fp32 = sum(op in FP32_OPS for op in base)
+    return {"sfu": mufu / steps, "fp32": fp32 / steps,
+            "other": (len(ops) - mufu - fp32) / steps,
+            "instructions": len(ops) / steps, "loop_instructions": len(ops),
+            "loop_branches": body["branches"],
+            "mufu": sorted({op for op in ops if op.startswith("MUFU")})}
+
+
+def chain_instructions(path: Path | None = None) -> dict:
+    """:func:`count_chain` of the vpu_only kernel in the built probes
+    library's SASS, read by the CUDA toolkit's ``cuobjdump``.  Needs the
+    library built (on the card's machine)."""
+    path = path or library_path("probes")
+    tool = shutil.which("cuobjdump") or str(Path(find_nvcc()).with_name(
+        "cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    name = "overlap_kernelILi1EE"  # overlap_kernel<1>: vpu_only
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = [f for f in funcs if f.split("\n", 1)[0].find(name) >= 0]
+    require(len(body) == 1, f"{len(body)} functions named *{name}* in "
+            f"{path.name}'s SASS")
+    return dict(count_chain(body[0]), function=body[0].split("\n", 1)[0]
+                .strip())
 
 
 def main():

@@ -1,6 +1,5 @@
 """Device time of a chain of calls, from CUDA events, repeated for a median
-and a spread; and a kernel's footprint (registers, shared memory, blocks an
-SM), read beside its time.
+and a spread.
 
 Every probe's legs take the same counts, for one reason: a leg's answer is
 a difference or a ratio of a few percent, so each timing must be well
@@ -13,13 +12,11 @@ and a (min, max) spread and let slow drift of the clocks touch every leg
 alike."""
 from __future__ import annotations
 
-import ctypes
 import json
 import statistics
 
 import torch
 
-from ..ops.kernels.build import check
 
 WARMUP, STEPS, REPEATS = 2, 10, 5
 
@@ -62,16 +59,6 @@ def spread(rounds: list[dict]) -> dict:
 
 def medians(rounds: list[dict]) -> dict:
     return {name: s["median"] for name, s in spread(rounds).items()}
-
-
-def occupancy(entry, index: int) -> dict:
-    """{"registers", "smem_bytes", "blocks_per_sm"} of kernel ``index`` of a
-    probe library entry ``entry(index, &registers, &smem, &blocks)``.
-    Needs a card."""
-    out = [ctypes.c_int() for _ in range(3)]
-    check(entry(index, *map(ctypes.byref, out)), entry.__name__, "probes")
-    return dict(zip(("registers", "smem_bytes", "blocks_per_sm"),
-                    (o.value for o in out)))
 
 
 def run_main(probe: str, legs) -> None:

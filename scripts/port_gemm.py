@@ -1,8 +1,8 @@
 """Where K2's and K3's time goes on the card: the wgmma mainloop
-(``diffvit_tpu_torch/csrc/wgmma_gemm.cuh``) against the mma.sync tile it
-replaced, tile by tile.
+(``diffvit_tpu_torch/csrc/wgmma_gemm.cuh``), tile by tile.
 
     python3 scripts/port_gemm.py
+    python3 scripts/port_gemm.py --served [label]
 
 One JSON line each, after a line with the card's name and power limit:
 - K2 (``fused_int_mlp``, DeiT-S block 0, codes out) at b = 1 and 64: the
@@ -15,17 +15,30 @@ One JSON line each, after a line with the card's name and power limit:
   stages; each output against the chosen plan's;
 - K2 at Swin-T stage 0, b = 64, with the chosen plan and with one block
   an SM of 128 x 128 tiles (4 stages);
-- K2 at P3's 50,688 rows beside P3's ``dot`` mode (the mma.sync tile of
-  K2 before this mainloop), device time and events;
+- K2 at P3's 50,688 rows beside P3's ``dot`` mode (K2's kernel with the
+  probe's keep-alive epilogues), device time and events;
+- P3's ``pipelined`` and ``staged`` fc1 kernels at one and two blocks an
+  SM beside the plan's choice (``overlap_plan.OWN_BLOCKS``): the
+  footprint, the output against ``dot``'s and the device time beside
+  ``dot``'s;
 - K3 (``fused_int_linear``) at each DeiT-S and Swin-T site at b = 64, each
   mode: device time and events beside ``torch._int_mm``'s (the GEMM alone,
   int32 out; the port never calls it), and the device time with one block
   an SM of 128 x 128 tiles (4 stages);
 - the host time of the K3 wrapper's steps at the DeiT-S head (b = 64).
+With ``--served``, only the served GEMM kernels' footprints (registers,
+shared memory, blocks an SM: K2's fc1 and fc2, K7b's fc1 and fc2, K3 at
+the DeiT-S sites in each mode; DeiT-S b = 1, 8, 64) and device times (K2
+at b = 1 and 64, K3 at each DeiT-S site at b = 64, K7b at b = 64), each
+line with ``label`` (default "tree").  The package is imported from this
+script's checkout unless ``PYTHONPATH`` names another, so running it with
+``PYTHONPATH`` at a parent commit's checkout and without, in turns within
+one call, compares the two on the same inputs.
 Needs a CUDA card; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -37,16 +50,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+# after PYTHONPATH's entries, so that PYTHONPATH can name another checkout
+sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from diffvit_tpu_torch.models.swin import SWIN_SPECS  # noqa: E402
 from diffvit_tpu_torch.models.vit import VIT_SPECS  # noqa: E402
 from diffvit_tpu_torch.ops.kernels import (build, gemm, linear,  # noqa: E402
                                            mlp, route)
 from diffvit_tpu_torch.probes import overlap_mlp  # noqa: E402
-from diffvit_tpu_torch.testing import (linear_site_cases,  # noqa: E402
-                                       random_int_model,
+from diffvit_tpu_torch.testing import (alt_kernel_cases,  # noqa: E402
+                                       linear_site_cases, random_int_model,
                                        random_swin_int_model)
 
 DEIT, SWIN = VIT_SPECS["deit_small"], SWIN_SPECS["swin_tiny"]
@@ -197,6 +210,25 @@ def beside_p3(dev):
              events_ms=events_ms(fn, 5), device_ms=device_ms(fn, 5))
 
 
+def p3_blocks(dev):
+    """P3's pipelined and staged modes at one and two blocks an SM."""
+    # imported here: --served also runs on checkouts without this module
+    from diffvit_tpu_torch.ops.kernels.overlap_plan import OWN_BLOCKS
+    args = overlap_mlp.inputs(dev)
+    want = overlap_mlp.mlp_dot(*args)
+    dot_ms = sum(device_ms(lambda: overlap_mlp.mlp_dot(*args), 5).values())
+    for blocks in (1, 2):
+        for mode in ("pipelined", "staged"):
+            fn = functools.partial(overlap_mlp.run, mode, args, blocks)
+            emit(what="P3 blocks", mode=mode, blocks=blocks,
+                 chosen=OWN_BLOCKS[mode] == blocks,
+                 footprint=overlap_mlp.fc1_occupancy(mode, dev=dev,
+                                                     blocks=blocks),
+                 equal=bool(torch.equal(fn(), want)),
+                 device_ms=sum(device_ms(fn, 5).values()),
+                 dot_device_ms=dot_ms)
+
+
 def k3(dev):
     """K3 at each b = 64 site and mode with gemm_plan's choice, and (rows
     past 256) with one block an SM of 128 x 128 tiles, each output held
@@ -259,6 +291,40 @@ def k3_host(dev):
                                for k, f in steps.items()})
 
 
+# K3's DeiT-S sites: (N, K)
+DEIT_SITES = {"qkv": (1152, 384), "proj": (384, 384), "fc1": (1536, 384),
+              "fc2": (384, 1536), "head": (1000, 384)}
+
+
+def served(label, dev):
+    """The served GEMM kernels' footprints and device times (``--served``)."""
+    c, hid = DEIT.embed_dim, 4 * DEIT.embed_dim
+    for b in (1, 8, 64):
+        rows = b * DEIT.seq_len
+        for name, fps in (("K2", mlp.footprint(rows, c, hid, c, dev)),
+                          ("K7b", mlp.mlp_block_footprint(rows, c, hid,
+                                                          dev))):
+            for launch, f in fps.items():
+                emit(tree=label, footprint=name, launch=launch, batch=b, **f)
+        for site, (n, k) in DEIT_SITES.items():
+            for mode in ("raw", "fq", "codes"):
+                emit(tree=label, footprint="K3", site=site, mode=mode,
+                     batch=b, **linear.footprint(rows, n, k, dev, mode))
+    for b in (1, 64):
+        args = k2_args(b * DEIT.seq_len, dev)
+        emit(tree=label, kernel="K2", batch=b, device_ms=sum(device_ms(
+            lambda: mlp.fused_int_mlp(*args, emit_codes=True)).values()))
+    for site, (args, out_scale) in linear_site_cases(
+            DEIT, random_int_model(DEIT, seed=0), 64, dev, seed=64).items():
+        emit(tree=label, kernel="K3", site=site, batch=64,
+             device_ms=sum(device_ms(lambda: linear.fused_int_linear(
+                 *args, out_scale=out_scale)).values()))
+    args, kw = alt_kernel_cases(DEIT, random_int_model(DEIT, seed=0), 64,
+                                dev, npad=200, seed=64)["fused_int_mlp_block"]
+    emit(tree=label, kernel="K7b", batch=64, device_ms=sum(device_ms(
+        lambda: mlp.fused_int_mlp_block(*args, **kw)).values()))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("port_gemm: no CUDA card")
@@ -267,12 +333,17 @@ def main():
                          text=True, check=True).stdout.strip()
     emit(device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     build.load_library()
-    build.load_library("probes")
     dev = torch.device("cuda", 0)
+    if "--served" in sys.argv:
+        args = sys.argv[sys.argv.index("--served") + 1:]
+        served(args[0] if args else "tree", dev)
+        return
+    build.load_library("probes")
     k2(dev)
     sweep(dev)
     swin_stage0(dev)
     beside_p3(dev)
+    p3_blocks(dev)
     k3(dev)
     k3_host(dev)
 

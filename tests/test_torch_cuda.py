@@ -745,13 +745,15 @@ def test_probe_pingpong_matches_plain(cuda, batch, npad, heads, d, n_real):
     assert torch.equal(pair[0], got_p) and torch.equal(pair[1], got_c)
 
 
-@pytest.mark.parametrize("rows,iters", [(128, 8), (64 * 512, 220)])
+@pytest.mark.parametrize("rows,iters", [(128, 8), (64, 8), (192, 8),
+                                        (64 * 512, 220)])
 @pytest.mark.parametrize("mode", ["dot_only", "vpu_only", "dot_vpu_consume",
                                   "dot_vpu_in_join", "dot_vpu_in_split"])
 def test_probe_overlap_matches_plain(cuda, rows, iters, mode):
     """P2's five modes within overlap.compare's tolerances (the dot's
     summation order; the tanh chain's roundings), at the script's 32768 x
-    512 too."""
+    512 too, and at 64 and 192 rows (a 128-row tile's second consumer
+    past M; a partly filled persistent grid)."""
     from diffvit_tpu_torch.probes import overlap as p2
     a, b, v = p2.inputs(cuda, rows)
     fn = p2.KERNELS[mode]
@@ -763,12 +765,34 @@ def test_probe_overlap_matches_plain(cuda, rows, iters, mode):
     assert ok, (share, max_err)
 
 
-@pytest.mark.parametrize("rows", [200, 99 * 512])
+@pytest.mark.parametrize("shape", [(128, 64, 32), (192, 192, 96),
+                                   (64, 64, 0), (192, 128, 0)], ids=str)
+@pytest.mark.parametrize("mode", ["dot_only", "vpu_only", "dot_vpu_consume",
+                                  "dot_vpu_in_join", "dot_vpu_in_split"])
+def test_probe_overlap_ragged_shapes(cuda, shape, mode):
+    """P2's five modes within overlap.compare's tolerances at (M, N, K)
+    off the legs' geometry: K = 32 (one stage half zero filled by TMA), K
+    = 96 and N = 192 (three column tiles), and K = 0 (no stage: y = 0,
+    the chain still runs)."""
+    from diffvit_tpu_torch.probes import overlap as p2
+    m, n, k = shape
+    a, b, v = p2.inputs(cuda, m, n, k)
+    fn = p2.KERNELS[mode]
+    before = fn.launches
+    got = fn(a, b, v, iters=8)
+    _launched_once(fn, before)
+    want = p2.overlap_plain(a, b, v, mode, 8)
+    share, max_err, ok = p2.compare(mode, a, b, got, want, 8)
+    assert ok, (share, max_err)
+
+
+@pytest.mark.parametrize("rows", [200, 197, 1000, 99 * 512])
 @pytest.mark.parametrize("mode", ["dot", "input", "nogelu", "pipelined",
                                   "staged"])
 def test_probe_overlap_mlp_matches_plain(cuda, rows, mode):
-    """P3's four modes bit for bit against their plain versions (the
-    script's 50,688 rows too); pipelined and staged equal dot."""
+    """P3's five modes bit for bit against their plain versions (the
+    script's 50,688 rows too, and 197 and 1,000: ragged tiles, partly
+    filled persistent blocks); pipelined and staged equal dot."""
     from diffvit_tpu_torch.probes import overlap_mlp as p3
     args = p3.inputs(cuda, rows)
     fn = p3.KERNELS[f"mlp_{mode}"]
@@ -783,9 +807,11 @@ def test_probe_overlap_mlp_matches_plain(cuda, rows, mode):
 @pytest.mark.parametrize("rows,cin,hid", [(130, 32, 96), (257, 64, 64),
                                           (200, 128, 256)])
 def test_probe_overlap_mlp_pipelined_short_and_ragged(cuda, rows, cin, hid):
-    """P3's pipelined and staged modes (the double-buffered K loop) with
-    one, two and four K steps a sub-block, and rows that leave the last
-    block partly or wholly empty: equal to dot and to the plain version."""
+    """P3's pipelined mode (two accumulator sets) and staged mode
+    (ping-pong consumers) with one 128-byte K stage a tile, partly zero
+    filled (Cin 32, 64, 128), a ragged Hid (96) and rows that leave the
+    last tile partly or a consumer's half wholly empty: equal to dot and
+    to the plain version."""
     from diffvit_tpu_torch.probes import overlap_mlp as p3
     rng = np.random.default_rng(rows)
     dev = lambda a, dt: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
@@ -803,18 +829,47 @@ def test_probe_overlap_mlp_pipelined_short_and_ragged(cuda, rows, cin, hid):
     assert torch.equal(p3.mlp_staged(*args), want)
 
 
+@pytest.mark.parametrize("shape", [(257, 1024, 4096), (1000, 928, 928)],
+                         ids=str)
+@pytest.mark.parametrize("mode", ["dot", "input", "nogelu", "pipelined",
+                                  "staged"])
+def test_probe_overlap_mlp_deep_k(cuda, shape, mode):
+    """P3's five modes bit for bit against their plain versions where fc1's
+    K stages outnumber pipelined's ring (Cin 1024 and 928: 8 stages of 128
+    bytes against 7), so that pipelined releases a tile's stages as its
+    products retire; pipelined and staged equal dot."""
+    from diffvit_tpu_torch.probes import overlap_mlp as p3
+    args = p3.inputs(cuda, *shape)
+    fn = p3.KERNELS[f"mlp_{mode}"]
+    before = fn.launches
+    got = fn(*args)
+    _launched_once(fn, before)
+    assert torch.equal(got, p3.overlap_mlp_plain(*args, mode))
+    if mode in ("pipelined", "staged"):
+        assert torch.equal(got, p3.mlp_dot(*args))
+
+
 def test_probe_footprints(cuda):
-    """P3's fc1 kernels and P1's three kernels report their registers,
-    shared memory and blocks an SM: pipelined, which holds two sub-blocks'
-    accumulators, fits no more blocks than dot; paired carries at least the
-    larger role's shared memory."""
+    """P2's five kernels, P3's fc1 kernels and P1's three kernels report
+    their registers, shared memory and blocks an SM, with no spill in P2
+    or P3, each at its plan's blocks an SM and setmaxnreg's budget within
+    its launch registers: pipelined, which holds two tiles' accumulators,
+    fits no more blocks than dot; staged as many; paired carries at least
+    the larger role's shared memory."""
+    from diffvit_tpu_torch.probes import overlap as p2
     from diffvit_tpu_torch.probes import overlap_mlp as p3
     from diffvit_tpu_torch.probes import pingpong as p1
     fc1 = {m: p3.fc1_occupancy(m) for m in p3.MODES}
+    p2f = {m: p2.footprint(m, dev=cuda) for m in p2.MODES}
     roles = {r: p1.footprint(r) for r in ("producer", "consumer", "paired")}
-    for f in (*fc1.values(), *roles.values()):
+    for f in (*fc1.values(), *roles.values(), *p2f.values()):
         assert f["registers"] > 0 and f["blocks_per_sm"] >= 1
+    for f in (*fc1.values(), *p2f.values()):
+        budget = sum(32 * r["warps"] * r["registers"]
+                     for r in f["roles"].values())
+        assert f["local_bytes"] == 0 and f["registers"] * 384 >= budget, f
     assert fc1["pipelined"]["blocks_per_sm"] <= fc1["dot"]["blocks_per_sm"]
+    assert fc1["staged"]["blocks_per_sm"] == fc1["dot"]["blocks_per_sm"]
     assert roles["paired"]["smem_bytes"] >= max(
         roles["producer"]["smem_bytes"], roles["consumer"]["smem_bytes"])
 
