@@ -67,9 +67,12 @@
             from torch.profiler (qkv GEMM against core) for K1 at DeiT-S
             b = 1, 8, 64 (LIS and float softmax), K5 at the same batches,
             and K4/K4b at Swin-T stages 0-3, b = 1 and 64, both softmaxes;
-            the core's and the GEMM's footprints (registers, local memory,
-            shared memory, blocks an SM), and K6's at DeiT-S b = 1, 8, 64
-            (both softmaxes), failing on a spill; K7b's two GEMM kernels'
+            K7a's three launches (qkv GEMM, core, proj on the wgmma
+            mainloop) at DeiT-S b = 1, 8, 64, with torch._int_mm on the
+            proj's GEMM alone beside them; the core's, the qkv GEMM's and
+            K7a's proj's footprints (registers, local memory, shared
+            memory, blocks an SM), and K6's at DeiT-S b = 1, 8, 64 (both
+            softmaxes), failing on a spill; K7b's two GEMM kernels'
             footprints and its device time at b = 64 come with K2's and
             K3's (phase gemm);
 9. probes:  the H100 counterparts of the inline Pallas kernels of scripts/
@@ -78,10 +81,12 @@
             the script's full geometry (P1 producer, consumer and paired
             at B = 128, P2's five modes at 32768 x 512 with 220 chain
             steps, P3's five modes at 50,688 rows, P4 on a b = 64 uint8
-            batch cast to float32, P5 at B = 256; P1 and P5 also at B = 1
-            and 8, P2 at 64 and 192 rows and at K = 32, 96 and 0, P3 at
-            197 and 1,000 rows and at Cin 1024 -> 4096, with P3's dot,
-            pipelined and staged bit-equal), paired against the
+            batch cast to float32 (bit for bit, with its device time and
+            torch.sum's) and at 4, 16, 8,188, 8,196 and 57,344 elements
+            and on (1176, 1024) halves, P5 at B = 256; P1 and P5 also at
+            B = 1 and 8, P2 at 64 and 192 rows and at K = 32, 96 and 0,
+            P3 at 197 and 1,000 rows and at Cin 1024 -> 4096, with P3's
+            dot, pipelined and staged bit-equal), paired against the
             two halves at each batch, P1's, P2's, P3's and P5's
             footprints (failing on a spill), a chain step's instructions
             counted in the probes library's SASS (cuobjdump; the bound of
@@ -465,10 +470,11 @@ for _m in overlap_mlp.MODES:
             lambda *a, mode: overlap_mlp.overlap_mlp_plain(*a, mode),
             mode=_m),
         "overlap_mlp.cu", "scripts/overlap_probe_mlp.py:36")
-# the attention launches by kernel name (torch.profiler's): the qkv GEMM on
-# the wgmma mainloop, the tensor-core cores
-LAUNCH_KINDS = (("wgmma_gemm_kernel", "gemm"), ("qkv_core_kernel", "core"),
-                ("swin_core_kernel", "core"))
+# the attention launches by kernel name (torch.profiler's): K7a's proj and
+# the qkv GEMM on the wgmma mainloop (the proj's instance named by its
+# epilogue), the tensor-core cores
+LAUNCH_KINDS = (("BlockProjOut", "proj"), ("wgmma_gemm_kernel", "gemm"),
+                ("qkv_core_kernel", "core"), ("swin_core_kernel", "core"))
 for _name, (_fn, _plain, _src, _at) in PROBES.items():
     KERNELS[_name] = dict(fn=_fn, plain=_plain, source=_PROBE_SRC + _src,
                           replaces=_at)
@@ -1734,6 +1740,29 @@ def phase_attention(dev, summary):
             if b == 64 and lis:
                 summary[name].update(device_ms=sum(t.values()), **{
                     f"{k}_device_ms": v for k, v in t.items()})
+    # K7a's three launches (qkv GEMM, core, proj), and the proj GEMM alone
+    # in torch._int_mm (int32 out: a reference, not the same function)
+    ip_np = random_int_model(SPEC, CFG, seed=0)
+    for b in (1, 8, 64):
+        args, kw = alt_kernel_cases(SPEC, ip_np, b, dev, npad=200,
+                                    seed=b)["fused_attention_block"]
+        fn = attention.fused_attention_block
+        t = device_by_launch(lambda: fn(*args, **kw))
+        rows, c = b * 200, SPEC.embed_dim
+        a = codes((rows, c), b + 11, dev)
+        w = codes((c, c), b + 12, dev)
+        mm = dict(proj_int_mm_ms=int_mm_ms(a, w), proj_int_mm_device_ms=(
+            device_ms(lambda: torch._int_mm(a, w))
+            if int_mm_takes(a, w) else None))
+        emit(phase="attention", kernel="fused_attention_block",
+             at=f"{SPEC.name} b={b}", lis=True, events_ms=cuda_ms(
+                 lambda: fn(*args, **kw)), device_ms=sum(t.values()),
+             **{f"{k}_device_ms": v for k, v in t.items()}, **mm,
+             bound_ms=bound("fused_attention_block", args, kw)[0])
+        if b == 64:
+            summary["fused_attention_block"].update(
+                device_ms=sum(t.values()), **mm,
+                **{f"{k}_device_ms": v for k, v in t.items()})
     for cfg in (CFG, QuantConfig(lis=False)):
         ip = random_swin_int_model(SWIN, cfg, seed=0)
         for stage in range(SWIN.num_layers):
@@ -1770,6 +1799,11 @@ def phase_attention(dev, summary):
         f = attention.qkv_gemm_footprint(r, 3 * SPEC.embed_dim,
                                          SPEC.embed_dim, dev)
         prints.append(("qkv gemm", f"{SPEC.name} {label}", True, f))
+    for b in (1, 8, 64):  # K7a's proj at Npad 200
+        f = attention.proj_gemm_footprint(b * 200, SPEC.embed_dim,
+                                          SPEC.embed_dim, dev)
+        prints.append(("fused_attention_block proj", f"{SPEC.name} b={b}",
+                       True, f))
     for b in (1, 8, 64):
         for lis in (True, False):
             prints.append(("resident_codes", f"{SPEC.name} b={b}", lis,
@@ -1927,12 +1961,13 @@ def phase_probes_kernels(dev, summary):
     (partly filled persistent blocks, masked edges), P2 at K = 32, 96 and
     0, P3 at Cin 1024 -> 4096 (more K stages than pipelined's ring), P3's
     dot, pipelined and staged held bit-equal to each other at each shape;
-    P2's and
-    P3's footprints; the chain's instructions counted in the SASS, which
-    bound P2's chain modes.  The served kernels that the legs time beside
-    the probes (K1 with the fast LIS and with the float softmax, K8's _v3,
-    _v4 with group 2 and 4, _v5; K2 on P3's operands) are held at the
-    legs' shapes and arguments too."""
+    P2's and P3's footprints; the chain's instructions counted in the SASS,
+    which bound P2's chain modes; P4 bit for bit at ragged sizes (shares
+    shorter than a stage, short last stages) and its device time beside
+    torch.sum's at the legs' batch.  The served kernels that the legs time
+    beside the probes (K1 with the fast LIS and with the float softmax,
+    K8's _v3, _v4 with group 2 and 4, _v5; K2 on P3's operands) are held
+    at the legs' shapes and arguments too."""
     def row(name, args, kw, label, library_ms=None, tol="exact",
             beside=None, heaviest=True, **opts):
         # a served kernel's line names the probe it is timed beside
@@ -2044,11 +2079,31 @@ def phase_probes_kernels(dev, summary):
     row("fused_int_mlp", k2, {}, at, beside="overlap_mlp",
         decode=lambda y, s=k2[7]: torch.round(y / s))
 
-    xf = torch.tensor(np.random.default_rng(0).integers(
-        0, 255, ingest.SHAPE, dtype=np.uint8), device=dev) \
-        .reshape(ingest.FLAT).to(torch.float32)
-    row("ingest.tile_sum", (xf,), {}, "b=64 uint8 batch",
-        library_ms=cuda_ms(lambda: torch.sum(xf, dtype=torch.float64)))
+    # P4 on ragged sizes (a share shorter than a stage, a short last stage,
+    # an odd number of stages, the legs' constant of halves), then at the
+    # legs' b=64 batch with its device time and torch.sum's beside it
+    rng = np.random.default_rng(0)
+    for shape in ((4,), (16,), (8188,), (8196,), (7 * 8192,), (1176, 1024)):
+        xs = torch.full(shape, 0.5, device=dev) if len(shape) == 2 else \
+            torch.tensor(rng.integers(0, 255, shape), dtype=torch.float32,
+                         device=dev)
+        row("ingest.tile_sum", (xs,), {}, "x".join(map(str, shape)),
+            heaviest=False, tol="bitwise",
+            decode=lambda y: y.view(torch.int32))
+    xf = torch.tensor(rng.integers(0, 255, ingest.SHAPE, dtype=np.uint8),
+                      device=dev).reshape(ingest.FLAT).to(torch.float32)
+
+    def torch_sum():
+        return torch.sum(xf, dtype=torch.float64)
+    row("ingest.tile_sum", (xf,), {}, "b=64 uint8 batch", tol="bitwise",
+        decode=lambda y: y.view(torch.int32), library_ms=cuda_ms(torch_sum))
+    p4 = dict(device_ms=device_ms(lambda: ingest.tile_sum(xf)),
+              library_device_ms=device_ms(torch_sum))
+    summary["ingest.tile_sum"].update(p4)
+    emit(phase="probes", probe="ingest", at="b=64 uint8 batch",
+         events_ms=summary["ingest.tile_sum"]["ms"],
+         torch_sum_ms=summary["ingest.tile_sum"]["library_ms"], **p4,
+         bound_ms=summary["ingest.tile_sum"]["bound_ms"])
 
 
 def probe_footprints(dev):

@@ -644,7 +644,9 @@ __device__ __forceinline__ void attend_rows(const RowTile& tile, const uint8_t* 
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          if (d0 + 8 * nt < a.d) {
+          // the thread's two columns of the n tile; past D (the last tile
+          // where D % 8 == 4) they are another head's or row's: not stored
+          if (d0 + 8 * nt + 2 * t < a.d) {
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int row = gq + 8 * r;

@@ -1,5 +1,5 @@
-// The int8 code clip shared by the GEMM epilogues of both mainloops
-// (int8_gemm.cuh's mma.sync tile and wgmma_gemm.cuh).
+// The int8 code clip shared by the int8-out epilogues (attention_core.cuh's
+// QkvOut, int_mlp.cuh's Fc1Hidden) and the attention cores.
 #pragma once
 
 #include <cstdint>

@@ -44,9 +44,19 @@
 //     caller's (B, N, 3C) qkv codes with no copy; K7a writes the heads'
 //     output in the (row, head * D) layout that its proj GEMM reads.
 //  3. (K7a) the proj GEMM over the (B*Npad, H*D) attention codes on
-//     int8_gemm.cuh's mma.sync tile, whose epilogue runs acc * mult_p +
-//     bias_p, the qact3 fence, the residual add and the qact2 fence with
-//     IEEE divisions, as the Pallas kernel divides.
+//     wgmma_gemm.cuh's mainloop (K3's launch), whose value-returning
+//     epilogue BlockProjOut runs acc * mult_p + bias_p, the qact3 fence,
+//     the residual add and the qact2 fence with IEEE divisions, as the
+//     Pallas kernel divides; the mainloop stages the float32 tile in shared
+//     memory and stores whole rows in 16-byte vectors.  The proj weight
+//     reaches it K-major, as a cached (Cout, Ka) copy of (H*D, Cout)
+//     (gemm.per_weight over gemm.kmajor); the core writes the attention
+//     codes with a row stride of Ka = H*D rounded up to 16 bytes, TMA's
+//     rule.  The pad columns are never written: they meet the copy's zero
+//     rows, and an integer product with 0 is 0 whatever they hold.
+//     What bounds the proj: its float32 residual, read once and written
+//     once (39.3 of the 44.8 MB at DeiT-S b=64, 13.2 us at 3.35 TB/s),
+//     against 3.8 G int8 operations (1.9 us).
 // K5 is launch 2 alone.  Exactness: see attention_mma.cuh; the float
 // softmax's codes agree with the plain version in practice (the order of
 // the sums and an ulp of exp in double do not reach the float result; the
@@ -55,8 +65,8 @@
 #include <cuda_runtime.h>
 
 #include "attention_core.cuh"
-#include "int8_gemm.cuh"
 #include "qkv_core.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -101,20 +111,44 @@ cudaError_t launch_qkv_attention(const void* x, const void* wk, const void* mb,
                                                           lis_fast, requant_v1, gp, ap, s);
 }
 
-// K7a's proj: y = acc * mult_p + bias_p; the qact3 fence; the residual
-// add; the qact2 fence; float32 out.
-struct BlockProjEpilogue {
-  const float* pvec;  // (4, n): [mult_p, bias_p, s_qact3, s_qact2]
-  const float* h;     // (rows, n) the residual stream in
-  float* out;         // (rows, n) the residual stream out
-  int n;
-  __device__ void operator()(int r, int c, int acc) const {
+// K7a's proj epilogue (wgmma_gemm.cuh's contract, with the residual as
+// its second operand): y = acc * mult_p + bias_p; the qact3 fence; the
+// residual add; the qact2 fence; float32 out.
+struct BlockProjOut {
+  using Out = float;
+  using In = float;
+  const float* pvec;  // (4, ld): [mult_p, bias_p, s_qact3, s_qact2]
+  const float* h;     // (rows, ld) the residual stream in
+  Out* out;           // (rows, ld) the residual stream out
+  int ld;             // Cout
+  __device__ In load(int r, int c) const { return __ldg(h + static_cast<size_t>(r) * ld + c); }
+  __device__ Out operator()(int, int c, int acc, In hv) const {
+    const int n = ld;
     const float y = static_cast<float>(acc) * pvec[c] + pvec[n + c];
     const float s3 = pvec[2 * n + c], s2 = pvec[3 * n + c];
     const float y3 = fminf(fmaxf(rintf(y / s3), -128.f), 127.f) * s3;
-    const size_t at = (size_t)r * n + c;
-    const float hn = h[at] + y3;
-    out[at] = fminf(fmaxf(rintf(hn / s2), -128.f), 127.f) * s2;
+    const float hn = hv + y3;
+    return fminf(fmaxf(rintf(hn / s2), -128.f), 127.f) * s2;
+  }
+};
+
+// The proj GEMM's footprint as wg::Footprint gives it, with local memory
+// (spills) a thread.
+struct ProjFootprint {
+  int smem;
+  int *registers, *local_bytes, *smem_bytes, *blocks_per_sm;
+  template <int BM, int BN, int B>
+  cudaError_t run() const {
+    cudaFuncAttributes attr;
+    cudaError_t err = dvt::wg::prepare<BM, BN, B, BlockProjOut>(smem, &attr);
+    if (err != cudaSuccess && err != cudaErrorInvalidConfiguration) return err;
+    *registers = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *smem_bytes = smem + static_cast<int>(attr.sharedSizeBytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm,
+        reinterpret_cast<const void*>(dvt::wg::wgmma_gemm_kernel<BM, BN, B, BlockProjOut>),
+        dvt::wg::kThreads, smem);
   }
 };
 
@@ -149,33 +183,36 @@ extern "C" int dvt_qkv_attention(const void* x, const void* wk, const void* mb,
 }
 
 // K7a.  x, wk, mb ([mult, bias]) and scalars as K8's; h: (B, Npad, Cout)
-// f32 residual; wp: (H * D, Cout) int8 (the (H, D, Cout) proj weight);
-// pvec: (4, Cout) f32 [mult_p, bias_p, s_qact3, s_qact2]; qkv: (B, Npad,
-// 3C) and attn: (B, Npad, C) int8 scratch; out: (B, Npad, Cout) f32.
-// lis as K8's.  Requires what K8 requires.
+// f32 residual; wpk: (Cout, ka) int8, the (H, D, Cout) proj weight
+// K-major, H*D zero-padded to ka (a multiple of 16); pvec: (4, Cout) f32
+// [mult_p, bias_p, s_qact3, s_qact2]; qkv: (B, Npad, 3C) and attn: (B *
+// Npad, ka) int8 scratch; out: (B, Npad, Cout) f32, 16-byte aligned.  lis
+// as K8's; bm .. grid: gemm_plan's for the qkv GEMM, p_bm .. p_grid for
+// the proj (B * Npad, Cout, ka).  Requires what K8 requires.
 extern "C" int dvt_attention_block(const void* x, const void* h, const void* wk,
-                                   const void* wp, const void* mb, const void* pvec,
+                                   const void* wpk, const void* mb, const void* pvec,
                                    const void* scalars, void* qkv, void* attn, void* out,
                                    int batch, int npad, int kp, int heads, int d, int cout,
-                                   int n_real, int lis, int bm, int bn, int blocks, int stages,
-                                   int smem, int grid, int a_warps, int a_tiles, int a_split,
-                                   int a_smem, void* stream) {
+                                   int n_real, int lis, int ka, int bm, int bn, int blocks,
+                                   int stages, int smem, int grid, int p_bm, int p_bn,
+                                   int p_blocks, int p_stages, int p_smem, int p_grid,
+                                   int a_warps, int a_tiles, int a_split, int a_smem,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int c = heads * d, rows = batch * npad;
-  int8_t* attn_codes = static_cast<int8_t*>(attn);
-  const Strides ost{0, 0, 0, 0, (long long)npad * c, d, c};
+  if (ka < heads * d || ka % 16 != 0) return cudaErrorInvalidValue;
+  const Strides ost{0, 0, 0, 0, (long long)npad * ka, d, ka};
   const int gp[6] = {bm, bn, blocks, stages, smem, grid};
   cudaError_t err = launch_qkv_attention(
-      x, wk, mb, static_cast<const float*>(scalars), static_cast<int8_t*>(qkv), attn_codes, ost,
-      batch, npad, kp, heads, d, n_real, lis, 0, 1, gp,
+      x, wk, mb, static_cast<const float*>(scalars), static_cast<int8_t*>(qkv),
+      static_cast<int8_t*>(attn), ost, batch, npad, kp, heads, d, n_real, lis, 0, 1, gp,
       AttnPlan{a_warps, a_tiles, a_split, a_smem}, s);
   if (err != cudaSuccess) return err;
-  const int8_t* wpp = static_cast<const int8_t*>(wp);
-  const dvt::BView wv_p{{wpp, wpp, wpp}, 0, cout, 1, cout, cout};
-  BlockProjEpilogue epi{static_cast<const float*>(pvec), static_cast<const float*>(h),
-                        static_cast<float*>(out), cout};
-  dvt::launch_int8_gemm_ops(dvt::ViewOperands{attn_codes, c, rows, cout, c, wv_p}, epi, s);
-  return cudaGetLastError();
+  const dvt::wg::GemmArgs g{attn, wpk,      batch * npad, cout,   ka,    p_bm,
+                            p_bn, p_blocks, p_stages,     p_smem, p_grid};
+  return dvt::wg::gemm(g,
+                       BlockProjOut{static_cast<const float*>(pvec), static_cast<const float*>(h),
+                                    static_cast<float*>(out), cout},
+                       s);
 }
 
 // K5.  qkv: int8, element (image, slot, head, row, d) at
@@ -206,6 +243,15 @@ extern "C" int dvt_qkv_gemm_footprint(int bm, int bn, int blocks, int smem, int*
                                       int* smem_bytes, int* blocks_per_sm) {
   return dvt::wg::footprint<dvt::QkvOut>(bm, bn, blocks, smem, registers, smem_bytes,
                                          blocks_per_sm);
+}
+
+// K7a's proj GEMM's footprint (wgmma_gemm.cuh with BlockProjOut) for tile
+// (bm, bn) at `blocks` blocks an SM and `smem` bytes: registers and local
+// memory (spills) a thread, shared memory a block, blocks an SM.
+extern "C" int dvt_block_proj_footprint(int bm, int bn, int blocks, int smem, int* registers,
+                                        int* local_bytes, int* smem_bytes, int* blocks_per_sm) {
+  return dvt::wg::dispatch_tile(
+      bm, bn, blocks, ProjFootprint{smem, registers, local_bytes, smem_bytes, blocks_per_sm});
 }
 
 // The attention core's footprint for n_real keys, head width d and

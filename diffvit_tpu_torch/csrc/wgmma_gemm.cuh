@@ -1,29 +1,36 @@
 // Hopper int8 GEMM mainloop with a fused epilogue, for K2 (int_mlp.cu), K3
 // (int_linear.cu), the qkv GEMM of K1, K7a and K8 (qkv_core.cuh) and of
-// probe P5, K7b's fc1 and fc2 (int_mlp_block.cu), the four GEMM steps of
-// the resident encoder K6 (resident.cu) and probe P1's per-head qkv GEMM
-// (probes/pingpong.cu); the last two call the tile routine gemm_tiles
-// inside their persistent launches.  Probe P3 (probes/overlap_mlp.cu) runs
-// K2's kernel with its own epilogues and builds its pipelined and staged
-// fc1 kernels from the ring, the wgmma and the staged epilogue below;
-// probe P2 (probes/overlap.cu) takes the ring, TMA, barrier and
-// descriptor helpers for its bf16 kernel.
+// probe P5, K7a's proj (qkv_attention.cu), K7b's fc1 and fc2
+// (int_mlp_block.cu), the four GEMM steps of the resident encoder K6
+// (resident.cu) and probe P1's per-head qkv GEMM (probes/pingpong.cu); the
+// last two call the tile routine gemm_tiles inside their persistent
+// launches.  Probe P3 (probes/overlap_mlp.cu) runs K2's kernel with its own
+// epilogues and builds its pipelined and staged fc1 kernels from the ring,
+// the wgmma and the staged epilogue below; probe P2 (probes/overlap.cu)
+// takes the ring, TMA, barrier and descriptor helpers for its bf16 kernel,
+// and probe P4 (probes/ingest.cu) the barrier helpers and RingPos for its
+// ring of bulk copies.
 //
 // Serves the Pallas kernels diffvit_tpu/ops/pallas/linear.py:69
 // fused_int_linear and diffvit_tpu/ops/pallas/mlp.py:290 fused_int_mlp (and
 // the GEMMs inside the others):
 // C[M, N] = A[M, K] @ W[K, N] for int8 A and W, summed exactly in int32,
 // every accumulator handed to an epilogue functor ``epi(row, col, acc)``
-// that requantizes it (LinearOut, Fc1Hidden, Fc2Out), so the int32 product
-// never reaches device memory.  An int32 sum is exact in any order, so the
-// outputs equal those of the plain versions bit for bit whatever the tile.
+// that requantizes it (LinearOut, Fc1Hidden, Fc2Out, BlockProjOut), so the
+// int32 product never reaches device memory.  An int32 sum is exact in any
+// order, so the outputs equal those of the plain versions bit for bit
+// whatever the tile.
 //
 // The epilogue contract: ``Epi::Out`` is the output element (float or
 // int8_t), ``Out operator()(int row, int col, int acc) const`` the output
 // element of one accumulator, and ``Out* out`` with row stride ``int ld``
 // (elements) where the mainloop stores it.  The functor returns the value
-// instead of storing it (as int8_gemm.cuh's functors do) so that the
-// mainloop can stage the tile in shared memory and store whole rows.
+// instead of storing it, so that the mainloop can stage the tile in shared
+// memory and store whole rows.  An epilogue that reads a second operand at
+// each element (K7a's residual, BlockProjOut) names its element ``In`` and
+// gives ``In load(int row, int col) const`` and ``Out operator()(int row,
+// int col, int acc, In in) const``: the mainloop issues a chunk's loads
+// together before the chunk's epilogue (LoadsInput below).
 //
 // What bounds it on the H100: at the large sites the tensor cores (DeiT-S
 // b=64 fc1 + fc2: 29.7 G int8 operations, 15 us at 1,979 T op/s) or the
@@ -82,6 +89,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace dvt {
 namespace wg {
@@ -248,6 +256,36 @@ struct Wgmma<128> {
   }
 };
 
+// Whether epilogue Epi reads a second operand (names ``In``).  Its loads
+// go out together, a chunk at a time, ahead of the epilogue's arithmetic:
+// called one element at a time, each load would wait out its latency
+// alone wherever that arithmetic calls a subroutine (the slow path of an
+// IEEE division), which no load is moved across.
+template <class Epi, class = void>
+struct LoadsInput : std::false_type {};
+template <class Epi>
+struct LoadsInput<Epi, std::void_t<typename Epi::In>> : std::true_type {};
+
+// The element of Epi's second operand, or an empty stand-in where it reads
+// none; apply_epi calls Epi with or without it.
+struct NoInput {};
+template <class Epi, bool = LoadsInput<Epi>::value>
+struct InputOf {
+  using type = NoInput;
+};
+template <class Epi>
+struct InputOf<Epi, true> {
+  using type = typename Epi::In;
+};
+template <class Epi>
+__device__ __forceinline__ typename Epi::Out apply_epi(const Epi& epi, int r, int c, int acc,
+                                                       typename InputOf<Epi>::type in) {
+  if constexpr (LoadsInput<Epi>::value)
+    return epi(r, c, acc, in);
+  else
+    return epi(r, c, acc);
+}
+
 // The epilogue of one consumer warpgroup's 64 x WN accumulator tile at
 // (r0, c0), by its 128 threads (t = 0..127), staged through `st`: two
 // buffers of 64 rows of kPitch bytes used in turn (`buf` carries the turn
@@ -273,14 +311,26 @@ __device__ __forceinline__ void store_tile(const Epi& epi, const int (&acc)[WN /
     // last chunk's barrier, so it has finished that read
     uint8_t* const sb = st + buf * 64 * kPitch;
     buf ^= 1;
+    typename InputOf<Epi>::type in[CW / 8][4];
+    if constexpr (LoadsInput<Epi>::value) {
 #pragma unroll
-    for (int j = ch * CW / 8; j < (ch + 1) * CW / 8; ++j)
+      for (int j = 0; j < CW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + 16 * warp + g + 8 * (e >> 1);
+          const int cc = c0 + ch * CW + 8 * j + 2 * q + (e & 1);
+          in[j][e] = r < M && cc < N ? epi.load(r, cc) : typename Epi::In(0);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = 16 * warp + g + 8 * (e >> 1), col = 8 * j + 2 * q + (e & 1);
+        const int row = 16 * warp + g + 8 * (e >> 1), col = ch * CW + 8 * j + 2 * q + (e & 1);
         const int r = r0 + row, cc = c0 + col;
         reinterpret_cast<Out*>(sb + row * kPitch)[col - ch * CW] =
-            r < M && cc < N ? epi(r, cc, acc[4 * j + e]) : Out(0);
+            r < M && cc < N ? apply_epi(epi, r, cc, acc[4 * (ch * CW / 8 + j) + e], in[j][e])
+                            : Out(0);
       }
     warpgroup_sync(1 + c);
     const int cb = c0 + ch * CW;

@@ -16,12 +16,12 @@ K5 runs the last three lines, with the slow LIS.  For ``lis=False`` all
 run a float softmax rounded to bfloat16 instead of the LIS, taken in
 float64 with attn@v, each rounded once (:func:`attention_core_plain`, the
 core that the resident encoder K6 runs too).  All kernels are
-``csrc/qkv_attention.cu``: the qkv GEMM on the wgmma mainloop
-(``wgmma_gemm.cuh``, the weight's cached K-major copy from ``gemm``), the
-attention core on the tensor cores (``attention_mma.cuh``, its blocks
-from ``attn_plan.attention_plan``).  The plain versions below are their
-specification, exact for the LIS, and they differ from the JAX reference
-only where the reference's own arithmetic is order- or
+``csrc/qkv_attention.cu``: the qkv GEMM and K7a's proj on the wgmma
+mainloop (``wgmma_gemm.cuh``, the weights' cached K-major copies from
+``gemm``), the attention core on the tensor cores (``attention_mma.cuh``,
+its blocks from ``attn_plan.attention_plan``).  The plain versions below
+are their specification, exact for the LIS, and they differ from the JAX
+reference only where the reference's own arithmetic is order- or
 approximation-dependent:
 
 * the row sum of the integer exponentials is exact, rounded once to
@@ -49,8 +49,8 @@ from ..quant import int_matmul
 from . import check_for_kernel, require, route
 from .attn_plan import attention_plan
 from .build import check, load_library
-from .gemm import (device_plan, gemm_footprint, kmajor, pad_k, per_weight,
-                   require_tma_operand, sm_count)
+from .gemm import (TMA_ALIGN, device_plan, gemm_footprint, kmajor, pad_k,
+                   per_weight, require_tma_operand, round_up, sm_count)
 
 MAX_KEYS = 256  # keys per head the kernel keeps in shared memory
 
@@ -555,9 +555,9 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
     padding).
 
     A CUDA tensor runs ``csrc/qkv_attention.cu`` (K8's launches, then the
-    proj GEMM, on ``int8_gemm.cuh``'s tile, with the fences in its
-    epilogue); a CPU tensor runs
-    :func:`fused_attention_block_plain`."""
+    proj GEMM on the wgmma mainloop, ``wgmma_gemm.cuh``, with the fences in
+    its epilogue, over :func:`proj_scratch` and :func:`proj_kmajor`); a CPU
+    tensor runs :func:`fused_attention_block_plain`."""
     _check_contract(bits, lis, "fused_attention_block")
     args = (x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars)
     if route(*args) == "cpu":
@@ -587,19 +587,22 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
     kp = wkm.shape[1]
     x2 = pad_k(x_i8.view(b * npad, cin), kp)
     require_tma_operand(x2, "x_i8")
+    wpk = proj_kmajor(wp)
+    attn = proj_scratch(b * npad, heads, d, x_i8.device)
+    require_tma_operand(attn, "attn")
+    ka = attn.shape[1]
     gp = device_plan(b * npad, 3 * heads * d, kp, x_i8.device)
+    pp = device_plan(b * npad, c, ka, x_i8.device)
     ap = _attention_plan(b, heads, npad, d, n_real, lis, x_i8.device)
-    i8 = dict(dtype=torch.int8, device=x_i8.device)
-    qkv = torch.empty((b, npad, 3 * heads * d), **i8)
-    attn = torch.empty((b, npad, heads * d), **i8)
+    qkv = torch.empty((b, npad, 3 * heads * d), dtype=torch.int8,
+                      device=x_i8.device)
     out = torch.empty((b, npad, c), dtype=torch.float32, device=x_i8.device)
     err = load_library().dvt_attention_block(
-        x2.data_ptr(), h.data_ptr(), wkm.data_ptr(), wp.data_ptr(),
+        x2.data_ptr(), h.data_ptr(), wkm.data_ptr(), wpk.data_ptr(),
         _v1_mb(mult, bias, wq).data_ptr(), pvec.data_ptr(),
         scalars.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, npad, kp, heads, d, c, n_real, lis_code(lis, lis_wide),
-        *gp.launch_args(),
-        *ap.launch_args(),
+        b, npad, kp, heads, d, c, n_real, lis_code(lis, lis_wide), ka,
+        *gp.launch_args(), *pp.launch_args(), *ap.launch_args(),
         torch.cuda.current_stream(x_i8.device).cuda_stream)
     check(err, "fused_attention_block")
     fused_attention_block.launches += 1
@@ -607,6 +610,42 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
 
 
 fused_attention_block.launches = 0
+
+
+def proj_kmajor(wp: torch.Tensor) -> torch.Tensor:
+    """K7a's proj weight (H, D, C) as the (C, Ka) K-major copy its GEMM
+    reads: ``wp.reshape(H * D, C).T``, H * D zero-padded to Ka, a multiple
+    of 16 (``gemm.kmajor``), made once per weight tensor and kept
+    (``gemm.per_weight``: the reshaped view is a new tensor each call)."""
+    heads, d, c = wp.shape
+    return per_weight(lambda: kmajor(wp.reshape(heads * d, c)), wp,
+                      "proj_kmajor")
+
+
+def proj_scratch(rows: int, heads: int, d: int, device) -> torch.Tensor:
+    """The (rows, Ka) int8 attention codes between K7a's core and its proj
+    GEMM: the core writes head h's D columns of a row at h * D, and the
+    GEMM reads rows of Ka = H * D rounded up to 16 bytes (TMA's row
+    stride).  The pad columns stay unwritten: they meet the zero rows of
+    :func:`proj_kmajor`'s copy, whose integer products are 0 whatever they
+    hold."""
+    return torch.empty((rows, round_up(heads * d, TMA_ALIGN)),
+                       dtype=torch.int8, device=device)
+
+
+def proj_gemm_footprint(rows, cout, k, device) -> dict:
+    """{"registers", "local_bytes", "smem_bytes", "blocks_per_sm"} of K7a's
+    proj GEMM (the wgmma mainloop with the fences' epilogue) for a (rows,
+    k) @ (k, cout) product on ``device``, at its plan's tile
+    (``local_bytes`` > 0 means spills).  Needs a card."""
+    import ctypes
+    plan = device_plan(rows, cout, round_up(k, TMA_ALIGN), device)
+    out = [ctypes.c_int() for _ in range(4)]
+    check(load_library().dvt_block_proj_footprint(
+        plan.bm, plan.bn, plan.blocks, plan.smem, *map(ctypes.byref, out)),
+        "dvt_block_proj_footprint")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), (o.value for o in out)))
 
 
 def core_footprint(batch, heads, npad, d, n_real, device, lis=True) -> dict:

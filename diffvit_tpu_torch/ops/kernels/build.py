@@ -56,10 +56,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # element strides as c_longlong)
 ENTRIES = {
     "dvt_qkv_attention": (_P,) * 6 + (_I,) * 19 + (_P,),
-    "dvt_attention_block": (_P,) * 10 + (_I,) * 18 + (_P,),
+    "dvt_attention_block": (_P,) * 10 + (_I,) * 25 + (_P,),
     "dvt_int_attention": (_P,) * 3 + (_I,) * 6 + (_L,) * 7 + (_I,) * 4
     + (_P,),
     "dvt_qkv_gemm_footprint": (_I,) * 4 + (_P,) * 3,
+    "dvt_block_proj_footprint": (_I,) * 4 + (_P,) * 4,
     "dvt_attention_core_footprint": (_I,) * 5 + (_P,) * 4,
     "dvt_int_linear": (_P,) * 4 + (_I,) * 10 + (_P,),
     "dvt_int_linear_footprint": (_I,) * 5 + (_P,) * 3,
@@ -83,7 +84,7 @@ PROBE_ENTRIES = {
     "dvt_probe_overlap_mlp": (_P,) * 10 + (_I,) * 18 + (_P,),
     "dvt_probe_overlap_mlp_fc1_occupancy": (_I,) * 5 + (_P,) * 4,
     "dvt_probe_pingpong_occupancy": (_I,) * 5 + (_P,) * 4,
-    "dvt_probe_tile_sum": (_P,) * 3 + (_L,) + (_P,),
+    "dvt_probe_tile_sum": (_P,) * 4 + (_L,) * 2 + (_I,) * 4 + (_P,),
     "dvt_probe_qkv_attention_nv": (_P,) * 6 + (_I,) * 15 + (_P,),
     "dvt_probe_linear_core_footprint": (_I,) * 4 + (_P,) * 4,
 }

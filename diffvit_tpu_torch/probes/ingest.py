@@ -5,22 +5,90 @@ The counterpart of ``scripts/ab_regime_discriminate.py``.  Its Pallas kernel
 ``_sum_kernel`` (``:45``; called by ``pallas_sum`` ``:51`` at ``:52`` and by
 ``xla_plus_mosaic_step`` ``:63`` at ``:66``) sums a float32 array into every
 element of an (8, 128) float32 tile.  Here that is :func:`tile_sum`
-(``csrc/probes/ingest.cu``: two passes in float64, rounded once, so the
-result does not depend on the order of the blocks).  :func:`legs` feeds it a
+(``csrc/probes/ingest.cu``: one launch of persistent blocks, each streaming
+a contiguous share of the input through a ring of bulk asynchronous copies
+and summing it in float64; the last block to finish sums the partials in a
+fixed order and rounds once, so the result does not depend on the order of
+the blocks).  :func:`plan` lays out the launch.  :func:`legs` feeds it a
 (64, 3, 224, 224) uint8 batch (9.6 MB), cast to float32 on the device as
 XLA cast it, from six sources in one process."""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..ops.kernels import check_for_kernel, require, route
 from ..ops.kernels.build import check, load_library
+from ..ops.kernels.gemm import H100_SMS, round_up, sm_count
 from .timing import REPEATS, rounds_ms, run_main, spread
 
 SHAPE = (64, 3, 224, 224)  # a b=64 uint8 batch, 9.6 MB
 FLAT = (9408, 1024)        # the script's float32 view of it
-PARTIALS = 264             # blocks of the first pass (csrc/probes/ingest.cu)
+
+# the launch (csrc/probes/ingest.cu): blocks of eight consumer warps and a
+# producer warp, each with a ring of `stages` stages of `stage_bytes`
+# (plan's defaults below)
+STAGE_BYTES = 32768
+STAGES = 6
+MAX_STAGES = 8           # the kernel's barrier slots (kMaxStages)
+RING_OFFSET = 128        # the barriers before the stages (kRingOffset)
+SM_SMEM = 233_472        # shared memory of an SM, of which the card keeps
+BLOCK_RESERVED = 1024    # this much a block
+
+
+@dataclasses.dataclass(frozen=True)
+class SumPlan:
+    """One launch over ``n`` float32 elements: ``grid`` blocks, block ``b``
+    summing ``[b * share, min(n, (b + 1) * share))`` through ``stages``
+    ring stages of ``stage_bytes``, with ``smem`` bytes of dynamic shared
+    memory."""
+    n: int
+    share: int
+    grid: int
+    stage_bytes: int
+    stages: int
+    smem: int
+
+    def block_range(self, b: int) -> tuple[int, int]:
+        lo = min(self.n, b * self.share)
+        return lo, min(self.n, lo + self.share)
+
+    def stage_ranges(self, b: int) -> list[tuple[int, int]]:
+        """The element ranges of block ``b``'s bulk copies, in order."""
+        lo, hi = self.block_range(b)
+        per = self.stage_bytes // 4
+        return [(at, min(hi, at + per)) for at in range(lo, hi, per)]
+
+    def launch_args(self) -> tuple[int, ...]:
+        """The numbers the C entry takes, in its order."""
+        return (self.n, self.share, self.grid, self.stage_bytes, self.stages,
+                self.smem)
+
+
+def plan(n: int, sms: int = H100_SMS, blocks: int = 1, stages: int = STAGES,
+         stage_bytes: int = STAGE_BYTES) -> SumPlan:
+    """The launch for ``n`` elements (a multiple of 4) on a card of ``sms``
+    SMs with ``blocks`` blocks an SM, each a ring of ``stages`` stages of
+    ``stage_bytes``: at most one block a full stage of input (so a small
+    input takes few blocks), each block's share a multiple of 4 elements
+    (every copy then starts and ends on a 16-byte boundary of a 16-byte
+    aligned input), and no block without input unless ``n`` is 0."""
+    require(n >= 0 and n % 4 == 0, f"n={n}: the kernel takes a multiple of "
+            "4 elements")
+    require(blocks >= 1 and 2 <= stages <= MAX_STAGES
+            and stage_bytes >= 16 and stage_bytes % 16 == 0
+            and blocks * (RING_OFFSET + stages * stage_bytes
+                          + BLOCK_RESERVED) <= SM_SMEM,
+            f"no ring of {stages} x {stage_bytes} bytes at {blocks} blocks "
+            "an SM")
+    grid = max(1, min(sms * blocks, -(-n // (stage_bytes // 4))))
+    share = round_up(-(-n // grid), 4)
+    if share:
+        grid = -(-n // share)
+    return SumPlan(n=n, share=share, grid=grid, stage_bytes=stage_bytes,
+                   stages=stages, smem=RING_OFFSET + stages * stage_bytes)
 
 
 def tile_sum_plain(x):
@@ -30,20 +98,49 @@ def tile_sum_plain(x):
     return total.expand(8, 128).contiguous()
 
 
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, stream: torch.cuda.Stream, grid: int):
+    """The partials (at least ``grid``) and the ticket of the launches on
+    ``stream``: made at the first call on it (the ticket zeroed) and kept,
+    the partials grown where a plan has more blocks (each launch leaves the
+    ticket 0), so a call allocates only its output, and no two streams
+    share them."""
+    key = (device.index, stream.cuda_stream)
+    partials, ticket = _SCRATCH.get(key, (None, None))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < grid:
+        partials = torch.empty(grid, dtype=torch.float64, device=device)
+    _SCRATCH[key] = partials, ticket
+    return partials, ticket
+
+
 def tile_sum(x):
     """x: float32, any shape, contiguous, a multiple of 4 elements.  Returns
     (8, 128) float32, each element the sum of x.  A CUDA tensor runs
-    ``csrc/probes/ingest.cu``; a CPU tensor :func:`tile_sum_plain`."""
+    ``csrc/probes/ingest.cu`` (one launch, :func:`plan`'s); a CPU tensor
+    :func:`tile_sum_plain`."""
     if route(x) == "cpu":
         return tile_sum_plain(x)
     check_for_kernel(x, "x", torch.float32, x.dim())
     require(x.numel() % 4 == 0, f"x has {x.numel()} elements, not a "
             "multiple of 4")
-    partial = torch.empty(PARTIALS, dtype=torch.float64, device=x.device)
-    out = torch.empty((8, 128), dtype=torch.float32, device=x.device)
+    return _launch(x, plan(x.numel(), sm_count(x.device)))
+
+
+def _launch(x, p: SumPlan):
+    """One launch of the kernel on ``x`` (checked by the caller) by plan
+    ``p``, on the current stream."""
+    dev = torch.device("cuda", x.device.index if x.device.index is not None
+                       else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev)
+    partials, ticket = _scratch(dev, stream, p.grid)
+    out = torch.empty((8, 128), dtype=torch.float32, device=dev)
     err = load_library("probes").dvt_probe_tile_sum(
-        x.data_ptr(), partial.data_ptr(), out.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+        *p.launch_args(), stream.cuda_stream)
     check(err, "tile_sum", "probes")
     tile_sum.launches += 1
     return out

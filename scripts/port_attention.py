@@ -4,11 +4,13 @@
 
 From the root of a checkout: K1 (LIS and float softmax) and K5 at DeiT-S
 b = 1, 8, 64; K8 v1, K8 ``_v3`` and K7a at DeiT-S b = 64 (200 rows, 197
-real); K4 and K4b at Swin-T stage 0 (b = 1, 8, 64) and stages 1-3 (b =
-64), LIS and float softmax, on the shifted block.  One JSON line a row:
-the wrapper's time (CUDA events, host included, ``chip_smoke.cuda_ms``)
-and the summed device time of its launches (``torch.profiler``, mean of
-10 calls), with ``label`` (default "tree") in each line.  With
+real), K7a also at b = 1 and 8 with the LIS; K4 and K4b at Swin-T stage 0
+(b = 1, 8, 64) and stages 1-3 (b = 64), LIS and float softmax, on the
+shifted block.  One JSON line a row: the wrapper's time (CUDA events,
+host included, ``chip_smoke.cuda_ms``) and the summed device time of its
+launches (``torch.profiler``, mean of 10 calls), with ``label`` (default
+"tree") in each line; K7a's rows also give it by launch (its qkv GEMM,
+core and proj, by kernel name).  With
 ``--footprints``, first the footprints (registers, local memory, shared
 memory, blocks an SM) of every instance of the attention cores that
 ``chip_smoke.py``'s phase ``attention`` reads: K1's and K5's core at
@@ -42,8 +44,8 @@ from diffvit_tpu_torch.testing import (alt_kernel_cases,  # noqa: E402
                                        random_swin_int_model)
 
 
-def device_ms(fn, iters=10, tries=3):
-    """Summed device milliseconds of one call's launches, after a warm-up;
+def device_by_kernel(fn, iters=10, tries=3):
+    """Device milliseconds of one call by kernel name, after a warm-up;
     profiled again, up to ``tries`` times, while torch.profiler records no
     device time (it now and then records none).  Kept here rather than
     taken from chip_smoke.py, so that a parent commit's checkout runs it."""
@@ -54,11 +56,21 @@ def device_ms(fn, iters=10, tries=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0)
-                    for e in prof.key_averages())
-        if total > 0:
-            return total / 1e3 / iters
+        times = {e.key: getattr(e, "self_device_time_total", 0) / 1e3 / iters
+                 for e in prof.key_averages()}
+        times = {k: v for k, v in times.items() if v > 0}
+        if times:
+            return times
     raise RuntimeError("torch.profiler saw no device time")
+
+
+def k7a_launch(key):
+    """K7a's launch kind by kernel name, in either tree: the qkv GEMM (the
+    wgmma kernel with the qkv requant epilogue), the core, else the proj
+    (the wgmma kernel with BlockProjOut, or the tile it replaced)."""
+    if "qkv_core_kernel" in key:
+        return "core"
+    return "qkv_gemm" if "QkvOut" in key else "proj"
 
 
 def row(label, name, at, args, kw):
@@ -66,8 +78,14 @@ def row(label, name, at, args, kw):
 
     def call():
         return fn(*args, **kw)
-    print(json.dumps(dict(tree=label, kernel=name, at=at, ms=cs.cuda_ms(call),
-                          device_ms=device_ms(call))), flush=True)
+    times = device_by_kernel(call)
+    line = dict(tree=label, kernel=name, at=at, ms=cs.cuda_ms(call),
+                device_ms=sum(times.values()))
+    if name == "fused_attention_block":
+        for key, ms in times.items():
+            kind = f"{k7a_launch(key)}_device_ms"
+            line[kind] = line.get(kind, 0.0) + ms
+    print(json.dumps(line), flush=True)
 
 
 def footprints(label, dev):
@@ -121,6 +139,10 @@ def main():
             args, kw = cs.kernel_case(name, blk, cs.SPEC, b, dev, **opts)
             row(label, name, f"{lab} b={b}", args, kw)
     ip_np = random_int_model(cs.SPEC, cs.CFG, seed=0)
+    for b in (1, 8):
+        args, kw = alt_kernel_cases(cs.SPEC, ip_np, b, dev, npad=200,
+                                    seed=b)["fused_attention_block"]
+        row(label, "fused_attention_block", f"lis b={b}", args, kw)
     for lis in (True, False):
         cases = alt_kernel_cases(cs.SPEC, ip_np, 64, dev, npad=200, lis=lis,
                                  seed=64)

@@ -28,9 +28,10 @@ One JSON line each, after a line with the card's name and power limit:
 - the host time of the K3 wrapper's steps at the DeiT-S head (b = 64).
 With ``--served``, only the served GEMM kernels' footprints (registers,
 shared memory, blocks an SM: K2's fc1 and fc2, K7b's fc1 and fc2, K3 at
-the DeiT-S sites in each mode; DeiT-S b = 1, 8, 64) and device times (K2
-at b = 1 and 64, K3 at each DeiT-S site at b = 64, K7b at b = 64), each
-line with ``label`` (default "tree").  The package is imported from this
+the DeiT-S sites in each mode, K7a's proj with its local memory; DeiT-S
+b = 1, 8, 64) and device times (K2 at b = 1 and 64, K3 at each DeiT-S
+site at b = 64, K7b at b = 64), each line with ``label`` (default
+"tree").  The package is imported from this
 script's checkout unless ``PYTHONPATH`` names another, so running it with
 ``PYTHONPATH`` at a parent commit's checkout and without, in turns within
 one call, compares the two on the same inputs.
@@ -55,8 +56,8 @@ sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from diffvit_tpu_torch.models.swin import SWIN_SPECS  # noqa: E402
 from diffvit_tpu_torch.models.vit import VIT_SPECS  # noqa: E402
-from diffvit_tpu_torch.ops.kernels import (build, gemm, linear,  # noqa: E402
-                                           mlp, route)
+from diffvit_tpu_torch.ops.kernels import (attention, build,  # noqa: E402
+                                           gemm, linear, mlp, route)
 from diffvit_tpu_torch.probes import overlap_mlp  # noqa: E402
 from diffvit_tpu_torch.testing import (alt_kernel_cases,  # noqa: E402
                                        linear_site_cases, random_int_model,
@@ -310,6 +311,12 @@ def served(label, dev):
             for mode in ("raw", "fq", "codes"):
                 emit(tree=label, footprint="K3", site=site, mode=mode,
                      batch=b, **linear.footprint(rows, n, k, dev, mode))
+        # K7a's proj at Npad 200 (a checkout whose proj is not on the
+        # wgmma mainloop has no such footprint)
+        proj = getattr(attention, "proj_gemm_footprint", None)
+        if proj is not None:
+            emit(tree=label, footprint="K7a", launch="proj", batch=b,
+                 **proj(b * 200, c, c, dev))
     for b in (1, 64):
         args = k2_args(b * DEIT.seq_len, dev)
         emit(tree=label, kernel="K2", batch=b, device_ms=sum(device_ms(

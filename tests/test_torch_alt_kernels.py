@@ -128,6 +128,55 @@ def test_attention_block_matches_pallas(small, lis):
     _assert_codes(np.round(got / s2), np.round(want / s2), lis)
 
 
+# K7a's proj operands: (heads, head_dim, Cout); 3 heads of 12 leave H * D
+# = 36 short of a 16-byte row stride
+PROJ_SHAPES = [(2, 16, 32), (3, 12, 36), (6, 64, 384)]
+
+
+@pytest.mark.parametrize("heads,d,c", PROJ_SHAPES)
+def test_proj_kmajor_is_made_once_per_weight(heads, d, c):
+    """K7a's proj weight reaches the wgmma GEMM as ``wp.reshape(H * D,
+    C).T``, zero-padded to a multiple of 16 columns; a second call returns
+    the kept copy (no new ``per_weight`` value, no new ``kmajor`` copy), an
+    in-place write to ``wp`` makes a new one."""
+    from diffvit_tpu_torch.ops.kernels import gemm
+    wp = torch.from_numpy(int8_codes((heads, d, c), heads))
+    kp = -(-heads * d // 16) * 16
+    want = torch.zeros((c, kp), dtype=torch.int8)
+    want[:, :heads * d] = wp.reshape(heads * d, c).T
+    got = attention.proj_kmajor(wp)
+    assert torch.equal(got, want) and got.is_contiguous()
+    misses, copies = gemm.per_weight.misses, gemm.kmajor.copies
+    assert attention.proj_kmajor(wp) is got
+    assert (gemm.per_weight.misses, gemm.kmajor.copies) == (misses, copies)
+    wp[0, 0, 0] = wp[0, 0, 0] ^ 1
+    again = attention.proj_kmajor(wp)
+    assert again is not got and gemm.per_weight.misses == misses + 1
+    assert int(again[0, 0]) == int(wp[0, 0, 0])
+
+
+@pytest.mark.parametrize("heads,d,c", PROJ_SHAPES)
+def test_proj_scratch_pads_rows_and_the_pad_adds_nothing(heads, d, c):
+    """The attention codes between K7a's core and its proj GEMM have rows
+    of H * D rounded up to 16 bytes (TMA's row stride: 48 for 3 heads of
+    12); whatever the pad columns hold, they meet the K-major copy's zero
+    rows, so the proj over the padded codes is the proj over the codes."""
+    rows = 40
+    attn = attention.proj_scratch(rows, heads, d, "cpu")
+    kp = -(-heads * d // 16) * 16
+    assert attn.shape == (rows, kp) and attn.stride() == (kp, 1)
+    assert attn.dtype == torch.int8
+    if heads * d % 16:
+        assert kp > heads * d
+    codes = torch.from_numpy(int8_codes((rows, heads * d), d))
+    attn.copy_(torch.from_numpy(int8_codes((rows, kp), d + 1)))  # garbage
+    attn[:, :heads * d] = codes
+    wp = torch.from_numpy(int8_codes((heads, d, c), c))
+    want = int_matmul(codes, wp.reshape(heads * d, c))
+    got = int_matmul(attn, attention.proj_kmajor(wp).T)
+    assert torch.equal(got, want)
+
+
 def _jax_mlp_block(y, h, ops, block_rows=512):
     """The interpret-mode Pallas K7b on rows zero-padded to block_rows."""
     rows = y.shape[0]

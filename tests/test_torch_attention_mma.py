@@ -307,12 +307,13 @@ def _linear_attn_v(codes, vt, out, q0, rows, d, nkb, out_scale):
 
 @pytest.mark.parametrize("npad,n_real,d,lis_fast", [
     (40, 33, 32, False), (24, 24, 16, True), (70, 64, 64, False),
-    (20, 7, 16, False)])
+    (20, 7, 16, False), (30, 25, 12, False)])
 def test_model_of_the_mma_core_equals_the_plain_core(npad, n_real, d,
                                                      lis_fast):
     """The kernel's layouts, modelled index for index, give the plain
     version's codes exactly: rows past npad and keys past n_real, a
-    ragged last tile, D = 16 (zero-padded to 32) and 64."""
+    ragged last tile, D = 16 (zero-padded to 32), 64 and 12 (whose last n
+    tile of attn@v holds 4 columns past D, which are not stored)."""
     rng = np.random.default_rng(npad + d)
     q, k, v = (np.clip(np.round(rng.standard_normal((npad, d)) * 14),
                        -128, 127).astype(np.int8) for _ in range(3))

@@ -8,9 +8,9 @@ the resident kernel K6 (``csrc/wgmma_gemm.cuh``, ``attention_mma.cuh``,
 ``lis.cuh``, ``int_mlp.cuh``), and K3, K7a, K7b and K8 with them; their
 tests here hold each exact against its plain version.  K2, K3, K7b, the
 qkv GEMM of K1, K7a and K8 and K6's four GEMM steps run on the wgmma
-mainloop (``csrc/wgmma_gemm.cuh``); the attention of K1, K5, K6, K7a, K8
-and K4/K4b on the tensor-core core (``csrc/attention_mma.cuh``); K7a's
-proj on ``int8_gemm.cuh``'s tile."""
+mainloop (``csrc/wgmma_gemm.cuh``), K7a's proj too; the attention of K1,
+K5, K6, K7a, K8 and K4/K4b on the tensor-core core
+(``csrc/attention_mma.cuh``)."""
 import dataclasses
 
 import numpy as np
@@ -531,7 +531,7 @@ def _alt_pairs():
 
 
 @pytest.mark.parametrize("lis", [True, False], ids=["lis", "softmax"])
-@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("batch", [1, 3, 8, 64])
 def test_alt_kernels_match_plain(cuda, batch, lis):
     """K8 (v1, v3, v4, v5), K7a and K7b at DeiT-S width (one block, 200
     rows with 197 real) against their plain versions on the card; v5 takes
@@ -563,6 +563,63 @@ def test_alt_kernels_match_plain(cuda, batch, lis):
             np.testing.assert_array_equal(g, w, err_msg=name)
         else:
             _assert_softmax_codes_close(g, w)
+
+
+D36 = ViTSpec("test_d36", embed_dim=36, depth=1, num_heads=3,
+              num_classes=10)  # H * D = 36: attention rows padded to 48
+
+
+@pytest.mark.parametrize("n_real", [197, 150])
+@pytest.mark.parametrize("rule", ["lis", "lis_wide", "softmax"])
+def test_attention_block_pads_its_attention_codes(cuda, rule, n_real):
+    """K7a where H * D = 36 is not a multiple of 16 (its proj GEMM reads
+    attention rows of 48 bytes, whose pad the core never writes), with the
+    LIS, the 128-bit row sum and the float softmax, on 197 and 150 real
+    keys of 200, against its plain version on the qact2 grid; the
+    proj's K-major weight is made once."""
+    from diffvit_tpu_torch.ops.kernels import attention, gemm
+    from diffvit_tpu_torch.testing import alt_kernel_cases
+    ip = _wide_vit(D36, QuantConfig()) if rule == "lis_wide" else \
+        random_int_model(D36, seed=0)
+    args, kw = alt_kernel_cases(D36, ip, 3, cuda, npad=200,
+                                lis=rule != "softmax",
+                                seed=n_real)["fused_attention_block"]
+    x = args[0].clone()
+    x[:, n_real:] = 0
+    args = (x, *args[1:])
+    kw = dict(kw, n_real=n_real, lis_wide=rule == "lis_wide")
+    fn = attention.fused_attention_block
+    before = fn.launches
+    got = fn(*args, **kw)
+    misses = gemm.per_weight.misses
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert gemm.per_weight.misses == misses
+    assert torch.equal(got, again)
+    want = attention.fused_attention_block_plain(*args, **kw)
+    s2 = args[8][3]
+    g, w = (torch.round(t / s2).cpu().numpy() for t in (got, want))
+    if rule == "softmax":
+        _assert_softmax_codes_close(g, w)
+    else:
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("spec,batch", [(SMALL, 1), (SMALL, 8),
+                                        (SMALL, 64), (D36, 3)])
+def test_attention_block_proj_footprint(cuda, spec, batch):
+    """K7a's proj GEMM (the wgmma mainloop with the fences' epilogue) at
+    Npad 200: setmaxnreg's register budget, the plan's blocks an SM and
+    shared memory, and no spill."""
+    from diffvit_tpu_torch.ops.kernels import attention, gemm
+    c, rows = spec.embed_dim, batch * 200
+    f = attention.proj_gemm_footprint(rows, c, c, cuda)
+    plan = gemm.device_plan(rows, c, -(-c // 16) * 16, cuda)
+    assert f["local_bytes"] == 0, f
+    assert f["registers"] == {1: 168, 2: 80}[plan.blocks], f
+    assert f["blocks_per_sm"] == plan.blocks, f
+    assert f["smem_bytes"] >= plan.smem, f
 
 
 @pytest.mark.parametrize("batch", [1, 8, 64])
@@ -920,9 +977,14 @@ def test_int_matmul_keeps_the_callers_tf32_setting(cuda):
     assert torch.equal(got.cpu().to(torch.int64), want)
 
 
-@pytest.mark.parametrize("shape", [(4,), (64, 3, 224, 224), (1176, 1024)])
+@pytest.mark.parametrize("shape", [(4,), (16,), (8188,), (8196,),
+                                   (7 * 8192,), (64, 3, 224, 224),
+                                   (1176, 1024)])
 def test_probe_tile_sum_matches_plain(cuda, shape):
-    """P4 on a uint8 batch cast to float32 and on halves: exact."""
+    """P4 on a uint8 batch cast to float32 and on halves: exact, in one
+    launch, also where a block's share is shorter than a ring stage (4,
+    16, 8,188 elements), its last stage short (8,196) or the stages odd
+    in number (7 x 8,192)."""
     from diffvit_tpu_torch.probes import ingest as p4
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.integers(0, 255, shape), dtype=torch.float32,
@@ -935,6 +997,30 @@ def test_probe_tile_sum_matches_plain(cuda, shape):
     assert torch.equal(got, p4.tile_sum_plain(x))
     assert float(got[3, 7]) == float(np.float32(x.to(torch.float64).sum()
                                                 .item()))
+
+
+def test_probe_tile_sum_resets_its_ticket(cuda):
+    """P4's last block resets the ticket its blocks draw: calls in a row at
+    two sizes on the same scratch, then on a second stream (its own
+    scratch), each exact, and the tickets 0 after each."""
+    from diffvit_tpu_torch.probes import ingest as p4
+    rng = np.random.default_rng(1)
+    xs = [torch.tensor(rng.integers(0, 255, n), dtype=torch.float32,
+                       device=cuda) for n in (8196, 9408 * 1024)]
+    outs = [p4.tile_sum(x) for x in (xs[0], xs[1], xs[0], xs[1])]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        outs += [p4.tile_sum(x) for x in (xs[1], xs[0])]
+    side.synchronize()
+    torch.cuda.synchronize()
+    wants = [p4.tile_sum_plain(x) for x in xs]
+    for got, i in zip(outs, (0, 1, 0, 1, 1, 0)):
+        assert torch.equal(got, wants[i])
+    streams = {key[1] for key in p4._SCRATCH}
+    assert {side.cuda_stream,
+            torch.cuda.current_stream(cuda).cuda_stream} <= streams
+    assert all(int(ticket) == 0 for _, ticket in p4._SCRATCH.values())
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -957,13 +1043,15 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 # ---- the tensor-core attention core (csrc/attention_mma.cuh) ----
 
+D12 = ViTSpec("test_d12", embed_dim=24, depth=1, num_heads=2, num_classes=10)
 D16 = ViTSpec("test_d16", embed_dim=32, depth=1, num_heads=2, num_classes=10)
 D64 = ViTSpec("test_d64", embed_dim=128, depth=1, num_heads=2,
               num_classes=10)
 
 
 @pytest.mark.parametrize("lis", [True, False], ids=["lis", "softmax"])
-@pytest.mark.parametrize("spec", [D16, TINY, D64], ids=["d16", "d32", "d64"])
+@pytest.mark.parametrize("spec", [D12, D16, TINY, D64],
+                         ids=["d12", "d16", "d32", "d64"])
 @pytest.mark.parametrize("batch", [1, 3, 64])
 @pytest.mark.parametrize("npad,n_real", [(256, 256), (150, 131)])
 @pytest.mark.parametrize("kernel", ["k1", "k5"])
@@ -972,8 +1060,9 @@ def test_attention_core_matches_plain_at_every_shape(cuda, kernel, npad,
                                                      lis):
     """K1 and K5 against their plain versions at 256 keys and at an odd
     n_real below npad (a ragged last key block, query rows past n_real),
-    b = 1, 3 and 64, D = 16, 32 and 64, both softmaxes: the LIS exact,
-    the float softmax by its rule."""
+    b = 1, 3 and 64, D = 12 (half an n tile of attn@v past D, not
+    stored), 16, 32 and 64, both softmaxes: the LIS exact, the float
+    softmax by its rule."""
     ib, scalars = _block(spec)
     dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
     h, d = spec.num_heads, spec.head_dim
@@ -1164,7 +1253,7 @@ def _wide_vit(spec, cfg, s_a=2.0**-12):
     return ip
 
 
-@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("batch", [1, 3, 8, 64])
 def test_lis_wide_vit_kernels_match_plain(cuda, batch):
     """K1, K5, K8 (v1, v3, v4, v5), K7a and K6 with the 128-bit row sum at
     DeiT-S width, s_a = 2^-12: each bit for bit against its plain

@@ -340,6 +340,59 @@ def test_tile_sum_matches_script(values):
     assert float(got[0, 0]) == float(x.astype(np.float64).sum())
 
 
+STAGE = ingest.STAGE_BYTES // 4  # elements a full ring stage
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("n", [4, 16, STAGE - 4, STAGE + 4, 7 * STAGE,
+                               9_633_792])
+def test_tile_sum_plan_covers_the_input_once(n, sms):
+    """P4's launch plan: the blocks' bulk copies cover [0, n) once, in
+    order, each starting and ending on a 16-byte boundary and at most a
+    stage long; no block is empty; at most one block an SM; the ring fits
+    a block's shared memory; and summing the input
+    copy by copy, block by block, gives the plain version's tile."""
+    from diffvit_tpu_torch.ops.kernels.gemm import SMEM_LIMIT
+    p = ingest.plan(n, sms)
+    assert 1 <= p.grid <= sms
+    assert p.share % 4 == 0 and p.grid * p.share >= n
+    assert ingest.RING_OFFSET + p.stages * p.stage_bytes <= p.smem \
+        <= SMEM_LIMIT
+    assert 2 <= p.stages <= ingest.MAX_STAGES
+    assert p.stage_bytes == ingest.STAGE_BYTES
+    copies = [r for b in range(p.grid) for r in p.stage_ranges(b)]
+    assert all(p.stage_ranges(b) for b in range(p.grid))
+    assert copies[0][0] == 0 and copies[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(copies, copies[1:]))
+    for lo, hi in copies:
+        assert lo * 4 % 16 == 0 and (hi - lo) * 4 % 16 == 0
+        assert 0 < (hi - lo) * 4 <= p.stage_bytes
+    x = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 255, n).astype(np.float32))
+    partials = [sum(float(x[lo:hi].to(torch.float64).sum())
+                    for lo, hi in p.stage_ranges(b)) for b in range(p.grid)]
+    total = np.float32(sum(partials))
+    assert torch.equal(torch.full((8, 128), float(total)),
+                       ingest.tile_sum_plain(x))
+
+
+def test_tile_sum_plan_takes_a_multiple_of_4():
+    """An empty input is one block with nothing to copy; a count that is
+    not a multiple of 4 has no 16-byte copies and is refused, as is a ring
+    that does not fit its blocks an SM; two blocks an SM halve the
+    shares."""
+    p = ingest.plan(0)
+    assert (p.grid, p.share, p.stage_ranges(0)) == (1, 0, [])
+    with pytest.raises(ValueError):
+        ingest.plan(6)
+    one = ingest.plan(9_633_792)
+    assert one.stage_bytes == ingest.STAGE_BYTES
+    with pytest.raises(ValueError):  # 2 x 6 x 32 KB do not fit an SM
+        ingest.plan(4096, blocks=2)
+    two = ingest.plan(9_633_792, blocks=2, stages=3)
+    assert two.grid == 264 and two.share == one.share // 2
+
+
 WRAPPERS = {
     "producer": lambda t: pingpong.producer(t["i8"], t["i8"], t["f32"],
                                             t["f32"], num_heads=1,
