@@ -21,6 +21,14 @@ prefetcher moves it to the card.  ``--native-preproc`` (``--wire f32``
 only) keeps PIL's decode and resamples natively
 (``data.native_preproc.build_native_transform``).
 
+``--trace-out PATH`` (with ``--load-int``) records the validation's spans
+(``utils/tracing.py``: each call's input, embed, encoder and head, the
+wait for the prefetcher, the read of the logits and the scoring) and
+writes them as a Chrome trace that Perfetto opens:
+
+    python3 -m diffvit_tpu_torch.cli deit_small <data> --load-int deit_s.npz \\
+        --resident --trace-out val_trace.json
+
 ``--mixed`` runs the mixed-precision search as the reference does: the
 Hessian sensitivity on ``--hessian-batches`` train batches
 (``analysis.hessian``, probes from a ``torch.Generator`` seeded with
@@ -197,6 +205,10 @@ def build_parser():
     p.add_argument("--resident", action="store_true",
                    help="with --load-int (ViT family): serve the encoder "
                         "through the resident kernel K6")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="with --load-int: record the validation's spans "
+                        "(utils/tracing.py) and write them to PATH as a "
+                        "Chrome trace (Perfetto, chrome://tracing)")
     return p
 
 
@@ -213,6 +225,8 @@ def parse_args(argv=None):
     if args.pp > 1 and not (args.int_path or args.load_int):
         raise SystemExit("--pp pipelines the integer path; add --int-path "
                          "(or serve one with --load-int)")
+    if args.trace_out and not args.load_int:
+        raise SystemExit("--trace-out traces a --load-int validation")
     if args.host_devices and args.device != "cpu":
         raise SystemExit("--host-devices runs gloo ranks on the CPU; it "
                          "requires --device cpu")
@@ -256,6 +270,9 @@ def main(argv=None):
     args = parse_args(argv)
     dims = mesh_dims(args, _n_devices(args))
     world = int(np.prod(dims))
+    if args.trace_out and world > 1:
+        raise SystemExit("--trace-out traces one process's validation; "
+                         "drop the mesh flags")
     if comm.launched() and world != int(os.environ["WORLD_SIZE"]):
         raise SystemExit(f"the mesh dp*tp*sp*pp = {world} does not match "
                          f"torchrun's {os.environ['WORLD_SIZE']} ranks")
@@ -459,8 +476,17 @@ def run(args, dims=None):
         model.prepare_int(bit_config) if use_int else None
     loader = val_loader(None if served is None else served.input_lut)
     print(bit_config)
-    return validate(model, loader, bit_config, quant=args.quant,
-                    print_freq=args.print_freq, use_int=use_int)
+    if not args.trace_out:
+        return validate(model, loader, bit_config, quant=args.quant,
+                        print_freq=args.print_freq, use_int=use_int)
+    from .utils import tracing
+
+    with tracing.recording() as rec:
+        res = validate(model, loader, bit_config, quant=args.quant,
+                       print_freq=args.print_freq, use_int=use_int)
+    tracing.write_chrome_trace(rec, args.trace_out)
+    print(f"Wrote trace: {args.trace_out}")
+    return res
 
 
 def reconstruct(args, model, calib, bit_config=None):

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import itertools
 import math
 import os
 import queue
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ..utils import tracing
 from . import native_decode
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".webp")
@@ -372,7 +374,11 @@ class DevicePrefetcher:
 
     ``sharding`` (``parallel.mesh.batch_sharding``): only this rank's dp
     slice of each batch is copied, and the images come as a
-    ``parallel.mesh.DPBatch`` of it (the models take it as it is)."""
+    ``parallel.mesh.DPBatch`` of it (the models take it as it is).
+
+    While a recording is on (``utils/tracing.py``), the consumer's wait
+    for batch k is the span ``dvt.feed.wait`` with key k (the last one
+    the wait for the loader's end); the feeder thread records none."""
 
     def __init__(self, loader, depth=2, device="cuda", sharding=None):
         if depth < 1:
@@ -432,8 +438,9 @@ class DevicePrefetcher:
         t = threading.Thread(target=feeder, daemon=True)
         t.start()
         try:
-            while True:
-                item = items.get()
+            for k in itertools.count():
+                with tracing.span("dvt.feed.wait", k):
+                    item = items.get()
                 if item is end:
                     break
                 if isinstance(item, BaseException):

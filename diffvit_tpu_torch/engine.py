@@ -6,7 +6,10 @@ int-model), and the serving half for the integer ViT and Swin:
 ``IntModel``, ``save_int_model``, ``load_int_model`` and ``validate`` with
 the reference's Prec@1/Prec@5 report; ``validate_bits`` and
 ``validate_bits_int`` score many {4, 8} configurations in one pass over
-the data."""
+the data.  While a recording of ``utils/tracing.py`` is on, an
+``IntModel`` call records ``dvt.call`` (its images and kernel launches)
+over ``dvt.call.input`` and the forward's spans, and ``validate`` records
+``dvt.validate.readback`` and ``dvt.validate.score`` a batch."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,6 +29,7 @@ from .models.swin import SwinSpec
 from .models.vit import ViTSpec
 from .parallel import mesh as mesh_mod
 from .utils.metrics import AverageMeter, accuracy, cross_entropy
+from .utils import tracing
 from .utils.serialize import ArtifactError, load_pytree, save_pytree
 
 
@@ -163,6 +167,22 @@ class IntModel:
         baked), so that ``validate`` drives an IntModel as it drives a
         QuantizedViT."""
         del bit_config, quant, use_int
+        with tracing.span("dvt.call", launches=True) as call:
+            with tracing.span("dvt.call.input"):
+                x, b = self._device_input(x)
+            if call is not None:
+                call.counters["images"] = b
+            with torch.inference_mode():
+                if self.mesh is not None:
+                    return self._mesh_forward(x, b)
+                if self.microbatch is not None:
+                    return self._chunked(x)
+                return self._forward(self.ip, self.spec, self.cfg, x)
+
+    def _device_input(self, x):
+        """(the batch, or this rank's dp slice of it, on the device as int8
+        codes or float32 pixels; the batch's images)."""
+        part = None
         if self.mesh is not None:
             part = mesh_mod.batch_sharding(self.mesh)(x)
             x = part.local
@@ -178,12 +198,7 @@ class IntModel:
                             f"pixels, got {x.dtype}")
         if x.dtype == torch.int8 and self.input_lut is None:
             raise ValueError(self._no_codes)
-        with torch.inference_mode():
-            if self.mesh is not None:
-                return self._mesh_forward(x, part.batch)
-            if self.microbatch is not None:
-                return self._chunked(x)
-            return self._forward(self.ip, self.spec, self.cfg, x)
+        return x, x.shape[0] if part is None else part.batch
 
     def _mesh_forward(self, x, b):
         """This rank's dp slice ``x`` of a batch of ``b``: its logits, then
@@ -620,24 +635,26 @@ def validate(model, loader, bit_config=None, quant=True, print_freq=100,
 
     def score(i, output_dev, target):
         nonlocal end
-        output = output_dev.float().cpu().numpy()  # waits for the device
-        target = np.asarray(target)
-        loss = cross_entropy(output, target)
-        prec1, prec5 = accuracy(output, target, topk=(1, 5))
-        n = len(target)
-        losses.update(loss, n)
-        top1.update(prec1, n)
-        top5.update(prec5, n)
-        batch_time.update(time.time() - end)
-        end = time.time()
-        if print_freq and i % print_freq == 0:
-            log("Test: [{0}/{1}]\t"
-                "Time {bt.val:.3f} ({bt.avg:.3f})\t"
-                "Loss {loss.val:.4f} ({loss.avg:.4f})\t"
-                "Prec@1 {top1.val:.3f} ({top1.avg:.3f})\t"
-                "Prec@5 {top5.val:.3f} ({top5.avg:.3f})".format(
-                    i, n_batches if n_batches is not None else "?",
-                    bt=batch_time, loss=losses, top1=top1, top5=top5))
+        with tracing.span("dvt.validate.readback", i):
+            output = output_dev.float().cpu().numpy()  # waits for the device
+        with tracing.span("dvt.validate.score", i):
+            target = np.asarray(target)
+            loss = cross_entropy(output, target)
+            prec1, prec5 = accuracy(output, target, topk=(1, 5))
+            n = len(target)
+            losses.update(loss, n)
+            top1.update(prec1, n)
+            top5.update(prec5, n)
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if print_freq and i % print_freq == 0:
+                log("Test: [{0}/{1}]\t"
+                    "Time {bt.val:.3f} ({bt.avg:.3f})\t"
+                    "Loss {loss.val:.4f} ({loss.avg:.4f})\t"
+                    "Prec@1 {top1.val:.3f} ({top1.avg:.3f})\t"
+                    "Prec@5 {top5.val:.3f} ({top5.avg:.3f})".format(
+                        i, n_batches if n_batches is not None else "?",
+                        bt=batch_time, loss=losses, top1=top1, top5=top5))
 
     pending = None  # (index, device output, target)
     for i, (data, target) in enumerate(loader):

@@ -45,6 +45,7 @@ from ..ops.kernels.mlp import fused_int_mlp
 from ..ops.kernels.swin_attention import (fused_swin_attention,
                                           fused_swin_attention_v2)
 from ..ops.quant import fake_quant
+from ..utils.tracing import span
 from .swin import (SwinSpec, _merge_patches, _unwindows, _windows,
                    block_geometry, normalize_bit_config, swin_patchify)
 from .vit_int import (F32, I8, _fp_linear, _host, _int_dot, _ln_int8,
@@ -157,33 +158,35 @@ def forward_q_int(ip, spec: SwinSpec, cfg: QuantConfig, x, *,
     def fq(path, t):
         return fake_quant(t, s(path), qp[f"{path}.zp"], bt_a)
 
-    if x.dtype == I8:
-        if not spec.input_quant:
-            raise ValueError("int8 input codes require input_quant=True")
-        h = int_linear(ip["patch"], swin_patchify(x, spec))
-    elif spec.input_quant:
-        p_i8 = _requant_i8(swin_patchify(fq("qact_input", x), spec),
-                           s("qact_input"))
-        h = int_linear(ip["patch"], p_i8)
-    else:
-        h = _float_patch(ip["patch"], swin_patchify(x, spec))
-    if ip["patch_norm"] is not None:
-        h = fq("patch.qact_bn", h)
-        pn = ip["patch_norm"]
-        if cfg.int_norm:
-            h = int_layernorm(h, pn["w"], pn["b"], s("patch.qact_bn"),
-                              s("patch.qact"))
+    with span("dvt.embed"):
+        if x.dtype == I8:
+            if not spec.input_quant:
+                raise ValueError("int8 input codes require input_quant=True")
+            h = int_linear(ip["patch"], swin_patchify(x, spec))
+        elif spec.input_quant:
+            p_i8 = _requant_i8(swin_patchify(fq("qact_input", x), spec),
+                               s("qact_input"))
+            h = int_linear(ip["patch"], p_i8)
         else:
-            h = float_layernorm(h, pn["w"], pn["b"], eps)
-    h = fq("patch.qact", h)
-    last_q = "patch.qact"
-    b0 = h.shape[0]
+            h = _float_patch(ip["patch"], swin_patchify(x, spec))
+        if ip["patch_norm"] is not None:
+            h = fq("patch.qact_bn", h)
+            pn = ip["patch_norm"]
+            if cfg.int_norm:
+                h = int_layernorm(h, pn["w"], pn["b"], s("patch.qact_bn"),
+                                  s("patch.qact"))
+            else:
+                h = float_layernorm(h, pn["w"], pn["b"], eps)
+        h = fq("patch.qact", h)
+        last_q = "patch.qact"
+        b0 = h.shape[0]
 
-    # the codes-carrying residual stream: int8 codes on the current qact
-    # grid instead of float32 fake-quant values (every zero-point is 0)
-    hc = None
-    if cfg.int_norm and ip.get("sym_acts", False):
-        hc = _codes(h, s(last_q), bt_a).to(I8)
+        # the codes-carrying residual stream: int8 codes on the current
+        # qact grid instead of float32 fake-quant values (every zero-point
+        # is 0)
+        hc = None
+        if cfg.int_norm and ip.get("sym_acts", False):
+            hc = _codes(h, s(last_q), bt_a).to(I8)
 
     def ln_i8(ln, in_scale, path):
         """The LN between the residual stream and ``path``'s int8 grid:
@@ -194,99 +197,102 @@ def forward_q_int(ip, spec: SwinSpec, cfg: QuantConfig, x, *,
         return _ln_int8(h if hc is None else None, ln, in_scale, s(path),
                         eps, x_codes=hc)
 
-    for si, st in enumerate(ip["layers"]):
-        for bi, ib in enumerate(st["blocks"]):
-            p = f"layers.{si}.blocks.{bi}"
-            res, ws, shift, _ = block_geometry(spec, si, bi)
-            # the rank's heads: all where tp does not divide them
-            nh = ib["bias_q"].shape[0]
-            atp = tp if nh < spec.num_heads[si] else None
+    with span("dvt.encoder"):
+        for si, st in enumerate(ip["layers"]):
+            for bi, ib in enumerate(st["blocks"]):
+                p = f"layers.{si}.blocks.{bi}"
+                res, ws, shift, _ = block_geometry(spec, si, bi)
+                # the rank's heads: all where tp does not divide them
+                nh = ib["bias_q"].shape[0]
+                atp = tp if nh < spec.num_heads[si] else None
 
-            x_i8 = ln_i8(ib["norm1"], s(last_q), f"{p}.qact1")
-            yw_i8 = _windows(x_i8, res, ws, shift)
-            bw, n, c = yw_i8.shape
-            hd = c // spec.num_heads[si]
-            cl = nh * hd  # the rank's heads' channels
-            # rint((acc * (in_scale * sw) + b) / s1), not a fold into the
-            # GEMM epilogue: that would round differently
-            qkv = int_linear(ib["qkv"], yw_i8)
-            s1 = s(f"{p}.attn.qact1")
-            if hc is not None:
-                qkv_i8 = _requant_i8(qkv, s1, bt_a.lower_bound,
-                                     bt_a.upper_bound)
-            else:
-                qkv_i8 = _requant_i8(fq(f"{p}.attn.qact1", qkv), s1)
-            mask_div = ib["mask_div"]
-            nw = 1 if mask_div is None else mask_div.shape[0]
-            kw = dict(num_heads=nh, n_real=n, n_windows=nw,
-                      bits=cfg.bit_s.bits, lis=cfg.lis,
-                      lis_wide=ib["lis_wide"])
-            if attn_v2:
-                o_i8 = fused_swin_attention_v2(
-                    qkv_i8, ib["bias_q"], mask_div, ib["attn_scalars"],
-                    head_dim=hd, **kw)
-            else:
-                # a strided view of the natural layout: no copy
-                qkv_p = qkv_i8.view(bw, n, 3, nh, hd).permute(0, 2, 3, 1, 4)
-                o_i8 = fused_swin_attention(
-                    qkv_p, ib["bias_q"], mask_div, ib["attn_scalars"], **kw) \
-                    .permute(0, 2, 1, 3).reshape(bw, n, cl)
-            y = int_linear(ib["proj"], o_i8, atp)
+                x_i8 = ln_i8(ib["norm1"], s(last_q), f"{p}.qact1")
+                yw_i8 = _windows(x_i8, res, ws, shift)
+                bw, n, c = yw_i8.shape
+                hd = c // spec.num_heads[si]
+                cl = nh * hd  # the rank's heads' channels
+                # rint((acc * (in_scale * sw) + b) / s1), not a fold into the
+                # GEMM epilogue: that would round differently
+                qkv = int_linear(ib["qkv"], yw_i8)
+                s1 = s(f"{p}.attn.qact1")
+                if hc is not None:
+                    qkv_i8 = _requant_i8(qkv, s1, bt_a.lower_bound,
+                                         bt_a.upper_bound)
+                else:
+                    qkv_i8 = _requant_i8(fq(f"{p}.attn.qact1", qkv), s1)
+                mask_div = ib["mask_div"]
+                nw = 1 if mask_div is None else mask_div.shape[0]
+                kw = dict(num_heads=nh, n_real=n, n_windows=nw,
+                          bits=cfg.bit_s.bits, lis=cfg.lis,
+                          lis_wide=ib["lis_wide"])
+                if attn_v2:
+                    o_i8 = fused_swin_attention_v2(
+                        qkv_i8, ib["bias_q"], mask_div, ib["attn_scalars"],
+                        head_dim=hd, **kw)
+                else:
+                    # a strided view of the natural layout: no copy
+                    qkv_p = qkv_i8.view(bw, n, 3, nh, hd) \
+                        .permute(0, 2, 3, 1, 4)
+                    o_i8 = fused_swin_attention(
+                        qkv_p, ib["bias_q"], mask_div, ib["attn_scalars"],
+                        **kw).permute(0, 2, 1, 3).reshape(bw, n, cl)
+                y = int_linear(ib["proj"], o_i8, atp)
 
-            if hc is not None:
-                # attn.qact4 -> residual -> qact2 on int8 codes
-                s_aq4 = s(f"{p}.attn.qact4")
-                yq = _codes(y, s_aq4, bt_a)
-                hs = hc.to(F32) * s(last_q) \
-                    + _unwindows(yq, res, ws, shift, b0) * s_aq4
-                hc = _codes(hs, s(f"{p}.qact2"), bt_a).to(I8)
-            else:
-                y = fq(f"{p}.attn.qact4", y)
-                h = fq(f"{p}.qact2", h + _unwindows(y, res, ws, shift, b0))
+                if hc is not None:
+                    # attn.qact4 -> residual -> qact2 on int8 codes
+                    s_aq4 = s(f"{p}.attn.qact4")
+                    yq = _codes(y, s_aq4, bt_a)
+                    hs = hc.to(F32) * s(last_q) \
+                        + _unwindows(yq, res, ws, shift, b0) * s_aq4
+                    hc = _codes(hs, s(f"{p}.qact2"), bt_a).to(I8)
+                else:
+                    y = fq(f"{p}.attn.qact4", y)
+                    h = fq(f"{p}.qact2", h + _unwindows(y, res, ws, shift, b0))
 
-            x_i8 = ln_i8(ib["norm2"], s(f"{p}.qact2"), f"{p}.qact3")
-            y = fused_int_mlp(
-                x_i8.reshape(-1, c), *mlp_weights(ib),
-                ib["fc1"]["mult"], ib["fc1"]["b"], ib["fc2"]["mult"],
-                ib["fc2"]["b"], s(f"{p}.mlp.qact2"), s(f"{p}.mlp.qact1"),
-                emit_codes=hc is not None).reshape(x_i8.shape)
-            if hc is not None:
-                # mlp.qact2 codes -> residual -> qact4 on int8 codes
-                hs = hc.to(F32) * s(f"{p}.qact2") \
-                    + y.to(F32) * s(f"{p}.mlp.qact2")
-                hc = _codes(hs, s(f"{p}.qact4"), bt_a).to(I8)
-            else:
-                h = fq(f"{p}.qact4", h + y)
-            last_q = f"{p}.qact4"
+                x_i8 = ln_i8(ib["norm2"], s(f"{p}.qact2"), f"{p}.qact3")
+                y = fused_int_mlp(
+                    x_i8.reshape(-1, c), *mlp_weights(ib),
+                    ib["fc1"]["mult"], ib["fc1"]["b"], ib["fc2"]["mult"],
+                    ib["fc2"]["b"], s(f"{p}.mlp.qact2"), s(f"{p}.mlp.qact1"),
+                    emit_codes=hc is not None).reshape(x_i8.shape)
+                if hc is not None:
+                    # mlp.qact2 codes -> residual -> qact4 on int8 codes
+                    hs = hc.to(F32) * s(f"{p}.qact2") \
+                        + y.to(F32) * s(f"{p}.mlp.qact2")
+                    hc = _codes(hs, s(f"{p}.qact4"), bt_a).to(I8)
+                else:
+                    h = fq(f"{p}.qact4", h + y)
+                last_q = f"{p}.qact4"
 
-        if st["downsample"] is not None:
-            ds = st["downsample"]
-            p = f"layers.{si}.downsample"
-            # the merge permutes tokens; the merged grid is the source grid
-            # tiled 4 times
-            if hc is not None:
-                hc = _merge_patches(hc, spec.stage_resolution(si))
-            else:
-                h = _merge_patches(h, spec.stage_resolution(si))
-            x_i8 = ln_i8(ds["norm"], torch.tile(s(last_q), (4,)),
-                         f"{p}.qact1")
-            y = int_linear(ds["reduction"], x_i8)
-            if hc is not None:
-                hc = _codes(y, s(f"{p}.qact2"), bt_a).to(I8)
-            else:
-                h = fq(f"{p}.qact2", y)
-            last_q = f"{p}.qact2"
+            if st["downsample"] is not None:
+                ds = st["downsample"]
+                p = f"layers.{si}.downsample"
+                # the merge permutes tokens; the merged grid is the source grid
+                # tiled 4 times
+                if hc is not None:
+                    hc = _merge_patches(hc, spec.stage_resolution(si))
+                else:
+                    h = _merge_patches(h, spec.stage_resolution(si))
+                x_i8 = ln_i8(ds["norm"], torch.tile(s(last_q), (4,)),
+                             f"{p}.qact1")
+                y = int_linear(ds["reduction"], x_i8)
+                if hc is not None:
+                    hc = _codes(y, s(f"{p}.qact2"), bt_a).to(I8)
+                else:
+                    h = fq(f"{p}.qact2", y)
+                last_q = f"{p}.qact2"
 
-    if cfg.int_norm:
-        h = ln_i8(ip["norm"], s(last_q), "qact2").to(F32) * s("qact2")
-    else:
-        h = fq("qact2", float_layernorm(h, ip["norm"]["w"], ip["norm"]["b"],
-                                        eps))
-    # the token mean as sum / L: the float64 sum of these float32 terms is
-    # exact, so the one rounding to float32 does not depend on the order
-    # the device sums in (the reference's float32 sum does)
-    tokens = h.new_full((), float(h.shape[1]))
-    h = h.to(torch.float64).sum(1).to(F32) / tokens
-    h = fq("qact3", h)
-    logits = int_linear(ip["head"], _requant_i8(h, s("qact3")))
-    return fq("act_out", logits)
+    with span("dvt.head"):
+        if cfg.int_norm:
+            h = ln_i8(ip["norm"], s(last_q), "qact2").to(F32) * s("qact2")
+        else:
+            h = fq("qact2", float_layernorm(h, ip["norm"]["w"],
+                                            ip["norm"]["b"], eps))
+        # the token mean as sum / L: the float64 sum of these float32 terms
+        # is exact, so the one rounding to float32 does not depend on the
+        # order the device sums in (the reference's float32 sum does)
+        tokens = h.new_full((), float(h.shape[1]))
+        h = h.to(torch.float64).sum(1).to(F32) / tokens
+        h = fq("qact3", h)
+        logits = int_linear(ip["head"], _requant_i8(h, s("qact3")))
+        return fq("act_out", logits)

@@ -47,6 +47,7 @@ from ..ops.kernels.mlp import fused_int_mlp
 from ..ops.kernels.serve import prepare_resident, resident_codes
 from ..ops.lis import log_int_softmax_from_int
 from ..ops.quant import fake_quant, int_matmul
+from ..utils.tracing import span
 from .convert import int_model_from_numpy
 from .vit import (ViTSpec, _linear, _wq, check_search_bits, gelu_exact,
                   num_bit_slots, patchify)
@@ -582,16 +583,19 @@ def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x, *, tp=None):
     device.  Returns (B, num_classes) float32 logits on the act_out grid.
     ``tp``: the rank's tp group, for a model cut by
     ``parallel.mesh.shard_int_params`` (:func:`_block_int`)."""
-    h = _embed_front(ip, spec, cfg, x)
+    with span("dvt.embed"):
+        h = _embed_front(ip, spec, cfg, x)
     bc = ip["bit_config"]
     sym_acts = bool(ip.get("sym_acts", False))
     hc = None
-    for i, ib in enumerate(ip["blocks"]):
-        in_scale = ip["qact1"]["scale"] if i == 0 \
-            else ip["blocks"][i - 1]["qact4"]["scale"]
-        h, hc = _block_int(ib, bc[4 * i + 1: 4 * i + 5], in_scale, h, hc,
-                           spec, cfg, sym_acts=sym_acts, tp=tp)
-    return _head_tail(ip, spec, cfg, h, hc)
+    with span("dvt.encoder"):
+        for i, ib in enumerate(ip["blocks"]):
+            in_scale = ip["qact1"]["scale"] if i == 0 \
+                else ip["blocks"][i - 1]["qact4"]["scale"]
+            h, hc = _block_int(ib, bc[4 * i + 1: 4 * i + 5], in_scale, h, hc,
+                               spec, cfg, sym_acts=sym_acts, tp=tp)
+    with span("dvt.head"):
+        return _head_tail(ip, spec, cfg, h, hc)
 
 
 def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
@@ -608,9 +612,10 @@ def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
     with the same result as one launch; None runs any batch in one."""
     if packed is None:
         packed = prepare_resident(ip, spec, cfg)
-    h = _embed_front(ip, spec, cfg, x)
-    B, N, C = h.shape
-    hc = _codes(h, ip["qact1"]["scale"], cfg.bit_a)
+    with span("dvt.embed"):
+        h = _embed_front(ip, spec, cfg, x)
+        B, N, C = h.shape
+        hc = _codes(h, ip["qact1"]["scale"], cfg.bit_a)
     lis_wide = any(ib["lis_wide"] for ib in ip["blocks"])
 
     def run(chunk):  # (b, N, C) int8 codes -> the last block's codes
@@ -619,10 +624,13 @@ def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
                               bits=cfg.bit_s.bits, lis=cfg.lis,
                               nelems=b, lis_wide=lis_wide).reshape(b, N, C)
 
-    if microbatch is None or B <= microbatch:
-        out = run(hc)
-    else:
-        pad = (-B) % microbatch
-        hcp = torch.cat([hc, hc.new_zeros((pad, N, C))]) if pad else hc
-        out = torch.cat([run(chunk) for chunk in hcp.split(microbatch)])[:B]
-    return _head_tail(ip, spec, cfg, None, out)
+    with span("dvt.encoder"):
+        if microbatch is None or B <= microbatch:
+            out = run(hc)
+        else:
+            pad = (-B) % microbatch
+            hcp = torch.cat([hc, hc.new_zeros((pad, N, C))]) if pad else hc
+            out = torch.cat([run(chunk)
+                             for chunk in hcp.split(microbatch)])[:B]
+    with span("dvt.head"):
+        return _head_tail(ip, spec, cfg, None, out)

@@ -32,8 +32,9 @@ and plain: :func:`resident_plan` (blocks an SM, ring stages, shared
 memory, grid, the attention split), :func:`resident_kmajor` (the K-major
 weight stacks its
 TMA maps read), :func:`scratch_layout`, and :func:`step_times`, which
-turns the kernel's barrier stamps (:func:`resident_step_ms`) into time by
-step kind.
+turns the kernel's barrier stamps (written while a recording of
+``utils/tracing.py`` is on; :func:`resident_step_ms`) into time by step
+kind.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils import tracing
 from ..int_layernorm import ln_codes
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
@@ -385,7 +387,10 @@ def resident_codes(packed, x_codes, *, n_real, bits=4, lis=True, nelems,
     Returns (nelems * npad, C) int8 codes on the last block's qact4 grid.
 
     A CUDA tensor runs ``csrc/resident.cu``; a CPU tensor runs
-    :func:`resident_codes_plain`."""
+    :func:`resident_codes_plain`.  While a recording is on
+    (``utils/tracing.py``) the launch writes its barrier stamps into a
+    buffer the recording keeps and decodes (:func:`step_times`) when it
+    ends: the same codes, no second launch, no sync."""
     if route(x_codes, *(packed[k] for k in PACKED)) == "cpu":
         return resident_codes_plain(packed, x_codes, n_real=n_real,
                                     bits=bits, lis=lis, nelems=nelems,
@@ -393,8 +398,14 @@ def resident_codes(packed, x_codes, *, n_real, bits=4, lis=True, nelems,
     if lis and bits > 4:
         raise NotImplementedError("resident_codes: LIS supports bits <= 4 "
                                   "only")
+    rec = tracing.current
+    stamps = None
+    if rec is not None:  # the recording reads them when it ends
+        depth = packed["wqkv"].shape[0]
+        stamps = rec.k6_stamps(1 + 2 * len(STEPS) * depth, depth,
+                               x_codes.device)
     out = _launch(packed, x_codes, n_real=n_real, lis=lis, nelems=nelems,
-                  lis_wide=lis_wide)
+                  stamps=stamps, lis_wide=lis_wide)
     resident_codes.launches += 1
     return out
 
@@ -405,8 +416,8 @@ resident_codes.launches = 0
 def _launch(packed, x_codes, *, n_real, lis, nelems, stamps=None,
             plan=None, lis_wide=False):
     """One K6 launch on the card (``plan``: the device's resident_plan
-    unless given); ``stamps``: None, or a zeroed (1 + 14 * depth,) int64
-    card tensor for the barrier stamps."""
+    unless given); ``stamps``: None, or the device address of a zeroed
+    (1 + 14 * depth,) int64 buffer for the barrier stamps."""
     rows, c = x_codes.shape
     depth, heads, hd, _ = packed["wproj"].shape
     hid = packed["w1"].shape[2]
@@ -443,7 +454,7 @@ def _launch(packed, x_codes, *, n_real, lis, nelems, stamps=None,
         *(km[k].data_ptr() for k in WEIGHTS),
         *(packed[k].data_ptr() for k in PACKED[4:]),
         scratch.data_ptr(), barrier.data_ptr(),
-        None if stamps is None else stamps.data_ptr(), depth, nelems, npad,
+        stamps, depth, nelems, npad,
         n_real, c, hid, heads, hd, lis_code(lis, lis_wide),
         int(packed["lis_fast"]),
         *plan.launch_args(), torch.cuda.current_stream(dev).cuda_stream)
@@ -475,15 +486,13 @@ def step_times(stamps, depth: int) -> dict:
 
 def resident_step_ms(packed, x_codes, *, n_real, lis=True, nelems) -> dict:
     """One K6 launch on the card with its barrier stamps on (a last grid
-    barrier closes the last step): :func:`step_times` of it.  Not on the
-    served path, which passes no stamps; counted as a launch."""
-    depth = packed["wqkv"].shape[0]
-    stamps = torch.zeros(1 + 2 * len(STEPS) * depth, dtype=torch.int64,
-                         device=x_codes.device)
-    _launch(packed, x_codes, n_real=n_real, lis=lis, nelems=nelems,
-            stamps=stamps)
-    resident_codes.launches += 1
-    return step_times(stamps.cpu().tolist(), depth)
+    barrier closes the last step), as :func:`resident_codes` makes it
+    while a recording is on (``utils/tracing.py``): :func:`step_times` of
+    it.  Counted as a launch."""
+    with tracing.recording() as rec:
+        resident_codes(packed, x_codes, n_real=n_real, lis=lis,
+                       nelems=nelems)
+    return rec.k6[0][1]
 
 
 def resident_footprint(nelems, npad, spec, device, lis=True) -> dict:

@@ -174,6 +174,32 @@ def test_resident_step_times_leave_the_codes_alone(cuda):
         want.cpu().numpy())
 
 
+@pytest.mark.parametrize("batch", [1, 8])
+def test_recorded_resident_launch_keeps_its_codes(cuda, batch):
+    """The served K6 launch while a recording is on (utils/tracing.py)
+    writes its barrier stamps: its codes equal an unstamped launch's, bit
+    for bit, one launch is counted, and the recording's step times of it
+    sum to its total."""
+    from diffvit_tpu_torch.ops.kernels.serve import STEP_KINDS
+    from diffvit_tpu_torch.utils import tracing
+    cfg = QuantConfig()
+    ip = int_model_from_numpy(random_int_model(DEIT_S, cfg, seed=2), DEIT_S,
+                              cuda, cfg)
+    packed = prepare_resident(ip, DEIT_S, cfg)
+    x = torch.tensor(_codes((batch * 197, 384), 6), device=cuda)
+    kw = dict(n_real=197, bits=4, lis=True, nelems=batch)
+    want = resident_codes(packed, x, **kw)
+    before = resident_codes.launches
+    with tracing.recording() as rec:
+        got = resident_codes(packed, x, **kw)
+    assert resident_codes.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    (at, ms), = rec.k6
+    assert at is None and ms["total"] > 0
+    assert ms["barrier_wait"] >= 0
+    assert abs(sum(ms[k] for k in STEP_KINDS) - ms["total"]) < 1e-3, ms
+
+
 def test_resident_footprint(cuda):
     """K6 at DeiT-S b = 1, 8, 64, both softmaxes: no local memory (no
     spills), the plan's shared memory, at least the plan's one block an SM
