@@ -11,7 +11,8 @@
             and float32 out), K5 (LIS and float softmax) and K6 (the whole
             12-block encoder in one launch, on the wgmma GEMM mainloop and
             the tensor-core attention core; LIS, and the float softmax at
-            b = 8) at DeiT-S shapes (B = 1, 8, 64) and a tiny shape; K4 and
+            b = 8) at DeiT-S shapes (B = 1, 8, 64; K6 also at 128, the
+            launch of a resident batch of 256) and a tiny shape; K4 and
             K4b at Swin-T's four stage geometries and K2 at its four widths
             (B = 1, 8, 64); K4 and K4b with the float softmax (lis=False)
             at stage 0 (B = 1, 8, 64) and stages 1-3 (B = 8, 64), on a
@@ -19,9 +20,10 @@
             float32 at Swin-T's four widths at the same batches;
 4. serving: for DeiT-S int4, the FQ-ViT DeiT-S int8 (SmoothQuant off: K5
             and K2 emitting float32), DeiT-S int4 served resident (K6 once
-            per chunk of 8 images, no K1 or K2; its logits must equal the
-            per-kernel forward's, and with microbatch=None too) and Swin-T
-            int4: saves a seeded model
+            per launch of its default cut, no K1 or K2; its logits must
+            equal the per-kernel forward's, and with microbatch=None too,
+            at b = 64 and on a b = 200 request cut into 2 launches)
+            and Swin-T int4: saves a seeded model
             as an int-model artifact, loads it with the port's
             load_int_model, answers uint8 requests at b = 1 (4 times), 8
             and 64 through IntModel, checks that every forward went through
@@ -30,7 +32,8 @@
             int4 also prints how far its codes use the int8 range; Swin-T
             also runs one forward through the natural-layout attention
             contract (K4b) and checks that its logits equal K4's; the
-            resident phase also prints K6's device time at b = 1, 8, 64 and
+            resident phase also prints K6's device time at b = 1, 8, 64,
+            128 and
             block 0's ms by step kind from the kernel's barrier stamps
             (LN, qkv, attention, proj, fc1, fc2, barrier wait);
 5. branches: the other branches of the ViT forward at DeiT-S width, b = 8:
@@ -137,9 +140,10 @@
             resident (K6), and a Swin-T artifact served with --load-int;
             each run's Prec@1 line, wall seconds and launch counts (exactly
             12 K1 + 12 K2 a forward, 12 K4 + 12 K2 for Swin-T, K6 once per
-            chunk of 8); then the artifact's per-kernel and resident logits
-            bit for bit on a b = 64 batch, and IntModel(microbatch=8) at
-            b = 64 against microbatch=None, bit for bit.
+            launch of its default cut); then the artifact's per-kernel and
+            resident logits bit for bit on a b = 64 batch, and
+            IntModel(microbatch=8) at b = 64 against microbatch=None, bit
+            for bit.
 14. native: the native JPEG pipeline (data/native_decode.py over the host
             library built by g++ from csrc/host, linked against the
             libjpeg PIL loads): the build seconds, the libjpeg and its
@@ -343,7 +347,9 @@ CFG = QuantConfig()  # PTF, LIS, SmoothQuant on; int4 weights
 # FQ-ViT (--ptf --lis, W8A8, 4-bit LIS): SmoothQuant off, int8 weights
 FQVIT = QuantConfig(smoothquant=False, bit_w=BIT_TYPE_DICT["int8"])
 REQUESTS = (1, 1, 1, 1, 8, 64)  # images per request, served in this order
-MICROBATCH = 8  # forward_q_int_serve's default chunk
+# DeiT-S images a K6 launch of the resident forward's default cut
+# (vit_int.K6_SCRATCH_BYTES): a batch of b goes in ceil(b / 128) launches
+K6_IMAGES = 128
 # kernel vs plain: share of equal int8 codes, max |diff|; the float softmax
 # (lis=False) is held to the JAX suite's rule for it: |diff| <= 1 on
 # fewer than 2% of codes
@@ -800,8 +806,8 @@ def note(summary, name, result, heaviest=None, library_ms=None,
 def phase_kernels(dev, summary):
     """Each kernel of the model paths vs its plain version on the card;
     records per kernel the largest |diff| and, at the heaviest shape of
-    the main paths (DeiT-S b=64 for K1, K2, K5 and K6; Swin-T stage 0 b=64
-    for K4 and K4b), its times and its bound."""
+    the main paths (DeiT-S b=64 for K1, K2 and K5, b=128 for K6; Swin-T
+    stage 0 b=64 for K4 and K4b), its times and its bound."""
     for spec, batches in ((SPEC, (1, 8, 64)), (TINY, (2,))):
         ib = random_int_model(spec, CFG, seed=0)["blocks"][0]
         ib_fq = random_int_model(spec, FQVIT, seed=0)["blocks"][0]
@@ -831,14 +837,17 @@ def phase_kernels(dev, summary):
         ip = int_model_from_numpy(random_int_model(spec, CFG, seed=0), spec,
                                   dev, CFG)
         packed = prepare_resident(ip, spec, CFG)
-        for lis, tol, bs in ((True, "exact", batches),
+        # DeiT-S also at K6_IMAGES, the launch the resident forward makes
+        # of a batch of 256
+        k6_batches = batches + (K6_IMAGES,) * (spec is SPEC)
+        for lis, tol, bs in ((True, "exact", k6_batches),
                              (False, "softmax", batches[1:2] or batches)):
             for b in bs:
                 args = (packed, codes((b * spec.seq_len, spec.embed_dim),
                                       b + 11, dev))
                 kw = dict(n_real=spec.seq_len, bits=4, lis=lis, nelems=b)
-                heaviest = spec is SPEC and b == 64 and lis \
-                    and (f"{spec.name} b=64", args, kw)
+                heaviest = spec is SPEC and b == K6_IMAGES and lis \
+                    and (f"{spec.name} b={b}", args, kw)
                 note(summary, "resident_codes",
                      hold("resident_codes", args, kw, tol, spec=spec.name,
                           batch=b), heaviest)
@@ -974,13 +983,19 @@ def agree(got, ref, shape, **where):
         raise RuntimeError(f"{where}: bad logits, shape {got.shape}")
 
 
+def k6_launches(b):
+    """K6 launches of the DeiT-S resident forward for ``b`` images at its
+    default cut: at most K6_IMAGES a launch."""
+    return -(-b // K6_IMAGES)
+
+
 def serve(spec, ip_np, path_kernels, dev, cfg=CFG, label=None,
           resident=False):
     """Save ``ip_np`` (under ``cfg``) as an artifact, load it on the card
     and on the CPU (``resident``: served through K6), answer the uint8
     requests through IntModel with a launch check (each kernel of
-    ``path_kernels`` once per block of every forward, or K6 once per chunk
-    of MICROBATCH images), time requests and forwards, hold the b=8 logits
+    ``path_kernels`` once per block of every forward, or K6 once per launch
+    of ``k6_launches``), time requests and forwards, hold the b=8 logits
     against the CPU plain path and run validate().  ``label`` names the
     model in the JSON lines (default: the spec's name).  Returns the model,
     the requests, their logits and the launches."""
@@ -1011,7 +1026,7 @@ def serve(spec, ip_np, path_kernels, dev, cfg=CFG, label=None,
 
     expected = {name: depth * len(requests) for name in path_kernels}
     if resident:
-        expected = {"resident_codes": sum(-(-b // MICROBATCH)
+        expected = {"resident_codes": sum(k6_launches(b)
                                           for b in REQUESTS)}
     outputs, launches = drive(expected, run)
     for b in sorted(set(REQUESTS)):
@@ -1066,14 +1081,16 @@ def phase_serving_fqvit(dev):
 
 
 def phase_serving_resident(dev, summary):
-    """DeiT-S int4 served resident: K6 once per chunk of MICROBATCH images
+    """DeiT-S int4 served resident: K6 once per launch of ``k6_launches``
     and no K1 or K2 (checked by serve); every request's logits equal the
-    per-kernel IntModel's on the card; b=64 in one launch
-    (``microbatch=None``) gives the same logits, and its forward is
-    timed.  Then K6 alone at b = 1, 8, 64 on the model's packed weights:
-    its device time (torch.profiler) and block 0's ms by step kind from
-    one launch with its barrier stamps on (``resident_step_ms``); the
-    b=64 device time and stamped total go into the kernels line."""
+    per-kernel IntModel's on the card; b=64, and a b=200 request above
+    K6_IMAGES (2 launches of 100 at the default cut), in one launch
+    (``microbatch=None``) give the same logits, and both forwards are
+    timed.  Then K6 alone at b = 1, 8, 64, 128 on the model's packed
+    weights: its device time (torch.profiler) and block 0's ms by step
+    kind from one launch with its barrier stamps on
+    (``resident_step_ms``); the b=128 device time and stamped total go
+    into the kernels line."""
     label = f"{SPEC.name} resident"
     ip_np = random_int_model(SPEC, CFG, seed=0)
     model, requests, outputs, launches = serve(SPEC, ip_np, (), dev,
@@ -1081,32 +1098,43 @@ def phase_serving_resident(dev, summary):
     per_kernel = engine.IntModel(ip_np, SPEC, CFG, dev)
     equal = all(np.array_equal(o.cpu().numpy(), per_kernel(x).cpu().numpy())
                 for o, x in zip(outputs, requests))
-    x64 = torch.tensor(model.encode(requests[REQUESTS.index(64)]),
-                       device=dev)
+    big = np.random.default_rng(3).integers(0, 256, (200, 3, SPEC.img_size,
+                                                     SPEC.img_size),
+                                            dtype=np.uint8)
+    cut, _ = drive({"resident_codes": k6_launches(len(big))},
+                   lambda: model(big))
+    equal = equal and np.array_equal(cut.cpu().numpy(),
+                                     per_kernel(big).cpu().numpy())
+    for request, default in ((requests[REQUESTS.index(64)],
+                              outputs[REQUESTS.index(64)]), (big, cut)):
+        x = torch.tensor(model.encode(request), device=dev)
 
-    def one_launch():
-        with torch.inference_mode():
-            return vit_int.forward_q_int_serve(model.ip, SPEC, CFG, x64,
-                                               packed=model.packed,
-                                               microbatch=None)
+        def one_launch(x=x):
+            with torch.inference_mode():
+                return vit_int.forward_q_int_serve(model.ip, SPEC, CFG, x,
+                                                   packed=model.packed,
+                                                   microbatch=None)
 
-    whole, _ = drive({"resident_codes": 1}, one_launch)
-    equal_whole = bool(np.array_equal(
-        whole.cpu().numpy(), outputs[REQUESTS.index(64)].cpu().numpy()))
-    emit(phase="resident", model=label, logits_equal_per_kernel=equal,
-         microbatch_none_equal=equal_whole, batch=64,
-         microbatch_none_forward_ms=cuda_ms(one_launch, iters=10))
-    if not (equal and equal_whole):
-        raise RuntimeError("the resident forward's logits differ from the "
-                           "per-kernel forward's, or microbatch=None differs")
-    for b in (1, 8, 64):
+        whole, _ = drive({"resident_codes": 1}, one_launch)
+        equal_whole = bool(np.array_equal(whole.cpu().numpy(),
+                                          default.cpu().numpy()))
+        emit(phase="resident", model=label, logits_equal_per_kernel=equal,
+             microbatch_none_equal=equal_whole, batch=len(request),
+             launches=k6_launches(len(request)),
+             forward_ms=cuda_ms(lambda: model(x), iters=10),
+             microbatch_none_forward_ms=cuda_ms(one_launch, iters=10))
+        if not (equal and equal_whole):
+            raise RuntimeError(
+                "the resident forward's logits differ from the per-kernel "
+                "forward's, or microbatch=None differs")
+    for b in (1, 8, 64, K6_IMAGES):
         x = codes((b * SPEC.seq_len, SPEC.embed_dim), b + 11, dev)
         kw = dict(n_real=SPEC.seq_len, lis=True, nelems=b)
         ms = device_ms(lambda: resident_codes(model.packed, x, **kw))
         steps = resident_step_ms(model.packed, x, **kw)
         emit(phase="resident", model=label, batch=b, device_ms=ms,
              step_ms=steps)
-        if b == 64:
+        if b == K6_IMAGES:
             summary["resident_codes"].update(device_ms=ms,
                                              stamped_ms=steps["total"])
     return launches
@@ -1400,7 +1428,7 @@ def phase_calibrate(dev):
         resident = q.prepare_int(resident=True)
         resident(requests[0])
         res_outs, paths[f"{SPEC.name} calibrated resident"] = drive(
-            {"resident_codes": sum(-(-len(r) // MICROBATCH)
+            {"resident_codes": sum(k6_launches(len(r))
                                    for r in requests)},
             lambda: [resident(r) for r in requests])
         equal_res = all(torch.equal(a, b) for a, b in zip(res_outs, outs))
@@ -2321,7 +2349,7 @@ def phase_cli(dev):
              per_kernel),
             ("deit_small --load-int --resident",
              [SPEC.name, tmp, "--load-int", deit, "--resident", "--wire",
-              "u8"], {K6: forwards * -(-CLI_BATCH // MICROBATCH)}),
+              "u8"], {K6: forwards * k6_launches(CLI_BATCH)}),
             ("swin_tiny --load-int",
              [SWIN.name, tmp, "--load-int", swin, "--wire", "u8"],
              {K4: sum(SWIN.depths) * forwards,
@@ -2350,7 +2378,7 @@ def phase_cli(dev):
             "microbatch_8": engine.load_int_model(deit, dev, microbatch=8),
         }
     expected = {"per_kernel": {K1: SPEC.depth, K2: SPEC.depth},
-                "resident": {K6: -(-64 // MICROBATCH)},
+                "resident": {K6: k6_launches(64)},
                 "microbatch_8": {K1: SPEC.depth * 8, K2: SPEC.depth * 8}}
     logits = {}
     for name, model in models.items():
@@ -2629,7 +2657,7 @@ def phase_native(dev, host_seconds, smi):
         runs = (
             ("deit_small --load-int u8", u8, u8, per_kernel),
             ("deit_small --load-int --resident u8", u8 + ["--resident"],
-             u8 + ["--resident"], {K6: forwards * -(-CLI_BATCH // MICROBATCH)}),
+             u8 + ["--resident"], {K6: forwards * k6_launches(CLI_BATCH)}),
             ("swin_tiny --load-int u8", swin_u8, swin_u8,
              {K4: sum(SWIN.depths) * forwards,
               K2: sum(SWIN.depths) * forwards}),

@@ -50,9 +50,10 @@ class IntModel:
     every uint8 batch does in the reference, and int8 codes raise
     ``ValueError``.  ``input_norm``: the (mean, std) of both.
 
-    ``resident=True`` (ViT family): the encoder runs as one launch of the
-    resident kernel K6 (``vit_int.forward_q_int_serve``), packed once here;
-    on a CUDA device it runs K6 or raises.
+    ``resident=True`` (ViT family): the encoder runs on the resident kernel
+    K6 (``vit_int.forward_q_int_serve``), packed once here, in the fewest
+    near-equal launches whose scratch stays within
+    ``vit_int.K6_SCRATCH_BYTES``; on a CUDA device it runs K6 or raises.
 
     ``microbatch=m``: the forward runs over chunks of m images, the last
     one zero-padded, and the logits are sliced back to the batch

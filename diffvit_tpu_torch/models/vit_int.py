@@ -44,7 +44,8 @@ from ..ops.int_layernorm import float_layernorm, int_ln_codes
 from ..ops.kernels.attention import (fused_int_attention,
                                      fused_qkv_attention_v2)
 from ..ops.kernels.mlp import fused_int_mlp
-from ..ops.kernels.serve import prepare_resident, resident_codes
+from ..ops.kernels.serve import (prepare_resident, resident_codes,
+                                 scratch_layout)
 from ..ops.lis import log_int_softmax_from_int
 from ..ops.quant import fake_quant, int_matmul
 from ..utils.tracing import span
@@ -598,18 +599,52 @@ def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x, *, tp=None):
         return _head_tail(ip, spec, cfg, h, hc)
 
 
+# The most K6 scratch (``serve.scratch_layout``: 5C + hidden bytes a row)
+# one launch of the resident forward takes: 128 DeiT-S images of 197 rows
+# of 3,456 bytes.  On an H100 a launch of 128 images costs within 2% an
+# image of one of 256, and 64 costs 9% more (PERF.md §6, K6's sweep).  It
+# also keeps every launch far inside K6's 32-bit row indexing, which
+# refuses a launch of about 7,000 DeiT-S images (3,500 DeiT-B).
+K6_SCRATCH_BYTES = 128 * 197 * 3456
+
+
+def even_split(b: int, most: int) -> list[int]:
+    """``b`` images as the fewest launches of at most ``most`` each, their
+    sizes differing by at most one, largest first: 65 at most 64 is
+    [33, 32]."""
+    n = -(-b // most)
+    q, r = divmod(b, n)
+    return [q + 1] * r + [q] * (n - r)
+
+
+def k6_launches(b: int, npad: int, c: int, hid: int,
+                microbatch="scratch") -> list[int]:
+    """The images of each K6 launch of :func:`forward_q_int_serve` for a
+    batch of ``b`` images of ``npad`` rows, width ``c`` and MLP width
+    ``hid`` (its ``microbatch``)."""
+    if microbatch is None:
+        return [b]
+    if microbatch == "scratch":
+        off, row = scratch_layout(npad, c, hid)["hidden"]
+        microbatch = max(1, K6_SCRATCH_BYTES // (off + npad * row))
+    return even_split(b, int(microbatch))
+
+
 def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
-                        packed=None, microbatch=8):
-    """The serving forward whose encoder runs as ONE launch of the resident
-    kernel (``ops/kernels/serve.py``, K6) instead of two kernels and the
-    torch glue per block.  The same logits as :func:`forward_q_int`'s codes
-    path (which this needs: ``prepare_resident`` refuses every other
-    configuration).
+                        packed=None, microbatch="scratch"):
+    """The serving forward whose encoder runs as launches of the resident
+    kernel (``ops/kernels/serve.py``, K6), each the whole encoder for its
+    images, instead of two kernels and the torch glue per block.  The same
+    logits as :func:`forward_q_int`'s codes path (which this needs:
+    ``prepare_resident`` refuses every other configuration).
 
     ``packed``: ``prepare_resident(ip, spec, cfg)``, passed to pack once
-    across calls.  ``microbatch``: batches above it go through the kernel in
-    chunks of that many images (the last one zero-padded), one launch each,
-    with the same result as one launch; None runs any batch in one."""
+    across calls.  ``microbatch``: the most images a launch takes; a batch
+    above it goes through the kernel in the fewest launches of near-equal
+    size (:func:`k6_launches`), with the same result as one launch, since
+    K6 computes each image on its own.  "scratch" (the default): as many
+    as ``K6_SCRATCH_BYTES`` of K6 scratch holds at the model's widths; an
+    int: that many; None: any batch in one launch."""
     if packed is None:
         packed = prepare_resident(ip, spec, cfg)
     with span("dvt.embed"):
@@ -625,12 +660,8 @@ def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
                               nelems=b, lis_wide=lis_wide).reshape(b, N, C)
 
     with span("dvt.encoder"):
-        if microbatch is None or B <= microbatch:
-            out = run(hc)
-        else:
-            pad = (-B) % microbatch
-            hcp = torch.cat([hc, hc.new_zeros((pad, N, C))]) if pad else hc
-            out = torch.cat([run(chunk)
-                             for chunk in hcp.split(microbatch)])[:B]
+        sizes = k6_launches(B, N, C, packed["w1"].shape[2], microbatch)
+        out = run(hc) if len(sizes) == 1 else \
+            torch.cat([run(chunk) for chunk in hc.split(sizes)])
     with span("dvt.head"):
         return _head_tail(ip, spec, cfg, None, out)

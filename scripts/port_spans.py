@@ -24,6 +24,9 @@ One JSON line a cell, with the card's name and power limit:
   ``input_host_ms``, ``call_host_ms``: mean host ms a call;
 * ``k6_barrier_pct`` (resident): block 0's barrier waits over its total,
   summed over the recorded K6 launches (their barrier stamps);
+* ``k6_launches_per_call``, ``images_per_k6_launch`` (resident): from the
+  ``dvt.call`` counters, K6 launches a call and the calls' images over
+  their K6 launches (how the forward cut its batches);
 * ``host_cover_pct`` (offline): the share of the calling thread's seconds
   from the first recorded call's start to the last one's end that
   ``dvt.call``, ``dvt.validate.readback``, ``dvt.validate.score`` and
@@ -182,6 +185,12 @@ def span_metrics(rec, offline):
         ivs = [(s.start_ns, s.end_ns) for s in rec.spans
                if s.name in HOST and s.thread == thread]
         out["host_cover_pct"] = 100.0 * _union_ns(ivs, lo, hi) / (hi - lo)
+    k6 = [c.counters for c in calls
+          if c.counters and c.counters.get("resident_codes")]
+    if k6:
+        launches = sum(c["resident_codes"] for c in k6)
+        out["k6_launches_per_call"] = launches / len(k6)
+        out["images_per_k6_launch"] = sum(c["images"] for c in k6) / launches
     if rec.k6:
         wait = sum(ms["barrier_wait"] for _, ms in rec.k6)
         total = sum(ms["total"] for _, ms in rec.k6)

@@ -264,6 +264,31 @@ def test_resident_forward_on_card_equals_per_kernel(cuda):
     _assert_paths_agree(got.cpu().numpy(), cpu.numpy())
 
 
+@pytest.mark.parametrize("batch,launches", [(1, 1), (50, 1), (256, 2)])
+def test_resident_default_launches_on_card(cuda, batch, launches):
+    """DeiT-S served resident at the forward's default cut (128 images a
+    K6 launch): ``launches`` K6 launches a call, and logits equal bit for
+    bit to one launch (microbatch=None) and to the per-kernel forward on
+    the card."""
+    cfg = QuantConfig()
+    ip_np = random_int_model(DEIT_S, cfg, seed=4)
+    x = np.random.default_rng(batch).integers(
+        -60, 60, (batch, 3, 224, 224)).astype(np.int8)
+    resident = engine.IntModel(ip_np, DEIT_S, cfg, cuda, resident=True)
+    per_kernel = engine.IntModel(ip_np, DEIT_S, cfg, cuda)
+    before = resident_codes.launches
+    got = resident(x).cpu().numpy()
+    assert resident_codes.launches == before + launches
+    with torch.inference_mode():
+        whole = vit_int.forward_q_int_serve(
+            resident.ip, DEIT_S, cfg, torch.tensor(x, device=cuda),
+            packed=resident.packed, microbatch=None)
+    assert resident_codes.launches == before + launches + 1
+    np.testing.assert_array_equal(got, whole.cpu().numpy())
+    np.testing.assert_array_equal(got, per_kernel(x).cpu().numpy())
+    assert np.isfinite(got).all()
+
+
 def _mlp_case(model, rows, cuda):
     """K2's arguments for ``rows`` LN-like codes: a ViT spec's block 0, or
     Swin-T stage ``model`` ("swin0".."swin3": C = 96, 192, 384, 768),

@@ -183,8 +183,8 @@ def test_serve_forward_equals_codes_path_deit_width():
 
 
 def test_serve_microbatch_chunks_equal_one_launch(calibrated, inputs):
-    """B=3 in chunks of 2 (the last zero-padded): one launch per chunk, the
-    same logits as one launch of 3."""
+    """B=3 at most 2 images a launch (launches of 2 and 1, no padding):
+    the same logits as one launch of 3."""
     ip, cfg = _port_model(_baked(calibrated, "default", (4,) * N_SLOTS))
     packed = prepare_resident(ip, PTINY, cfg)
     x = torch.tensor(inputs[0])
@@ -194,6 +194,91 @@ def test_serve_microbatch_chunks_equal_one_launch(calibrated, inputs):
                                           microbatch=2)
     torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
     assert resident_codes.launches == 0  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("b,most", [(1, 64), (50, 64), (64, 64), (65, 64),
+                                    (256, 64), (300, 64), (7, 2), (5, 1)])
+def test_even_split(b, most):
+    """The resident forward's launches: ceil(b / most) of them, each at
+    most ``most``, sizes within one of each other, summing to b (no image
+    padded)."""
+    sizes = vit_int.even_split(b, most)
+    assert sum(sizes) == b
+    assert len(sizes) == -(-b // most)
+    assert max(sizes) <= most and max(sizes) - min(sizes) <= 1
+    assert sizes == sorted(sizes, reverse=True)
+
+
+@pytest.mark.parametrize("name", ["test_tiny", "deit_small", "deit_base"])
+@pytest.mark.parametrize("b", [1, 8, 50, 65, 256, 1000])
+def test_k6_launches_hold_the_scratch_cap(name, b):
+    """The default cut is the fewest launches whose K6 scratch stays within
+    K6_SCRATCH_BYTES at the model's widths (128 DeiT-S images a launch);
+    an int ``microbatch`` cuts at that many images, None makes one
+    launch."""
+    spec = PTINY if name == "test_tiny" else VIT_SPECS[name]
+    n, c, hid = spec.seq_len, spec.embed_dim, spec.hidden_dim
+    per_image = n * (5 * c + hid)
+    sizes = vit_int.k6_launches(b, n, c, hid)
+    assert sizes == vit_int.even_split(b, max(sizes))
+    assert max(sizes) * per_image <= vit_int.K6_SCRATCH_BYTES
+    if len(sizes) > 1:  # one launch fewer would not fit
+        assert -(-b // (len(sizes) - 1)) * per_image \
+            > vit_int.K6_SCRATCH_BYTES
+    if name == "deit_small":
+        assert sizes == vit_int.even_split(b, 128)
+    assert vit_int.k6_launches(b, n, c, hid, microbatch=8) == \
+        vit_int.even_split(b, 8)
+    assert vit_int.k6_launches(b, n, c, hid, microbatch=None) == [b]
+
+
+@pytest.fixture(scope="module")
+def tiny_resident():
+    """TINY's seeded random int4 bake, packed, with int8 input codes of 7
+    images and the logits of each leading batch in one launch."""
+    cfg = QuantConfig()
+    ip = int_model_from_numpy(random_int_model(PTINY, cfg, seed=7), PTINY,
+                              "cpu", cfg)
+    packed = prepare_resident(ip, PTINY, cfg)
+    x = torch.tensor(np.random.default_rng(3).integers(
+        -60, 60, (7, 3, 224, 224)).astype(np.int8))
+    whole = {b: vit_int.forward_q_int_serve(ip, PTINY, cfg, x[:b],
+                                            packed=packed, microbatch=None)
+             for b in (1, 3, 5, 7)}
+    return ip, cfg, packed, x, whole
+
+
+@pytest.mark.parametrize("microbatch", ["default", "default_cap2", 1, 2, 3,
+                                        4])
+@pytest.mark.parametrize("batch", [1, 3, 5, 7])
+def test_serve_launch_sizes_equal_one_launch(tiny_resident, monkeypatch,
+                                             batch, microbatch):
+    """The default cut (and with K6_SCRATCH_BYTES at two TINY images, so
+    that it cuts these batches) and explicit ``microbatch`` values: K6 runs
+    on :func:`vit_int.k6_launches`' sizes, no zero image among them, and
+    the logits equal one launch's bit for bit."""
+    ip, cfg, packed, x, whole = tiny_resident
+    n, c, hid = PTINY.seq_len, PTINY.embed_dim, PTINY.hidden_dim
+    if microbatch == "default_cap2":
+        monkeypatch.setattr(vit_int, "K6_SCRATCH_BYTES",
+                            2 * n * (5 * c + hid))
+    kw = {} if isinstance(microbatch, str) else dict(microbatch=microbatch)
+    launched = []
+
+    def counted(packed, codes, *, nelems, **rest):
+        launched.append(nelems)
+        assert codes.reshape(nelems, n, c).flatten(1).any(1).all()
+        return resident_codes(packed, codes, nelems=nelems, **rest)
+
+    monkeypatch.setattr(vit_int, "resident_codes", counted)
+    got = vit_int.forward_q_int_serve(ip, PTINY, cfg, x[:batch],
+                                      packed=packed, **kw)
+    assert launched == vit_int.k6_launches(batch, n, c, hid, **kw)
+    if microbatch == "default_cap2":
+        assert launched == vit_int.even_split(batch, 2)
+    torch.testing.assert_close(got, whole[batch], rtol=0, atol=0)
+    if batch > 1:
+        assert not torch.equal(got[0], got[-1])
 
 
 def _refusals():
