@@ -17,7 +17,10 @@
             (B = 1, 8, 64); K4 and K4b with the float softmax (lis=False)
             at stage 0 (B = 1, 8, 64) and stages 1-3 (B = 8, 64), on a
             shifted (masked) and an unshifted block each, and K2 emitting
-            float32 at Swin-T's four widths at the same batches;
+            float32 at Swin-T's four widths at the same batches; then
+            ViT-L/16 at 384 px (577 keys, the cores' long rows): K1 and K5
+            at b = 1 and 8 on block 0, K6 at full depth at b = 1 and 16,
+            each bit for bit against its plain version;
 4. serving: for DeiT-S int4, the FQ-ViT DeiT-S int8 (SmoothQuant off: K5
             and K2 emitting float32), DeiT-S int4 served resident (K6 once
             per launch of its default cut, no K1 or K2; its logits must
@@ -35,7 +38,11 @@
             resident phase also prints K6's device time at b = 1, 8, 64,
             128 and
             block 0's ms by step kind from the kernel's barrier stamps
-            (LN, qkv, attention, proj, fc1, fc2, barrier wait);
+            (LN, qkv, attention, proj, fc1, fc2, barrier wait); and
+            ViT-L/16 at 384 px on both routes: resident (K6 at 577 keys)
+            at b = 1 and 16, per kernel (K1 at 577 keys, K2) at b = 8, each
+            request's logits equal to the other route's, with K6's device
+            time and step times at b = 1 and 16;
 5. branches: the other branches of the ViT forward at DeiT-S width, b = 8:
             float (-1) sites, float LayerNorm (PTF off), asymmetric
             activations, the float softmax (K1 with lis=False); launches
@@ -341,6 +348,9 @@ from diffvit_tpu_torch.testing import (alt_kernel_cases, linear_site_cases,
 
 SPEC = VIT_SPECS["deit_small"]  # full width and depth: 384 wide, 12 blocks
 SWIN = SWIN_SPECS["swin_tiny"]  # full width and depth: 96..768, 2/2/6/2
+# ViT-L/16 at 384 px, full width and depth: 577 tokens, 1024 wide, 24 blocks
+VIT_L384 = ViTSpec("vit_large_384", embed_dim=1024, depth=24, num_heads=16,
+                   img_size=384)
 TINY = ViTSpec("test_tiny", embed_dim=64, depth=2, num_heads=2,
                num_classes=10)
 CFG = QuantConfig()  # PTF, LIS, SmoothQuant on; int4 weights
@@ -889,6 +899,31 @@ def phase_kernels(dev, summary):
                       spec=SWIN.name, stage=stage, batch=b),
                  top and (f"{SWIN.name} stage 0 b=64", args, kw),
                  variant="float32_out")
+    kernels_past_256_keys(dev, summary)
+
+
+def kernels_past_256_keys(dev, summary):
+    """ViT-L/16 at 384 px (577 keys, past the 256 a warp's packed scores
+    hold: the cores' long rows): K1 and K5 at b = 1 and 8 on block 0's
+    weights, K6 at full depth at b = 1 and 16 (the resident forward's
+    launch at these widths), each bit for bit against its plain version."""
+    spec = VIT_L384
+    ip_np = random_int_model(spec, CFG, seed=0)
+    ib = ip_np["blocks"][0]
+    for name in ("fused_qkv_attention_v2", "fused_int_attention"):
+        for b in (1, 8):
+            args, kw = kernel_case(name, ib, spec, b, dev)
+            note(summary, name, hold(name, args, kw, "bitwise", iters=5,
+                                     spec=spec.name, batch=b))
+    ip = int_model_from_numpy(ip_np, spec, dev, CFG)
+    packed = prepare_resident(ip, spec, CFG)
+    for b in (1, 16):
+        args = (packed, codes((b * spec.seq_len, spec.embed_dim), b + 11,
+                              dev))
+        kw = dict(n_real=spec.seq_len, bits=4, lis=True, nelems=b)
+        note(summary, "resident_codes",
+             hold("resident_codes", args, kw, "bitwise", iters=3,
+                  spec=spec.name, batch=b))
 
 
 def at_bounds(codes):
@@ -1137,7 +1172,47 @@ def phase_serving_resident(dev, summary):
         if b == K6_IMAGES:
             summary["resident_codes"].update(device_ms=ms,
                                              stamped_ms=steps["total"])
+    serving_past_256_keys(dev)
     return launches
+
+
+def serving_past_256_keys(dev):
+    """ViT-L/16 at 384 px on both routes: resident (K6 at 577 keys, at
+    most 16 images a launch) at b = 1 and 16 and per kernel (K1 at 577
+    keys and K2, 24 of each) at b = 8, each request's logits equal to the
+    other route's bit for bit, both forwards timed; then K6 alone at b = 1
+    and 16: its device time and block 0's ms by step kind."""
+    spec, label = VIT_L384, f"{VIT_L384.name} resident"
+    ip_np = random_int_model(spec, CFG, seed=0)
+    resident = engine.IntModel(ip_np, spec, CFG, dev, resident=True)
+    per_kernel = engine.IntModel(ip_np, spec, CFG, dev)
+    rng = np.random.default_rng(5)
+    per_forward = {"fused_qkv_attention_v2": spec.depth,
+                   "fused_int_mlp": spec.depth}
+    for b, route in ((1, "resident"), (16, "resident"), (8, "kernels")):
+        x = rng.integers(0, 256, (b, 3, spec.img_size, spec.img_size),
+                         dtype=np.uint8)
+        model, other = (resident, per_kernel) if route == "resident" \
+            else (per_kernel, resident)
+        got, _ = drive({"resident_codes": 1} if route == "resident"
+                       else per_forward, lambda: model(x))
+        equal = bool(np.array_equal(got.cpu().numpy(),
+                                    other(x).cpu().numpy()))
+        xc = torch.tensor(model.encode(x), device=dev)
+        emit(phase="resident", model=label, route=route, batch=b,
+             logits_equal_other_route=equal,
+             finite=bool(torch.isfinite(got).all()),
+             forward_ms=cuda_ms(lambda: model(xc), iters=3))
+        if not equal:
+            raise RuntimeError(f"{spec.name} b={b}: the resident and the "
+                               "per-kernel logits differ")
+    for b in (1, 16):
+        x = codes((b * spec.seq_len, spec.embed_dim), b + 11, dev)
+        kw = dict(n_real=spec.seq_len, lis=True, nelems=b)
+        emit(phase="resident", model=label, batch=b,
+             device_ms=device_ms(lambda: resident_codes(resident.packed, x,
+                                                        **kw)),
+             step_ms=resident_step_ms(resident.packed, x, **kw))
 
 
 def phase_branches(dev):

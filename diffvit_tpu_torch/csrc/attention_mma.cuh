@@ -64,6 +64,13 @@
 //    several query tiles, or one head and several windows (attn_plan.py
 //    chooses, so the grid fills the SMs at b = 1 too).  Keys at or past
 //    n_real get weight 0; query rows past npad are not stored.
+//  * Past 256 keys (ViT at 384 px: 577) a warp's packed scores would not
+//    fit beside the keys and values at two blocks an SM (9.7 KB a warp at
+//    577 keys), so attend_rows_long keeps no scores: it computes them
+//    again on each of three passes over the staged keys (the row max, the
+//    exact row sum, then the weights block by block of 32 keys with attn@v
+//    over the whole head width), up to kLongMaxKeys.  The LIS's integral
+//    chain only; the float softmax stops at 256 keys.
 // Every register array is indexed with compile-time indices only (fully
 // unrolled loops with run-time guards), so nothing spills to local memory
 // (the card tests check the footprint).
@@ -79,6 +86,10 @@ namespace dvt {
 namespace amma {
 
 constexpr int kRows = 16;     // query rows a warp: mma.sync's m16
+// keys a row attend_rows_long takes at most (attn_plan.LIS_MAX_KEYS): the
+// most whose keys and values, with the exponential table, leave K6 two
+// blocks an SM
+constexpr int kLongMaxKeys = 768;
 
 // attend_rows' weight rule, one kernel instance each: the float softmax
 // rounded to bfloat16, the Log-Int-Softmax, or probe P5's linear weight
@@ -701,6 +712,184 @@ __device__ __forceinline__ void attend_rows(const RowTile& tile, const uint8_t* 
         tile.out[row * tile.o_row + dd] = clip_i8(rintf(o * a.out_scale));
       }
       __syncwarp();
+    }
+  }
+}
+
+// One warp's 16 query rows against more keys than its packed scores hold
+// (up to kLongMaxKeys), under the LIS: attend_rows' result bit for bit,
+// with no shared memory of the warp's own.  The scores of a key tile of 8
+// (mma.sync and the chain, as attend_rows computes them) are computed
+// again on each of three passes over the staged keys:
+//  1. the row max;
+//  2. the exact row sum of the integer exponentials (int64, or k.wide's two
+//     limbs), looked up in the table as lis_row_quad looks them up;
+//  3. block by block of 32 keys, the weights' plane selectors (lis_shift
+//     against the whole row's sum), then attn@v over the whole head width,
+//     256 * P_hi V + P_lo V added into one int32 accumulator a column (the
+//     exact sum of w * v over the row, below 2^24 at any key count: the
+//     weights 2^-code of a row sum to less than 3).
+// A thread holds 4 * DP / 8 accumulators through pass 3, and a key tile's
+// scores only while it uses them; pass 3 loads the query fragments again
+// for each block of keys, and adds P_lo V into the accumulators on the
+// mma itself.  In K6's two-block instance (96 registers a thread) this
+// spills 40 bytes a thread (the card's footprint).
+template <int DP, class Chain>
+__device__ __forceinline__ void attend_rows_long(const RowTile& tile, const uint8_t* kv,
+                                                 const KvGeom& g, const SoftArgs& a,
+                                                 const Chain& chain) {
+  static_assert(Chain::kIntegral && !Chain::template Scores<4>::kLoaded,
+                "the long rows take computed int8 codes (every x in the table)");
+  constexpr int KC = DP / 32;  // k chunks of the scores
+  constexpr int NT = DP / 8;   // n tiles of attn@v
+  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const uint32_t* const k = reinterpret_cast<const uint32_t*>(kv);
+  const uint32_t* const vt = reinterpret_cast<const uint32_t*>(kv + g.keys_pad * g.k_pitch());
+  const int kw = g.k_pitch() / 4, vw = g.v_pitch() / 4;
+  const int n = a.n_real, key_tiles = (n + 7) / 8;
+  const ExpLookup<true> exp{a.exp};
+
+  // the query fragments: rows gq and gq + 8, D bytes 4t.. and 16 + 4t..
+  uint32_t qa[KC][4];
+  const auto load_q = [&]() {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = gq + 8 * (i & 1), col = 32 * kc + 16 * (i >> 1) + 4 * t;
+        qa[kc][i] =
+            row < tile.rows && col < a.d ? load_word(tile.q + row * tile.q_row + col) : 0u;
+      }
+  };
+  load_q();
+  // the chain's values of key tile j: v[i] of row gq + 8 * (i >> 1) and key
+  // 8j + 2t + (i & 1) (rows of K past n_real are staged zero)
+  const auto scores = [&](int j, float (&v)[4]) {
+    int acc[4] = {0, 0, 0, 0};
+    const uint32_t* kr = k + (8 * j + gq) * kw + t;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) mma_s8(acc, qa[kc], kr[8 * kc], kr[8 * kc + 4]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = chain(acc[i], gq + 8 * (i >> 1), 8 * j + 2 * t + (i & 1));
+  };
+
+  // 1. the row max
+  float row_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll 2
+  for (int j = 0; j < key_tiles; ++j) {
+    float v[4];
+    scores(j, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (8 * j + 2 * t + (i & 1) < n) row_max[i >> 1] = fmaxf(row_max[i >> 1], v[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_max[r] = fmaxf(row_max[r], __shfl_xor_sync(0xffffffffu, row_max[r], 1));
+    row_max[r] = fmaxf(row_max[r], __shfl_xor_sync(0xffffffffu, row_max[r], 2));
+  }
+
+  // 2. the exact row sum
+  float exp_sum[2];
+  if (a.exp.k.wide) {
+    long long hi[2] = {0, 0}, lo[2] = {0, 0};
+#pragma unroll 2
+    for (int j = 0; j < key_tiles; ++j) {
+      float v[4];
+      scores(j, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (8 * j + 2 * t + (i & 1) < n)
+          wide_add(hi[i >> 1], lo[i >> 1], exp.e(v[i], row_max[i >> 1]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        hi[r] += __shfl_xor_sync(0xffffffffu, hi[r], o);
+        lo[r] += __shfl_xor_sync(0xffffffffu, lo[r], o);
+      }
+      exp_sum[r] = wide_to_float(hi[r], lo[r]);
+    }
+  } else {
+    long long part[2] = {0, 0};
+#pragma unroll 2
+    for (int j = 0; j < key_tiles; ++j) {
+      float v[4];
+      scores(j, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (8 * j + 2 * t + (i & 1) < n) part[i >> 1] += exp.ei(v[i], row_max[i >> 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
+      exp_sum[r] = static_cast<float>(part[r]);
+    }
+  }
+
+  // 3. the weights and attn@v, a block of 32 keys at a time: the selector
+  // words of the A fragment, (row gq, keys 0-15), (gq + 8, 0-15), (gq,
+  // 16-31), (gq + 8, 16-31), as attend_rows reads them from its buffer
+  int acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0;
+  const int blocks = (n + 31) / 32;
+#pragma unroll 1
+  for (int kb = 0; kb < blocks; ++kb) {
+    load_q();
+    uint32_t sel[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * kb + q;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (j < key_tiles) scores(j, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const int s = 8 * j + 2 * t + (i & 1) < n
+                          ? lis_shift(exp_sum[r], exp.e(v[i], row_max[r]), a.exp.k)
+                          : kLisZero;
+        sel[2 * (q >> 1) + r] |= plane_selectors(s, 2 * (q & 1) + (i & 1));
+      }
+    }
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) weight_planes(sel[x], ph[x], pl[x]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (8 * nt < a.d) {
+        const uint32_t* vr = vt + (8 * nt + gq) * vw + 8 * kb + t;
+        int hi[4] = {0, 0, 0, 0};
+        mma_u8s8(hi, ph, vr[0], vr[4]);
+        mma_u8s8(acc[nt], pl, vr[0], vr[4]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] += hi[i] * 256;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    // the thread's two columns of the n tile; past D they are not stored
+    if (8 * nt + 2 * t < a.d) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = gq + 8 * r;
+        if (row < tile.rows) {
+          int8_t c[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float o = static_cast<float>(acc[nt][2 * r + e]) * 0x1p-15f;
+            c[e] = clip_i8(rintf(o * a.out_scale));
+          }
+          *reinterpret_cast<uint16_t*>(tile.out + row * tile.o_row + 8 * nt + 2 * t) =
+              static_cast<uint16_t>(static_cast<uint8_t>(c[0]) | static_cast<uint8_t>(c[1]) << 8);
+        }
+      }
     }
   }
 }

@@ -165,8 +165,8 @@ extern "C" const char* dvt_error_string(int err) {
 // [s_a, c1, 1/s1, s1/s2] on the device; qkv: (B, Npad, 3C) int8 scratch;
 // out: (B, H, Npad, D) int8.  lis: 1 for the LIS, 2 for the LIS with the
 // 128-bit row sum (lis.cuh's kLisWide), 0 for the bfloat16 float softmax.  bm .. grid: gemm_plan's; a_*: attention_plan's.  Requires
-// n_real <= min(npad, 256), D <= 64, D % 4 == 0 (checked by the Python
-// wrapper).
+// n_real <= min(npad, 256) for the float softmax and min(npad, 768) for
+// the LIS, D <= 64, D % 4 == 0 (checked by the Python wrapper).
 extern "C" int dvt_qkv_attention(const void* x, const void* wk, const void* mb,
                                  const void* scalars, void* qkv, void* out, int batch,
                                  int npad, int kp, int heads, int d, int n_real, int lis,
@@ -220,8 +220,8 @@ extern "C" int dvt_attention_block(const void* x, const void* h, const void* wk,
 // [c1, s1/s2, s_a] on the device; out: int8, element (image, head, row, d)
 // at image*so_i + head*so_h + row*so_r + d.  lis: 1 for the slow LIS, 2 for
 // it with the 128-bit row sum, 0 for the bfloat16 float softmax.  a_*: attention_plan's.  Requires n_real <=
-// min(npad, 256), D <= 64, D % 4 == 0, every qkv stride a multiple of 4
-// (checked by the wrapper).
+// min(npad, 256) (the LIS: 768), D <= 64, D % 4 == 0, every qkv stride a
+// multiple of 4 (checked by the wrapper).
 extern "C" int dvt_int_attention(const void* qkv, const void* scalars, void* out, int batch,
                                  int heads, int npad, int d, int n_real, int lis,
                                  long long sq_i, long long sq_s, long long sq_h,

@@ -6,8 +6,9 @@
 // w = a * 2^-7, so that K1's time minus P5's is the LIS step alone.
 //
 // The core's instance is chosen by the keys (224 or 256 at most: 7 or 8
-// blocks of attn@v), the head width (32 or 64 at most) and the weight
-// rule (attention_mma.cuh's Weight); the entries pass the plan of
+// blocks of attn@v; past 256, the LIS alone, attend_rows_long up to
+// kLongMaxKeys), the head width (32 or 64 at most) and the weight rule
+// (attention_mma.cuh's Weight); the entries pass the plan of
 // ops/kernels/attn_plan.attention_plan, which launch_core checks.
 #pragma once
 
@@ -25,12 +26,14 @@ using amma::Weight;
 
 constexpr int kMaxKB = 8;     // 256 keys (attention.py's MAX_KEYS)
 constexpr int kMidKB = 7;     // 224 keys (DeiT's 197): 7 blocks of attn@v, not 8
+constexpr int kLongKB = 0;    // past 256 keys: attend_rows_long, no packed scores
 constexpr int kQkvWarps = 7;  // warps a block at most (attn_plan.QKV_MAX_WARPS)
 // a warp's shared memory: its packed scores (the LIS, the linear rule) or
 // the float softmax's buffers
 constexpr int kCodeBytes = amma::PackedScores<8 * kMaxKB>::kBytes;
 
-__host__ __device__ inline int warp_scratch(Weight w) {
+__host__ __device__ inline int warp_scratch(Weight w, int n_real) {
+  if (n_real > 32 * kMaxKB) return 0;  // attend_rows_long keeps no scores
   return w != Weight::kSoftmax ? kCodeBytes : amma::soft_bytes(32 * kMaxKB, 1);
 }
 
@@ -45,9 +48,12 @@ struct AttnPlan {
 // blocks an SM, because its chain is latency-bound and wants the warps:
 // at most 80 registers a thread (a 7-warp block's registers are allocated
 // as 8 warps'); the float softmax's double sums take more.  The linear
-// rule takes the LIS's footprint and no exponential table.
+// rule takes the LIS's footprint and no exponential table.  Past 256 keys
+// (MaxKB kLongKB, the LIS only) two blocks an SM: the keys and values of
+// 577 take 88 KB.
 template <int MaxKB, int DP, Weight W>
-__global__ void __launch_bounds__(kQkvWarps * 32, W == Weight::kSoftmax ? 1 : 3)
+__global__ void __launch_bounds__(kQkvWarps * 32,
+                                  W == Weight::kSoftmax ? 1 : (MaxKB == kLongKB ? 2 : 3))
     qkv_core_kernel(const int8_t* __restrict__ qkv, CoreScalars sc,
                     int8_t* __restrict__ out, int npad, int d, int n_real, int lis_fast,
                     int lis_wide, Strides st, int tiles) {
@@ -67,7 +73,7 @@ __global__ void __launch_bounds__(kQkvWarps * 32, W == Weight::kSoftmax ? 1 : 3)
   const amma::SoftArgs a{n_real, d, et, s_a, *sc.s1_over_s2};
   const amma::QkvChain chain{*sc.c1, 0.f};
   const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  uint8_t* scratch = kv + g.bytes() + warp * warp_scratch(W);
+  uint8_t* scratch = kv + g.bytes() + warp * warp_scratch(W, n_real);
   int8_t* out_bh = out + b * st.o_image + h * st.o_head;
   const int q_tiles = (npad + amma::kRows - 1) / amma::kRows;
   const int t1 = min((bx + 1) * tiles, q_tiles);
@@ -75,24 +81,30 @@ __global__ void __launch_bounds__(kQkvWarps * 32, W == Weight::kSoftmax ? 1 : 3)
     const int q0 = tile * amma::kRows;
     const amma::RowTile rt{base + q0 * st.q_row, st.q_row, out_bh + q0 * st.o_row, st.o_row,
                            min(amma::kRows, npad - q0)};
-    amma::attend_rows<MaxKB, DP, W>(rt, kv, g, a, chain, scratch);
+    if constexpr (MaxKB == kLongKB)
+      amma::attend_rows_long<DP>(rt, kv, g, a, chain);
+    else
+      amma::attend_rows<MaxKB, DP, W>(rt, kv, g, a, chain, scratch);
   }
 }
 
 // Dynamic shared memory the core needs (attn_plan.py's core_smem).
 inline int core_smem(int n_real, int d, Weight w, int warps) {
   return amma::kExpBytes + amma::kv_geom(n_real, d, w != Weight::kSoftmax).bytes() +
-         warps * warp_scratch(w);
+         warps * warp_scratch(w, n_real);
 }
 
 using CoreKernel = void (*)(const int8_t*, CoreScalars, int8_t*, int, int, int, int, int,
                            Strides, int);
 
-// The core's instance for n_real keys (224 or 256 at most) and head width
-// d (32 or 64 at most).
+// The core's instance for n_real keys (224 or 256 at most; past 256, the
+// LIS's long rows) and head width d (32 or 64 at most).
 template <Weight W>
 inline CoreKernel core_kernel(int n_real, int d) {
   const bool mid = n_real <= 32 * kMidKB, narrow = d <= 32;
+  if constexpr (W == Weight::kLis)
+    if (n_real > 32 * kMaxKB)
+      return narrow ? qkv_core_kernel<kLongKB, 32, W> : qkv_core_kernel<kLongKB, 64, W>;
   return mid ? (narrow ? qkv_core_kernel<kMidKB, 32, W> : qkv_core_kernel<kMidKB, 64, W>)
              : (narrow ? qkv_core_kernel<kMaxKB, 32, W> : qkv_core_kernel<kMaxKB, 64, W>);
 }
@@ -107,7 +119,7 @@ inline cudaError_t launch_core(const int8_t* qkv, CoreScalars sc, int8_t* out, i
   const int q_tiles = (npad + amma::kRows - 1) / amma::kRows;
   if (p.warps < 1 || p.warps > kQkvWarps || p.tiles < 1 ||
       p.split * p.tiles < q_tiles || p.smem < core_smem(n_real, d, W, p.warps) ||
-      n_real > 32 * kMaxKB || d > 64)
+      n_real > (W == Weight::kLis ? amma::kLongMaxKeys : 32 * kMaxKB) || d > 64)
     return cudaErrorInvalidValue;
   const CoreKernel kernel = core_kernel<W>(n_real, d);
   cudaError_t err = amma::allow_smem(reinterpret_cast<const void*>(kernel), p.smem);

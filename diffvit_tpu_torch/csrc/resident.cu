@@ -20,7 +20,7 @@
 // many as the largest step has work items and the card holds at once:
 // one an SM up to 256 rows (b = 1), where the GEMM ring's 8 stages take
 // most of the shared memory; past 256 rows two an SM (the instance with
-// __launch_bounds__(288, 2): 112 registers a thread, a ring of 4 stages),
+// __launch_bounds__(288, 2): 96 registers a thread, a ring of 4 stages),
 // because the attention and the GEMM epilogues are latency-bound and want
 // the warps: one block of 12 warps gave the attention 5-7 busy warps an
 // SM at b = 8 and 64 and the epilogues 8, against K1's 15-21 and K2's 16,
@@ -43,7 +43,11 @@
 //     runs attend_rows on a tile (an item has at most 7), and the warps
 //     past the item's tiles only stage.  The LIS exponential table
 //     (fill_exp_table) is refilled each layer from its softmax scale ->
-//     act scratch, in the (row, head*D) layout the proj reads
+//     act scratch, in the (row, head*D) layout the proj reads.  Past 256
+//     keys (ViT-L at 384 px: 577) a warp's packed scores would not fit
+//     beside the keys and values at two blocks an SM: the instance
+//     resident_kernel<2, true> runs attend_rows_long, which keeps none, up
+//     to kLongMaxKeys (the LIS only)
 //  4. proj GEMM tiles; the epilogue ProjFenceOut runs the qact3, residual
 //     and qact2 fences -> hc2 scratch
 //  5. LN2 with the rescale, one warp a row -> act scratch
@@ -110,11 +114,11 @@ constexpr int kVInScale = 0, kVLn1Mask = 1, kVLn1W = 2, kVLn1B = 3, kVLn1Out = 4
 constexpr int kSSa = 0, kSC1 = 1, kSS1OverS2 = 2, kSM1Inv = 3, kSLn1Min = 4,
               kSLn2Min = 5, kNS = 6;
 // two consumer warpgroups and a producer warp (gemm_tiles' ProducerLast
-// layout): 112 registers a thread at two blocks an SM
+// layout): 96 registers a thread at two blocks an SM
 constexpr int kThreads = 288;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;  // every GEMM step's output tile: kTile x kTile
-constexpr int kMaxKB = 8;               // 256 keys a row (attention.py's MAX_KEYS)
+constexpr int kMaxKB = 8;               // 256 keys a row (attn_plan.QKV_MAX_KEYS)
 constexpr int kDP = 64;                 // the head width, zero-padded to 64
 constexpr float kStdFloor = 1e-37f;
 // a warp's attention scratch: its packed scores (the LIS) or the float
@@ -141,14 +145,16 @@ struct Maps {
 
 // The attention part of the dynamic shared memory, past the ring's
 // barriers: the exponential table, one (image, head)'s keys and values and
-// each warp's scratch (resident_plan's attn_smem).
+// each warp's scratch, none past 256 keys (resident_plan's attn_smem).
 __host__ __device__ amma::KvGeom kv_geom(int n_real, int lis) {
   return amma::KvGeom{(n_real + 31) / 32 * 32, kDP, lis == 0};
 }
 
+bool long_keys(int n_real) { return n_real > 32 * kMaxKB; }
+
 int attn_smem(int n_real, int lis) {
   return wg::kBarrierBytes + amma::kExpBytes + kv_geom(n_real, lis).bytes() +
-         kWarps * (lis ? kLisScratch : kSoftScratch);
+         (long_keys(n_real) ? 0 : kWarps * (lis ? kLisScratch : kSoftScratch));
 }
 
 // A block that waits longer than this many clock cycles (~17 s at the H100's
@@ -336,8 +342,8 @@ __device__ __forceinline__ void ln_step(const Params& p, int l, bool second) {
 // Step 3: every (image, head, run of a_tiles query tiles) item of this
 // block: the block's threads stage the head's keys and values, then warp
 // w takes the item's tiles w, w + kWarps, ...  `attn`: the attention part
-// of the shared memory.
-template <bool Lis>
+// of the shared memory.  Long: past 256 keys (the LIS), no warp scratch.
+template <bool Lis, bool Long>
 __device__ __forceinline__ void attention_items(const Params& p, int l, uint8_t* attn) {
   const int c = p.c, c3 = 3 * c;
   const float* s = p.scal + l * kNS;
@@ -366,8 +372,11 @@ __device__ __forceinline__ void attention_items(const Params& p, int l, uint8_t*
       const amma::RowTile rt{base + (size_t)q0 * c3, c3,
                              p.act + ((size_t)b * p.npad + q0) * c + h * p.d, c,
                              min(amma::kRows, p.npad - q0)};
-      amma::attend_rows<kMaxKB, kDP, Lis ? amma::Weight::kLis : amma::Weight::kSoftmax>(
-          rt, kv, g, a, chain, scratch);
+      if constexpr (Long)
+        amma::attend_rows_long<kDP>(rt, kv, g, a, chain);
+      else
+        amma::attend_rows<kMaxKB, kDP, Lis ? amma::Weight::kLis : amma::Weight::kSoftmax>(
+            rt, kv, g, a, chain, scratch);
     }
   }
 }
@@ -381,8 +390,8 @@ __device__ __forceinline__ void step_barrier(const Params& p, int l, int step) {
 }
 
 // B: blocks an SM (1, or 2 past 256 rows where the plan's footprint
-// admits them).
-template <int B>
+// admits them); Long: more than 256 keys (then B is 2: the rows pass 256).
+template <int B, bool Long>
 __global__ void __launch_bounds__(kThreads, B)
     resident_kernel(const __grid_constant__ Maps maps, const Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -403,10 +412,12 @@ __global__ void __launch_bounds__(kThreads, B)
                  dvt::QkvOut{p.mb + (size_t)l * 2 * c3, p.qkv, c3, nullptr}, pos);
     step_barrier(p, l, 1);
 
-    if (p.lis)  // 3. attention
-      attention_items<true>(p, l, smem + wg::kBarrierBytes);
+    if constexpr (Long)  // 3. attention
+      attention_items<true, true>(p, l, smem + wg::kBarrierBytes);
+    else if (p.lis)
+      attention_items<true, false>(p, l, smem + wg::kBarrierBytes);
     else
-      attention_items<false>(p, l, smem + wg::kBarrierBytes);
+      attention_items<false, false>(p, l, smem + wg::kBarrierBytes);
     step_barrier(p, l, 2);
 
     gemm_step(p, smem, &maps.act, &maps.wproj, c, c, l * c,  // 4. proj + fences
@@ -430,9 +441,10 @@ __global__ void __launch_bounds__(kThreads, B)
   }
 }
 
-const void* kernel(int blocks) {
-  return blocks == 2 ? reinterpret_cast<const void*>(resident_kernel<2>)
-                     : reinterpret_cast<const void*>(resident_kernel<1>);
+const void* kernel(int blocks, int n_real) {
+  if (long_keys(n_real)) return reinterpret_cast<const void*>(resident_kernel<2, true>);
+  return blocks == 2 ? reinterpret_cast<const void*>(resident_kernel<2, false>)
+                     : reinterpret_cast<const void*>(resident_kernel<1, false>);
 }
 
 }  // namespace
@@ -447,9 +459,10 @@ const void* kernel(int blocks) {
 // unsigned; stamps: null, or 1 + 14 * depth zeroed uint64 (step times).
 // lis: 1 for the LIS, 2 for the LIS with the 128-bit row sum (lis.cuh's
 // kLisWide), 0 for the bfloat16 float softmax.  stages .. a_split:
-// serve.resident_plan's.  Requires n_real <= min(npad, 256), D <= 64,
-// D % 4 == 0, C and hid multiples of 64 (checked by the Python wrapper;
-// the plan's checks again here).
+// serve.resident_plan's.  Requires n_real <= min(npad, 256) (the LIS:
+// min(npad, 768), at two blocks an SM past 256), D <= 64, D % 4 == 0, C
+// and hid multiples of 64 (checked by the Python wrapper; the plan's
+// checks again here).
 extern "C" int dvt_resident_codes(const void* x, void* out, const void* wqkv,
                                   const void* wproj, const void* w1, const void* w2,
                                   const void* mb, const void* vec, const void* vhid,
@@ -465,7 +478,8 @@ extern "C" int dvt_resident_codes(const void* x, void* out, const void* wqkv,
       smem < wg::smem_bytes(kTile, kTile, stages) || smem < attn_smem(n_real, lis) ||
       a_tiles < 1 || a_tiles > kWarps || a_split * a_tiles < q_tiles || grid < 1 ||
       blocks < 1 || blocks > 2 || nelems < 1 || n_real < 1 || n_real > npad ||
-      n_real > 32 * kMaxKB || d > kDP || d % 4 != 0 || heads * d != c ||
+      n_real > (lis ? amma::kLongMaxKeys : 32 * kMaxKB) ||
+      (long_keys(n_real) && blocks != 2) || d > kDP || d % 4 != 0 || heads * d != c ||
       (long long)rows * (3 * c > hid ? 3 * c : hid) >= (1ll << 31))
     return cudaErrorInvalidValue;
 
@@ -478,9 +492,10 @@ extern "C" int dvt_resident_codes(const void* x, void* out, const void* wqkv,
   // refused here rather than by cudaFuncSetAttribute, whose error the
   // next launch's cudaGetLastError would report again
   if (smem > optin) return cudaErrorInvalidValue;
-  err = dvt::amma::allow_smem(kernel(blocks), smem);
+  const void* const k6 = kernel(blocks, n_real);
+  err = dvt::amma::allow_smem(k6, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel(blocks), kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k6, kThreads, smem);
   if (err != cudaSuccess) return err;
   // the plan's blocks an SM must be resident at once, as must the grid
   if (per_sm < blocks || grid > blocks * sms) return cudaErrorCooperativeLaunchTooLarge;
@@ -513,18 +528,18 @@ extern "C" int dvt_resident_codes(const void* x, void* out, const void* wqkv,
            depth, nelems, npad, n_real, c, hid, heads, d, lis, lis_fast,
            stages, a_tiles, a_split};
   void* args[] = {&maps, &p};
-  err = cudaLaunchCooperativeKernel(kernel(blocks), dim3(static_cast<unsigned>(grid)), dim3(kThreads),
+  err = cudaLaunchCooperativeKernel(k6, dim3(static_cast<unsigned>(grid)), dim3(kThreads),
                                     args, static_cast<size_t>(smem),
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// The footprint of K6's instance for `blocks` blocks an SM at `smem` bytes
-// of dynamic shared memory: registers and local memory (spills) a thread,
-// shared memory a block, blocks an SM.
-extern "C" int dvt_resident_footprint(int blocks, int smem, int* registers, int* local_bytes,
-                                      int* smem_bytes, int* blocks_per_sm) {
-  return dvt::amma::footprint(kernel(blocks), kWarps, smem, registers, local_bytes, smem_bytes,
-                              blocks_per_sm);
+// The footprint of K6's instance for `blocks` blocks an SM and n_real keys
+// at `smem` bytes of dynamic shared memory: registers and local memory
+// (spills) a thread, shared memory a block, blocks an SM.
+extern "C" int dvt_resident_footprint(int blocks, int n_real, int smem, int* registers,
+                                      int* local_bytes, int* smem_bytes, int* blocks_per_sm) {
+  return dvt::amma::footprint(kernel(blocks, n_real), kWarps, smem, registers, local_bytes,
+                              smem_bytes, blocks_per_sm);
 }

@@ -43,6 +43,7 @@ from ..ops.bit_types import BIT_TYPE_DICT
 from ..ops.int_layernorm import float_layernorm, int_ln_codes
 from ..ops.kernels.attention import (fused_int_attention,
                                      fused_qkv_attention_v2)
+from ..ops.kernels.attn_plan import key_tiles
 from ..ops.kernels.mlp import fused_int_mlp
 from ..ops.kernels.serve import (prepare_resident, resident_codes,
                                  scratch_layout)
@@ -589,7 +590,9 @@ def forward_q_int(ip, spec: ViTSpec, cfg: QuantConfig, x, *, tp=None):
     bc = ip["bit_config"]
     sym_acts = bool(ip.get("sym_acts", False))
     hc = None
-    with span("dvt.encoder"):
+    with span("dvt.encoder") as enc:
+        if enc is not None:
+            enc.count("attn_key_tiles", key_tiles(spec.seq_len))
         for i, ib in enumerate(ip["blocks"]):
             in_scale = ip["qact1"]["scale"] if i == 0 \
                 else ip["blocks"][i - 1]["qact4"]["scale"]
@@ -659,7 +662,9 @@ def forward_q_int_serve(ip, spec: ViTSpec, cfg: QuantConfig, x, *,
                               bits=cfg.bit_s.bits, lis=cfg.lis,
                               nelems=b, lis_wide=lis_wide).reshape(b, N, C)
 
-    with span("dvt.encoder"):
+    with span("dvt.encoder") as enc:
+        if enc is not None:
+            enc.count("attn_key_tiles", key_tiles(N))
         sizes = k6_launches(B, N, C, packed["w1"].shape[2], microbatch)
         out = run(hc) if len(sizes) == 1 else \
             torch.cat([run(chunk) for chunk in hc.split(sizes)])

@@ -47,12 +47,10 @@ from ..lis import (_B, _C, _X0, LIS_MIN_SCALE, int_exp,  # noqa: F401
                    lis_sum_fits, lis_tail_plain, wide_row_sum)
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
-from .attn_plan import attention_plan
+from .attn_plan import attention_plan, require_keys
 from .build import check, load_library
 from .gemm import (TMA_ALIGN, device_plan, gemm_footprint, kmajor, pad_k,
                    per_weight, require_tma_operand, round_up, sm_count)
-
-MAX_KEYS = 256  # keys per head the kernel keeps in shared memory
 
 
 def lis_fast_ok(scale_value: float) -> bool:
@@ -206,8 +204,7 @@ def _launch_qkv(x_i8, wk, mb, scalars, *, num_heads, head_dim, n_real, lis,
     check_for_kernel(scalars, "scalars", torch.float32, 1)
     require(b * npad > 0, f"{what}: empty input {tuple(x_i8.shape)}")
     require(scalars.numel() == 4, "scalars must hold [s_a, c1, 1/s1, s1/s2]")
-    require(0 < n_real <= min(npad, MAX_KEYS),
-            f"n_real={n_real}: the kernel takes 1..min(Npad, {MAX_KEYS}) keys")
+    require_keys(n_real, npad, lis)
     require(head_dim <= 64 and head_dim % 4 == 0,
             f"head_dim={head_dim}: the kernel takes multiples of 4 up to 64")
     c3 = 3 * num_heads * head_dim
@@ -492,8 +489,7 @@ def fused_int_attention(qkv_i8, scalars, *, num_heads, n_real, bits=4,
             f"(B, 3, {num_heads}, N, D)")
     check_for_kernel(scalars, "scalars", torch.float32, 1)
     require(scalars.numel() == 3, "scalars must hold [c1, s1/s2, s_a]")
-    require(0 < n_real <= min(npad, MAX_KEYS),
-            f"n_real={n_real}: the kernel takes 1..min(N, {MAX_KEYS}) keys")
+    require_keys(n_real, npad, lis)
     require(d <= 64 and d % 4 == 0,
             f"head_dim={d}: the kernel takes multiples of 4 up to 64")
     st = qkv_i8.stride()
@@ -580,8 +576,7 @@ def fused_attention_block(x_i8, h, wq, wk, wv, wp, mult, bias, pvec, scalars,
     require(b * npad > 0, f"fused_attention_block: empty input "
             f"{tuple(x_i8.shape)}")
     require(scalars.numel() == 4, "scalars must hold [s_a, c1, 1/s1, s1/s2]")
-    require(0 < n_real <= min(npad, MAX_KEYS),
-            f"n_real={n_real}: the kernel takes 1..min(Npad, {MAX_KEYS}) keys")
+    require_keys(n_real, npad, lis)
     require(d <= 64 and d % 4 == 0,
             f"head_dim={d}: the kernel takes multiples of 4 up to 64")
     kp = wkm.shape[1]

@@ -15,6 +15,11 @@ that K1, K5, K7a and K8 (``attention.py``) and K4/K4b
   :func:`weight_planes` the two u8 planes of a LIS weight, the layout and
   the split that attn@v runs on the tensor cores; the CPU tests hold their
   arithmetic against the plain versions.
+* :func:`max_keys` is the most keys a row the qkv-attention core (K1, K5,
+  K7a, K8) and K6's attention step take, the one limit every wrapper's
+  check reads: ``QKV_MAX_KEYS`` for the float softmax, ``LIS_MAX_KEYS``
+  for the LIS, whose rows past ``QKV_MAX_KEYS`` keep no packed scores
+  (``attend_rows_long``) and take :func:`key_tiles` passes over the keys.
 
 The shared-memory sizes here are the kernels' own (``KvGeom``,
 ``soft_bytes``, ``core_smem``, ``swin_smem``), which refuse a plan that
@@ -34,7 +39,8 @@ SWIN_MAX_WARPS = 8    # warps a Swin block (kSwinWarps)
 QKV_MAX_WARPS = 7     # warps a qkv block: three blocks an SM (kQkvWarps)
 MIN_WARPS = 4         # warps a qkv block stages its keys and values with
 ROWS = 16             # query rows a warp: mma.sync's m16
-QKV_MAX_KEYS = 256    # keys a row the qkv core holds (attention.py's MAX_KEYS)
+QKV_MAX_KEYS = 256    # keys a row whose packed scores a warp holds
+LIS_MAX_KEYS = 768    # keys a row the LIS takes (amma::kLongMaxKeys)
 SWIN_MAX_KEYS = 64    # keys a row the Swin core holds
 MAX_WINDOWS = 4       # windows of one head a Swin LIS block takes at most
 EXP_BYTES = 3088      # the LIS exponential table a block (amma::kExpBytes)
@@ -58,6 +64,38 @@ def weight_planes(w: torch.Tensor):
     return (w >> 8).to(torch.uint8), (w & 255).to(torch.uint8)
 
 
+def max_keys(lis: bool) -> int:
+    """The most keys a row the qkv-attention core and K6 take: 256 for the
+    float softmax, whose per-warp buffers hold a row; 768 for the LIS,
+    whose rows past 256 keys are computed again on each pass rather than
+    kept (``attend_rows_long``), so that only the keys and values bound
+    them: 768 is the most at which they leave K6 two blocks an SM."""
+    return LIS_MAX_KEYS if lis else QKV_MAX_KEYS
+
+
+def require_keys(n_real: int, npad: int, lis: bool) -> None:
+    """ValueError unless 0 < ``n_real`` <= min(``npad``,
+    :func:`max_keys`)."""
+    most = max_keys(lis)
+    require(0 < n_real <= min(npad, most),
+            f"n_real={n_real}: the kernel takes 1..min(npad, {most}) keys "
+            f"with {'the LIS' if lis else 'the float softmax'}")
+
+
+def long_keys(n_real: int) -> bool:
+    """Whether a row of ``n_real`` keys takes the long rows
+    (``attend_rows_long``: no packed scores)."""
+    return n_real > QKV_MAX_KEYS
+
+
+def key_tiles(n_real: int) -> int:
+    """The passes a row's scores make over its keys, each a score tile of
+    16 rows by every key: 1 up to 256 keys (the scores are computed once
+    and kept in the warp's buffer), 3 past (computed again for the row
+    max, the exact row sum, then the weights and attn@v)."""
+    return 3 if long_keys(n_real) else 1
+
+
 def kv_bytes(n_real: int, d: int, lis: bool = True) -> int:
     """Shared memory of one (image or window, head)'s keys and values
     (``amma::KvGeom``): K as keys_pad rows of DP + 16 bytes, V^T as DP rows
@@ -75,12 +113,20 @@ def soft_bytes(max_keys: int, value_bytes: int) -> int:
     return ROWS * max_keys * value_bytes + max_keys * 4
 
 
+def warp_bytes(n_real: int, lis: bool) -> int:
+    """A warp's shared memory in the qkv-attention core and K6: its packed
+    scores (the LIS), none past 256 keys, or the float softmax's buffers
+    (int8 scores)."""
+    if long_keys(n_real):
+        return 0
+    return CODE_BYTES if lis else soft_bytes(QKV_MAX_KEYS, 1)
+
+
 def core_smem(n_real: int, d: int, lis: bool, warps: int) -> int:
     """Dynamic shared memory of the qkv-attention core: the exponential
-    table, the keys and values, and each warp's packed scores (the LIS) or
-    float-softmax buffers (int8 scores)."""
-    return EXP_BYTES + kv_bytes(n_real, d, lis) + warps * (
-        CODE_BYTES if lis else soft_bytes(QKV_MAX_KEYS, 1))
+    table, the keys and values, and each warp's :func:`warp_bytes`."""
+    return EXP_BYTES + kv_bytes(n_real, d, lis) + warps * warp_bytes(n_real,
+                                                                     lis)
 
 
 def swin_smem(npad: int, n_real: int, d: int, lis: bool, warps: int,
@@ -126,8 +172,7 @@ def attention_plan(batch: int, heads: int, npad: int, d: int, n_real: int,
     every tile its own block, four warps of which one computes)."""
     require(batch > 0 and heads > 0 and npad > 0,
             f"empty attention: batch {batch}, heads {heads}, npad {npad}")
-    require(0 < n_real <= min(npad, QKV_MAX_KEYS),
-            f"n_real={n_real}: the core takes 1..min(npad, {QKV_MAX_KEYS})")
+    require_keys(n_real, npad, lis)
     require(d <= 64 and d % 4 == 0,
             f"head_dim={d}: the core takes multiples of 4 up to 64")
     q_tiles = -(-npad // ROWS)

@@ -72,7 +72,7 @@ ENTRIES = {
     + (_P,),
     "dvt_swin_attention_footprint": (_I,) * 4 + (_P,) * 4,
     "dvt_resident_codes": (_P,) * 14 + (_I,) * 16 + (_P,),
-    "dvt_resident_footprint": (_I,) * 2 + (_P,) * 4,
+    "dvt_resident_footprint": (_I,) * 3 + (_P,) * 4,
 }
 # the probes of ``diffvit_tpu_torch/probes`` (csrc/probes/*.cu)
 PROBE_ENTRIES = {

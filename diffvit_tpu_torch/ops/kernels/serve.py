@@ -49,9 +49,9 @@ from ...utils import tracing
 from ..int_layernorm import ln_codes
 from ..quant import int_matmul
 from . import check_for_kernel, require, route
-from .attention import MAX_KEYS, attention_core_plain, lis_code
-from .attn_plan import (CODE_BYTES, EXP_BYTES, attention_plan, kv_bytes,
-                        soft_bytes)
+from .attention import attention_core_plain, lis_code
+from .attn_plan import (EXP_BYTES, attention_plan, kv_bytes, require_keys,
+                        warp_bytes)
 from .build import check, load_library
 from .gemm import (BK, H100_SMS, MAX_STAGES, SMEM_LIMIT, per_weight,
                    sm_count, smem_bytes, tma_operand_error)
@@ -246,9 +246,10 @@ def attn_smem(n_real: int, lis: bool) -> int:
     """The attention step's dynamic shared memory (``resident.cu``'s
     attn_smem), past the ring's barriers: the exponential table, one
     (image, head)'s keys and values at DP = 64, and each of the WARPS
-    warps' packed scores (the LIS) or float-softmax buffers."""
-    return BARRIER_BYTES + EXP_BYTES + kv_bytes(n_real, DP, lis) + WARPS * (
-        CODE_BYTES if lis else soft_bytes(MAX_KEYS, 1))
+    warps' packed scores (the LIS; none past 256 keys) or float-softmax
+    buffers (``attn_plan.warp_bytes``)."""
+    return BARRIER_BYTES + EXP_BYTES + kv_bytes(n_real, DP, lis) \
+        + WARPS * warp_bytes(n_real, lis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,14 +291,17 @@ def resident_plan(nelems: int, npad: int, spec, lis: bool = True,
     real tokens) on a card of ``sms`` SMs.
 
     Up to 256 rows (b = 1) one block an SM, past 256 rows two (the
-    kernel's two-block instance, 112 registers a thread), each with its
+    kernel's two-block instance, 96 registers a thread), each with its
     share of the SM's shared memory; the ring's stages as many as that
-    holds, up to MAX_STAGES.  The grid is as many blocks as the largest
-    step has items, at most blocks x SMs.  The attention items are
-    ``attn_plan.attention_plan``'s blocks for the same batch.  C and
-    hidden must be multiples of TILE, so that no tile crosses a layer of a
-    weight stack.  Raises ``ValueError`` for a shape the kernel does not
-    take or a plan that does not fit."""
+    holds, up to MAX_STAGES.  Past 256 keys (the LIS only, up to
+    ``attn_plan.LIS_MAX_KEYS``; ViT-L at 384 px has 577) the attention
+    step keeps no warp's scores (``attend_rows_long``), and its keys and
+    values must still leave two blocks an SM.  The grid is as many
+    blocks as the largest step has items, at most blocks x SMs.  The
+    attention items are ``attn_plan.attention_plan``'s blocks for the
+    same batch.  C and hidden must be multiples of TILE, so that no tile
+    crosses a layer of a weight stack.  Raises ``ValueError`` for a shape
+    the kernel does not take or a plan that does not fit."""
     c, heads, hid = spec.embed_dim, spec.num_heads, spec.hidden_dim
     d, n_real = spec.head_dim, spec.seq_len
     require(nelems > 0 and npad > 0, f"empty batch: {nelems} x {npad}")
@@ -314,8 +318,9 @@ def resident_plan(nelems: int, npad: int, spec, lis: bool = True,
     attn = attn_smem(n_real, lis)
     smem = max(gemm, attn)
     require(stages >= 2 and smem <= budget,
-            f"K6 needs {smem} bytes of shared memory a block, more than "
-            f"{budget} at {blocks} blocks an SM")
+            f"K6 needs {smem} bytes of shared memory a block ({attn} for "
+            f"the attention step at {n_real} keys), more than {budget} at "
+            f"{blocks} blocks an SM")
     m_tiles = _cdiv(rows, TILE)
     tiles = [m_tiles * n // TILE for n in (3 * c, c, hid, c)]
     ln = _cdiv(rows, WARPS)
@@ -435,8 +440,7 @@ def _launch(packed, x_codes, *, n_real, lis, nelems, stamps=None,
             and packed["vec"].shape == (depth, 15, c)
             and packed["scal"].shape == (depth, 6),
             f"packed tensors do not match x_codes {tuple(x_codes.shape)}")
-    require(0 < n_real <= min(npad, MAX_KEYS),
-            f"n_real={n_real}: the kernel takes 1..min(npad, {MAX_KEYS}) keys")
+    require_keys(n_real, npad, lis)
     require(hd <= 64 and hd % 4 == 0,
             f"head_dim={hd}: the kernel takes multiples of 4 up to 64")
     dev = x_codes.device
@@ -503,7 +507,7 @@ def resident_footprint(nelems, npad, spec, device, lis=True) -> dict:
     plan = device_resident_plan(nelems, npad, spec, lis, device)
     out = [ctypes.c_int() for _ in range(4)]
     check(load_library().dvt_resident_footprint(
-        plan.blocks, plan.smem, *map(ctypes.byref, out)),
+        plan.blocks, spec.seq_len, plan.smem, *map(ctypes.byref, out)),
         "resident_footprint")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), (o.value for o in out)),

@@ -32,7 +32,11 @@ the model:
                            counters: images, launches by wrapper
     dvt.call.input         its mesh slice, uint8 encode, copy, normalize
     dvt.embed              the patch embed and its glue (vit_int, swin_int)
-    dvt.encoder            every block (K6's chunks, Swin's stages)
+    dvt.encoder            every block (K6's chunks, Swin's stages); counter
+                           (ViT): attn_key_tiles, the passes a row's scores
+                           make over its keys in the attention core of K1,
+                           K5 or K6 (attn_plan.key_tiles: 1 up to 256 keys,
+                           3 past)
     dvt.head               the final norm, pooling and head, to the logits
     dvt.validate.readback  validate: the host waiting for batch i's logits
     dvt.validate.score     validate: loss, accuracy, meters, progress line
@@ -117,6 +121,12 @@ class OpenSpan:
         rec._ints.extend((_now(), -1, -1 if parent is None else parent.index,
                           self.thread, self.key))
         return self
+
+    def count(self, name: str, value) -> None:
+        """Sets this span's counter ``name`` to ``value``."""
+        if self.counters is None:
+            self.counters = {}
+        self.counters[name] = value
 
     def __exit__(self, *exc):
         rec = self.rec

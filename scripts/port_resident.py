@@ -1,7 +1,7 @@
 """The resident encoder K6 and K7b of the PyTorch port, timed on the card,
 with K1, K2 and K3 beside them; or K6's launch-size sweep.
 
-    python3 scripts/port_resident.py [label] [--sweep]
+    python3 scripts/port_resident.py [label] [--sweep] [--spec vit_large_384]
 
 From the root of a checkout: K6 (``resident_codes``, DeiT-S int4 at full
 depth) at b = 1, 8, 64 with the LIS and at b = 8 with the float softmax;
@@ -29,6 +29,12 @@ them (``torch.profiler``, mean of 10 calls), the launches' sizes, and
 launch and an image.  A checkout without ``vit_int.k6_launches`` cuts as
 the forward did before it: zero-padded chunks of ``microbatch``, 8 by
 default.
+
+``--spec vit_large_384`` runs the same at ViT-L/16's widths at 384 px
+(577 tokens, 1024 wide, 24 blocks; ``chip_smoke.VIT_L384``): K6 at b = 1
+and 16 (the forward's launch at these widths) and K1 and K5 at b = 1 and
+8, or with ``--sweep`` the forward at B = 256 with ``microbatch`` 4, 8,
+16, 32 and the default, then K6 alone at n = 4, 8, 16 and 32.
 
 The arguments are ``chip_smoke.py``'s own case builders, so running this
 script with the working directory at a parent commit's checkout and at
@@ -88,9 +94,10 @@ def row(label, kernel, at, call, **more):
                           device_ms=device_ms(call), **more)), flush=True)
 
 
-SWEEP_BATCHES = (8, 50, 64, 128, 256)
-SWEEP_CHUNKS = (8, 32, 64, 128, 256)
-SWEEP_LAUNCH = (8, 16, 32, 48, 64, 80, 96, 128, 192, 256)
+# spec name -> (batches, microbatches, K6 launch sizes) of the sweep
+SWEEPS = {"deit_small": ((8, 50, 64, 128, 256), (8, 32, 64, 128, 256),
+                         (8, 16, 32, 48, 64, 80, 96, 128, 192, 256)),
+          "vit_large_384": ((256,), (4, 8, 16, 32), (4, 8, 16, 32))}
 DEFAULT = "default"
 
 
@@ -117,12 +124,16 @@ def plans(sizes, spec, dev):
 
 
 def sweep(label, model, spec, cfg, dev):
+    batches, chunks, launch = SWEEPS[spec.name]
+    # one launch of a whole batch: DeiT-S only (ViT-L's 256 images would
+    # take 1.4 GB of scratch)
+    whole = [None] if spec is cs.SPEC else []
     rng = np.random.default_rng(1)
-    for b in SWEEP_BATCHES:
+    for b in batches:
         x = torch.tensor(model.encode(rng.integers(
             0, 256, (b, 3, spec.img_size, spec.img_size), dtype=np.uint8)),
             device=dev)
-        for mb in [m for m in SWEEP_CHUNKS if m < b] + [None, DEFAULT]:
+        for mb in [m for m in chunks if m < b] + whole + [DEFAULT]:
             kw = {} if mb == DEFAULT else dict(microbatch=mb)
 
             def forward(kw=kw):
@@ -137,7 +148,7 @@ def sweep(label, model, spec, cfg, dev):
                 microbatch=mb, launches=sizes, ms=ms, ms_per_img=ms / b,
                 device_ms=total, k6_ms=k6, k6_ms_per_img=k6 / b,
                 plans=plans(sizes, spec, dev))), flush=True)
-    for n in SWEEP_LAUNCH:
+    for n in launch:
         x = cs.codes((n * spec.seq_len, spec.embed_dim), n + 11, dev)
         kw = dict(n_real=spec.seq_len, lis=True, nelems=n)
         total, k6 = device_ms(
@@ -148,22 +159,44 @@ def sweep(label, model, spec, cfg, dev):
             k6_ms_per_img=k6 / n, plans=plans([n], spec, dev))), flush=True)
 
 
+def long_rows(label, model, ip_np, spec, dev):
+    """The rows at ViT-L@384's widths: K6 at b = 1 and 16 with block 0's
+    ms by step kind, K1 and K5 (block 0's weights) at b = 1 and 8."""
+    for b in (1, 16):
+        x = cs.codes((b * spec.seq_len, spec.embed_dim), b + 11, dev)
+        kw = dict(n_real=spec.seq_len, lis=True, nelems=b)
+        row(label, "resident_codes", f"lis b={b}",
+            lambda: serve.resident_codes(model.packed, x, **kw),
+            step_ms=serve.resident_step_ms(model.packed, x, **kw))
+    ib = ip_np["blocks"][0]
+    for b in (1, 8):
+        for name in ("fused_qkv_attention_v2", "fused_int_attention"):
+            a, k = cs.kernel_case(name, ib, spec, b, dev)
+            fn = cs.KERNELS[name]["fn"]
+            row(label, name, f"b={b}", lambda: fn(*a, **k))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("label", nargs="?", default="tree")
     ap.add_argument("--sweep", action="store_true",
                     help="K6's launch-size sweep instead of the kernels")
+    ap.add_argument("--spec", choices=sorted(SWEEPS), default="deit_small",
+                    help="the model's widths (default DeiT-S)")
     args = ap.parse_args()
     label = args.label
     if not torch.cuda.is_available():
         sys.exit("port_resident: no CUDA card")
     dev = torch.device("cuda", 0)
     build.load_library()
-    spec, cfg = cs.SPEC, cs.CFG
+    spec = cs.SPEC if args.spec == "deit_small" else cs.VIT_L384
+    cfg = cs.CFG
     ip_np = random_int_model(spec, cfg, seed=0)
     model = engine.IntModel(ip_np, spec, cfg, dev, resident=True)
     if args.sweep:
         return sweep(label, model, spec, cfg, dev)
+    if spec is not cs.SPEC:
+        return long_rows(label, model, ip_np, spec, dev)
     for b, lis in ((1, True), (8, True), (64, True), (8, False)):
         x = cs.codes((b * spec.seq_len, spec.embed_dim), b + 11, dev)
         kw = dict(n_real=spec.seq_len, lis=lis, nelems=b)

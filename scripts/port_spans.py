@@ -24,6 +24,11 @@ One JSON line a cell, with the card's name and power limit:
   ``input_host_ms``, ``call_host_ms``: mean host ms a call;
 * ``k6_barrier_pct`` (resident): block 0's barrier waits over its total,
   summed over the recorded K6 launches (their barrier stamps);
+  ``k6_attention_pct`` beside it, the share of that total in K6's
+  attention step;
+* ``attn_key_tiles``: the ``dvt.encoder`` spans' counter, the passes a
+  row's scores make over its keys in the attention core (1 up to 256
+  keys, 3 past: ViT-L at 384 px);
 * ``k6_launches_per_call``, ``images_per_k6_launch`` (resident): from the
   ``dvt.call`` counters, K6 launches a call and the calls' images over
   their K6 launches (how the forward cut its batches);
@@ -191,10 +196,16 @@ def span_metrics(rec, offline):
         launches = sum(c["resident_codes"] for c in k6)
         out["k6_launches_per_call"] = launches / len(k6)
         out["images_per_k6_launch"] = sum(c["images"] for c in k6) / launches
+    tiles = {s.counters["attn_key_tiles"] for s in rec.named("dvt.encoder")
+             if s.counters and "attn_key_tiles" in s.counters}
+    if tiles:
+        out["attn_key_tiles"] = max(tiles)
     if rec.k6:
         wait = sum(ms["barrier_wait"] for _, ms in rec.k6)
         total = sum(ms["total"] for _, ms in rec.k6)
         out["k6_barrier_pct"] = 100.0 * wait / total
+        out["k6_attention_pct"] = 100.0 * sum(
+            ms["attention"] for _, ms in rec.k6) / total
         out["k6_launches"] = len(rec.k6)
         out["k6_ms_by_kind"] = {k: sum(ms[k] for _, ms in rec.k6)
                                 / len(rec.k6) for k in rec.k6[0][1]}

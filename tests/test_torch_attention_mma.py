@@ -34,9 +34,9 @@ from diffvit_tpu_torch.ops.kernels.attention import (
     attention_core_plain, heads_to_all, lis_body_plain, lis_tail_plain,
     weighted_values)
 from diffvit_tpu_torch.ops.kernels.attn_plan import (
-    CODE_BYTES, EXP_BYTES, MAX_WINDOWS, MIN_WARPS, QKV_MAX_KEYS, QKV_MAX_WARPS,
-    ROWS, SWIN_MAX_KEYS, SWIN_MAX_WARPS, attention_plan, key_slot, kv_bytes,
-    swin_attention_plan, weight_planes)
+    CODE_BYTES, EXP_BYTES, LIS_MAX_KEYS, MAX_WINDOWS, MIN_WARPS, QKV_MAX_KEYS,
+    QKV_MAX_WARPS, ROWS, SWIN_MAX_KEYS, SWIN_MAX_WARPS, attention_plan,
+    key_slot, kv_bytes, swin_attention_plan, weight_planes)
 from diffvit_tpu_torch.ops.kernels.gemm import SMEM_LIMIT
 from diffvit_tpu_torch.ops.quant import pow2
 from diffvit_tpu_torch.probes import attn_overlap, pingpong
@@ -443,6 +443,140 @@ def test_weight_planes_in_key_slot_order_equal_weighted_values(d, n_real):
                                   weighted_values(w, v).numpy())
 
 
+# ---- the long rows (attend_rows_long: past 256 keys) ----
+
+def _model_long(q, k_rows, v_rows, c1, s_a, out_scale, n_real, lis_fast,
+                q0):
+    """attend_rows_long with K1's chain for the 16-row query tile at row
+    ``q0`` of one (image, head): no packed scores, but the score mma and
+    the chain again on each of three passes over the staged keys: each
+    lane's maxima of its keys 8j + 2t + e and their quad reduction, each
+    lane's exact int64 partial sums of the integer exponentials and
+    theirs, then block by block of 32 keys the plane selectors of the four
+    A-fragment words (from lis_tail_plain's weight on the whole row's
+    sum) and attn@v over every n tile: P_hi V on a fresh accumulator,
+    P_lo V added on the running one, then 256 times the first added."""
+    npad, d = q.shape
+    k, vt, keys_pad, dp = _stage_kv(k_rows, v_rows, n_real, d)
+    kc_n, rows = dp // 32, min(16, npad - q0)
+    key_tiles = -(-n_real // 8)
+    qa = [[[(_word(q[q0 + g + 8 * (i & 1)], 32 * kc + 16 * (i >> 1) + 4 * t)
+             if g + 8 * (i & 1) < rows and 32 * kc + 16 * (i >> 1) + 4 * t
+             < d else 0) for i in range(4)] for kc in range(kc_n)]
+          for g, t in ((lane >> 2, lane & 3) for lane in range(32))]
+
+    def scores(j):  # [lane][i]: row g + 8 (i >> 1), key 8j + 2t + (i & 1)
+        acc = [[0] * 4 for _ in range(32)]
+        for kc in range(kc_n):
+            b = [[int(k[8 * j + (lane >> 2), 8 * kc + (lane & 3)]),
+                  int(k[8 * j + (lane >> 2), 8 * kc + 4 + (lane & 3)])]
+                 for lane in range(32)]
+            _mma(acc, [qa[lane][kc] for lane in range(32)], b, True)
+        return [[float(np.clip(np.round(np.float32(a) * np.float32(c1)),
+                               -128, 127)) for a in row] for row in acc]
+
+    def keys(j, lane):
+        return [8 * j + 2 * (lane & 3) + (i & 1) for i in range(4)]
+
+    s = torch.tensor(np.float32(s_a))
+    # 1. the row max: each lane's, then the quad's
+    part = np.full((32, 2), -np.inf, np.float32)
+    for j in range(key_tiles):
+        v = scores(j)
+        for lane in range(32):
+            for i, key in enumerate(keys(j, lane)):
+                if key < n_real:
+                    part[lane, i >> 1] = max(part[lane, i >> 1], v[lane][i])
+    row_max = np.stack([part[4 * (lane >> 2):4 * (lane >> 2) + 4].max(0)
+                        for lane in range(32)])
+    # 2. the exact row sum: each lane's int64 sum, then the quad's
+    sums = np.zeros((32, 2), np.int64)
+    for j in range(key_tiles):
+        v = scores(j)
+        for lane in range(32):
+            for i, key in enumerate(keys(j, lane)):
+                if key < n_real:
+                    e = _lis_exp_plain(torch.tensor(np.float32(v[lane][i])),
+                                       torch.tensor(row_max[lane, i >> 1]),
+                                       s, lis_fast)
+                    sums[lane, i >> 1] += int(e)
+    exp_sum = np.stack([sums[4 * (lane >> 2):4 * (lane >> 2) + 4].sum(0)
+                        for lane in range(32)]).astype(np.float32)
+    # 3. block by block: the selectors, then attn@v over every n tile
+    acc = [[[0] * 4 for _ in range(32)] for _ in range(-(-d // 8))]
+    for kb in range(keys_pad // 32):
+        sel = [[0] * 4 for _ in range(32)]
+        for qq in range(4):
+            j = 4 * kb + qq
+            v = scores(j) if j < key_tiles else [[0.0] * 4] * 32
+            for lane in range(32):
+                for i, key in enumerate(keys(j, lane)):
+                    shift = LIS_ZERO
+                    if key < n_real:
+                        e = _lis_exp_plain(
+                            torch.tensor(np.float32(v[lane][i])),
+                            torch.tensor(row_max[lane, i >> 1]), s, lis_fast)
+                        w = int(lis_tail_plain(
+                            torch.tensor(exp_sum[lane, i >> 1]), e))
+                        if w:
+                            shift = w.bit_length() - 1
+                    sel[lane][2 * (qq >> 1) + (i >> 1)] |= _plane_selectors(
+                        shift, 2 * (qq & 1) + (i & 1))
+        ph = [[_prmt(0x08040201, 0x80402010, x >> 16) for x in sl]
+              for sl in sel]
+        pl = [[_prmt(0x08040201, 0x80402010, x & 0xFFFF) for x in sl]
+              for sl in sel]
+        for nt in range(len(acc)):
+            b = [[int(vt[8 * nt + (lane >> 2), 8 * kb + (lane & 3)]),
+                  int(vt[8 * nt + (lane >> 2), 8 * kb + 4 + (lane & 3)])]
+                 for lane in range(32)]
+            hi = [[0] * 4 for _ in range(32)]
+            _mma(hi, ph, b, False)
+            _mma(acc[nt], pl, b, False)
+            for lane in range(32):
+                for i in range(4):
+                    acc[nt][lane][i] += 256 * hi[lane][i]
+    out = np.zeros((rows, d), np.int8)
+    for nt in range(len(acc)):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for r in range(2):
+                for e in range(2):
+                    row, col = g + 8 * r, 8 * nt + 2 * t + e
+                    if row < rows and col < d:
+                        assert abs(acc[nt][lane][2 * r + e]) < 2**24
+                        o = np.float32(acc[nt][lane][2 * r + e]) \
+                            * np.float32(2.0**-15)
+                        out[row, col] = np.clip(
+                            np.round(o * np.float32(out_scale)), -128, 127)
+    return out
+
+
+@pytest.mark.parametrize("npad,n_real,d,lis_fast", [
+    (264, 257, 64, False), (300, 300, 64, True), (577, 577, 32, True)])
+def test_model_of_the_long_rows_equals_the_plain_core(npad, n_real, d,
+                                                      lis_fast):
+    """attend_rows_long, modelled pass for pass, gives the plain version's
+    codes at the first and the last query tile: one key past 256 with
+    query rows past n_real, a ragged last block of keys, ViT-L's 577 keys
+    (D = 32 here: the model is slow)."""
+    rng = np.random.default_rng(npad + d)
+    q, k, v = (np.clip(np.round(rng.standard_normal((npad, d)) * 14),
+                       -128, 127).astype(np.int8) for _ in range(3))
+    c1, s_a, out_scale = 0.011, 0.09, 1.7
+    f32 = lambda x: torch.tensor(np.float32(x))  # noqa: E731
+    want = attention_core_plain(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), f32(c1), f32(s_a),
+                                f32(out_scale), n_real=n_real,
+                                lis_fast=lis_fast).numpy()
+    codes = set()
+    for q0 in (0, (npad - 1) // 16 * 16):
+        got = _model_long(q, k, v, c1, s_a, out_scale, n_real, lis_fast, q0)
+        np.testing.assert_array_equal(got, want[q0:q0 + 16])
+        codes |= set(got.ravel().tolist())
+    assert len(codes) > 8
+
+
 # ---- the quad form of the LIS ----
 
 def _lis_exp_plain(a, row_max, scale, fast):
@@ -545,8 +679,10 @@ def test_swin_attention_plan_fits(lis):
 
 
 def test_plans_refuse_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError):
-        attention_plan(1, 6, 300, 64, QKV_MAX_KEYS + 1)
+    with pytest.raises(ValueError, match="float softmax"):
+        attention_plan(1, 6, 300, 64, QKV_MAX_KEYS + 1, lis=False)
+    with pytest.raises(ValueError, match="the LIS"):
+        attention_plan(1, 6, 800, 64, LIS_MAX_KEYS + 1)
     with pytest.raises(ValueError):
         attention_plan(1, 6, 197, 66, 197)
     with pytest.raises(ValueError):

@@ -1227,6 +1227,169 @@ def test_attention_cores_report_their_footprint(cuda):
         assert f["blocks_per_sm"] == plan.blocks, f
 
 
+# ---- past 256 keys (ViT at 384 px: 577 tokens) ----
+
+# width 128 in two heads of 64 (ViT-L's head width) at 384 px: 577 tokens
+LONG = ViTSpec("test_long", embed_dim=128, depth=2, num_heads=2,
+               img_size=384, num_classes=10)
+VIT_L384 = ViTSpec("vit_large_384", embed_dim=1024, depth=24, num_heads=16,
+                   img_size=384)
+# (n_real, npad, the 128-bit row sum): one key past 256 with query rows
+# past n_real, a ragged last block of 32 keys, ViT-L's 577 with either sum
+LONG_CASES = [(257, 264, False), (300, 300, False), (577, 577, False),
+              (577, 577, True)]
+LONG_IDS = ["257", "300", "577", "577_wide"]
+
+
+def _long_model(wide, cfg=None):
+    """LONG's random int-model; ``wide``: at s_a = 2^-11, where the int64
+    row sum of 577 keys could overflow (the 128-bit sum)."""
+    from diffvit_tpu_torch.ops.kernels.attention import lis_sum_fits
+    cfg = cfg or QuantConfig()
+    ip = _wide_vit(LONG, cfg, 2.0**-11) if wide \
+        else random_int_model(LONG, cfg, seed=2)
+    s_a = float(ip["blocks"][0]["attn.qact_attn1"]["scale"])
+    assert lis_sum_fits(s_a, 577) != wide
+    return ip
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("n_real,npad,wide", LONG_CASES, ids=LONG_IDS)
+@pytest.mark.parametrize("kernel", ["k1", "k5"])
+def test_attention_core_past_256_keys_matches_plain(cuda, kernel, n_real,
+                                                    npad, wide, batch):
+    """K1 and K5 under the LIS past 256 keys (the long rows, which keep no
+    packed scores) against attention_core_plain, bit for bit: 257 keys
+    with query rows past them, 300, and 577 with the int64 and the
+    128-bit row sum, b = 1 and 16."""
+    ip = _long_model(wide)
+    ib = ip["blocks"][0]
+    scalars = attn_constants(ib, LONG, 0)[0]
+    dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    h, d = LONG.num_heads, LONG.head_dim
+    if kernel == "k1":
+        q = ib["qkv"]
+        args = (dev(_codes((batch, npad, LONG.embed_dim), n_real)),
+                dev(q["w_int"]), dev(q["mult"]), dev(q["b"]), dev(scalars))
+        kw = dict(num_heads=h, head_dim=d, n_real=n_real, lis_wide=wide)
+        fn, plain = fused_qkv_attention_v2, fused_qkv_attention_v2_plain
+    else:
+        qkv = dev(_codes((batch, npad, 3 * h * d), n_real + 1) // 3)
+        args = (qkv.view(batch, npad, 3, h, d).permute(0, 2, 3, 1, 4),
+                dev(int_attn_scalars(ib, LONG)))
+        kw = dict(num_heads=h, n_real=n_real, lis_wide=wide)
+        fn, plain = fused_int_attention, fused_int_attention_plain
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  plain(*args, **kw).cpu().numpy())
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("n_real,npad,wide", LONG_CASES, ids=LONG_IDS)
+def test_resident_kernel_past_256_keys_matches_plain(cuda, n_real, npad,
+                                                     wide, batch):
+    """K6 under the LIS past 256 keys (its long-row instance) against
+    resident_codes_plain, bit for bit on the real rows, at the cases of
+    the core's test, b = 1 and 16 (16 is the forward's cut at ViT-L
+    widths); twice on the same input."""
+    cfg = QuantConfig()
+    ip = int_model_from_numpy(_long_model(wide, cfg), LONG, cuda, cfg)
+    packed = prepare_resident(ip, LONG, cfg)
+    x = _codes((batch, npad, LONG.embed_dim), n_real + 2)
+    x[:, n_real:] = 0
+    x = torch.tensor(x.reshape(batch * npad, -1), device=cuda)
+    kw = dict(n_real=n_real, bits=4, lis=True, nelems=batch, lis_wide=wide)
+    want = resident_codes_plain(packed, x, **kw)
+
+    def real(t):
+        return t.reshape(batch, npad, -1)[:, :n_real].cpu().numpy()
+    for _ in range(2):
+        before = resident_codes.launches
+        got = resident_codes(packed, x, **kw)
+        torch.cuda.synchronize()
+        assert resident_codes.launches == before + 1
+        np.testing.assert_array_equal(real(got), real(want))
+
+
+def test_float_softmax_still_refuses_past_256_keys(cuda):
+    """The float softmax keeps its 256-key limit: K1, K5 and K6 refuse 257
+    keys with a ValueError that names it, before any launch."""
+    ip = _long_model(False)
+    ib = ip["blocks"][0]
+    dev = lambda a: torch.tensor(np.asarray(a), device=cuda)  # noqa: E731
+    q = ib["qkv"]
+    x = dev(_codes((1, 264, LONG.embed_dim), 3))
+    with pytest.raises(ValueError, match="256"):
+        fused_qkv_attention_v2(x, dev(q["w_int"]), dev(q["mult"]),
+                               dev(q["b"]), dev(attn_constants(ib, LONG, 0)[0]),
+                               num_heads=2, head_dim=64, n_real=257, bits=8,
+                               lis=False)
+    qkv = dev(_codes((1, 264, 3 * 128), 4) // 3)
+    with pytest.raises(ValueError, match="256"):
+        fused_int_attention(qkv.view(1, 264, 3, 2, 64).permute(0, 2, 3, 1, 4),
+                            dev(int_attn_scalars(ib, LONG)), num_heads=2,
+                            n_real=257, bits=8, lis=False)
+    ipc = int_model_from_numpy(ip, LONG, cuda, QuantConfig())
+    packed = prepare_resident(ipc, LONG, QuantConfig())
+    before = resident_codes.launches
+    with pytest.raises(ValueError, match="256"):
+        resident_codes(packed, dev(_codes((264, 128), 5)), n_real=257,
+                       bits=8, lis=False, nelems=1)
+    assert resident_codes.launches == before
+
+
+def test_resident_plan_at_577_keys_fits_two_blocks_an_sm(cuda):
+    """ViT-L at 384 px (577 keys, width 1024, 24 blocks), where K6 used to
+    refuse the keys: the plan at b = 1 and 16 keeps two blocks an SM, and
+    the card's long-row instance holds them at the plan's shared memory;
+    its 32 accumulators a thread at the two-block instance's 96 registers
+    spill 40 bytes a thread (measured on an H100; a spill-free form is an
+    open item), no more.  K1's core at 577 keys (b = 1, 8, 16): two
+    blocks an SM of 7 warps (up to 128 registers a thread), with no local
+    memory.  Printed with -s."""
+    from diffvit_tpu_torch.ops.kernels import attention
+    from diffvit_tpu_torch.ops.kernels.serve import (device_resident_plan,
+                                                     resident_footprint)
+    for b in (1, 16):
+        plan = device_resident_plan(b, 577, VIT_L384, True, cuda)
+        f = resident_footprint(b, 577, VIT_L384, cuda)
+        print("resident 577 keys", b, plan, f)
+        assert plan.blocks == 2 and plan.attn_smem <= plan.smem, plan
+        assert f["local_bytes"] <= 40, f
+        assert f["smem_bytes"] >= plan.smem, f
+        assert f["blocks_per_sm"] >= 2, f
+    for b in (1, 8, 16):
+        f = attention.core_footprint(b, 16, 577, 64, 577, cuda)
+        print("qkv core 577 keys", b, f)
+        assert f["local_bytes"] == 0, f
+        assert f["blocks_per_sm"] >= 2, f
+
+
+def test_vit_large_384_served_on_card_both_routes(cuda):
+    """ViT-L/16 at 384 px at full depth and width (random int-model):
+    IntModel per kernel (K1 at 577 keys, K2, the glue) and resident (K6
+    at 577 keys, 16 images a launch: 17 images take two launches of 9 and
+    8) give the same logits, bit for bit, finite."""
+    cfg = QuantConfig()
+    ip_np = random_int_model(VIT_L384, cfg, seed=5)
+    x = np.random.default_rng(5).integers(-60, 60, (17, 3, 384, 384)) \
+        .astype(np.int8)
+    resident = engine.IntModel(ip_np, VIT_L384, cfg, cuda, resident=True)
+    before = resident_codes.launches
+    got = resident(x).cpu().numpy()
+    assert resident_codes.launches == before + 2
+    del resident
+    per_kernel = engine.IntModel(ip_np, VIT_L384, cfg, cuda)
+    before = fused_qkv_attention_v2.launches
+    want = per_kernel(x).cpu().numpy()
+    assert fused_qkv_attention_v2.launches == before + VIT_L384.depth
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("spec,batch,fqvit", [
     (TINY, 2, False), (TINY, 2, True), (DEIT_S, 8, False)],
     ids=["tiny", "tiny_fqvit_int8", "deit_s"])

@@ -97,10 +97,10 @@ def test_resident_plan_at_deit_s():
 @pytest.mark.parametrize("spec,match", [
     (dataclasses.replace(TINY, embed_dim=96, num_heads=3), "multiples of 64"),
     (dataclasses.replace(TINY, embed_dim=256, num_heads=2), "head_dim"),
-    (dataclasses.replace(TINY, img_size=272), "n_real")])
+    (dataclasses.replace(TINY, img_size=448), "n_real")])
 def test_resident_plan_refuses_what_the_kernel_does_not_take(spec, match):
     """C or hidden off a multiple of 64 (a GEMM tile would cross a layer),
-    a head wider than 64, more than 256 keys: ValueError."""
+    a head wider than 64, more than 768 keys (785 at 448 px): ValueError."""
     with pytest.raises(ValueError, match=match):
         serve.resident_plan(1, spec.seq_len, spec)
 
